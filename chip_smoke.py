@@ -8,9 +8,10 @@ Phases, each printing one JSON line when it ends:
 
 1. build   -- compile every CUDA kernel from ``speechbrain_tpu_torch/csrc``.
 2. kernels -- each kernel against its plain PyTorch version on the card,
-   at the shapes the serving path gives it, in float32 and bfloat16:
-   max |error| against the stated tolerance, kernel / plain / library
-   times (CUDA events) and the least time the card could take (bound).
+   at the shapes the serving and training paths give it, in float32 and
+   bfloat16 (CTC: float32): max |error| against the stated tolerance,
+   kernel / plain / library times (CUDA events) and the least time the
+   card could take (bound).
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
    weights from a seed) transcribes 8 synthetic 10 s utterances with
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
@@ -20,8 +21,18 @@ Phases, each printing one JSON line when it ends:
 4. long    -- an utterance long enough for T_enc = 512 is encoded; the
    rel-pos attention kernel must run once per encoder layer, and the
    result must match the plain path.
+5. train   -- ``ConformerASRBrain(CONFORMER_SMALL)`` (full width,
+   transformer_dropout 0.1) takes 30 AdamW steps on B = 32 synthetic
+   10 s utterances in bf16, then in f32: ms/step, utt/s, peak memory,
+   launches per step (depthwise 24, its dw 12, CTC alpha 1 and beta 1),
+   finite losses that fall; then one f32 step's loss and gradients
+   through the kernels against the plain versions (dropout 0), and the
+   dropout keep fraction.
+6. train_long -- the same step with dropout 0 on B = 8 utterances of
+   20.44 s (T_enc = 512): the rel-pos kernels run forward and backward
+   12 times per step; kernel vs plain gradients in f32.
 
-Then one ``{"kernels": [...]}`` line (launch counts from phases 3 and 4,
+Then one ``{"kernels": [...]}`` line (launch counts from phases 3 to 6,
 each counted from 0 just before its run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -71,7 +82,7 @@ def _bound_ms(nbytes, flops, dtype):
 
 
 def _err(a, b):
-    return float((a.float() - b.float()).abs().max())
+    return float((a.detach().float() - b.detach().float()).abs().max())
 
 
 def phase_build():
@@ -100,11 +111,8 @@ def _check_depthwise(dtype_name):
     from speechbrain_tpu_torch.ops import depthwise_conv1d, depthwise_conv1d_plain
 
     dtype = getattr(torch, dtype_name)
-    g = torch.Generator(device="cuda").manual_seed(SEED)
     B, T, C, K = 8, 251, 144, 31
-    x = torch.randn(B, T, C, device="cuda", generator=g).to(dtype)
-    w = (torch.randn(K, C, device="cuda", generator=g) / K ** 0.5).to(dtype)
-    bias = (0.1 * torch.randn(C, device="cuda", generator=g)).to(dtype)
+    x, w, bias, _ = _depthwise_inputs(dtype, B, T, C, K)
     got = depthwise_conv1d(x, w, bias)
     ref = depthwise_conv1d_plain(x, w, bias)
     torch.cuda.synchronize()
@@ -117,8 +125,8 @@ def _check_depthwise(dtype_name):
     wc = w.t().contiguous()[:, None, :]
     pad = (K - 1) // 2
     item = x.element_size()
-    valid = sum(min(T, t + K - pad) - max(0, t - pad) for t in range(T))
-    bound, by = _bound_ms((2 * B * T * C + K * C + C) * item, 2 * B * C * valid, dtype_name)
+    bound, by = _bound_ms((2 * B * T * C + K * C + C) * item,
+                          2 * B * C * _valid_taps(T, K, pad), dtype_name)
     return {
         "name": "depthwise_conv1d", "dtype": dtype_name, "shape": [B, T, C, K],
         "max_abs_err": err, "tol": tol,
@@ -129,15 +137,211 @@ def _check_depthwise(dtype_name):
     }
 
 
-def _check_relpos(dtype_name, T):
+def _depthwise_inputs(dtype, B, T, C, K):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + B)
+    x = torch.randn(B, T, C, device="cuda", generator=g).to(dtype)
+    w = (torch.randn(K, C, device="cuda", generator=g) / K ** 0.5).to(dtype)
+    bias = (0.1 * torch.randn(C, device="cuda", generator=g)).to(dtype)
+    dy = torch.randn(B, T, C, device="cuda", generator=g).to(dtype)
+    return x, w, bias, dy
+
+
+def _valid_taps(T, K, pad):
+    """(t, k) pairs whose input index t+k-pad lies in [0, T)."""
+    return sum(min(T, t + K - pad) - max(0, t - pad) for t in range(T))
+
+
+def _check_depthwise_dx(dtype_name):
+    """K1 as the input gradient at the training shape: the forward
+    kernel on the flipped taps (centered K = 31: the same padding), and
+    the autograd Function's three gradients against the plain route."""
     import torch
     import torch.nn.functional as F
 
-    from speechbrain_tpu_torch.ops import relpos_attention, relpos_attention_plain
+    from speechbrain_tpu_torch.ops import depthwise_conv1d, depthwise_conv1d_plain
 
     dtype = getattr(torch, dtype_name)
-    g = torch.Generator(device="cuda").manual_seed(SEED + T)
-    B, H, dh = 2, 4, 36
+    B, T, C, K = 32, 251, 144, 31
+    x, w, bias, dy = _depthwise_inputs(dtype, B, T, C, K)
+    w_flip = w.flip(0).contiguous()
+    got = depthwise_conv1d(dy, w_flip)
+    ref = depthwise_conv1d_plain(dy, w_flip)
+    err = _err(got, ref)
+    tol = 1e-4 if dtype == torch.float32 else 6.25e-2  # as the forward row
+    assert err <= tol, f"depthwise dx {dtype_name}: max|err| {err} > {tol}"
+    # the Function's gradients against autograd through the plain route
+    grads = []
+    for fn in (depthwise_conv1d, depthwise_conv1d_plain):
+        xs, ws, bs = (t.detach().clone().requires_grad_(True) for t in (x, w, bias))
+        out = fn(xs, ws, bs)
+        assert out.requires_grad, "depthwise_conv1d output has no grad_fn"
+        out.backward(dy)
+        grads.append((xs.grad, ws.grad, bs.grad))
+    torch.cuda.synchronize()
+    # relative to each gradient's largest entry: dw sums 8032 products
+    # in other orders (f32: ~1e-6); in bf16 both routes round dx and dw
+    # once from f32 sums, so they differ by at most a bf16 ulp or two
+    grad_tol = 2e-5 if dtype == torch.float32 else 8e-3
+    grad_err = max(_err(a, b) / max(1e-6, float(b.float().abs().max()))
+                   for a, b in zip(*grads))
+    assert grad_err <= grad_tol, (
+        f"depthwise grads {dtype_name}: rel err {grad_err} > {grad_tol}")
+    pad = (K - 1) // 2
+    item = x.element_size()
+    xc = dy.transpose(1, 2).contiguous()
+    wc = w_flip.t().contiguous()[:, None, :]
+    bound, by = _bound_ms((2 * B * T * C + K * C) * item,
+                          2 * B * C * _valid_taps(T, K, pad), dtype_name)
+    return {
+        "name": "depthwise_conv1d", "role": "dx", "dtype": dtype_name,
+        "shape": [B, T, C, K], "max_abs_err": err, "tol": tol,
+        "grads_max_rel_err_vs_plain_autograd": grad_err, "grads_tol": grad_tol,
+        "ms": _time_ms(lambda: depthwise_conv1d(dy, w_flip)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(dy, w_flip)),
+        "library_ms": _time_ms(lambda: F.conv1d(xc, wc, padding=pad, groups=C)),
+        "bound_ms": bound, "bound_by": by,
+    }
+
+
+def _check_depthwise_dw(dtype_name):
+    """K2 at the training shape against its plain version."""
+    import torch
+
+    from speechbrain_tpu_torch.ops import depthwise_conv1d_dw, depthwise_conv1d_dw_plain
+
+    dtype = getattr(torch, dtype_name)
+    B, T, C, K = 32, 251, 144, 31
+    x, _, _, dy = _depthwise_inputs(dtype, B, T, C, K)
+    got = depthwise_conv1d_dw(x, dy, K)
+    ref = depthwise_conv1d_dw_plain(x, dy, K)
+    torch.cuda.synchronize()
+    err = _err(got, ref)
+    # both sum the same f32 products of the same stored values (8032 per
+    # output, |dw| ~ 90) in other orders: ~1e-5 relative
+    tol = 2e-3
+    assert err <= tol, f"depthwise_conv1d_dw {dtype_name}: max|err| {err} > {tol}"
+    pad = (K - 1) // 2
+    xc, dyc = (t.transpose(1, 2).contiguous() for t in (x, dy))
+    item = x.element_size()
+    bound, by = _bound_ms(2 * B * T * C * item + 4 * K * C,
+                          2 * B * C * _valid_taps(T, K, pad), dtype_name)
+    return {
+        "name": "depthwise_conv1d_dw", "dtype": dtype_name, "shape": [B, T, C, K],
+        "max_abs_err": err, "tol": tol,
+        "ms": _time_ms(lambda: depthwise_conv1d_dw(x, dy, K)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_dw_plain(x, dy, K)),
+        "library_ms": _time_ms(lambda: torch.nn.grad.conv1d_weight(
+            xc, (C, 1, K), dyc, padding=pad, groups=C)),
+        "bound_ms": bound, "bound_by": by,
+    }
+
+
+def _ctc_inputs(B, T, C, U):
+    """Log-probs of random logits, random labels (no blank), ragged
+    frame and label counts, as the training step gives them."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    logits = torch.randn(B, T, C, device="cuda", generator=g)
+    lp = torch.log_softmax(logits, -1)
+    targets = torch.randint(1, C, (B, U), device="cuda", generator=g)
+    targets[:, 1] = targets[:, 0]  # a repeated label: the skip rule
+    tlen = torch.tensor([T - (i % 8) * 4 for i in range(B)], device="cuda")
+    ulen = torch.tensor([U - (i % 5) for i in range(B)], device="cuda")
+    return logits, lp, targets, tlen, ulen
+
+
+def _check_ctc():
+    """K3 (alpha + loss) and K4 (beta + gradient) at the training shape
+    against their plain recursions, float32 only (the log-probs are f32
+    in the JAX package too)."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch.ops import (
+        ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
+
+    B, T, C, U = 32, 251, 5000, 40
+    logits, lp, targets, tlen, ulen = _ctc_inputs(B, T, C, U)
+    args = (lp, targets, tlen, ulen, 0)
+    alpha, loss, logz = ctc_alpha(*args)
+    alpha_p, loss_p, logz_p = ctc_alpha_plain(*args)
+    ones = torch.ones(B, device="cuda")
+    dlp = ctc_beta_grad(*args, alpha, logz, ones)
+    dlp_p = ctc_beta_grad_plain(*args, alpha_p, logz_p, ones)
+    torch.cuda.synchronize()
+    live = torch.zeros(B, T, 2 * U + 1, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        live[b, : int(tlen[b]), : 2 * int(ulen[b]) + 1] = True
+    alpha_err = _err(alpha[live], alpha_p[live])
+    loss_err = _err(loss, loss_p)
+    grad_err = _err(dlp, dlp_p)
+    # the same recursion in the same order on both routes; only the exp
+    # and log1p implementations differ.  |alpha| reaches ~2e3, where one
+    # f32 ulp is 1.2e-4; the occupancy exp(alpha + beta - logZ) carries
+    # that absolute error as a relative one.
+    tol_loss, tol_grad = 2e-2, 2e-3
+    assert loss_err <= tol_loss and alpha_err <= tol_loss, (loss_err, alpha_err)
+    assert grad_err <= tol_grad, f"ctc gradient: max|err| {grad_err} > {tol_grad}"
+    # the gradient w.r.t. the logits agrees with F.ctc_loss's
+    lg = logits.detach().clone().requires_grad_(True)
+    lib = F.ctc_loss(torch.log_softmax(lg, -1).transpose(0, 1), targets, tlen,
+                     ulen, blank=0, reduction="none")
+    lib.sum().backward()
+    g_lib = lg.grad
+    lg2 = logits.detach().clone().requires_grad_(True)
+    from speechbrain_tpu_torch.ops import ctc_loss_per_seq
+
+    ours = ctc_loss_per_seq(torch.log_softmax(lg2, -1), targets, tlen, ulen, 0)
+    ours.sum().backward()
+    lib_err = {"loss": _err(ours, lib), "logits_grad": _err(lg2.grad, g_lib)}
+    assert lib_err["logits_grad"] <= tol_grad, lib_err
+    n_live = int(live.sum())
+    lat_bytes = 4 * n_live  # gathered lattice values, read once
+    k3_bound = _bound_ms(2 * lat_bytes + 4 * B * U + 12 * B, 12 * n_live, "float32")
+    k4_bound = _bound_ms(3 * lat_bytes + 4 * B * T * C, 20 * n_live, "float32")
+    lpt = lp.detach().transpose(0, 1)
+    lp_req = lp.detach().clone().requires_grad_(True)
+
+    def lib_fwd():
+        return F.ctc_loss(lpt, targets, tlen, ulen, blank=0, reduction="none")
+
+    def lib_fwd_bwd():
+        F.ctc_loss(lp_req.transpose(0, 1), targets, tlen, ulen, blank=0,
+                   reduction="none").sum().backward()
+
+    def ours_fwd_bwd():
+        ctc_loss_per_seq(lp_req, targets, tlen, ulen, 0).sum().backward()
+
+    common = {"dtype": "float32", "shape": [B, T, C, U],
+              "vs_F_ctc_loss": lib_err, "live_states": n_live}
+    rows = [
+        {"name": "ctc_alpha", **common, "max_abs_err": max(loss_err, alpha_err),
+         "tol": tol_loss,
+         "ms": _time_ms(lambda: ctc_alpha(*args)),
+         "plain_ms": _time_ms(lambda: ctc_alpha_plain(*args), iters=3, warmup=1),
+         "library_ms": _time_ms(lib_fwd), "library": "F.ctc_loss forward",
+         "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
+         "bound_note": f"plus a chain of up to {T} dependent steps"},
+        {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
+         "tol": tol_grad,
+         "ms": _time_ms(lambda: ctc_beta_grad(*args, alpha, logz, ones)),
+         "plain_ms": _time_ms(lambda: ctc_beta_grad_plain(
+             *args, alpha_p, logz_p, ones), iters=3, warmup=1),
+         "library_ms": _time_ms(lib_fwd_bwd),
+         "library": "F.ctc_loss forward + backward",
+         "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1]},
+    ]
+    return rows
+
+
+def _relpos_inputs(dtype, B, H, T, dh, seed):
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
     mk = lambda *s: (0.5 * torch.randn(*s, device="cuda", generator=g)).to(dtype)  # noqa: E731
     q, k, v = mk(B, H, T, dh), mk(B, H, T, dh), mk(B, H, T, dh)
     p = mk(H, 2 * T - 1, dh)
@@ -145,27 +349,115 @@ def _check_relpos(dtype_name, T):
     vb = 0.1 * torch.randn(H, dh, device="cuda", generator=g)
     madd = torch.zeros(B, T, device="cuda")
     madd[1, T - T // 5:] = -65000.0  # padded tail of the second utterance
+    dout = torch.randn(B, H, T, dh, device="cuda", generator=g)
+    return q, k, v, p, u, vb, madd, dout
+
+
+def _materialized_bias(q, p, vb, madd, scale):
+    """The position term and key mask as the (B, H, T, T) additive bias
+    that a library attention takes (f32)."""
+    import torch
+
+    B, H, T, _ = q.shape
+    ar = torch.arange(T, device="cuda")
+    idx = (T - 1 - ar[:, None] + ar[None, :]).clamp(0, 2 * T - 2)
+    ps = torch.einsum("bhqd,hld->bhql", q.float() + vb[None, :, None], p.float())
+    return (torch.gather(ps, -1, idx.expand(B, H, T, T)) * scale
+            + madd[:, None, None, :])
+
+
+def _check_relpos_bwd(dtype_name, B=8, T=512):
+    """K6 at the training shape (B = 8 utterances, T_enc = 512) against
+    autograd through the plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch.ops import relpos_attention_bwd, relpos_attention_bwd_plain
+    from speechbrain_tpu_torch.ops.relpos_attention import _fwd_kernel
+
+    dtype = getattr(torch, dtype_name)
+    H, dh = 4, 36
+    q, k, v, p, u, vb, madd, dout = _relpos_inputs(dtype, B, H, T, dh, SEED + 3)
+    scale = 1.0 / (H * dh) ** 0.5
+    out, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, False)
+    dsum = (dout * out).sum(-1)
+    got = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale)
+    ref = relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv", "dp", "du", "dvb")
+    rel = {n: _err(a, b) / max(1e-6, float(b.abs().max()))
+           for n, a, b in zip(names, got, ref)}
+    err = max(_err(a, b) for a, b in zip(got, ref))
+    # f32 arithmetic from the same stored values on both routes; sums of
+    # up to B*T^2 terms (dp, du, dvb) in other orders
+    tol = 1e-4
+    assert max(rel.values()) <= tol, f"relpos_attention_bwd {dtype_name}: {rel}"
+    # library yardstick: SDPA's backward through a materialized bias
+    qu = (q.float() + u[None, :, None]).to(dtype).requires_grad_(True)
+    kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
+    bias = _materialized_bias(q, p, vb, madd, scale).to(dtype).requires_grad_(True)
+    library_ms, library = None, "none"
+    try:
+        lib_out = F.scaled_dot_product_attention(qu, kl, vl, attn_mask=bias, scale=scale)
+        do_l = dout.to(dtype)
+        library_ms = _time_ms(lambda: torch.autograd.grad(
+            lib_out, (qu, kl, vl, bias), do_l, retain_graph=True))
+        library = "SDPA backward with a bias that requires grad"
+    except RuntimeError as e:  # no SDPA backend differentiates the bias
+        library = f"none ({str(e).splitlines()[0][:80]})"
+    item = q.element_size()
+    nbytes = ((3 * B * H * T * dh + H * (2 * T - 1) * dh) * item
+              + 4 * (2 * H * dh + B * T + B * H * T * dh + 2 * B * H * T)
+              + 4 * (3 * B * H * T * dh + H * (2 * T - 1) * dh + 2 * H * dh))
+    bound, by = _bound_ms(nbytes, 16 * B * H * T * T * dh, dtype_name)
+    return {
+        "name": "relpos_attention_bwd", "dtype": dtype_name, "shape": [B, H, T, dh],
+        "max_abs_err": err, "max_rel_err": rel, "tol": tol, "tol_kind": "relative",
+        "ms": _time_ms(lambda: relpos_attention_bwd(
+            q, k, v, p, u, vb, madd, dout, lse, dsum, scale), iters=10),
+        "plain_ms": _time_ms(lambda: relpos_attention_bwd_plain(
+            q, k, v, p, u, vb, madd, dout, scale), iters=5),
+        "library_ms": library_ms, "library": library,
+        "bound_ms": bound, "bound_by": by,
+        "kernel_flops": 28 * B * H * T * T * dh,
+    }
+
+
+def _check_relpos(dtype_name, T, B=2):
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch.ops import relpos_attention, relpos_attention_plain
+    from speechbrain_tpu_torch.ops.relpos_attention import _fwd_kernel
+
+    dtype = getattr(torch, dtype_name)
+    H, dh = 4, 36
+    q, k, v, p, u, vb, madd, _ = _relpos_inputs(dtype, B, H, T, dh, SEED + T)
     scale = 1.0 / (H * dh) ** 0.5
     got = relpos_attention(q, k, v, p, u, vb, madd, scale)
     ref = relpos_attention_plain(q, k, v, p, u, vb, madd, scale)
+    _, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, False)
     torch.cuda.synchronize()
     err = _err(got, ref)
     # both compute in f32 from the same stored values; sums in other orders
     tol = 1e-4
     assert err <= tol, f"relpos_attention {dtype_name} T={T}: max|err| {err} > {tol}"
+    # the log-sum-exp the backward reads, against the materialized scores
+    bias = _materialized_bias(q, p, vb, madd, scale)
+    content = torch.einsum("bhqd,bhkd->bhqk", q.float() + u[None, :, None],
+                           k.float())
+    lse_err = _err(lse, torch.logsumexp(content * scale + bias, -1))
+    assert lse_err <= tol, f"relpos_attention lse {dtype_name}: {lse_err}"
     # library yardstick: SDPA with the materialized position bias
     qu = (q.float() + u[None, :, None]).to(dtype)
-    ar = torch.arange(T, device="cuda")
-    idx = (T - 1 - ar[:, None] + ar[None, :]).clamp(0, 2 * T - 2)
-    ps = torch.einsum("bhqd,hld->bhql", q.float() + vb[None, :, None], p.float())
-    bias = (torch.gather(ps, -1, idx.expand(B, H, T, T)) * scale
-            + madd[:, None, None, :]).to(dtype)
+    bias = bias.to(dtype)
     item = q.element_size()
-    nbytes = (3 * B * H * T * dh + H * (2 * T - 1) * dh) * item + 4 * (2 * H * dh + B * T + B * H * T * dh)
+    nbytes = ((3 * B * H * T * dh + H * (2 * T - 1) * dh) * item
+              + 4 * (2 * H * dh + B * T + B * H * T * dh + B * H * T))  # + lse
     bound, by = _bound_ms(nbytes, 6 * B * H * T * T * dh, dtype_name)
     return {
         "name": "relpos_attention", "dtype": dtype_name, "shape": [B, H, T, dh],
-        "max_abs_err": err, "tol": tol,
+        "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
         "ms": _time_ms(lambda: relpos_attention(q, k, v, p, u, vb, madd, scale)),
         "plain_ms": _time_ms(lambda: relpos_attention_plain(q, k, v, p, u, vb, madd, scale)),
         "library_ms": _time_ms(
@@ -209,18 +501,43 @@ def _check_beam_cache(dtype_name):
     }
 
 
+# wrapper name -> (kernel source, the TPU kernel's pl.pallas_call, the
+# check record that gives its row: name and role)
 KERNEL_INFO = {
     "depthwise_conv1d": (
         "speechbrain_tpu_torch/csrc/depthwise_conv.cu",
         "speechbrain_tpu/ops/pallas/depthwise_conv.py:57",
+        ("depthwise_conv1d", None),
+    ),
+    "depthwise_conv1d_dw": (
+        "speechbrain_tpu_torch/csrc/depthwise_conv.cu",
+        "speechbrain_tpu/ops/pallas/depthwise_conv.py:73",
+        ("depthwise_conv1d_dw", None),
+    ),
+    "ctc_alpha": (
+        "speechbrain_tpu_torch/csrc/ctc.cu",
+        "speechbrain_tpu/ops/pallas/ctc.py:166",
+        ("ctc_alpha", None),
+    ),
+    "ctc_beta_grad": (
+        "speechbrain_tpu_torch/csrc/ctc.cu",
+        "speechbrain_tpu/ops/pallas/ctc.py:182",
+        ("ctc_beta_grad", None),
     ),
     "relpos_attention": (
         "speechbrain_tpu_torch/csrc/relpos_attention.cu",
         "speechbrain_tpu/ops/pallas/relpos_attention.py:295",
+        ("relpos_attention", None),
+    ),
+    "relpos_attention_bwd": (
+        "speechbrain_tpu_torch/csrc/relpos_attention.cu",
+        "speechbrain_tpu/ops/pallas/relpos_attention.py:334",
+        ("relpos_attention_bwd", None),
     ),
     "beam_attend_step": (
         "speechbrain_tpu_torch/csrc/beam_cache.cu",
         "speechbrain_tpu/ops/pallas/beam_cache.py:184",
+        ("beam_attend_step", None),
     ),
 }
 
@@ -230,9 +547,14 @@ def phase_kernels():
     records = []
     for dtype_name in ("float32", "bfloat16"):
         records.append(_check_depthwise(dtype_name))
+        records.append(_check_depthwise_dx(dtype_name))
+        records.append(_check_depthwise_dw(dtype_name))
         for T in (512, 1024):
             records.append(_check_relpos(dtype_name, T))
+        records.append(_check_relpos(dtype_name, 512, B=8))
+        records.append(_check_relpos_bwd(dtype_name))
         records.append(_check_beam_cache(dtype_name))
+    records.extend(_check_ctc())
     for r in records:
         emit({"phase": "kernels", **r})
     return records
@@ -270,28 +592,39 @@ def _search(asr, enc, lens, beam, ctc_weight):
     return hyps, scores, steps[0], seconds
 
 
-def _profile_search(asr, enc, lens, beam, ctc_weight):
-    """One more search under torch.profiler: how much of the wall time
-    the card is busy, how many kernels a step launches, and the kernels
-    that take the most device time."""
+def _profile(fn):
+    """Run ``fn`` (which returns how many steps it ran) under
+    torch.profiler: how much of the wall time the card is busy, how many
+    kernels a step launches, and the kernels that take the most device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, steps, seconds = _search(asr, enc, lens, beam, ctc_weight)
-    events = [e for e in prof.key_averages() if e.device_time_total > 0
-              and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time_total for e in events)
-    launches = sum(e.count for e in events)
-    top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    # device kernels and copies; a record_function range is also drawn on
+    # the device timeline ("gpu_user_annotation") and would count twice
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    per_name = {}
+    for e in events:
+        us, n = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us = sum(us for us, _ in per_name.values())
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
     return {
         "profiled_steps": steps,
         "profiled_wall_ms": 1e3 * seconds,
         "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
         "device_busy_share": busy_us / 1e6 / seconds if busy_us else "not measured",
-        "device_kernels_per_step": launches / steps if busy_us else "not measured",
-        "top_device_kernels_ms": [[e.key[:60], e.device_time_total / 1e3, e.count]
-                                  for e in top],
+        "device_kernels_per_step": len(events) / steps if busy_us else "not measured",
+        "top_device_kernels_ms": [[name[:60], us / 1e3, n]
+                                  for name, (us, n) in top],
     }
 
 
@@ -371,7 +704,8 @@ def phase_serve():
                 "plain_search_ms": 1e3 * plain_search_s,
                 "plain_utt_per_s": B / (plain_encode_s + plain_search_s),
             })
-        run["profile"] = _profile_search(asr, enc, lens, beam, ctc_weight)
+        run["profile"] = _profile(
+            lambda: _search(asr, enc, lens, beam, ctc_weight)[2])
         emit({"phase": "serve", **run})
         runs[dtype_name] = run
         del asr
@@ -423,18 +757,238 @@ def phase_long():
     return run
 
 
-def kernels_line(records, serve, long_run):
+def _train_batch(B, samples, U, seed):
+    """bench.py's synthetic training batch (``_synthetic_batch``): white
+    noise, U random tokens per utterance with bos 1 / eos 2, every
+    length full."""
+    from speechbrain_tpu_torch.asr import CONFORMER_SMALL
+
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(3, CONFORMER_SMALL["vocab_size"], (B, U))
+    ones = np.ones(B, np.float32)
+    return {
+        "sig": rng.normal(size=(B, samples)).astype(np.float32),
+        "sig_lens": ones, "tokens": tokens, "tokens_lens": ones,
+        "tokens_bos": np.concatenate([np.ones((B, 1), np.int64), tokens], 1),
+        "tokens_eos": np.concatenate([tokens, np.full((B, 1), 2)], 1),
+        "tokens_eos_lens": ones,
+    }
+
+
+def _brain(precision, dropout):
+    """``ConformerASRBrain(CONFORMER_SMALL)`` at full width with the
+    recipe's optimizer settings: AdamW (0.9, 0.98, 1e-9, decay 1e-4),
+    clip 5, Noam (8e-4, 25000 warm-up), the first step at 8e-4."""
+    from speechbrain_tpu_torch.asr import CONFORMER_SMALL, ConformerASRBrain
+
+    cfg = dict(CONFORMER_SMALL, transformer_dropout=dropout)
+    return ConformerASRBrain(
+        cfg, seed=SEED, hparams={"lr": cfg["lr_adam"]},
+        run_opts={"precision": precision, "loss_sync_interval": 10})
+
+
+def _loss_and_grads(brain, batch):
+    """One training forward and backward without an optimizer step; the
+    normalization and BatchNorm statistics are put back afterwards, so
+    that two calls start from the same state."""
+    import torch
+
+    from speechbrain_tpu_torch.core import Stage
+
+    saved = {k: v.clone() for k, v in brain.modules.named_buffers()}
+    brain.modules.train()
+    loss = brain._loss(batch, Stage.TRAIN)
+    names, params = zip(*brain.modules.named_parameters())
+    grads = torch.autograd.grad(loss, params)
+    with torch.no_grad():
+        for k, v in brain.modules.named_buffers():
+            v.copy_(saved[k])
+    return loss.detach(), dict(zip(names, grads))
+
+
+def _compare_routes(brain, batch, tol_loss, tol_grad):
+    """The step's loss and every gradient through the kernels and
+    through the plain versions, from the same weights and state.  A
+    gradient's error is max|kernel - plain| over (max|plain| + 1e-3 G),
+    G the largest gradient entry of the model: tensors whose gradient
+    is zero analytically (biases removed by a later BatchNorm or by the
+    softmax) hold rounding noise only and are held to 1e-3 G."""
+    import torch
+
+    loss_k, grads_k = _loss_and_grads(brain.set_kernels(True), batch)
+    loss_p, grads_p = _loss_and_grads(brain.set_kernels(False), batch)
+    brain.set_kernels(True)
+    torch.cuda.synchronize()
+    G = max(float(g.abs().max()) for g in grads_p.values())
+    errs = {n: _err(grads_k[n], g) / (float(g.abs().max()) + 1e-3 * G)
+            for n, g in grads_p.items()}
+    worst = max(errs, key=errs.get)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    assert loss_err <= tol_loss, f"loss kernel vs plain: rel {loss_err} > {tol_loss}"
+    assert errs[worst] <= tol_grad, (
+        f"gradient kernel vs plain: {worst} {errs[worst]} > {tol_grad}")
+    return {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+            "loss_rel_err": loss_err, "loss_tol": tol_loss,
+            "grad_max_rel_err": errs[worst], "grad_worst": worst,
+            "grad_tol": tol_grad, "n_grads": len(errs)}
+
+
+def _run_steps(brain, batch, steps):
+    """``steps`` fit_batch calls on one staged batch; returns (ms per
+    step, the losses as floats, peak bytes allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(steps):
+        brain.step += 1
+        losses.append(brain.fit_batch(batch))
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / steps
+    return ms, [float(x) for x in losses], torch.cuda.max_memory_allocated()
+
+
+def _profile_step(brain, batch):
+    """One more fit_batch under the profiler (see ``_profile``)."""
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    return _profile(one_step)
+
+
+def _per_step(counts, steps):
+    return {k: v / steps for k, v in counts.items()}
+
+
+# kernel launches of one training step at T_enc 251 (below the rel-pos
+# gate) and at T_enc 512 (dropout 0: the rel-pos kernels run)
+_N_ENC = 12
+TRAIN_LAUNCHES = {"depthwise_conv1d": 2 * _N_ENC, "depthwise_conv1d_dw": _N_ENC,
+                  "ctc_alpha": 1, "ctc_beta_grad": 1, "relpos_attention": 0,
+                  "relpos_attention_bwd": 0, "beam_attend_step": 0}
+TRAIN_LONG_LAUNCHES = dict(TRAIN_LAUNCHES, relpos_attention=_N_ENC,
+                           relpos_attention_bwd=_N_ENC)
+
+
+def phase_train():
+    """The recipe's training step at full width: B = 32 synthetic 10 s
+    utterances with 40 tokens, transformer_dropout 0.1, 30 steps in
+    bf16 then f32 on one repeated batch; then kernel route vs plain
+    route (f32, dropout 0) and the dropout keep fraction."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.nnet.dropout import Dropout
+
+    B, samples, U, steps = 32, 160000, 40, 30
+    host_batch = _train_batch(B, samples, U, SEED)
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        brain = _brain(precision, 0.1)
+        # staged on the card once, as bench.py stages its batches
+        batch = brain.prepare_batch(host_batch)
+        brain.step = 1
+        first = float(brain.fit_batch(batch))  # warm-up, untimed
+        ops.reset_launch_counters()
+        ms, losses, peak = _run_steps(brain, batch, steps - 1)
+        counts = ops.launch_counters()
+        per_step = _per_step(counts, steps - 1)
+        assert per_step == TRAIN_LAUNCHES, per_step
+        assert all(np.isfinite([first] + losses)), losses
+        assert losses[-1] < first, f"loss did not fall: {first} -> {losses[-1]}"
+        run = {"phase": "train", "precision": precision, "batch": B,
+               "seconds_audio": samples / 16000, "tokens": U,
+               "transformer_dropout": 0.1, "steps": steps,
+               "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+               "peak_mem_bytes": peak, "launches": counts,
+               "launches_per_step": per_step,
+               "loss_first": first, "loss_last": losses[-1]}
+        if precision == "bf16":
+            run["profile"] = _profile_step(brain, batch)
+        emit(run)
+        runs[precision] = run
+        del brain, batch
+    # kernel route vs plain route, f32 with dropout 0, the same weights
+    brain = _brain("fp32", 0.0)
+    batch = brain.prepare_batch(host_batch)
+    # the loss and the gradients reach the plain route through other
+    # summation orders (depthwise taps, CTC recursion's exp/log1p, f32
+    # throughout), 16 layers deep
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    # dropout draws from the brain's generator on the card
+    drop = Dropout(0.1).train()
+    drop.generator = brain.generator
+    kept = float((drop(torch.ones(1 << 22, device="cuda")) > 0).float().mean())
+    assert abs(kept - 0.9) <= 0.01, f"dropout keep fraction {kept}"
+    run = {"phase": "train_check", "kernel_vs_plain": cmp,
+           "dropout_keep_fraction": kept}
+    emit(run)
+    runs["check"] = run
+    del brain, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_train_long():
+    """The same step on B = 8 utterances of 20.44 s (T_enc 512) with
+    transformer_dropout 0, where the rel-pos kernels run forward and
+    backward: f32 then bf16, then kernel vs plain gradients in f32."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    B, samples, U, steps = 8, 160 * 2044, 40, 6
+    host_batch = _train_batch(B, samples, U, SEED + 1)
+    runs = {}
+    for precision in ("fp32", "bf16"):
+        brain = _brain(precision, 0.0)
+        batch = brain.prepare_batch(host_batch)
+        brain.step = 1
+        first = float(brain.fit_batch(batch))  # warm-up, untimed
+        ops.reset_launch_counters()
+        ms, losses, peak = _run_steps(brain, batch, steps - 1)
+        counts = ops.launch_counters()
+        per_step = _per_step(counts, steps - 1)
+        assert per_step == TRAIN_LONG_LAUNCHES, per_step
+        assert all(np.isfinite([first] + losses)), losses
+        run = {"phase": "train_long", "precision": precision, "batch": B,
+               "seconds_audio": samples / 16000, "T_enc": 512, "tokens": U,
+               "transformer_dropout": 0.0, "steps": steps,
+               "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+               "peak_mem_bytes": peak, "launches": counts,
+               "launches_per_step": per_step,
+               "loss_first": first, "loss_last": losses[-1]}
+        if precision == "fp32":
+            run["profile"] = _profile_step(brain, batch)
+            run["kernel_vs_plain"] = _compare_routes(
+                brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+        emit(run)
+        runs[precision] = run
+        del brain, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
-    (float32; the bfloat16 numbers beside), launches from the main-path
-    runs (serve f32 + bf16, long), each counted from 0."""
+    (float32 record; bfloat16 beside it where there is one), launches
+    summed over the main-path runs (serve, long, train, train_long),
+    each counted from 0 just before its run."""
     launches = {}
-    for run in (serve["float32"], serve["bfloat16"], long_run):
+    for run in main_runs:
         for name, c in run["launches"].items():
             launches[name] = launches.get(name, 0) + c
     out = []
-    for name, (source, replaces) in KERNEL_INFO.items():
-        pick = [r for r in records if r["name"] == name
-                and (name != "relpos_attention" or r["shape"][2] == 512)]
+    for name, (source, replaces, (rec_name, role)) in KERNEL_INFO.items():
+        pick = [r for r in records if r["name"] == rec_name
+                and r.get("role") == role
+                and (name != "relpos_attention"
+                     or (r["shape"][0] == 8 and r["shape"][2] == 512))
+                and (name != "relpos_attention_bwd" or r["shape"][0] == 8)]
         by_dtype = {r["dtype"]: r for r in pick}
         main = by_dtype["float32"]
         entry = {"name": name, "route": "cuda", "source": source,
@@ -442,8 +996,14 @@ def kernels_line(records, serve, long_run):
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = main[key]
-        entry["bfloat16"] = {k: by_dtype["bfloat16"][k] for k in (
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")
+        if "bfloat16" in by_dtype:
+            entry["bfloat16"] = {k: by_dtype["bfloat16"][k] for k in keys}
+        for r in records:  # the same kernel in another role (K1 as dx)
+            if r["name"] == rec_name and r.get("role", role) != role:
+                entry.setdefault(r["role"], {})[r["dtype"]] = {
+                    k: r[k] for k in keys + ("shape",)}
         out.append(entry)
     assert all(e["launches"] > 0 for e in out), launches
     return {"kernels": out}
@@ -475,7 +1035,12 @@ def main():
     records = phase_kernels()
     serve = phase_serve()
     long_run = phase_long()
-    emit(kernels_line(records, serve, long_run))
+    train = phase_train()
+    train_long = phase_train_long()
+    main_runs = [serve["float32"], serve["bfloat16"], long_run,
+                 train["bf16"], train["fp32"], train_long["fp32"],
+                 train_long["bf16"]]
+    emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

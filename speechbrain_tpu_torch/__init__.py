@@ -9,8 +9,9 @@ path becomes a hand-written CUDA C++ kernel (``csrc/``), built with
 Entry points run on CUDA unless the caller passes ``device="cpu"``;
 nothing falls back to the CPU quietly (see ``device.py``).
 
-This slice covers the serving path of the conformer joint CTC/attention
-ASR model: ``asr.ConformerASR``.
+The port covers the conformer joint CTC/attention ASR model: serving
+(``asr.ConformerASR``) and the training step (``asr.ConformerASRBrain``
+on ``core.Brain``).
 """
 
-__all__ = ["asr", "bridge", "device"]
+__all__ = ["asr", "bridge", "core", "device"]

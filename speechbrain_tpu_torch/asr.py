@@ -1,27 +1,33 @@
-"""Serving entry point: joint CTC/attention conformer ASR.
+"""Entry points of the joint CTC/attention conformer ASR: serving and
+the training step.
 
 ``ConformerASR`` chains Fbank -> global input normalization -> conv
 front end -> ``TransformerASR`` (conformer encoder, transformer
 decoder) -> CTC and seq2seq heads, and ``transcribe`` runs the joint
 CTC/attention beam search with the KV-cached decoder, as the
-LibriSpeech transformer recipe serves it.  Weights are random from a
-seed, or loaded with ``load_state_dict`` from ``bridge.py``'s output;
-nothing is downloaded.
+LibriSpeech transformer recipe serves it.  ``ConformerASRBrain`` trains
+the same modules with the recipe's step
+(``recipes/LibriSpeech/ASR/transformer/train.py``, without SpecAugment
+and the WER search).  Weights are random from a seed, or loaded with
+``load_state_dict`` from ``bridge.py``'s output; nothing is downloaded.
 """
 
 import math
 
 import torch
 
+from .core import Brain
 from .decoders.seq2seq import S2STransformerBeamSearch
 from .device import resolve_device
 from .lobes.features import Fbank
 from .lobes.models.convolution import ConvolutionFrontEnd
 from .lobes.models.transformer.TransformerASR import TransformerASR
 from .nnet.linear import Linear
+from .nnet.losses import ctc_loss, kldiv_loss
+from .nnet.schedulers import NoamScheduler
 from .processing.features import InputNormalization
 
-__all__ = ["CONFORMER_SMALL", "ConformerASR"]
+__all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain"]
 
 # recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml
 CONFORMER_SMALL = {
@@ -49,7 +55,17 @@ CONFORMER_SMALL = {
     "blank_index": 0,
     "min_decode_ratio": 0.0,
     "max_decode_ratio": 1.0,
+    # training (conformer_small.yaml)
+    "transformer_dropout": 0.1,
+    "update_until_epoch": 4,
+    "ctc_weight": 0.3,
+    "label_smoothing": 0.1,
+    "lr_adam": 8e-4,
+    "n_warmup_steps": 25000,
+    "max_grad_norm": 5.0,
 }
+
+_MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
 
 
 class ConformerASR(torch.nn.Module):
@@ -57,11 +73,14 @@ class ConformerASR(torch.nn.Module):
 
     Arguments
     ---------
-    config : dict with the keys of ``CONFORMER_SMALL``.
+    config : dict with the keys of ``CONFORMER_SMALL`` (the training
+        keys are optional; ``transformer_dropout`` only acts in training
+        mode).
     device : None for the CUDA card (raises without one), or e.g. "cpu".
-    dtype : activation/parameter dtype of the network (float32 or
-        bfloat16); features, normalization, softmaxes and the search
-        scores stay float32.
+    dtype : activation dtype of the network (float32 or bfloat16); the
+        parameters stay float32 and each module casts them to the
+        activation dtype per op, as the JAX modules do.  Features,
+        normalization, softmaxes and the search scores stay float32.
     seed : seed of the random initial weights.
 
     ``set_kernels(False)`` routes every kernel call to its plain PyTorch
@@ -90,7 +109,8 @@ class ConformerASR(torch.nn.Module):
             n_mels=c["n_mels"], win_length=c["win_length"],
             hop_length=c["hop_length"],
         )
-        self.normalize = InputNormalization(c["n_mels"])
+        self.normalize = InputNormalization(
+            c["n_mels"], update_until_epoch=c.get("update_until_epoch", 3))
         self.frontend = ConvolutionFrontEnd(
             num_blocks=c["frontend_blocks"],
             out_channels=c["frontend_channels"],
@@ -105,13 +125,12 @@ class ConformerASR(torch.nn.Module):
             activation=c["activation"],
             normalize_before=c["normalize_before"],
             kernel_size=c["kernel_size"],
+            dropout=c.get("transformer_dropout", 0.0),
         )
         self.ctc_lin = Linear(c["d_model"], c["vocab_size"])
         self.seq_lin = Linear(c["d_model"], c["vocab_size"])
         self._random_init(torch.Generator().manual_seed(seed))
         self.to(self.device)
-        for m in (self.frontend, self.transformer, self.ctc_lin, self.seq_lin):
-            m.to(dtype)
         self.eval()
 
     def _random_init(self, gen):
@@ -177,3 +196,120 @@ class ConformerASR(torch.nn.Module):
         enc = self.encode(sig, sig_lens)
         searcher = self.make_searcher(beam_size, ctc_weight)
         return searcher(enc, sig_lens.to(self.device, torch.float32))
+
+
+class ConformerASRBrain(Brain):
+    """The LibriSpeech conformer recipe's training step on the modules of
+    ``ConformerASR``.
+
+    ``compute_forward``: Fbank -> ``InputNormalization`` (its statistics
+    updated in training, frozen after ``update_until_epoch``) -> cast to
+    the activation dtype -> front end (BatchNorm statistics updated in
+    training) -> ``TransformerASR.forward`` -> ``ctc_lin`` and
+    ``seq_lin``, each with a float32 ``log_softmax``.
+    ``compute_objectives``: ``ctc_weight`` x CTC (``batchmean``) +
+    (1 - ``ctc_weight``) x label-smoothed KL (``batchmean``).  After each
+    optimizer step the Noam schedule (``lr_adam``, ``n_warmup_steps``)
+    sets the learning rate, as the recipe's ``on_fit_batch_end`` does;
+    the first step runs at ``hparams["lr"]`` (1e-3 when not given), as in
+    the JAX ``Brain``.
+
+    ``self.model`` is the ``ConformerASR`` that owns the modules, so
+    ``self.modules.state_dict()`` loads into a ``ConformerASR`` for
+    serving.  A batch is a dict of ``sig`` (B, samples) and ``sig_lens``
+    (B,) relative, ``tokens`` (B, U), ``tokens_bos``/``tokens_eos``
+    (B, U+1) and the relative ``tokens_lens``/``tokens_eos_lens``.
+    ``epoch`` (default 0) is the epoch the normalization sees.
+
+    Arguments
+    ---------
+    config : dict with the keys of ``CONFORMER_SMALL``.
+    opt_class : callable(params) -> optimizer; default AdamW(b1 0.9,
+        b2 0.98, eps 1e-9, weight decay 1e-4), the recipe's optax adamw.
+    device, seed : as for ``ConformerASR``; ``seed`` also seeds dropout.
+    run_opts, hparams : as for ``Brain`` (``precision`` "bf16" is the
+        recipe's).
+
+    Example
+    -------
+    >>> import numpy as np
+    >>> cfg = dict(CONFORMER_SMALL, frontend_channels=(4, 4), input_size=40,
+    ...     d_model=16, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
+    ...     d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40)
+    >>> brain = ConformerASRBrain(cfg, device="cpu")
+    >>> tok = np.array([[3, 4, 5]])
+    >>> batch = {"sig": np.zeros((1, 4000), np.float32),
+    ...     "sig_lens": np.ones(1, np.float32), "tokens": tok,
+    ...     "tokens_bos": np.array([[1, 3, 4, 5]]),
+    ...     "tokens_eos": np.array([[3, 4, 5, 2]]),
+    ...     "tokens_lens": np.ones(1, np.float32),
+    ...     "tokens_eos_lens": np.ones(1, np.float32)}
+    >>> brain.step += 1
+    >>> bool(torch.isfinite(brain.fit_batch(batch)))
+    True
+    """
+
+    def __init__(self, config, opt_class=None, device=None, seed=0,
+                 run_opts=None, hparams=None):
+        c = dict(CONFORMER_SMALL, **config)
+        run_opts = dict(run_opts or {})
+        run_opts.setdefault("device", device)
+        run_opts.setdefault("seed", seed)
+        run_opts.setdefault("max_grad_norm", c["max_grad_norm"])
+        self.model = ConformerASR(c, device=resolve_device(run_opts["device"]),
+                                  seed=seed)
+        if opt_class is None:
+            def opt_class(params):
+                return torch.optim.AdamW(params, betas=(0.9, 0.98), eps=1e-9,
+                                         weight_decay=1e-4)
+        super().__init__(
+            modules={name: getattr(self.model, name) for name in _MODULES},
+            opt_class=opt_class, hparams=hparams, run_opts=run_opts,
+        )
+        self.config = c
+        self.model.dtype = self.dtype
+        self.fbank = self.model.fbank
+        self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
+        self.epoch = 0
+        self.use_kernels = True
+
+    def compute_forward(self, batch, stage):
+        """Returns the CTC and seq2seq log-probabilities, float32."""
+        m = self.modules
+        feats = m.normalize(self.fbank(batch["sig"]), batch["sig_lens"],
+                            epoch=self.epoch)
+        src = m.frontend(feats.to(self.dtype))
+        enc, dec = m.transformer(src, batch["tokens_bos"],
+                                 wav_len=batch["sig_lens"],
+                                 pad_idx=self.config["blank_index"])
+        ctc_logp = torch.log_softmax(m.ctc_lin(enc).float(), -1)
+        seq_logp = torch.log_softmax(m.seq_lin(dec).float(), -1)
+        return ctc_logp, seq_logp
+
+    def compute_objectives(self, predictions, batch, stage):
+        """0.3 CTC + 0.7 label-smoothed KL, both ``batchmean``."""
+        ctc_logp, seq_logp = predictions
+        mask = batch["batch_mask"]
+        c = self.config
+        loss_ctc = ctc_loss(
+            ctc_logp, batch["tokens"], batch["sig_lens"] * mask,
+            batch["tokens_lens"] * mask, blank_index=c["blank_index"],
+            reduction="batchmean", use_kernels=self.use_kernels,
+        )
+        loss_seq = kldiv_loss(
+            seq_logp, batch["tokens_eos"],
+            length=batch["tokens_eos_lens"] * mask,
+            label_smoothing=c["label_smoothing"], reduction="batchmean",
+        )
+        return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        if should_step:
+            _, self.lr = self.noam()
+
+    def set_kernels(self, flag=True):
+        """Route kernel calls (the modules' and the CTC loss's) to the CUDA
+        kernels or to the plain versions."""
+        self.model.set_kernels(flag)
+        self.use_kernels = bool(flag)
+        return self

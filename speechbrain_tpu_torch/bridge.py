@@ -1,8 +1,9 @@
 """Turns the JAX package's parameters and state into this port's
-``state_dict``s.
+``state_dict``s, and back (``to_jax_*``).
 
 Inputs are nested dicts of arrays as the JAX modules' ``init`` returns
-them (any array type numpy can read).  Layout changes:
+them (any array type numpy can read); the ``to_jax_*`` functions return
+such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
 
 - Dense ``kernel (in, out)`` -> ``weight (out, in)``;
 - Conv2d ``kernel`` HWIO (H = time, W = frequency) -> OIHW;
@@ -31,6 +32,7 @@ __all__ = [
     "transformer_asr_state_dict",
     "input_norm_state_dict",
     "conformer_asr_state_dict",
+    "to_jax_conformer_asr",
 ]
 
 
@@ -181,4 +183,146 @@ def conformer_asr_state_dict(frontend_vars, transformer_params,
         **_prefixed("transformer", transformer_asr_state_dict(transformer_params)),
         **_prefixed("ctc_lin", head(ctc_lin_params)),
         **_prefixed("seq_lin", head(seq_lin_params)),
+    }
+
+
+# ------------------------------------------------------------------
+# port state_dict -> JAX layout (the inverse of the functions above)
+
+
+def _a(t):
+    return t.detach().float().cpu().numpy()
+
+
+class _Sub:
+    """The entries of a state_dict under a prefix."""
+
+    def __init__(self, sd, prefix=""):
+        self.sd, self.prefix = sd, prefix
+
+    def __getitem__(self, key):
+        return self.sd[self.prefix + key]
+
+    def __contains__(self, key):
+        return self.prefix + key in self.sd
+
+    def sub(self, name):
+        return _Sub(self.sd, f"{self.prefix}{name}.")
+
+    def count(self, name):
+        """How many numbered children ``name.<i>`` there are."""
+        head = f"{self.prefix}{name}."
+        return len({k[len(head):].split(".")[0] for k in self.sd
+                    if k.startswith(head)})
+
+
+def _dense_to_jax(s):
+    p = {"kernel": _a(s["weight"]).T.copy()}
+    if "bias" in s:
+        p["bias"] = _a(s["bias"])
+    return p
+
+
+def _ln_to_jax(s):
+    return {"scale": _a(s["weight"]), "bias": _a(s["bias"])}
+
+
+def _ffn_to_jax(s):
+    return {"Dense_0": _dense_to_jax(s.sub("w_1")),
+            "Dense_1": _dense_to_jax(s.sub("w_2"))}
+
+
+def _conformer_layer_to_jax(s):
+    mha = {n: _dense_to_jax(s.sub(f"mha.{n}"))
+           for n in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")}
+    mha["pos_bias_u"] = _a(s["mha.pos_bias_u"])
+    mha["pos_bias_v"] = _a(s["mha.pos_bias_v"])
+    c = s.sub("conv")
+    conv = {
+        "LayerNorm_0": _ln_to_jax(c.sub("norm_in")),
+        "Dense_0": _dense_to_jax(c.sub("pointwise_in")),
+        "depthwise_kernel": _a(c["depthwise_kernel"]),
+        "LayerNorm_1": _ln_to_jax(c.sub("norm_mid")),
+        "Dense_1": _dense_to_jax(c.sub("pointwise_out")),
+    }
+    if "depthwise_bias" in c:
+        conv["depthwise_bias"] = _a(c["depthwise_bias"])
+    return {
+        "LayerNorm_0": _ln_to_jax(s.sub("norm_ffn1")),
+        "ffn1": _ffn_to_jax(s.sub("ffn1")),
+        "LayerNorm_1": _ln_to_jax(s.sub("norm_mha")),
+        "mha": mha,
+        "conv": conv,
+        "LayerNorm_2": _ln_to_jax(s.sub("norm_ffn2")),
+        "ffn2": _ffn_to_jax(s.sub("ffn2")),
+        "LayerNorm_3": _ln_to_jax(s.sub("norm_out")),
+    }
+
+
+def _decoder_layer_to_jax(s):
+    def attn(name):
+        return {n: _dense_to_jax(s.sub(f"{name}.{n}"))
+                for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+    return {
+        "self_attn": attn("self_attn"),
+        "cross_attn": attn("cross_attn"),
+        "LayerNorm_0": _ln_to_jax(s.sub("norm1")),
+        "LayerNorm_1": _ln_to_jax(s.sub("norm2")),
+        "LayerNorm_2": _ln_to_jax(s.sub("norm3")),
+        "PositionalwiseFeedForward_0": _ffn_to_jax(s.sub("ffn")),
+    }
+
+
+def to_jax_transformer_asr(state_dict, prefix=""):
+    """TransformerASR state_dict (entries under ``prefix``) -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    enc, dec = s.sub("encoder"), s.sub("decoder")
+    return {
+        "custom_src_module": _dense_to_jax(s.sub("custom_src_module")),
+        "custom_tgt_module": {
+            "Embed_0": {"embedding": _a(s["custom_tgt_module.emb.weight"])}},
+        "encoder": {
+            **{f"layer_{i}": _conformer_layer_to_jax(enc.sub(f"layers.{i}"))
+               for i in range(enc.count("layers"))},
+            "norm_out": _ln_to_jax(enc.sub("norm_out")),
+        },
+        "decoder": {
+            **{f"layer_{i}": _decoder_layer_to_jax(dec.sub(f"layers.{i}"))
+               for i in range(dec.count("layers"))},
+            "norm_out": _ln_to_jax(dec.sub("norm_out")),
+        },
+    }
+
+
+def to_jax_frontend(state_dict, prefix=""):
+    """ConvolutionFrontEnd state_dict -> {"params", "batch_stats"}."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    for i in range(s.count("convs")):
+        c = s.sub(f"convs.{i}")
+        params[f"Conv2d_{i}"] = {"Conv_0": {
+            "kernel": _a(c["weight"]).transpose(2, 3, 1, 0).copy(),
+            "bias": _a(c["bias"])}}
+    for i in range(s.count("norms")):
+        n = s.sub(f"norms.{i}")
+        params[f"BatchNorm1d_{i}"] = {"BatchNorm_0": {
+            "scale": _a(n["weight"]), "bias": _a(n["bias"])}}
+        stats[f"BatchNorm1d_{i}"] = {"BatchNorm_0": {
+            "mean": _a(n["running_mean"]), "var": _a(n["running_var"])}}
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_conformer_asr(state_dict):
+    """``asr.ConformerASR`` (or ``ConformerASRBrain.modules``) state_dict
+    -> the JAX pieces ``conformer_asr_state_dict`` takes:
+    ``{"frontend": variables, "transformer": params, "ctc_lin": params,
+    "seq_lin": params, "norm": GlobalNormState}``."""
+    s = _Sub(state_dict)
+    return {
+        "frontend": to_jax_frontend(state_dict, "frontend."),
+        "transformer": to_jax_transformer_asr(state_dict, "transformer."),
+        "ctc_lin": {"Dense_0": _dense_to_jax(s.sub("ctc_lin"))},
+        "seq_lin": {"Dense_0": _dense_to_jax(s.sub("seq_lin"))},
+        "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
     }

@@ -1,12 +1,19 @@
-// Depthwise 1-d convolution, forward, for the conformer convolution module.
+// Depthwise 1-d convolution for the conformer convolution module: the
+// forward (which is also the input gradient) and the taps' gradient.
 //
-// Replaces: the Pallas TPU kernel speechbrain_tpu/ops/pallas/depthwise_conv.py
-//   (_fwd_kernel / _pallas_forward, reached through depthwise_conv1d).
+// Replaces: the Pallas TPU kernels speechbrain_tpu/ops/pallas/depthwise_conv.py
+//   _fwd_kernel / _pallas_forward (forward, and the dx of the backward)
+//   and _dw_kernel / _pallas_dw (the taps' gradient).
 //
 //   out[b,t,c] = sum_k w[k,c] * x[b, t+k-pad_left, c]  (+ bias[c])
+//   dw[k,c]    = sum_{b,t} dy[b,t,c] * x[b, t+k-pad_left, c]
 //
 // with pad_left = (K-1)//2 (centered) or K-1 (causal); taps that fall
-// outside [0, T) read zero.
+// outside [0, T) read zero.  The input gradient is the forward entry on
+// the flipped taps with pad_left' = K-1-pad_left: the TPU kernel's padded
+// copy of dy and the slice of its output are folded into that offset.
+//
+// ---- forward (sb_depthwise_conv1d_fwd) ----
 //
 // What bounds it on the H100: bytes.  Each output reads K inputs of its
 // own channel, but neighbouring outputs share them, so the least traffic
@@ -22,6 +29,22 @@
 // fused into the single store.  The TPU kernel's lane packing of the
 // 144 % 128 remainder channels and its VMEM size guard are TPU devices
 // and have no counterpart here.
+//
+// ---- taps' gradient (sb_depthwise_conv1d_dw) ----
+//
+// What bounds it on the H100: bytes.  K*C outputs, each a sum over B*T
+// products; the least traffic is x and dy read once (training shape
+// B=32, T=251, C=144, K=31, f32: 9.3 MB) against 2*K*B*T*C = 72 MFLOP.
+//
+// What the simple design does about it: the TPU kernel carries the sum
+// across its sequential grid (init at b == 0); blocks on the card run in
+// no order, so the sum becomes two passes.  Pass 1: one block per
+// (32-channel tile, 64-row time chunk of one utterance) stages the chunk
+// of dy and the chunk of x with its K-1 halo rows in shared memory
+// (channels fastest: coalesced loads, conflict-free reads) and writes
+// one partial dw (K, 32) per chunk, f32.  Pass 2: one thread per (k, c)
+// adds the partials of every chunk in chunk order.  No atomics: the
+// result is the same bits in every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +92,107 @@ __global__ void depthwise_conv1d_fwd(const T* __restrict__ x,
   out[idx] = from_f32<T>(acc);
 }
 
+constexpr int DW_TC = 64;  // time rows per chunk
+constexpr int DW_CT = 32;  // channels per block (one warp wide)
+constexpr int DW_KY = 8;   // block rows; each strides over the taps
+
+template <typename T>
+__global__ void __launch_bounds__(DW_CT * DW_KY)
+    depthwise_conv1d_dw_partial(const T* __restrict__ x,
+                                const T* __restrict__ dy,
+                                float* __restrict__ partial, int T_len,
+                                int C, int K, int pad_left) {
+  extern __shared__ float smem[];
+  float* xs = smem;                          // (DW_TC + K - 1, DW_CT)
+  float* dys = smem + (DW_TC + K - 1) * DW_CT;  // (DW_TC, DW_CT)
+  const int n_tchunks = (T_len + DW_TC - 1) / DW_TC;
+  const int chunk = blockIdx.y;
+  const int b = chunk / n_tchunks;
+  const int t0 = (chunk % n_tchunks) * DW_TC;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * DW_CT + tx;
+  const int64_t base = (int64_t)b * T_len * C;
+  for (int r = ty; r < DW_TC + K - 1; r += DW_KY) {
+    const int ti = t0 + r - pad_left;
+    float v = 0.f;
+    if (c < C && ti >= 0 && ti < T_len) v = to_f32(x[base + (int64_t)ti * C + c]);
+    xs[r * DW_CT + tx] = v;
+  }
+  for (int r = ty; r < DW_TC; r += DW_KY) {
+    const int t = t0 + r;
+    float v = 0.f;
+    if (c < C && t < T_len) v = to_f32(dy[base + (int64_t)t * C + c]);
+    dys[r * DW_CT + tx] = v;
+  }
+  __syncthreads();
+  if (c >= C) return;
+  for (int k = ty; k < K; k += DW_KY) {
+    float acc = 0.f;
+    for (int r = 0; r < DW_TC; ++r) {
+      acc += dys[r * DW_CT + tx] * xs[(r + k) * DW_CT + tx];
+    }
+    partial[((int64_t)chunk * K + k) * C + c] = acc;
+  }
+}
+
+__global__ void depthwise_conv1d_dw_reduce(const float* __restrict__ partial,
+                                           float* __restrict__ dw,
+                                           int n_chunks, int KC) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= KC) return;
+  float acc = 0.f;
+  for (int i = 0; i < n_chunks; ++i) acc += partial[(int64_t)i * KC + idx];
+  dw[idx] = acc;
+}
+
+template <typename T>
+int launch_dw(const void* x, const void* dy, float* partial, float* dw,
+              int B, int T_len, int C, int K, int pad_left, cudaStream_t s) {
+  const int n_chunks = B * ((T_len + DW_TC - 1) / DW_TC);
+  if (n_chunks > 0) {
+    const size_t smem = (size_t)(2 * DW_TC + K - 1) * DW_CT * sizeof(float);
+    auto kern = depthwise_conv1d_dw_partial<T>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    dim3 grid((C + DW_CT - 1) / DW_CT, n_chunks);
+    kern<<<grid, dim3(DW_CT, DW_KY), smem, s>>>(
+        (const T*)x, (const T*)dy, partial, T_len, C, K, pad_left);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int KC = K * C;
+  depthwise_conv1d_dw_reduce<<<(KC + 255) / 256, 256, 0, s>>>(partial, dw,
+                                                               n_chunks, KC);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// Number of time chunks of the taps' gradient: its scratch `partial`
+// holds n_chunks * K * C floats.
+extern "C" int sb_depthwise_conv1d_dw_chunks(int B, int T) {
+  return B * ((T + DW_TC - 1) / DW_TC);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (x and dy); partial (scratch) and dw
+// (K, C) are float32.  Returns cudaGetLastError() after the launches.
+extern "C" int sb_depthwise_conv1d_dw(const void* x, const void* dy,
+                                      void* partial, void* dw, int B, int T,
+                                      int C, int K, int pad_left, int dtype,
+                                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K == 0 || C == 0) return 0;
+  if (dtype == 0) {
+    return launch_dw<float>(x, dy, (float*)partial, (float*)dw, B, T, C, K,
+                            pad_left, s);
+  }
+  if (dtype == 1) {
+    return launch_dw<__nv_bfloat16>(x, dy, (float*)partial, (float*)dw, B, T,
+                                    C, K, pad_left, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, bias and out share it).
 // bias may be null.  Returns cudaGetLastError() after the launch.

@@ -2,12 +2,16 @@
 
 Counterpart of ``speechbrain_tpu/lobes/models/transformer/Conformer.py``
 (``ConvolutionModule``, ``ConformerEncoderLayer``, ``ConformerEncoder``),
-eval mode.  LayerNorms use eps 1e-6, Flax's default.
+in eval and training mode.  LayerNorms use eps 1e-6, Flax's default.
+``dropout`` sits where the JAX modules put it: on the convolution
+module's output (before the output mask), after each half-FFN and after
+the attention, plus the FFNs' and the attention weights' own dropout.
 """
 
 import torch
 
 from ....nnet.attention import PositionalwiseFeedForward, RelPosMHAXL
+from ....nnet.dropout import Dropout
 from ....nnet.linear import Linear
 from ....ops.depthwise_conv import depthwise_conv1d, depthwise_conv1d_plain
 
@@ -30,7 +34,8 @@ def _ln(norm, x):
 
 
 class ConvolutionModule(torch.nn.Module):
-    """LN -> Linear(2d) -> GLU -> depthwise conv -> LN -> swish -> Linear.
+    """LN -> Linear(2d) -> GLU -> depthwise conv -> LN -> swish -> Linear
+    -> dropout.
 
     Only the module OUTPUT is masked (padded frames still reach their
     neighbours through the depthwise conv, as in the reference).  The
@@ -43,7 +48,8 @@ class ConvolutionModule(torch.nn.Module):
     torch.Size([2, 7, 16])
     """
 
-    def __init__(self, input_size, kernel_size=31, bias=True, causal=False):
+    def __init__(self, input_size, kernel_size=31, bias=True, causal=False,
+                 dropout=0.0):
         super().__init__()
         d = input_size
         self.causal = causal
@@ -56,6 +62,7 @@ class ConvolutionModule(torch.nn.Module):
         )
         self.norm_mid = LayerNorm(d)
         self.pointwise_out = Linear(d, d, bias=bias)
+        self.drop = Dropout(dropout)
         torch.nn.init.normal_(self.depthwise_kernel, std=kernel_size ** -0.5)
 
     def forward(self, x, mask=None):
@@ -68,7 +75,7 @@ class ConvolutionModule(torch.nn.Module):
                  self.depthwise_bias, causal=self.causal)
         y = _ln(self.norm_mid, y)
         y = y * torch.sigmoid(y)  # swish
-        y = self.pointwise_out(y)
+        y = self.drop(self.pointwise_out(y))
         if mask is not None:
             y = y.masked_fill(mask[..., None], 0.0)
         return y
@@ -87,29 +94,33 @@ class ConformerEncoderLayer(torch.nn.Module):
     """
 
     def __init__(self, d_model, d_ffn, nhead, kernel_size=31, causal=False,
-                 activation="swish"):
+                 activation="swish", dropout=0.0):
         super().__init__()
         self.norm_ffn1 = LayerNorm(d_model)
-        self.ffn1 = PositionalwiseFeedForward(d_ffn, d_model, activation)
+        self.ffn1 = PositionalwiseFeedForward(d_ffn, d_model, activation,
+                                              dropout)
         self.norm_mha = LayerNorm(d_model)
-        self.mha = RelPosMHAXL(d_model, nhead)
-        self.conv = ConvolutionModule(d_model, kernel_size, causal=causal)
+        self.mha = RelPosMHAXL(d_model, nhead, dropout=dropout)
+        self.conv = ConvolutionModule(d_model, kernel_size, causal=causal,
+                                      dropout=dropout)
         self.norm_ffn2 = LayerNorm(d_model)
-        self.ffn2 = PositionalwiseFeedForward(d_ffn, d_model, activation)
+        self.ffn2 = PositionalwiseFeedForward(d_ffn, d_model, activation,
+                                              dropout)
         self.norm_out = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
 
     def forward(self, x, src_mask=None, src_key_padding_mask=None,
                 pos_embs=None):
         """x: (B, T, d); returns (x, attention weights or None)."""
-        x = x + 0.5 * self.ffn1(_ln(self.norm_ffn1, x))
+        x = x + 0.5 * self.drop(self.ffn1(_ln(self.norm_ffn1, x)))
         a = _ln(self.norm_mha, x)
         attn_out, attn_w = self.mha(
             a, a, a, pos_embs, key_padding_mask=src_key_padding_mask,
             attn_mask=src_mask,
         )
-        x = x + attn_out
+        x = x + self.drop(attn_out)
         x = x + self.conv(x, mask=src_key_padding_mask)
-        x = x + 0.5 * self.ffn2(_ln(self.norm_ffn2, x))
+        x = x + 0.5 * self.drop(self.ffn2(_ln(self.norm_ffn2, x)))
         return _ln(self.norm_out, x), attn_w
 
 
@@ -126,11 +137,11 @@ class ConformerEncoder(torch.nn.Module):
     """
 
     def __init__(self, num_layers, d_model, d_ffn, nhead, kernel_size=31,
-                 causal=False, activation="swish"):
+                 causal=False, activation="swish", dropout=0.0):
         super().__init__()
         self.layers = torch.nn.ModuleList(
             ConformerEncoderLayer(d_model, d_ffn, nhead, kernel_size, causal,
-                                  activation)
+                                  activation, dropout)
             for _ in range(num_layers)
         )
         self.norm_out = LayerNorm(d_model)

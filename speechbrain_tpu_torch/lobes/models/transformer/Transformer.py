@@ -3,7 +3,10 @@
 Counterpart of ``speechbrain_tpu/lobes/models/transformer/Transformer.py``
 (``PositionalEncoding``, ``get_key_padding_mask``, ``get_lookahead_mask``,
 ``NormalizedEmbedding``, ``TransformerDecoderLayer``,
-``TransformerDecoder``), eval mode.
+``TransformerDecoder``).  In training mode the full-sequence decoder
+applies ``dropout`` where the JAX layer does: after the self-attention,
+after the cross-attention and after the FFN, besides the attention
+weights' and the FFN's own.
 """
 
 import math
@@ -12,6 +15,7 @@ import numpy as np
 import torch
 
 from ....nnet.attention import MultiheadAttention, PositionalwiseFeedForward
+from ....nnet.dropout import Dropout
 from .Conformer import LayerNorm, _ln
 
 __all__ = [
@@ -119,15 +123,17 @@ class TransformerDecoderLayer(torch.nn.Module):
     """
 
     def __init__(self, d_ffn, nhead, d_model, activation="relu",
-                 normalize_before=False):
+                 normalize_before=False, dropout=0.0):
         super().__init__()
         self.normalize_before = normalize_before
-        self.self_attn = MultiheadAttention(nhead, d_model)
-        self.cross_attn = MultiheadAttention(nhead, d_model)
+        self.self_attn = MultiheadAttention(nhead, d_model, dropout)
+        self.cross_attn = MultiheadAttention(nhead, d_model, dropout)
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
         self.norm3 = LayerNorm(d_model)
-        self.ffn = PositionalwiseFeedForward(d_ffn, d_model, activation)
+        self.ffn = PositionalwiseFeedForward(d_ffn, d_model, activation,
+                                             dropout)
+        self.drop = Dropout(dropout)
 
     def _pre(self, norm, x):
         return _ln(norm, x) if self.normalize_before else x
@@ -167,13 +173,14 @@ class TransformerDecoderLayer(torch.nn.Module):
         out, self_attn_w = self.self_attn(
             x, x, x, key_padding_mask=tgt_key_padding_mask, attn_mask=tgt_mask,
         )
-        x = self._post(self.norm1, tgt + out)
+        x = self._post(self.norm1, tgt + self.drop(out))
         out, cross_attn_w = self.cross_attn(
             self._pre(self.norm2, x), memory, memory,
             key_padding_mask=memory_key_padding_mask,
         )
-        x = self._post(self.norm2, x + out)
-        x = self._post(self.norm3, x + self.ffn(self._pre(self.norm3, x)))
+        x = self._post(self.norm2, x + self.drop(out))
+        out = self.ffn(self._pre(self.norm3, x))
+        x = self._post(self.norm3, x + self.drop(out))
         return x, self_attn_w, cross_attn_w
 
 
@@ -195,12 +202,12 @@ class TransformerDecoder(torch.nn.Module):
     """
 
     def __init__(self, num_layers, nhead, d_ffn, d_model, activation="relu",
-                 normalize_before=False):
+                 normalize_before=False, dropout=0.0):
         super().__init__()
         self.d_model = d_model
         self.layers = torch.nn.ModuleList(
             TransformerDecoderLayer(d_ffn, nhead, d_model, activation,
-                                    normalize_before)
+                                    normalize_before, dropout)
             for _ in range(num_layers)
         )
         self.norm_out = LayerNorm(d_model)

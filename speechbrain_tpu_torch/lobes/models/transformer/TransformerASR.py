@@ -1,8 +1,9 @@
 """Joint CTC/attention ASR transformer with a conformer encoder.
 
 Counterpart of ``speechbrain_tpu/lobes/models/transformer/TransformerASR.py``
-(``encode``, ``decode``, ``decode_cache_init``, ``decode_step``) for the
-configuration the serving path uses: ``encoder_module="conformer"``,
+(``__call__`` as ``forward``, ``encode``, ``decode``,
+``decode_cache_init``, ``decode_step``) for the configuration the
+conformer recipes use: ``encoder_module="conformer"``,
 ``attention_type="RelPosMHAXL"``.  The CTC and seq2seq heads live
 outside, as in the JAX package.
 """
@@ -27,8 +28,10 @@ class TransformerASR(torch.nn.Module):
     """Input projection + conformer encoder + transformer decoder.
 
     Kept quirk of the reference: the decoder's absolute sine PE is also
-    added to the encoder states before cross-attention (``decode`` and
-    ``decode_cache_init``), while ``encode`` returns them raw.
+    added to the encoder states before cross-attention (``forward``,
+    ``decode`` and ``decode_cache_init``), and ``forward`` returns that
+    sum (the CTC head sees it in training), while ``encode`` returns
+    the states raw.  ``dropout`` is the encoder's and decoder's.
 
     Example
     -------
@@ -38,12 +41,16 @@ class TransformerASR(torch.nn.Module):
     >>> enc = net.encode(torch.ones(2, 9, 20), torch.ones(2))
     >>> net.decode(torch.zeros(2, 3, dtype=torch.long), enc)[0].shape
     torch.Size([2, 3, 16])
+    >>> enc, dec = net(torch.ones(2, 9, 20), torch.ones(2, 3, dtype=torch.long),
+    ...     torch.ones(2))
+    >>> enc.shape, dec.shape
+    (torch.Size([2, 9, 16]), torch.Size([2, 3, 16]))
     """
 
     def __init__(self, tgt_vocab, input_size, d_model=512, nhead=8,
                  num_encoder_layers=12, num_decoder_layers=6, d_ffn=2048,
                  activation="relu", normalize_before=False, kernel_size=31,
-                 causal=False, max_length=2500):
+                 causal=False, max_length=2500, dropout=0.0):
         super().__init__()
         self.custom_src_module = Linear(input_size, d_model)
         self.custom_tgt_module = NormalizedEmbedding(d_model, tgt_vocab)
@@ -51,15 +58,30 @@ class TransformerASR(torch.nn.Module):
         self.relpos_enc = RelPosEncXL(d_model)
         self.encoder = ConformerEncoder(
             num_encoder_layers, d_model, d_ffn, nhead, kernel_size, causal,
-            activation="swish",
+            activation="swish", dropout=dropout,
         )
         self.decoder = TransformerDecoder(
             num_decoder_layers, nhead, d_ffn, d_model, activation,
-            normalize_before,
+            normalize_before, dropout,
         )
 
-    def encode(self, src, wav_len=None):
-        """src: (B, T, input_size); wav_len: (B,) relative lengths."""
+    def forward(self, src, tgt, wav_len=None, pad_idx=0):
+        """Training forward: src (B, T, input_size), tgt (B, L) token ids
+        (positions equal to ``pad_idx`` are masked as keys), wav_len (B,)
+        relative lengths.  Returns ``(enc_out + PE, dec_out)``."""
+        enc_out, src_mask = self._encode(src, wav_len)
+        enc_out = enc_out + self.positional_encoding_mod(enc_out)
+        tgt_mask = get_lookahead_mask(tgt.shape[1], device=tgt.device)
+        tgt_emb = self.custom_tgt_module(tgt).to(enc_out.dtype)
+        tgt_emb = tgt_emb + self.positional_encoding_mod(tgt_emb)
+        dec_out, _, _ = self.decoder(
+            tgt_emb, enc_out, tgt_mask=tgt_mask,
+            tgt_key_padding_mask=tgt == pad_idx,
+            memory_key_padding_mask=src_mask,
+        )
+        return enc_out, dec_out
+
+    def _encode(self, src, wav_len):
         mask = None
         if wav_len is not None:
             mask = get_key_padding_mask(wav_len, src.shape[1])
@@ -67,7 +89,11 @@ class TransformerASR(torch.nn.Module):
         enc_out, _ = self.encoder(
             x, src_key_padding_mask=mask, pos_embs=self.relpos_enc(x)
         )
-        return enc_out
+        return enc_out, mask
+
+    def encode(self, src, wav_len=None):
+        """src: (B, T, input_size); wav_len: (B,) relative lengths."""
+        return self._encode(src, wav_len)[0]
 
     def decode(self, tgt, encoder_out, enc_lens=None):
         """Full-prefix decoder forward; returns (out, last cross-attn)."""

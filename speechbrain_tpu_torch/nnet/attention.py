@@ -8,10 +8,15 @@ replace scores with -65000 (``NEG_FILL``); softmax runs in float32.
 Each module that can reach a kernel has ``use_kernels`` (default True).
 With it, ``RelPosMHAXL`` routes long utterances to the rel-pos kernel
 under the JAX gate (T_q == T_k, T % 128 == 0, 512 <= T <= 1024, no
-attn_mask) with "the tensor is on CUDA" in place of "the backend is a
-TPU", and the decoder's self-attention step goes through
-``beam_attend_step``.  With it off, the same math runs through the plain
-PyTorch versions (used to check the kernels on the card).
+attn_mask, no attention dropout in training) with "the tensor is on
+CUDA" in place of "the backend is a TPU", and the decoder's
+self-attention step goes through ``beam_attend_step``.  With it off,
+the same math runs through the plain PyTorch versions (used to check
+the kernels on the card).
+
+Training mode (``module.train()``) applies dropout where the JAX modules
+do: to the attention weights (``RelPosMHAXL``, ``MultiheadAttention``)
+and after the FFN's activation (``PositionalwiseFeedForward``).
 """
 
 import math
@@ -25,6 +30,7 @@ from ..ops.beam_cache import (
     beam_attend_step_plain,
 )
 from ..ops.relpos_attention import relpos_attention
+from .dropout import Dropout
 from .linear import Linear
 
 __all__ = [
@@ -99,6 +105,7 @@ class RelPosMHAXL(torch.nn.Module):
     Bias-free q/k/v/pos projections (``q_proj``/``k_proj``/``v_proj``,
     concatenated into one (3d, d) matmul for self-attention), biased
     ``out_proj``, and ``pos_bias_u``/``pos_bias_v`` of shape (H, d_head).
+    ``dropout`` applies to the attention weights in training.
 
     Example
     -------
@@ -109,11 +116,14 @@ class RelPosMHAXL(torch.nn.Module):
     torch.Size([2, 6, 16])
     """
 
-    def __init__(self, embed_dim, num_heads, mask_pos_future=False):
+    def __init__(self, embed_dim, num_heads, mask_pos_future=False,
+                 dropout=0.0):
         super().__init__()
         self.embed_dim = embed_dim
         self.num_heads = num_heads
         self.mask_pos_future = mask_pos_future
+        self.dropout = dropout
+        self.attn_drop = Dropout(dropout)
         self.use_kernels = True
         self.q_proj = Linear(embed_dim, embed_dim, bias=False)
         self.k_proj = Linear(embed_dim, embed_dim, bias=False)
@@ -125,6 +135,9 @@ class RelPosMHAXL(torch.nn.Module):
         self.pos_bias_v = torch.nn.Parameter(torch.zeros(num_heads, d_head))
 
     def _kernel_ok(self, query, T_q, T_k, attn_mask):
+        # The JAX gate (speechbrain_tpu/nnet/attention.py): training with
+        # attention dropout takes the materialized path, which is the JAX
+        # semantics, not a fallback (the kernel has no dropout yet).
         return (
             self.use_kernels
             and query.device.type == "cuda"
@@ -132,6 +145,7 @@ class RelPosMHAXL(torch.nn.Module):
             and T_q % 128 == 0
             and 512 <= T_q <= 1024
             and attn_mask is None
+            and (self.dropout == 0.0 or not self.training)
         )
 
     def forward(self, query, key, value, pos_embs, key_padding_mask=None,
@@ -191,7 +205,7 @@ class RelPosMHAXL(torch.nn.Module):
             scores = scores.masked_fill(
                 (ar_k[None, :] > ar_q[:, None])[None, None], NEG_FILL
             )
-        attn = _softmax(scores, dt)
+        attn = self.attn_drop(_softmax(scores, dt))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         out = self.out_proj(out.reshape(B, T_q, self.embed_dim))
         return out, attn
@@ -201,7 +215,8 @@ class MultiheadAttention(torch.nn.Module):
     """Standard multi-head attention with biased q/k/v/out projections;
     scores scaled by 1/sqrt(d_head).
 
-    Modes: ``"full"`` (batched), ``"project_kv"`` (returns the projected
+    ``dropout`` applies to the attention weights of ``"full"`` mode in
+    training.  Modes: ``"full"`` (batched), ``"project_kv"`` (returns the projected
     (k, v) as (B, T, H, d_head), for cross-attention caches) and
     ``"step"`` (one token):
 
@@ -224,10 +239,12 @@ class MultiheadAttention(torch.nn.Module):
     (torch.Size([2, 5, 16]), torch.Size([2, 5, 5]))
     """
 
-    def __init__(self, nhead, d_model):
+    def __init__(self, nhead, d_model, dropout=0.0):
         super().__init__()
         self.nhead = nhead
         self.d_model = d_model
+        self.dropout = dropout
+        self.attn_drop = Dropout(dropout)
         self.use_kernels = True
         self.q_proj = Linear(d_model, d_model)
         self.k_proj = Linear(d_model, d_model)
@@ -261,7 +278,7 @@ class MultiheadAttention(torch.nn.Module):
             scores = scores.masked_fill(
                 key_padding_mask[:, None, None, :], NEG_FILL
             )
-        attn = _softmax(scores, query.dtype)
+        attn = self.attn_drop(_softmax(scores, query.dtype))
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(
             B, T_q, self.d_model
         )
@@ -332,9 +349,9 @@ class MultiheadAttention(torch.nn.Module):
 
 
 class PositionalwiseFeedForward(torch.nn.Module):
-    """Two-layer position-wise FFN: Linear -> activation -> Linear, with
-    the activations the conformer configs use ("relu" in the decoder,
-    "swish" in the encoder).
+    """Two-layer position-wise FFN: Linear -> activation -> dropout ->
+    Linear, with the activations the conformer configs use ("relu" in the
+    decoder, "swish" in the encoder).
 
     Example
     -------
@@ -342,16 +359,17 @@ class PositionalwiseFeedForward(torch.nn.Module):
     torch.Size([2, 5, 16])
     """
 
-    def __init__(self, d_ffn, d_model, activation="relu"):
+    def __init__(self, d_ffn, d_model, activation="relu", dropout=0.0):
         super().__init__()
         if activation not in ("relu", "swish"):
             raise ValueError(f"Unknown activation {activation}")
         self.activation = activation
         self.w_1 = Linear(d_model, d_ffn)
+        self.drop = Dropout(dropout)
         self.w_2 = Linear(d_ffn, d_model)
 
     def forward(self, x):
         """x: (..., d_model)."""
         h = self.w_1(x)
         h = F.relu(h) if self.activation == "relu" else h * torch.sigmoid(h)
-        return self.w_2(h)
+        return self.w_2(self.drop(h))

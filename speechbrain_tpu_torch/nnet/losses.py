@@ -1,0 +1,172 @@
+"""Sequence losses with the masked relative-length convention.
+
+Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
+``ctc_loss``, ``nll_loss``, ``kldiv_loss``): lengths are RELATIVE
+(batch,), padded positions are masked before the reduction, and the
+reductions keep the reference's definitions, quirks included.
+``ctc_loss`` runs on ``ops.ctc.ctc_loss_per_seq`` (the CTC kernels on
+CUDA tensors), or on its plain recursions with ``use_kernels=False``.
+"""
+
+import math
+
+import torch
+
+from ..ops.ctc import ctc_loss_per_seq, ctc_loss_per_seq_plain
+
+__all__ = ["compute_masked_loss", "ctc_loss", "nll_loss", "kldiv_loss"]
+
+
+def _sequence_mask(lengths, max_len, dtype):
+    abs_len = lengths.to(torch.float32) * max_len
+    ar = torch.arange(max_len, device=lengths.device)
+    return (ar[None, :] < abs_len[:, None]).to(dtype)
+
+
+def compute_masked_loss(loss_fn, predictions, targets, length=None,
+                        label_smoothing=0.0, reduction="mean"):
+    """Apply an elementwise loss, mask the padding, reduce.
+
+    ``loss_fn(predictions, targets)`` returns per-element losses of shape
+    (batch, time, ...), summed over trailing axes.  Reductions: ``mean``
+    (over unmasked elements), ``batchmean`` (sum / batch), ``batch``
+    (per sequence), ``sum``.  With ``label_smoothing`` the result mixes
+    in the masked mean of ``-mean(predictions, -1)``.
+
+    Example
+    -------
+    >>> lp = torch.log(torch.tensor([[[0.5, 0.5], [0.9, 0.1]]]))
+    >>> nll = lambda p, t: -p.gather(-1, t[..., None])[..., 0]
+    >>> round(float(compute_masked_loss(nll, lp, torch.tensor([[0, 0]]),
+    ...     torch.tensor([0.5]))), 4)
+    0.6931
+    """
+    per_elem = loss_fn(predictions, targets)
+    while per_elem.dim() > 2:
+        per_elem = per_elem.sum(-1)
+    B, T = per_elem.shape
+    if length is not None:
+        mask = _sequence_mask(length, T, per_elem.dtype)
+    else:
+        mask = torch.ones(B, T, dtype=per_elem.dtype, device=per_elem.device)
+    per_elem = per_elem * mask
+    if reduction == "mean":
+        loss = per_elem.sum() / mask.sum().clamp(min=1.0)
+    elif reduction == "batchmean":
+        loss = per_elem.sum() / B
+    elif reduction == "batch":
+        loss = per_elem.sum(1) / mask.sum(1).clamp(min=1.0)
+    elif reduction == "sum":
+        loss = per_elem.sum()
+    else:
+        raise ValueError(f"Unknown reduction {reduction}")
+    if label_smoothing > 0.0:
+        loss_reg = -predictions.mean(-1)
+        loss_reg = (loss_reg * mask).sum() / mask.sum().clamp(min=1.0)
+        loss = label_smoothing * loss_reg + (1 - label_smoothing) * loss
+    return loss
+
+
+def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
+             reduction="mean", use_kernels=True):
+    """CTC loss on (batch, time, labels) float32 log-probs with relative
+    lengths, rounded to frames and labels as ``round(rel * T)``.
+
+    Reductions: ``mean`` (each sequence divided by its label count, then
+    the batch mean), ``batchmean``, ``batch`` (per sequence, divided by
+    its label count), ``none``, ``sum``.  ``use_kernels=False`` runs the
+    plain recursions on any device (to check the kernels on the card).
+
+    Example
+    -------
+    >>> lp = torch.log_softmax(torch.zeros(1, 4, 3), -1)
+    >>> float(ctc_loss(lp, torch.tensor([[1, 2]]), torch.ones(1),
+    ...       torch.ones(1), blank_index=0)) > 0
+    True
+    """
+    B, T, C = log_probs.shape
+    U = targets.shape[1]
+    input_lengths = torch.round(input_lens.float() * T).to(torch.int32)
+    target_lengths = torch.round(target_lens.float() * U).to(torch.int32)
+    per_seq_fn = ctc_loss_per_seq if use_kernels else ctc_loss_per_seq_plain
+    per_seq = per_seq_fn(log_probs, targets, input_lengths, target_lengths,
+                         blank_index)
+    if reduction == "mean":
+        return (per_seq / target_lengths.clamp(min=1)).mean()
+    if reduction == "batchmean":
+        return per_seq.mean()
+    if reduction == "batch":
+        return per_seq / target_lengths.clamp(min=1)
+    if reduction == "none":
+        return per_seq
+    if reduction == "sum":
+        return per_seq.sum()
+    raise ValueError(f"Unknown reduction {reduction}")
+
+
+def nll_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
+             reduction="mean"):
+    """Negative log-likelihood of (B, T, C) log-probs at (B, T) ints.
+
+    Example
+    -------
+    >>> lp = torch.log(torch.tensor([[[0.9, 0.1]]]))
+    >>> round(float(nll_loss(lp, torch.tensor([[0]]))), 4)
+    0.1054
+    """
+    if log_probabilities.dim() == 2:
+        log_probabilities = log_probabilities[:, None, :]
+        targets = targets.reshape(targets.shape[0], 1)
+
+    def fn(pred, tgt):
+        return -pred.gather(-1, tgt.long()[..., None])[..., 0]
+
+    return compute_masked_loss(fn, log_probabilities, targets, length,
+                               label_smoothing, reduction)
+
+
+def kldiv_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
+               pad_idx=0, reduction="mean"):
+    """KL divergence to the label-smoothed one-hot of int targets.
+
+    The target distribution puts ``1 - label_smoothing`` on the target
+    and ``label_smoothing / (C - 1)`` on every other class; positions
+    whose target is ``pad_idx`` and positions past ``length`` are masked.
+    Reductions keep the reference's: ``mean`` is a GLOBAL SUM (the
+    reference's ``loss.sum().mean()``), ``batchmean`` that sum over the
+    batch size, ``batch`` each row's sum over its relative length.
+    Without smoothing it is ``nll_loss``.
+
+    Example
+    -------
+    >>> lp = torch.log_softmax(torch.zeros(1, 2, 4), -1)
+    >>> round(float(kldiv_loss(lp, torch.tensor([[1, 0]]),
+    ...     label_smoothing=0.1, reduction="batchmean")), 4)
+    0.9514
+    """
+    if label_smoothing <= 0:
+        return nll_loss(log_probabilities, targets, length,
+                        reduction=reduction)
+    if log_probabilities.dim() == 2:
+        log_probabilities = log_probabilities[:, None, :]
+    C = log_probabilities.shape[-1]
+    confidence = 1.0 - label_smoothing
+    fill = label_smoothing / (C - 1)
+    targets = targets.long()
+    # sum_c p_c (log p_c - log q_c), with p = fill except at the target
+    # (0 log 0 never occurs: fill > 0)
+    log_q_t = log_probabilities.gather(-1, targets[..., None])[..., 0]
+    per = (confidence * (math.log(confidence) - log_q_t)
+           + fill * ((C - 1) * math.log(fill)
+                     - (log_probabilities.sum(-1) - log_q_t)))
+    per = per * (targets != pad_idx).to(per.dtype)
+    if length is not None:
+        per = per * _sequence_mask(length, per.shape[1], per.dtype)
+    B = per.shape[0]
+    if reduction in ("mean", "sum"):
+        return per.sum()
+    if reduction == "batchmean":
+        return per.sum() / B
+    if reduction == "batch":
+        return per.reshape(B, -1).sum(1) / length
+    return per

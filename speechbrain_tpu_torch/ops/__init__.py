@@ -1,28 +1,60 @@
 """Hand-written CUDA kernels for Hopper, each with its plain PyTorch
 version and a launch counter (``<wrapper>.launches``).
 
-``depthwise_conv`` (conformer convolution module), ``relpos_attention``
-(long-utterance encoder attention) and ``beam_cache`` (beam-search
-decoder self-attention step).  ``_build`` compiles ``csrc/*.cu``.
+``depthwise_conv`` (conformer convolution module: forward and dx, and
+the taps' gradient), ``relpos_attention`` (long-utterance encoder
+attention, forward and backward), ``ctc`` (CTC loss: alpha, and beta
+with the gradient) and ``beam_cache`` (beam-search decoder
+self-attention step).  ``_build`` compiles ``csrc/*.cu``.
 """
 
 from .beam_cache import append_attend, beam_attend_step, beam_attend_step_plain
-from .depthwise_conv import depthwise_conv1d, depthwise_conv1d_plain
-from .relpos_attention import relpos_attention, relpos_attention_plain
+from .ctc import (
+    ctc_alpha,
+    ctc_alpha_plain,
+    ctc_beta_grad,
+    ctc_beta_grad_plain,
+    ctc_loss_per_seq,
+    ctc_loss_per_seq_plain,
+)
+from .depthwise_conv import (
+    depthwise_conv1d,
+    depthwise_conv1d_dw,
+    depthwise_conv1d_dw_plain,
+    depthwise_conv1d_plain,
+)
+from .relpos_attention import (
+    relpos_attention,
+    relpos_attention_bwd,
+    relpos_attention_bwd_plain,
+    relpos_attention_plain,
+)
 
 __all__ = [
     "append_attend",
     "beam_attend_step",
     "beam_attend_step_plain",
+    "ctc_alpha",
+    "ctc_alpha_plain",
+    "ctc_beta_grad",
+    "ctc_beta_grad_plain",
+    "ctc_loss_per_seq",
+    "ctc_loss_per_seq_plain",
     "depthwise_conv1d",
+    "depthwise_conv1d_dw",
+    "depthwise_conv1d_dw_plain",
     "depthwise_conv1d_plain",
     "relpos_attention",
+    "relpos_attention_bwd",
+    "relpos_attention_bwd_plain",
     "relpos_attention_plain",
     "launch_counters",
     "reset_launch_counters",
 ]
 
-_WRAPPERS = (depthwise_conv1d, relpos_attention, beam_attend_step)
+# every kernel wrapper, in the order of the repository's kernel table
+_WRAPPERS = (depthwise_conv1d, depthwise_conv1d_dw, ctc_alpha, ctc_beta_grad,
+             relpos_attention, relpos_attention_bwd, beam_attend_step)
 
 
 def launch_counters():

@@ -20,10 +20,10 @@ from pathlib import Path
 
 __all__ = [
     "KERNELS", "BUILD_DIR", "CSRC_DIR", "build", "load", "entry",
-    "dtype_code", "stream_of", "check_launch",
+    "dtype_code", "stream_of", "check_launch", "refuse_grad",
 ]
 
-KERNELS = ("depthwise_conv", "relpos_attention", "beam_cache")
+KERNELS = ("depthwise_conv", "relpos_attention", "ctc", "beam_cache")
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -111,14 +111,15 @@ def load(name):
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def entry(lib_name, fn_name, argtypes):
+def entry(lib_name, fn_name, argtypes, restype=ctypes.c_int):
     """C function ``fn_name`` of library ``lib_name`` with its argument
-    types declared; it returns ``cudaGetLastError()`` as an int."""
+    and result types declared (a launch returns ``cudaGetLastError()`` as
+    an int)."""
     fn = _LOADED.get((lib_name, fn_name))
     if fn is None:
         fn = getattr(load(lib_name), fn_name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _LOADED[(lib_name, fn_name)] = fn
     return fn
 
@@ -144,3 +145,17 @@ def check_launch(rc, what):
     """Raise if a kernel launch reported a CUDA error."""
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def refuse_grad(what, *tensors):
+    """Raise if autograd would record this call: the kernel behind it has
+    no backward of its own (it runs inside an autograd Function's
+    forward or backward, where grad mode is off), so a result without a
+    gradient must not pass silently."""
+    import torch
+
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward: call it under torch.no_grad(), or "
+            "call the differentiable function that uses it")

@@ -105,7 +105,14 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
     are cast to the cache dtype first, as in the JAX package (and made
     contiguous: they are one row each).  Counts
     kernel launches in ``beam_attend_step.launches``.
+
+    Decode only: the step has no backward, so it raises when an input
+    requires grad rather than return a result without a gradient.
     """
+    if any(t.requires_grad for t in (kv, q, k_new, v_new)):
+        raise RuntimeError(
+            "beam_attend_step is decode-only: call it under torch.no_grad()"
+        )
     q = q.to(kv.dtype).contiguous()
     k_new = k_new.to(kv.dtype).contiguous()
     v_new = v_new.to(kv.dtype).contiguous()

@@ -1,13 +1,19 @@
-"""Depthwise 1-d convolution (conformer convolution module), forward.
+"""Depthwise 1-d convolution (conformer convolution module), forward
+and backward.
 
 Counterpart of ``speechbrain_tpu/ops/pallas/depthwise_conv.py``:
 
     out[b,t,c] = sum_k w[k,c] * x[b, t+k-pad_left, c]  (+ bias[c])
+    dx         = the same convolution of dy with the flipped taps
+    dw[k,c]    = sum_{b,t} dy[b,t,c] * x[b, t+k-pad_left, c]   (f32)
+    dbias[c]   = sum_{b,t} dy[b,t,c]
 
 with centered padding ((K-1)//2, K-1-(K-1)//2) or causal padding
-(K-1, 0), f32 accumulation.  On a CUDA tensor ``depthwise_conv1d``
-launches the kernel in ``csrc/depthwise_conv.cu``; on a CPU tensor it
-runs ``depthwise_conv1d_plain``, the explicit K-tap shifted sum.
+(K-1, 0), f32 accumulation.  ``depthwise_conv1d`` is an autograd
+Function: on CUDA tensors its forward and dx launch the kernel
+``sb_depthwise_conv1d_fwd`` and its dw the kernel
+``sb_depthwise_conv1d_dw`` (both in ``csrc/depthwise_conv.cu``); on CPU
+tensors they run the plain versions beside them.
 """
 
 import torch
@@ -15,11 +21,28 @@ import torch.nn.functional as F
 
 from . import _build
 
-__all__ = ["depthwise_conv1d", "depthwise_conv1d_plain"]
+__all__ = [
+    "depthwise_conv1d",
+    "depthwise_conv1d_plain",
+    "depthwise_conv1d_dw",
+    "depthwise_conv1d_dw_plain",
+]
 
 
 def _pad(K, causal):
     return (K - 1, 0) if causal else ((K - 1) // 2, K - 1 - (K - 1) // 2)
+
+
+def _conv_plain(x, w, pad_left):
+    """K shifted multiply-adds in f32, zero taps outside [0, T)."""
+    K = w.shape[0]
+    T = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, pad_left, K - 1 - pad_left))
+    wf = w.float()
+    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for k in range(K):
+        acc = acc + xp[:, k : k + T] * wf[k]
+    return acc.to(x.dtype)
 
 
 def depthwise_conv1d_plain(x, w, bias=None, causal=False):
@@ -27,6 +50,7 @@ def depthwise_conv1d_plain(x, w, bias=None, causal=False):
 
     x : (B, T, C); w : (K, C); bias : (C,) or None.  Returns x's dtype;
     the bias is added after the cast, as the JAX package does.
+    Differentiable by autograd.
 
     Example
     -------
@@ -34,46 +58,40 @@ def depthwise_conv1d_plain(x, w, bias=None, causal=False):
     >>> depthwise_conv1d_plain(x, w)[0, :, 0].tolist()
     [2.0, 3.0, 3.0, 3.0, 3.0, 3.0, 3.0, 2.0]
     """
-    K = w.shape[0]
-    T = x.shape[1]
-    left, right = _pad(K, causal)
-    xp = F.pad(x.float(), (0, 0, left, right))
-    wf = w.float()
-    acc = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for k in range(K):
-        acc = acc + xp[:, k : k + T] * wf[k]
-    out = acc.to(x.dtype)
+    out = _conv_plain(x, w, _pad(w.shape[0], causal)[0])
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out
 
 
-def depthwise_conv1d(x, w, bias=None, causal=False):
-    """Depthwise conv, same-length output; the kernel on CUDA tensors.
+def depthwise_conv1d_dw_plain(x, dy, K, causal=False):
+    """Plain version of the taps' gradient: the K-tap sum over (b, t) in
+    f32.  x, dy : (B, T, C); returns (K, C) float32.
 
-    ``w`` and ``bias`` are cast to ``x``'s dtype (float32 or bfloat16);
-    the kernel accumulates in f32 and adds the bias before its single
-    rounding.  Counts its launches in ``depthwise_conv1d.launches``.
+    Example
+    -------
+    >>> x = torch.ones(1, 4, 2); dy = torch.ones(1, 4, 2)
+    >>> depthwise_conv1d_dw_plain(x, dy, 3)[:, 0].tolist()
+    [3.0, 4.0, 3.0]
     """
-    if x.device.type == "cpu":
-        return depthwise_conv1d_plain(x, w, bias, causal)
-    if x.device.type != "cuda":
-        raise RuntimeError(f"depthwise_conv1d: unsupported device {x.device}")
+    T = x.shape[1]
+    left, right = _pad(K, causal)
+    xp = F.pad(x.float(), (0, 0, left, right))
+    dyf = dy.float()
+    return torch.stack([(xp[:, k : k + T] * dyf).sum((0, 1)) for k in range(K)])
+
+
+def _check(x, w, name):
     if x.dim() != 3 or w.dim() != 2 or w.shape[1] != x.shape[2]:
         raise ValueError(
-            f"depthwise_conv1d: x (B, T, C) and w (K, C), got "
+            f"{name}: x (B, T, C) and w (K, C), got "
             f"{tuple(x.shape)} and {tuple(w.shape)}"
         )
-    code = _build.dtype_code(x)
-    if not x.is_contiguous():
-        raise ValueError("depthwise_conv1d: x must be contiguous")
-    w = w.to(device=x.device, dtype=x.dtype).contiguous()
-    if bias is not None:
-        if bias.shape != (x.shape[2],):
-            raise ValueError("depthwise_conv1d: bias must be (C,)")
-        bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
+
+
+def _fwd_kernel(x, w, bias, pad_left):
+    """Launch K1 on CUDA tensors of one dtype (checked by the caller)."""
     B, T, C = x.shape
-    K = w.shape[0]
     out = torch.empty_like(x)
     fn = _build.entry(
         "depthwise_conv", "sb_depthwise_conv1d_fwd",
@@ -82,7 +100,7 @@ def depthwise_conv1d(x, w, bias=None, causal=False):
     rc = fn(
         x.data_ptr(), w.data_ptr(),
         bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), B, T, C, K, _pad(K, causal)[0], code,
+        out.data_ptr(), B, T, C, w.shape[0], pad_left, _build.dtype_code(x),
         _build.stream_of(x),
     )
     _build.check_launch(rc, "depthwise_conv1d")
@@ -90,4 +108,102 @@ def depthwise_conv1d(x, w, bias=None, causal=False):
     return out
 
 
+def depthwise_conv1d_dw(x, dy, K, causal=False):
+    """Taps' gradient dw (K, C) float32 of ``x`` (B, T, C) and ``dy``
+    (B, T, C); the kernel on CUDA tensors (x and dy of one dtype,
+    float32 or bfloat16), ``depthwise_conv1d_dw_plain`` on the CPU.
+    Counts its launches in ``depthwise_conv1d_dw.launches``.
+    """
+    if x.device.type == "cpu":
+        return depthwise_conv1d_dw_plain(x, dy, K, causal)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"depthwise_conv1d_dw: unsupported device {x.device}")
+    _build.refuse_grad("depthwise_conv1d_dw", x, dy)
+    if dy.shape != x.shape or dy.dtype != x.dtype or x.dim() != 3:
+        raise ValueError("depthwise_conv1d_dw: x and dy must be (B, T, C) "
+                         "of one dtype")
+    if not 1 <= K <= 1024:
+        raise ValueError(f"depthwise_conv1d_dw: K={K} outside [1, 1024]")
+    x, dy = x.contiguous(), dy.contiguous()
+    B, T, C = x.shape
+    n_chunks = _build.entry(
+        "depthwise_conv", "sb_depthwise_conv1d_dw_chunks", [_build.I] * 2
+    )(B, T)
+    partial = torch.empty(max(n_chunks, 1) * K * C, dtype=torch.float32,
+                          device=x.device)
+    dw = torch.empty(K, C, dtype=torch.float32, device=x.device)
+    fn = _build.entry(
+        "depthwise_conv", "sb_depthwise_conv1d_dw",
+        [_build.P] * 4 + [_build.I] * 6 + [_build.P],
+    )
+    rc = fn(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+            B, T, C, K, _pad(K, causal)[0], _build.dtype_code(x),
+            _build.stream_of(x))
+    _build.check_launch(rc, "depthwise_conv1d_dw")
+    depthwise_conv1d_dw.launches += 1
+    return dw
+
+
+class _DepthwiseConv1d(torch.autograd.Function):
+    """Forward K1 (+ bias); backward dx = K1 on the flipped taps with the
+    complementary left padding, dw = K2, dbias = sum of dy.  ``kernel``
+    selects the CUDA kernels (True) or the plain versions (False)."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, causal, kernel):
+        ctx.save_for_backward(x, w)
+        ctx.causal, ctx.kernel = causal, kernel
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        left = _pad(w.shape[0], causal)[0]
+        if kernel:
+            return _fwd_kernel(x, w, bias, left)
+        return depthwise_conv1d_plain(x, w, bias, causal)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        K = w.shape[0]
+        dy = dy.contiguous()
+        dx = dw = dbias = None
+        if ctx.needs_input_grad[0]:
+            left = K - 1 - _pad(K, ctx.causal)[0]
+            w_flip = w.flip(0).contiguous()
+            dx = (_fwd_kernel(dy, w_flip, None, left) if ctx.kernel
+                  else _conv_plain(dy, w_flip, left))
+        if ctx.needs_input_grad[1]:
+            dw = (depthwise_conv1d_dw if ctx.kernel
+                  else depthwise_conv1d_dw_plain)(x, dy, K, ctx.causal)
+            dw = dw.to(w.dtype)
+        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
+            dbias = dy.float().sum((0, 1)).to(ctx.bias_dtype)
+        return dx, dw, dbias, None, None
+
+
+def depthwise_conv1d(x, w, bias=None, causal=False):
+    """Depthwise conv, same-length output, differentiable; the kernels
+    on CUDA tensors.
+
+    ``w`` and ``bias`` are cast to ``x``'s dtype (float32 or bfloat16)
+    before the call, so their gradients come back in their own dtypes;
+    the kernel accumulates in f32 and adds the bias before its single
+    rounding.  Counts kernel launches (forward and dx) in
+    ``depthwise_conv1d.launches``.
+    """
+    if x.device.type == "cpu":
+        return _DepthwiseConv1d.apply(x, w, bias, causal, False)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"depthwise_conv1d: unsupported device {x.device}")
+    _check(x, w, "depthwise_conv1d")
+    _build.dtype_code(x)
+    if not x.is_contiguous():
+        raise ValueError("depthwise_conv1d: x must be contiguous")
+    w = w.to(device=x.device, dtype=x.dtype).contiguous()
+    if bias is not None:
+        if bias.shape != (x.shape[2],):
+            raise ValueError("depthwise_conv1d: bias must be (C,)")
+        bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
+    return _DepthwiseConv1d.apply(x, w, bias, causal, True)
+
+
 depthwise_conv1d.launches = 0
+depthwise_conv1d_dw.launches = 0

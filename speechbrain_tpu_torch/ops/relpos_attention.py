@@ -1,22 +1,34 @@
-"""Attention with the Transformer-XL relative-position bias, forward.
+"""Attention with the Transformer-XL relative-position bias, forward and
+backward.
 
 Counterpart of ``speechbrain_tpu/ops/pallas/relpos_attention.py``:
 
     s[q,k] = ((q + u) . k_k + (q + vb) . p[T-1-q+k]) * scale + madd[k]
     (s = -1e9 where causal and k > q), out = softmax(s) @ v  (f32)
 
-On a CUDA tensor ``relpos_attention`` launches the flash-style kernel in
-``csrc/relpos_attention.cu``, which never forms a (T, T) tensor; on a
-CPU tensor it runs ``relpos_attention_plain``, the materialized form
-(equal to the JAX ``relpos_attention_reference``).  Forward only: the
-backward belongs to the training slice.
+``relpos_attention`` is differentiable.  On CUDA tensors it is an
+autograd Function whose forward launches the flash-style kernel
+``sb_relpos_attention_fwd`` (which never forms a (T, T) tensor and also
+writes the per-row log-sum-exp) and whose backward launches
+``sb_relpos_attention_bwd`` (``relpos_attention_bwd``), both in
+``csrc/relpos_attention.cu``.  On CPU tensors it runs
+``relpos_attention_plain``, the materialized form (equal to the JAX
+``relpos_attention_reference``), and autograd differentiates it;
+``relpos_attention_bwd_plain`` is that gradient as a function.
 """
+
+import ctypes
 
 import torch
 
 from . import _build
 
-__all__ = ["relpos_attention", "relpos_attention_plain"]
+__all__ = [
+    "relpos_attention",
+    "relpos_attention_plain",
+    "relpos_attention_bwd",
+    "relpos_attention_bwd_plain",
+]
 
 NEG = -1e9
 BLOCK = 64  # query/key tile of the kernel: Tp must be a multiple
@@ -56,27 +68,37 @@ def relpos_attention_plain(q, k, v, p, u, vb, madd, scale, causal=False):
     return torch.einsum("bhqk,bhkd->bhqd", attn, vf)
 
 
-def relpos_attention(q, k, v, p, u, vb, madd, scale, causal=False):
-    """Rel-pos attention, (B, H, Tp, dh) layout; the kernel on CUDA.
+def relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale,
+                               causal=False):
+    """The six gradients (dq, dk, dv, dp, du, dvb) of ``sum(out * dout)``,
+    by autograd through ``relpos_attention_plain``, in float32.
 
-    q, k, v and p share a dtype (float32 or bfloat16); u, vb and madd
-    are used in float32.  On CUDA, Tp must be a multiple of 64 and dh
-    one of ``HEAD_DIMS``.  Returns (B, H, Tp, dh) float32.  Counts
-    kernel launches in ``relpos_attention.launches``.
+    Example
+    -------
+    >>> x = torch.randn(1, 1, 4, 8)
+    >>> grads = relpos_attention_bwd_plain(x, x, x, torch.randn(1, 7, 8),
+    ...     torch.zeros(1, 8), torch.zeros(1, 8), torch.zeros(1, 4),
+    ...     torch.ones(1, 1, 4, 8), 0.3)
+    >>> [tuple(g.shape) for g in grads][3:]
+    [(1, 7, 8), (1, 8), (1, 8)]
     """
-    if q.device.type == "cpu":
-        return relpos_attention_plain(q, k, v, p, u, vb, madd, scale, causal)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"relpos_attention: unsupported device {q.device}")
+    with torch.enable_grad():
+        leaves = [t.detach().float().requires_grad_(True)
+                  for t in (q, k, v, p, u, vb)]
+        out = relpos_attention_plain(*leaves, madd, scale, causal)
+        return torch.autograd.grad(out, leaves, dout.float())
+
+
+def _check(q, k, v, p, u, vb, madd):
     B, H, Tp, dh = q.shape
     T = (p.shape[1] + 1) // 2
-    code = _build.dtype_code(q)
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("relpos_attention: q, k, v must share a shape")
     if p.shape != (H, 2 * T - 1, dh) or T > Tp:
         raise ValueError("relpos_attention: p must be (H, 2T-1, dh), T <= Tp")
     if any(t.dtype != q.dtype for t in (k, v, p)):
         raise TypeError("relpos_attention: q, k, v, p must share a dtype")
+    _build.dtype_code(q)
     if Tp % BLOCK or dh not in HEAD_DIMS:
         raise ValueError(
             f"relpos_attention: needs Tp % {BLOCK} == 0 and dh in "
@@ -84,26 +106,125 @@ def relpos_attention(q, k, v, p, u, vb, madd, scale, causal=False):
         )
     if not all(t.is_contiguous() for t in (q, k, v, p)):
         raise ValueError("relpos_attention: q, k, v, p must be contiguous")
-    u = u.to(device=q.device, dtype=torch.float32).contiguous()
-    vb = vb.to(device=q.device, dtype=torch.float32).contiguous()
-    madd = madd.to(device=q.device, dtype=torch.float32).contiguous()
     if u.shape != (H, dh) or vb.shape != (H, dh) or madd.shape != (B, Tp):
         raise ValueError("relpos_attention: u, vb (H, dh), madd (B, Tp)")
+    return B, H, Tp, dh, T
+
+
+def _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal):
+    """K5: (out, lse) float32 from CUDA tensors checked by the caller."""
+    B, H, Tp, dh = q.shape
+    T = (p.shape[1] + 1) // 2
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Tp), dtype=torch.float32, device=q.device)
     fn = _build.entry(
         "relpos_attention", "sb_relpos_attention_fwd",
-        [_build.P] * 8 + [_build.I] * 5 + [_build.F, _build.I, _build.I,
+        [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.I, _build.I,
                                            _build.P],
     )
     rc = fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         u.data_ptr(), vb.data_ptr(), madd.data_ptr(), out.data_ptr(),
-        B, H, Tp, T, dh, float(scale), int(bool(causal)), code,
-        _build.stream_of(q),
+        lse.data_ptr(), B, H, Tp, T, dh, float(scale), int(bool(causal)),
+        _build.dtype_code(q), _build.stream_of(q),
     )
     _build.check_launch(rc, "relpos_attention")
     relpos_attention.launches += 1
-    return out
+    return out, lse
+
+
+def relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
+                         causal=False):
+    """K6: the gradients (dq, dk, dv, dp, du, dvb), float32, of
+    ``sum(out * dout)``.
+
+    ``lse`` (B, H, Tp) is the forward's per-row log-sum-exp and ``dsum``
+    (B, H, Tp) is ``sum(dout * out, -1)``; both feed the kernel, which
+    regenerates the scores from them.  On the CPU the plain version
+    (autograd through ``relpos_attention_plain``) runs and does not read
+    them.  Counts kernel launches in ``relpos_attention_bwd.launches``.
+    """
+    if q.device.type == "cpu":
+        return relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale,
+                                          causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"relpos_attention_bwd: unsupported device {q.device}")
+    B, H, Tp, dh, T = _check(q, k, v, p, u, vb, madd)
+    _build.refuse_grad("relpos_attention_bwd", q, k, v, p, u, vb, dout)
+    f32 = [t.to(device=q.device, dtype=torch.float32).contiguous()
+           for t in (u, vb, madd, dout, lse, dsum)]
+    if f32[3].shape != q.shape or f32[4].shape != (B, H, Tp) \
+            or f32[5].shape != (B, H, Tp):
+        raise ValueError("relpos_attention_bwd: dout (B, H, Tp, dh), lse and "
+                         "dsum (B, H, Tp)")
+    dq, dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
+                  for _ in range(3))
+    dp = torch.empty((H, 2 * T - 1, dh), dtype=torch.float32, device=q.device)
+    du, dvb = (torch.empty((H, dh), dtype=torch.float32, device=q.device)
+               for _ in range(2))
+    n_scratch = _build.entry(
+        "relpos_attention", "sb_relpos_attention_bwd_scratch", [_build.I] * 5,
+        restype=ctypes.c_longlong)(B, H, Tp, T, dh)
+    part = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+    fn = _build.entry(
+        "relpos_attention", "sb_relpos_attention_bwd",
+        [_build.P] * 17 + [_build.I] * 5 + [_build.F, _build.I, _build.I,
+                                            _build.P],
+    )
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
+        *(t.data_ptr() for t in f32),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp.data_ptr(),
+        du.data_ptr(), dvb.data_ptr(), part.data_ptr(),
+        B, H, Tp, T, dh, float(scale), int(bool(causal)),
+        _build.dtype_code(q), _build.stream_of(q),
+    )
+    _build.check_launch(rc, "relpos_attention_bwd")
+    relpos_attention_bwd.launches += 1
+    return dq, dk, dv, dp, du, dvb
+
+
+class _RelPosAttention(torch.autograd.Function):
+    """K5 forward (context + lse), K6 backward.  madd gets no gradient;
+    each gradient is returned in its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, p, u, vb, madd, scale, causal):
+        out, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal)
+        ctx.save_for_backward(q, k, v, p, u, vb, madd, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, p, u, vb, madd, out, lse = ctx.saved_tensors
+        dout = dout.float().contiguous()
+        dsum = (dout * out).sum(-1)  # outside the kernel, as in JAX
+        grads = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
+                                     ctx.scale, ctx.causal)
+        grads = [g.to(t.dtype) for g, t in zip(grads, (q, k, v, p, u, vb))]
+        return (*grads, None, None, None)
+
+
+def relpos_attention(q, k, v, p, u, vb, madd, scale, causal=False):
+    """Rel-pos attention, (B, H, Tp, dh) layout, differentiable; the
+    kernels on CUDA.
+
+    q, k, v and p share a dtype (float32 or bfloat16); u, vb and madd
+    are used in float32.  On CUDA, Tp must be a multiple of 64 and dh
+    one of ``HEAD_DIMS``.  Returns (B, H, Tp, dh) float32.  Counts
+    forward kernel launches in ``relpos_attention.launches``.
+    """
+    if q.device.type == "cpu":
+        return relpos_attention_plain(q, k, v, p, u, vb, madd, scale, causal)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"relpos_attention: unsupported device {q.device}")
+    u = u.to(device=q.device, dtype=torch.float32).contiguous()
+    vb = vb.to(device=q.device, dtype=torch.float32).contiguous()
+    madd = madd.to(device=q.device, dtype=torch.float32).contiguous()
+    _check(q, k, v, p, u, vb, madd)
+    return _RelPosAttention.apply(q, k, v, p, u, vb, madd, scale, causal)
 
 
 relpos_attention.launches = 0
+relpos_attention_bwd.launches = 0

@@ -1,5 +1,5 @@
 """Feature extraction: STFT, power spectrum, mel filterbank, and
-eval-mode global input normalization.
+global input normalization (eval, and training with statistic updates).
 
 Counterpart of ``speechbrain_tpu/processing/features.py``.  The STFT is
 the same chunked-frame DFT matmul as the JAX package's "matmul" backend
@@ -266,27 +266,76 @@ class GlobalNormState:
 
 
 class InputNormalization(torch.nn.Module):
-    """Global mean/variance normalization, eval mode: ``(x - mean) / std``
-    with the stored statistics (buffers ``mean``, ``std``, ``count``).
+    """Global mean/variance normalization: ``(x - mean) / std`` with the
+    stored statistics (buffers ``count``, ``mean``, ``std``).
 
-    This is what the JAX ``InputNormalization(norm_type="global")``
-    computes at ``training=False``; ``bridge.input_norm_state_dict``
-    loads its stored state.  Updating the statistics is training work
-    and is not part of this port yet.
+    Counterpart of the JAX ``InputNormalization(norm_type="global")``.
+    In eval mode the stored statistics are used as they are.  In
+    training mode (``module.train()``) each call first updates them from
+    the batch, as the JAX call does at ``training=True``:
+
+    - per sentence, the mean and the Bessel-corrected std over its first
+      ``round(length * T)`` frames (std floored at ``epsilon``), then
+      their means over the batch;
+    - the first training batch sets the statistics; later ones blend in
+      with weight ``1 / (count + 1)`` while ``epoch <
+      update_until_epoch``, and not at all after that;
+    - ``count`` rises by one on every training batch;
+
+    and normalizes with the updated statistics.  The statistics are not
+    differentiated (detached, as in the reference).  ``state()`` returns
+    them as the JAX call returns its new state.
 
     Example
     -------
-    >>> norm = InputNormalization(3)
+    >>> norm = InputNormalization(3).eval()
     >>> norm(torch.ones(1, 2, 3)).shape
     torch.Size([1, 2, 3])
+    >>> _ = norm.train()(torch.arange(12.0).reshape(2, 2, 3), torch.ones(2))
+    >>> norm.state()["mean"].tolist(), float(norm.count)
+    ([4.5, 5.5, 6.5], 1.0)
     """
 
-    def __init__(self, dim):
+    def __init__(self, dim, update_until_epoch=3, epsilon=1e-10):
         super().__init__()
+        self.update_until_epoch = update_until_epoch
+        self.epsilon = epsilon
         state = GlobalNormState.init(dim)
         for name, value in state.items():
             self.register_buffer(name, value)
 
-    def forward(self, x, lengths=None):
-        """x: (batch, frames, dim); ``lengths`` is unused in eval mode."""
+    def _batch_stats(self, x, lengths):
+        """Means over the batch of the per-sentence mean and std."""
+        T = x.shape[1]
+        n = torch.round(lengths.float() * T)  # (B,)
+        mask = (torch.arange(T, device=x.device)[None, :] < n[:, None])
+        mask = mask.to(x.dtype)[..., None]
+        mean = (x * mask).sum(1) / n.clamp(min=1.0)[:, None]
+        ss = (((x - mean[:, None, :]) * mask) ** 2).sum(1)
+        std = torch.sqrt(ss.clamp(min=1e-20) / (n - 1.0).clamp(min=1.0)[:, None])
+        std = std.clamp(min=self.epsilon)
+        return mean.mean(0), std.mean(0)
+
+    @torch.no_grad()
+    def _update(self, x, lengths, epoch):
+        cur_mean, cur_std = self._batch_stats(x.float(), lengths)
+        w = 1.0 / (self.count + 1.0)
+        in_window = 1.0 if epoch < self.update_until_epoch else 0.0
+        blend = torch.where(self.count == 0, torch.ones_like(w), in_window * w)
+        self.mean.copy_((1.0 - blend) * self.mean + blend * cur_mean)
+        self.std.copy_((1.0 - blend) * self.std + blend * cur_std)
+        self.count.add_(1.0)
+
+    def forward(self, x, lengths=None, epoch=0):
+        """x: (batch, frames, dim); ``lengths`` (batch,) relative, needed
+        in training; ``epoch`` is the current epoch (training only)."""
+        if self.training:
+            if lengths is None:
+                raise ValueError("InputNormalization in training needs lengths")
+            self._update(x, lengths, epoch)
         return (x - self.mean) / self.std
+
+    def state(self):
+        """The statistics as a ``GlobalNormState`` dict (copies)."""
+        return {k: getattr(self, k).detach().clone()
+                for k in ("count", "mean", "std")}

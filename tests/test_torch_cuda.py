@@ -95,6 +95,133 @@ def test_relpos_mha_routes_long_inputs_to_the_kernel(gen, T):
     torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_depthwise_conv1d_backward_kernels(gen, dtype, causal):
+    """K1 on flipped taps (dx) and K2 (dw) inside the autograd Function
+    against autograd through the plain version."""
+    x = torch.randn(4, 45, 150, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(9, 150, device="cuda", generator=gen) / 3).to(dtype)
+    b = torch.randn(150, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(4, 45, 150, device="cuda", generator=gen).to(dtype)
+    grads = []
+    for fn in (ops.depthwise_conv1d, ops.depthwise_conv1d_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        before = (ops.depthwise_conv1d.launches, ops.depthwise_conv1d_dw.launches)
+        fn(*leaves, causal=causal).backward(dy)
+        grads.append([t.grad.float() for t in leaves])
+        if fn is ops.depthwise_conv1d:
+            assert (ops.depthwise_conv1d.launches,
+                    ops.depthwise_conv1d_dw.launches) == (before[0] + 2, before[1] + 1)
+    # f32: sums in other orders; bf16: both round dx, dw and dbias once
+    # from f32 sums, at most a bf16 ulp or two of each gradient's scale
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for got, ref in zip(*grads):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_conv1d_dw_kernel(gen, dtype):
+    x = torch.randn(3, 70, 130, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(3, 70, 130, device="cuda", generator=gen).to(dtype)
+    for causal in (False, True):
+        got = ops.depthwise_conv1d_dw(x, dy, 31, causal)
+        ref = ops.depthwise_conv1d_dw_plain(x, dy, 31, causal)
+        assert got.dtype == torch.float32
+        # the same f32 products, summed in other orders
+        torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("blank", [0, 5])
+def test_ctc_kernels(gen, blank):
+    """K3 (alpha, loss) and K4 (gradient) against the plain recursions,
+    float32, with ragged lengths, repeated labels and U_b = 0."""
+    B, T, C, U = 6, 50, 40, 9
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
+    tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
+    tg[tg == blank] = blank + 1
+    tg[:, 3] = tg[:, 2]
+    tlen = torch.tensor([50, 31, 44, 50, 20, 9], device="cuda")
+    ulen = torch.tensor([9, 5, 9, 0, 7, 3], device="cuda")
+    tg[1, 5:] = C + 7  # padding past U_b may hold anything
+    tg[3] = -1
+    g = torch.randn(B, device="cuda", generator=gen)
+    alpha, loss, logz = ops.ctc_alpha(lp, tg, tlen, ulen, blank)
+    alpha_p, loss_p, logz_p = ops.ctc_alpha_plain(lp, tg, tlen, ulen, blank)
+    torch.testing.assert_close(loss, loss_p, atol=1e-4, rtol=1e-5)
+    dlp = ops.ctc_beta_grad(lp, tg, tlen, ulen, blank, alpha, logz, g)
+    dlp_p = ops.ctc_beta_grad_plain(lp, tg, tlen, ulen, blank, alpha_p, logz_p, g)
+    # the same recursion; exp/log1p of the two libraries differ in ulps
+    torch.testing.assert_close(dlp, dlp_p, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,Tp", [(128, 128), (100, 128), (512, 512)])
+def test_relpos_attention_backward_kernel(gen, dtype, causal, T, Tp):
+    """K6 through the autograd Function against autograd through the
+    plain version: all six gradients, padded rows included."""
+    B, H, dh = 2, 3, 36
+    mk = lambda *s: (0.5 * torch.randn(*s, device="cuda", generator=gen)).to(dtype)  # noqa: E731
+    q, k, v, p = mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(H, 2 * T - 1, dh)
+    u, vb = mk(H, dh).float(), mk(H, dh).float()
+    madd = torch.zeros(B, Tp, device="cuda")
+    madd[:, T:] = -1e9
+    madd[1, T // 2:] = -65000.0
+    dout = torch.randn(B, H, Tp, dh, device="cuda", generator=gen)
+    dout[:, :, T:] = 0.0
+    grads = []
+    for fn in (ops.relpos_attention, ops.relpos_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, p, u, vb)]
+        before = ops.relpos_attention_bwd.launches
+        fn(*leaves, madd, 0.1, causal).backward(dout)
+        grads.append([t.grad.float() for t in leaves])
+        if fn is ops.relpos_attention:
+            assert ops.relpos_attention_bwd.launches == before + 1
+    # f32 arithmetic from the same stored values; the gradients come back
+    # in the inputs' dtype (bf16: one rounding of each)
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, ref in zip(*grads):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+def test_every_kernel_wrapper_keeps_the_graph(gen):
+    """On CUDA inputs that require grad, each differentiable wrapper's
+    result requires grad (the kernels sit inside autograd Functions);
+    the decode-only beam step refuses such inputs."""
+    x = torch.randn(2, 9, 4, device="cuda", generator=gen, requires_grad=True)
+    assert ops.depthwise_conv1d(x, torch.randn(3, 4, device="cuda")).requires_grad
+    q = torch.randn(1, 1, 64, 16, device="cuda", generator=gen, requires_grad=True)
+    p = torch.randn(1, 127, 16, device="cuda", generator=gen)
+    z = torch.zeros(1, 16, device="cuda")
+    out = ops.relpos_attention(q, q, q, p, z, z, torch.zeros(1, 64, device="cuda"), 0.25)
+    assert out.requires_grad
+    out.sum().backward()
+    assert q.grad is not None
+    lp = torch.log_softmax(torch.randn(1, 6, 4, device="cuda", generator=gen), -1)
+    lp.requires_grad_(True)
+    loss = ops.ctc_loss_per_seq(lp, torch.tensor([[1, 2]], device="cuda"),
+                                torch.tensor([6], device="cuda"),
+                                torch.tensor([2], device="cuda"), 0)
+    assert loss.requires_grad
+    loss.sum().backward()
+    assert lp.grad is not None
+    # the kernels that exist only inside a backward refuse to be recorded
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.depthwise_conv1d_dw(x, x, 3)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.ctc_alpha(lp, torch.tensor([[1, 2]], device="cuda"),
+                      torch.tensor([6], device="cuda"),
+                      torch.tensor([2], device="cuda"))
+    kv = torch.zeros(2, 8, 8, device="cuda")
+    with pytest.raises(RuntimeError, match="decode-only"):
+        ops.beam_attend_step(kv, torch.zeros(2, dtype=torch.long, device="cuda"),
+                             kv[:, :, 0].clone().requires_grad_(True),
+                             kv[:, :, 0], kv[:, :, 0], 1, 2)
+
+
 def test_wrappers_reject_bad_inputs(gen):
     x = torch.randn(2, 8, 4, device="cuda", generator=gen).to(torch.float16)
     with pytest.raises(TypeError):

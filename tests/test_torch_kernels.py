@@ -2,17 +2,21 @@
 against the JAX package's Pallas kernels (interpret mode) and their XLA
 references, on the same numpy inputs.
 
-Covers K1 ``depthwise_conv1d``, K5 ``relpos_attention`` (forward) and
-K7 ``beam_attend_step``.  On the card the CUDA kernels are held against
-these same plain versions by ``chip_smoke.py``.
+Covers K1 ``depthwise_conv1d`` and its backward (K1 on flipped taps
+for dx, K2 for dw), K3/K4 ``ctc_loss_per_seq``, K5/K6
+``relpos_attention`` (forward and backward) and K7 ``beam_attend_step``.
+On the card the CUDA kernels are held against these same plain versions
+by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from speechbrain_tpu.ops.pallas import beam_cache as jbc
+from speechbrain_tpu.ops.pallas import ctc as jctc
 from speechbrain_tpu.ops.pallas.depthwise_conv import (
     depthwise_conv1d as j_depthwise,
 )
@@ -23,6 +27,7 @@ from speechbrain_tpu.ops.pallas.relpos_attention import (
 from speechbrain_tpu_torch.ops import (
     append_attend,
     beam_attend_step,
+    ctc_loss_per_seq,
     depthwise_conv1d,
     relpos_attention,
 )
@@ -57,6 +62,105 @@ def test_depthwise_conv1d_matches_jax(shape, causal, with_bias):
     np.testing.assert_allclose(got, _np(xla), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape", [(2, 19, 16, 7), (4, 13, 136, 5)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_bias", [False, True])
+def test_depthwise_conv1d_backward_matches_jax(shape, causal, with_bias):
+    """dx, dw and dbias of the autograd Function (plain route) against
+    ``jax.grad`` of the Pallas kernel (interpret mode) and of the XLA
+    route.  C = 136 >= 128 makes the JAX wrapper pack its 8 remainder
+    channels; only the gradients are compared."""
+    B, T, C, K = shape
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = (rng.standard_normal((K, C)) / np.sqrt(K)).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
+    dy = rng.standard_normal((B, T, C)).astype(np.float32)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (x, w, b)]
+    out = depthwise_conv1d(leaves[0], leaves[1],
+                           leaves[2] if with_bias else None, causal=causal)
+    out.backward(torch.from_numpy(dy))
+    got = [t.grad.numpy() for t in leaves[:3 if with_bias else 2]]
+    for interpret in (True, False):
+        def f(x_, w_, b_):
+            y = j_depthwise(x_, w_, b_ if with_bias else None, causal=causal,
+                            interpret=interpret)
+            return jnp.sum(y * dy)
+
+        ref = jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, (x, w, b)))
+        # f32 sums of K (dx) or B*T (dw, dbias) products in other orders
+        for g, r in zip(got, ref):
+            np.testing.assert_allclose(g, _np(r), atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------- K3/K4
+
+
+def _ctc_inputs(blank, seed=1):
+    """Logits, labels (no blank, a repeated pair: the skip rule) and
+    ragged lengths with T_b < T and U_b < U, one sequence with U_b = 0.
+    B = 8: the JAX Pallas kernel takes the batch in blocks of 8."""
+    B, T, C, U = 8, 14, 7, 4
+    rng = np.random.default_rng(seed)
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    labels = [c for c in range(C) if c != blank]
+    tg = rng.choice(labels, size=(B, U)).astype(np.int32)
+    tg[0, 2] = tg[0, 1]
+    tg[3, 1] = tg[3, 0]
+    tb = np.array([14, 11, 9, 14, 6, 13, 8, 12], np.int32)
+    ub = np.array([4, 3, 2, 2, 0, 4, 1, 3], np.int32)
+    g = rng.standard_normal(B).astype(np.float32)
+    return logits, tg, tb, ub, g
+
+
+@pytest.mark.parametrize("blank", [0, 3])
+def test_ctc_loss_per_seq_matches_jax(blank):
+    """Per-sequence loss and the gradient w.r.t. the pre-softmax logits
+    of the port's plain recursions against the JAX optax route and the
+    JAX Pallas kernels (interpret mode), with a weight per sequence."""
+    logits, tg, tb, ub, g = _ctc_inputs(blank)
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    per = ctc_loss_per_seq(torch.log_softmax(lt, -1), torch.from_numpy(tg),
+                           torch.from_numpy(tb), torch.from_numpy(ub), blank)
+    (per * torch.from_numpy(g)).sum().backward()
+    for route in ("optax", "pallas"):
+        def f(lg):
+            lp = jax.nn.log_softmax(lg, -1)
+            if route == "pallas":
+                loss = jctc._ctc_pallas(lp, jnp.asarray(tg),
+                                        (jnp.asarray(tb), jnp.asarray(ub)),
+                                        blank, True)
+            else:
+                loss = jctc.ctc_loss_per_seq(lp, jnp.asarray(tg), tb, ub,
+                                             blank)
+            return jnp.sum(loss * g), loss
+
+        (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
+            jnp.asarray(logits))
+        # the same log-semiring recursion in f32; optax's runs in another
+        # order and form (its own logaddexp): 1e-4 on losses ~ 20
+        np.testing.assert_allclose(per.detach().numpy(), _np(j_per),
+                                   atol=1e-4, rtol=1e-5)
+        np.testing.assert_allclose(lt.grad.numpy(), _np(j_grad),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_ctc_plain_alpha_and_occupancy_are_consistent():
+    """Autograd through the plain alpha loop (the cross-check the
+    explicit beta pass stands beside) gives the explicit gradient."""
+    from speechbrain_tpu_torch.ops import ctc_alpha_plain, ctc_beta_grad_plain
+
+    logits, tg, tb, ub, g = _ctc_inputs(0, seed=4)
+    lp = torch.log_softmax(torch.from_numpy(logits), -1).requires_grad_(True)
+    args = (lp, torch.from_numpy(tg), torch.from_numpy(tb),
+            torch.from_numpy(ub))
+    alpha, loss, logz = ctc_alpha_plain(*args, 0)
+    (loss * torch.from_numpy(g)).sum().backward()
+    explicit = ctc_beta_grad_plain(*args, 0, alpha.detach(), logz.detach(),
+                                   torch.from_numpy(g))
+    torch.testing.assert_close(explicit, lp.grad, atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------------------- K5
 
 
@@ -87,6 +191,47 @@ def test_relpos_attention_matches_jax(T, Tp, causal):
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got[:, :, :T], kern[:, :, :T],
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("T,Tp", [(128, 128), (100, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_relpos_attention_backward_matches_jax(T, Tp, causal):
+    """The six gradients (q, k, v, p, u, vb) of the plain route against
+    ``jax.grad`` of the XLA reference and of the Pallas kernels
+    (interpret mode: K5 forward, K6 backward), padded rows included in
+    the inputs and masked out of the cotangent (the rows past T read
+    clipped positions)."""
+    B, H, dh = 2, 2, 16
+    rng = np.random.default_rng(T + 7 * Tp + causal)
+    mk = lambda *s: (0.5 * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    q, k, v = mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(B, H, Tp, dh)
+    p = mk(H, 2 * T - 1, dh)
+    u, vb = 0.2 * mk(H, dh), 0.2 * mk(H, dh)
+    madd = np.zeros((B, Tp), np.float32)
+    madd[:, T:] = -1e9
+    madd[1, T - T // 4:] = -65000.0
+    dout = mk(B, H, Tp, dh)
+    dout[:, :, T:] = 0.0
+    scale = 1.0 / np.sqrt(H * dh)
+    leaves = [torch.from_numpy(a).requires_grad_(True)
+              for a in (q, k, v, p, u, vb)]
+    out = relpos_attention(*leaves, torch.from_numpy(madd), scale, causal)
+    out.backward(torch.from_numpy(dout))
+    got = [t.grad.numpy() for t in leaves]
+    jargs = [jnp.asarray(a) for a in (q, k, v, p, u, vb)]
+    jmadd = jnp.asarray(madd)
+    for fn, tol in ((j_relpos_ref, 1e-4), (j_relpos, 3e-2)):
+        def f(*a):
+            return jnp.sum(fn(*a, jmadd, scale, causal) * dout)
+
+        ref = jax.grad(f, argnums=tuple(range(6)))(*jargs)
+        # f32 against the f32 reference (sums over up to B*T^2 terms);
+        # the Pallas kernels multiply in bf16 with f32 accumulation,
+        # hence the bf16-scale bound (as for the forward above)
+        for name, g_, r in zip("q k v p u vb".split(), got, ref):
+            r = _np(r)
+            err = np.abs(g_ - r).max() / max(1e-6, np.abs(r).max())
+            assert err <= tol, f"d{name}: relative max err {err} > {tol}"
 
 
 # ---------------------------------------------------------------- K7

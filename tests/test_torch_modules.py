@@ -87,7 +87,7 @@ def test_fbank_with_normalization_matches_jax():
         jfeats, jnp.asarray(lens),
         state={k: jnp.asarray(v) for k, v in state.items()}, training=False,
     )
-    norm = InputNormalization(40)
+    norm = InputNormalization(40).eval()
     norm.load_state_dict(bridge.input_norm_state_dict(state))
     feats = Fbank(n_mels=40)(_t(wav))
     y = norm(feats, _t(lens))
