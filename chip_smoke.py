@@ -31,8 +31,16 @@ Phases, each printing one JSON line when it ends:
 6. train_long -- the same step with dropout 0 on B = 8 utterances of
    20.44 s (T_enc = 512): the rel-pos kernels run forward and backward
    12 times per step; kernel vs plain gradients in f32.
+7. train_transducer -- ``ConformerTransducerBrain(CONFORMER_TRANSDUCER)``
+   (full width, dropout 0.1) takes 30 AdamW steps on B = 12 synthetic
+   10 s utterances with up to 40 tokens padded to 64, in bf16 then f32:
+   ms/step, utt/s, peak memory, the busy share of a profiled step,
+   launches per step (depthwise 24, its dw 12, RNN-T alpha 1 and beta 1),
+   finite losses that fall; ``evaluate_batch`` launches the alpha kernel
+   only; then one f32 step's loss and gradients through the kernels
+   against the plain versions (dropout 0).
 
-Then one ``{"kernels": [...]}`` line (launch counts from phases 3 to 6,
+Then one ``{"kernels": [...]}`` line (launch counts from phases 3 to 7,
 each counted from 0 just before its run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -501,6 +509,108 @@ def _check_beam_cache(dtype_name):
     }
 
 
+def _transducer_inputs(B, T, U, V, seed):
+    """Joint-network logits, labels 1..V-1 padded with the pad id 0 past
+    U_b, ragged frame counts and label counts of 28 to 40 (the training
+    batch's)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(B, T, U + 1, V, device="cuda", generator=g)
+    targets = torch.randint(1, V, (B, U), device="cuda", generator=g)
+    tlen = torch.tensor([T - 6 * (i % 5) for i in range(B)], device="cuda")
+    ulen = torch.tensor([min(U, 40) - 3 * (i % 5) for i in range(B)],
+                        device="cuda")
+    targets[torch.arange(U, device="cuda")[None, :] >= ulen[:, None]] = 0
+    return logits, targets, tlen, ulen
+
+
+def _check_transducer(U, role=None):
+    """K8 (alpha + final) and K9 (beta + occupancy gradients) at the
+    training shape (B 12, T 251, U 64: the recipe's token bucket, V 1000)
+    or the wide one (U 256, the top bucket: 257 threads, nine warps)
+    against their plain versions, float32; and the loss entry (tables,
+    K8, K9, fused softmax backward) against its plain route."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.ops import transducer as ot
+
+    B, T, V = 12, 251, 1000
+    logits, targets, tlen, ulen = _transducer_inputs(B, T, U, V, SEED + U)
+    with torch.no_grad():
+        tables = ot.transducer_tables(torch.log_softmax(logits, -1), targets,
+                                      0, tlen, ulen)
+    tl, ul = ot._validated(tlen, ulen, T, U, logits.device, "check")
+    alpha, final = ops.transducer_alpha(*tables, tlen, ulen)
+    alpha_p, final_p = ops.transducer_alpha_plain(*tables, tlen, ulen)
+    grads = ops.transducer_beta_grad(*tables, alpha, tlen, ulen, final)
+    grads_p = ops.transducer_beta_grad_plain(*tables, alpha_p, tlen, ulen,
+                                             final_p)
+    torch.cuda.synchronize()
+    # the same recursion, cell by cell in the same order on both routes;
+    # expf/logf differ in ulps.  |alpha| reaches ~2e3 (251 frames of
+    # log(1/1000)), where one f32 ulp is 1.2e-4: alpha and final relative
+    # 2e-5; the occupancies exp(alpha + beta - logZ) in [-1, 0] carry that
+    # error as a relative one
+    rel = max(_err(final, final_p) / float(final_p.abs().max()),
+              _err(alpha, alpha_p) / float(alpha_p.abs().max()))
+    grad_err = max(_err(a, b) for a, b in zip(grads, grads_p))
+    tol_rel, tol_grad = 2e-5, 2e-3
+    assert rel <= tol_rel, f"transducer alpha/final: rel err {rel} > {tol_rel}"
+    assert grad_err <= tol_grad, f"transducer grads: {grad_err} > {tol_grad}"
+    # the loss entry, kernels against plain, loss and d loss / d logits
+    out = []
+    for use_kernels in (True, False):
+        x = logits.clone().requires_grad_(True)
+        loss = ops.transducer_loss_logits(x, targets, tlen, ulen, 0,
+                                          use_kernels=use_kernels)
+        loss.sum().backward()
+        out.append((loss.detach(), x.grad))
+        del x
+    entry_err = {"loss_rel": _err(out[0][0], out[1][0])
+                 / float(out[1][0].abs().max()),
+                 "dlogits": _err(out[0][1], out[1][1])}
+    assert entry_err["loss_rel"] <= tol_rel and entry_err["dlogits"] <= tol_grad, (
+        entry_err)
+    del out
+    torch.cuda.empty_cache()
+    cells = B * T * (U + 1)
+    k8_bound = _bound_ms(4 * (2 * cells + B * T * U) + 12 * B, 12 * cells,
+                         "float32")
+    k9_bound = _bound_ms(4 * (2 * cells + B * T * U) + 4 * (cells + B * T * U)
+                         + 12 * B, 20 * cells, "float32")
+    x = logits.clone().requires_grad_(True)
+
+    def entry_fwd_bwd():
+        ops.transducer_loss_logits(x, targets, tlen, ulen, 0).sum().backward()
+
+    common = {"dtype": "float32", "shape": [B, T, U, V], "role": role,
+              "cells": cells, "library_ms": None,
+              "library": "none: no single call (PyTorch has no RNN-T loss)",
+              "tol_kind": "alpha/final relative, gradients absolute"}
+    chain = f"plus a chain of {T + U} dependent anti-diagonals"
+    rows = [
+        {"name": "transducer_alpha", **common, "max_abs_err": _err(alpha, alpha_p),
+         "max_rel_err": rel, "tol": tol_rel,
+         "ms": _time_ms(lambda: ot._alpha_kernel(*tables, tl, ul)),
+         "wrapper_ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen)),
+         "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
+             *tables, tlen, ulen), iters=3, warmup=1),
+         "bound_ms": k8_bound[0], "bound_by": k8_bound[1], "bound_note": chain},
+        {"name": "transducer_beta_grad", **common, "max_abs_err": grad_err,
+         "tol": tol_grad, "loss_entry_vs_plain": entry_err,
+         "ms": _time_ms(lambda: ot._beta_grad_kernel(*tables, alpha, tl, ul, final)),
+         "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
+             *tables, alpha_p, tlen, ulen, final_p), iters=3, warmup=1),
+         "loss_fwd_bwd_ms": _time_ms(entry_fwd_bwd, iters=5),
+         "bound_ms": k9_bound[0], "bound_by": k9_bound[1], "bound_note": chain},
+    ]
+    del x, logits
+    torch.cuda.empty_cache()
+    return rows
+
+
 # wrapper name -> (kernel source, the TPU kernel's pl.pallas_call, the
 # check record that gives its row: name and role)
 KERNEL_INFO = {
@@ -539,6 +649,16 @@ KERNEL_INFO = {
         "speechbrain_tpu/ops/pallas/beam_cache.py:184",
         ("beam_attend_step", None),
     ),
+    "transducer_alpha": (
+        "speechbrain_tpu_torch/csrc/transducer.cu",
+        "speechbrain_tpu/ops/pallas/transducer.py:253",
+        ("transducer_alpha", None),
+    ),
+    "transducer_beta_grad": (
+        "speechbrain_tpu_torch/csrc/transducer.cu",
+        "speechbrain_tpu/ops/pallas/transducer.py:311",
+        ("transducer_beta_grad", None),
+    ),
 }
 
 
@@ -555,6 +675,8 @@ def phase_kernels():
         records.append(_check_relpos_bwd(dtype_name))
         records.append(_check_beam_cache(dtype_name))
     records.extend(_check_ctc())
+    records.extend(_check_transducer(64))
+    records.extend(_check_transducer(256, role="wide"))
     for r in records:
         emit({"phase": "kernels", **r})
     return records
@@ -869,7 +991,8 @@ def _per_step(counts, steps):
 _N_ENC = 12
 TRAIN_LAUNCHES = {"depthwise_conv1d": 2 * _N_ENC, "depthwise_conv1d_dw": _N_ENC,
                   "ctc_alpha": 1, "ctc_beta_grad": 1, "relpos_attention": 0,
-                  "relpos_attention_bwd": 0, "beam_attend_step": 0}
+                  "relpos_attention_bwd": 0, "beam_attend_step": 0,
+                  "transducer_alpha": 0, "transducer_beta_grad": 0}
 TRAIN_LONG_LAUNCHES = dict(TRAIN_LAUNCHES, relpos_attention=_N_ENC,
                            relpos_attention_bwd=_N_ENC)
 
@@ -973,11 +1096,106 @@ def phase_train_long():
     return runs
 
 
+TRANSDUCER_LAUNCHES = dict(TRAIN_LAUNCHES, ctc_alpha=0, ctc_beta_grad=0,
+                           transducer_alpha=1, transducer_beta_grad=1)
+
+
+def _transducer_batch(B, samples, U, seed):
+    """B utterances of white noise (relative lengths 1.0 down to 0.725),
+    up to 40 random tokens each (ids 1..999) padded with 0 to U, their
+    relative counts, and tokens_blank = [blank] + tokens."""
+    from speechbrain_tpu_torch.asr import CONFORMER_TRANSDUCER
+
+    rng = np.random.default_rng(seed)
+    n_tok = 40 - 3 * (np.arange(B) % 5)
+    tokens = np.zeros((B, U), np.int64)
+    for b, n in enumerate(n_tok):
+        tokens[b, :n] = rng.integers(1, CONFORMER_TRANSDUCER["vocab_size"], n)
+    return {
+        "sig": rng.normal(size=(B, samples)).astype(np.float32),
+        "sig_lens": (1.0 - 0.025 * np.arange(B)).astype(np.float32),
+        "tokens": tokens, "tokens_lens": (n_tok / U).astype(np.float32),
+        "tokens_blank": np.concatenate([np.zeros((B, 1), np.int64), tokens], 1),
+    }
+
+
+def _transducer_brain(precision, dropout):
+    """``ConformerTransducerBrain(CONFORMER_TRANSDUCER)`` at full width
+    with the recipe's AdamW (0.9, 0.98, 1e-9, decay 1e-4), clip 5 and
+    Noam (8e-4, 25000 warm-up), the first step at 8e-4."""
+    from speechbrain_tpu_torch.asr import (
+        CONFORMER_TRANSDUCER, ConformerTransducerBrain)
+
+    cfg = dict(CONFORMER_TRANSDUCER, transformer_dropout=dropout)
+    return ConformerTransducerBrain(
+        cfg, seed=SEED, hparams={"lr": cfg["lr_adam"]},
+        run_opts={"precision": precision, "loss_sync_interval": 10})
+
+
+def phase_train_transducer():
+    """The transducer recipe's training step at full width: B = 12
+    synthetic 10 s utterances (the yaml's 120 s max_batch_length), tokens
+    padded to 64, dropout 0.1, 30 steps in bf16 then f32; evaluate_batch;
+    then kernel route vs plain route (f32, dropout 0)."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.core import Stage
+
+    B, samples, U, steps = 12, 160000, 64, 30
+    host_batch = _transducer_batch(B, samples, U, SEED + 2)
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        brain = _transducer_brain(precision, 0.1)
+        batch = brain.prepare_batch(host_batch)
+        brain.step = 1
+        first = float(brain.fit_batch(batch))  # warm-up, untimed
+        ops.reset_launch_counters()
+        ms, losses, peak = _run_steps(brain, batch, steps - 1)
+        counts = ops.launch_counters()
+        per_step = _per_step(counts, steps - 1)
+        assert per_step == TRANSDUCER_LAUNCHES, per_step
+        assert all(np.isfinite([first] + losses)), losses
+        assert losses[-1] < first, f"loss did not fall: {first} -> {losses[-1]}"
+        run = {"phase": "train_transducer", "precision": precision,
+               "batch": B, "seconds_audio": samples / 16000, "tokens_padded": U,
+               "tokens": host_batch["tokens_lens"].tolist(),
+               "transformer_dropout": 0.1, "steps": steps,
+               "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+               "peak_mem_bytes": peak, "launches": counts,
+               "launches_per_step": per_step,
+               "loss_first": first, "loss_last": losses[-1],
+               "profile": _profile_step(brain, batch)}
+        ops.reset_launch_counters()
+        eval_loss = brain.evaluate_batch(batch, Stage.VALID)
+        eval_counts = ops.launch_counters()
+        assert eval_counts == dict(TRANSDUCER_LAUNCHES, depthwise_conv1d=12,
+                                   depthwise_conv1d_dw=0,
+                                   transducer_beta_grad=0), eval_counts
+        assert np.isfinite(eval_loss)
+        run.update({"eval_loss": eval_loss, "eval_launches": eval_counts})
+        emit(run)
+        runs[precision] = run
+        del brain, batch
+        torch.cuda.empty_cache()
+    brain = _transducer_brain("fp32", 0.0)
+    batch = brain.prepare_batch(host_batch)
+    # f32 throughout; the routes differ in the depthwise taps' summation
+    # order and the lattice's exp/log implementations, 12 layers deep
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    run = {"phase": "train_transducer_check", "kernel_vs_plain": cmp}
+    emit(run)
+    runs["check"] = run
+    del brain, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
-    summed over the main-path runs (serve, long, train, train_long),
-    each counted from 0 just before its run."""
+    summed over the main-path runs (serve, long, train, train_long,
+    train_transducer), each counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -1000,7 +1218,8 @@ def kernels_line(records, main_runs):
                 "library_ms")
         if "bfloat16" in by_dtype:
             entry["bfloat16"] = {k: by_dtype["bfloat16"][k] for k in keys}
-        for r in records:  # the same kernel in another role (K1 as dx)
+        # the same kernel in another role (K1 as dx, the wide lattice)
+        for r in records:
             if r["name"] == rec_name and r.get("role", role) != role:
                 entry.setdefault(r["role"], {})[r["dtype"]] = {
                     k: r[k] for k in keys + ("shape",)}
@@ -1037,9 +1256,10 @@ def main():
     long_run = phase_long()
     train = phase_train()
     train_long = phase_train_long()
+    transducer = phase_train_transducer()
     main_runs = [serve["float32"], serve["bfloat16"], long_run,
                  train["bf16"], train["fp32"], train_long["fp32"],
-                 train_long["bf16"]]
+                 train_long["bf16"], transducer["bf16"], transducer["fp32"]]
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ nothing falls back to the CPU quietly (see ``device.py``).
 
 The port covers the conformer joint CTC/attention ASR model: serving
 (``asr.ConformerASR``) and the training step (``asr.ConformerASRBrain``
-on ``core.Brain``).
+on ``core.Brain``); and the conformer-transducer's training step
+(``asr.ConformerTransducerBrain``, the RNN-T loss in ``ops.transducer``).
 """
 
 __all__ = ["asr", "bridge", "core", "device"]

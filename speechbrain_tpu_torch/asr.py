@@ -1,5 +1,6 @@
-"""Entry points of the joint CTC/attention conformer ASR: serving and
-the training step.
+"""Entry points of the conformer ASR models: the joint CTC/attention
+model (serving and the training step) and the conformer-transducer
+(the training step).
 
 ``ConformerASR`` chains Fbank -> global input normalization -> conv
 front end -> ``TransformerASR`` (conformer encoder, transformer
@@ -10,6 +11,15 @@ the same modules with the recipe's step
 (``recipes/LibriSpeech/ASR/transformer/train.py``, without SpecAugment
 and the WER search).  Weights are random from a seed, or loaded with
 ``load_state_dict`` from ``bridge.py``'s output; nothing is downloaded.
+
+``ConformerTransducer`` chains the same features, front end and
+conformer encoder (no decoder) with ``enc_lin``, the prediction network
+(``emb`` -> one-layer ``GRU`` -> ``dec_lin``), the sum joiner with tanh
+and ``out_lin``; ``ConformerTransducerBrain`` trains it with the
+LibriSpeech transducer recipe's step
+(``recipes/LibriSpeech/ASR/transducer/train.py:27-100``, without
+SpecAugment and the test-stage search) on the RNN-T loss, whose lattice
+runs in the kernels K8/K9 on the card.
 """
 
 import math
@@ -22,12 +32,17 @@ from .device import resolve_device
 from .lobes.features import Fbank
 from .lobes.models.convolution import ConvolutionFrontEnd
 from .lobes.models.transformer.TransformerASR import TransformerASR
+from .nnet.embedding import Embedding
 from .nnet.linear import Linear
-from .nnet.losses import ctc_loss, kldiv_loss
+from .nnet.losses import ctc_loss, kldiv_loss, transducer_loss
+from .nnet.RNN import GRU
 from .nnet.schedulers import NoamScheduler
+from .nnet.transducer.transducer_joint import Transducer_joint
 from .processing.features import InputNormalization
 
-__all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain"]
+__all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain",
+           "CONFORMER_TRANSDUCER", "ConformerTransducer",
+           "ConformerTransducerBrain"]
 
 # recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml
 CONFORMER_SMALL = {
@@ -65,7 +80,89 @@ CONFORMER_SMALL = {
     "max_grad_norm": 5.0,
 }
 
-_MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
+# recipes/LibriSpeech/ASR/transducer/hparams/conformer_transducer.yaml
+CONFORMER_TRANSDUCER = {
+    "sample_rate": 16000,
+    "n_fft": 400,
+    "n_mels": 80,
+    "win_length": 25,
+    "hop_length": 10,
+    "frontend_blocks": 2,
+    "frontend_channels": (64, 32),
+    "frontend_kernel_sizes": ((3, 3), (3, 3)),
+    "frontend_strides": (2, 2),
+    "input_size": 640,
+    "d_model": 144,
+    "nhead": 4,
+    "num_encoder_layers": 12,
+    "num_decoder_layers": 0,  # encoder only: the transducer has its own
+    "d_ffn": 1024,
+    "kernel_size": 31,
+    "vocab_size": 1000,
+    "activation": "relu",
+    "normalize_before": False,
+    "blank_index": 0,
+    "dec_emb_dim": 128,
+    "dec_neurons": 256,
+    "joint_dim": 320,
+    # training
+    "transformer_dropout": 0.1,
+    "update_until_epoch": 4,
+    "lr_adam": 8e-4,
+    "n_warmup_steps": 25000,
+    "max_grad_norm": 5.0,
+}
+
+
+def _front_end(c):
+    """Fbank, global input normalization and the conv front end of a
+    config dict."""
+    fbank = Fbank(sample_rate=c["sample_rate"], n_fft=c["n_fft"],
+                  n_mels=c["n_mels"], win_length=c["win_length"],
+                  hop_length=c["hop_length"])
+    normalize = InputNormalization(
+        c["n_mels"], update_until_epoch=c.get("update_until_epoch", 3))
+    frontend = ConvolutionFrontEnd(
+        num_blocks=c["frontend_blocks"], out_channels=c["frontend_channels"],
+        kernel_sizes=c["frontend_kernel_sizes"],
+        strides=c["frontend_strides"])
+    return fbank, normalize, frontend
+
+
+def _transformer(c):
+    return TransformerASR(
+        tgt_vocab=c["vocab_size"], input_size=c["input_size"],
+        d_model=c["d_model"], nhead=c["nhead"],
+        num_encoder_layers=c["num_encoder_layers"],
+        num_decoder_layers=c["num_decoder_layers"], d_ffn=c["d_ffn"],
+        activation=c["activation"], normalize_before=c["normalize_before"],
+        kernel_size=c["kernel_size"],
+        dropout=c.get("transformer_dropout", 0.0),
+    )
+
+
+def _random_init(module, gen):
+    """Lecun-normal weights (std 1/sqrt(fan_in)) from one generator;
+    every bias zero, norms' scales one, ``pos_bias_u``/``v`` zero (as
+    the JAX modules initialise them).  Nothing is left to the global
+    RNG, so a seed gives the same weights in every process."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "depthwise_kernel":
+                fan_in = p.shape[0]
+            elif leaf.startswith("weight") and p.dim() >= 2:
+                fan_in = p[0].numel()
+            else:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+                continue
+            p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
+
+
+def _set_kernels(module, flag):
+    for m in module.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = bool(flag)
 
 
 class ConformerASR(torch.nn.Module):
@@ -104,58 +201,18 @@ class ConformerASR(torch.nn.Module):
         self.config = c
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.fbank = Fbank(
-            sample_rate=c["sample_rate"], n_fft=c["n_fft"],
-            n_mels=c["n_mels"], win_length=c["win_length"],
-            hop_length=c["hop_length"],
-        )
-        self.normalize = InputNormalization(
-            c["n_mels"], update_until_epoch=c.get("update_until_epoch", 3))
-        self.frontend = ConvolutionFrontEnd(
-            num_blocks=c["frontend_blocks"],
-            out_channels=c["frontend_channels"],
-            kernel_sizes=c["frontend_kernel_sizes"],
-            strides=c["frontend_strides"],
-        )
-        self.transformer = TransformerASR(
-            tgt_vocab=c["vocab_size"], input_size=c["input_size"],
-            d_model=c["d_model"], nhead=c["nhead"],
-            num_encoder_layers=c["num_encoder_layers"],
-            num_decoder_layers=c["num_decoder_layers"], d_ffn=c["d_ffn"],
-            activation=c["activation"],
-            normalize_before=c["normalize_before"],
-            kernel_size=c["kernel_size"],
-            dropout=c.get("transformer_dropout", 0.0),
-        )
+        self.fbank, self.normalize, self.frontend = _front_end(c)
+        self.transformer = _transformer(c)
         self.ctc_lin = Linear(c["d_model"], c["vocab_size"])
         self.seq_lin = Linear(c["d_model"], c["vocab_size"])
-        self._random_init(torch.Generator().manual_seed(seed))
+        _random_init(self, torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.eval()
-
-    def _random_init(self, gen):
-        """Lecun-normal weights (std 1/sqrt(fan_in)) from one generator;
-        every bias zero, norms' scales one, ``pos_bias_u``/``v`` zero (as
-        the JAX modules initialise them).  Nothing is left to the global
-        RNG, so a seed gives the same weights in every process."""
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                leaf = name.rsplit(".", 1)[-1]
-                if leaf == "depthwise_kernel":
-                    fan_in = p.shape[0]
-                elif leaf == "weight" and p.dim() >= 2:
-                    fan_in = p[0].numel()
-                else:
-                    p.fill_(1.0 if leaf == "weight" else 0.0)
-                    continue
-                p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
 
     def set_kernels(self, flag=True):
         """Route kernel calls to the CUDA kernels (True) or to their
         plain PyTorch versions (False)."""
-        for m in self.modules():
-            if hasattr(m, "use_kernels"):
-                m.use_kernels = bool(flag)
+        _set_kernels(self, flag)
         return self
 
     @torch.no_grad()
@@ -198,7 +255,51 @@ class ConformerASR(torch.nn.Module):
         return searcher(enc, sig_lens.to(self.device, torch.float32))
 
 
-class ConformerASRBrain(Brain):
+class _ModelBrain(Brain):
+    """A ``Brain`` over the modules of one model (``self.model``, built
+    from ``DEFAULTS`` updated with ``config``), with the recipes' AdamW
+    and the Noam schedule stepped after each optimizer step.  The first
+    step runs at ``hparams["lr"]`` (1e-3 when not given), as in the JAX
+    ``Brain``."""
+
+    MODEL, DEFAULTS, MODULES = None, None, ()
+
+    def __init__(self, config, opt_class=None, device=None, seed=0,
+                 run_opts=None, hparams=None):
+        c = dict(self.DEFAULTS, **config)
+        run_opts = dict(run_opts or {})
+        run_opts.setdefault("device", device)
+        run_opts.setdefault("seed", seed)
+        run_opts.setdefault("max_grad_norm", c["max_grad_norm"])
+        self.model = self.MODEL(c, device=resolve_device(run_opts["device"]),
+                                seed=seed)
+        if opt_class is None:
+            def opt_class(params):
+                return torch.optim.AdamW(params, betas=(0.9, 0.98), eps=1e-9,
+                                         weight_decay=1e-4)
+        super().__init__(
+            modules={name: getattr(self.model, name) for name in self.MODULES},
+            opt_class=opt_class, hparams=hparams, run_opts=run_opts,
+        )
+        self.config = c
+        self.model.dtype = self.dtype
+        self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
+        self.epoch = 0
+        self.use_kernels = True
+
+    def on_fit_batch_end(self, batch, outputs, loss, should_step):
+        if should_step:
+            _, self.lr = self.noam()
+
+    def set_kernels(self, flag=True):
+        """Route kernel calls (the modules' and the loss's) to the CUDA
+        kernels or to the plain versions."""
+        self.model.set_kernels(flag)
+        self.use_kernels = bool(flag)
+        return self
+
+
+class ConformerASRBrain(_ModelBrain):
     """The LibriSpeech conformer recipe's training step on the modules of
     ``ConformerASR``.
 
@@ -249,34 +350,13 @@ class ConformerASRBrain(Brain):
     True
     """
 
-    def __init__(self, config, opt_class=None, device=None, seed=0,
-                 run_opts=None, hparams=None):
-        c = dict(CONFORMER_SMALL, **config)
-        run_opts = dict(run_opts or {})
-        run_opts.setdefault("device", device)
-        run_opts.setdefault("seed", seed)
-        run_opts.setdefault("max_grad_norm", c["max_grad_norm"])
-        self.model = ConformerASR(c, device=resolve_device(run_opts["device"]),
-                                  seed=seed)
-        if opt_class is None:
-            def opt_class(params):
-                return torch.optim.AdamW(params, betas=(0.9, 0.98), eps=1e-9,
-                                         weight_decay=1e-4)
-        super().__init__(
-            modules={name: getattr(self.model, name) for name in _MODULES},
-            opt_class=opt_class, hparams=hparams, run_opts=run_opts,
-        )
-        self.config = c
-        self.model.dtype = self.dtype
-        self.fbank = self.model.fbank
-        self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
-        self.epoch = 0
-        self.use_kernels = True
+    MODEL, DEFAULTS = ConformerASR, CONFORMER_SMALL
+    MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
 
     def compute_forward(self, batch, stage):
         """Returns the CTC and seq2seq log-probabilities, float32."""
         m = self.modules
-        feats = m.normalize(self.fbank(batch["sig"]), batch["sig_lens"],
+        feats = m.normalize(self.model.fbank(batch["sig"]), batch["sig_lens"],
                             epoch=self.epoch)
         src = m.frontend(feats.to(self.dtype))
         enc, dec = m.transformer(src, batch["tokens_bos"],
@@ -303,13 +383,125 @@ class ConformerASRBrain(Brain):
         )
         return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
 
-    def on_fit_batch_end(self, batch, outputs, loss, should_step):
-        if should_step:
-            _, self.lr = self.noam()
+
+class ConformerTransducer(torch.nn.Module):
+    """Conformer-transducer (RNN-T) built from a dict of dims.
+
+    Arguments
+    ---------
+    config : dict with the keys of ``CONFORMER_TRANSDUCER``.
+    device : None for the CUDA card (raises without one), or e.g. "cpu".
+    seed : seed of the random initial weights.
+
+    ``forward(sig, sig_lens, tokens_blank, dtype, epoch)`` runs the
+    recipe's ``compute_forward``: the features and the encoder in
+    ``dtype`` (the encoder states and ``enc_lin`` in bfloat16 under the
+    recipe's bf16), the prediction network in float32, so the joint and
+    ``out_lin`` (the step's largest product) run in float32, as in JAX.
+
+    Example
+    -------
+    >>> cfg = dict(CONFORMER_TRANSDUCER, frontend_channels=(4, 4),
+    ...     input_size=40, d_model=16, nhead=2, num_encoder_layers=1,
+    ...     d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> model = ConformerTransducer(cfg, device="cpu")
+    >>> logits, enc = model(torch.zeros(2, 4000), torch.ones(2),
+    ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
+    >>> logits.shape, logits.dtype, enc.shape
+    (torch.Size([2, 7, 3, 12]), torch.float32, torch.Size([2, 7, 8]))
+    """
+
+    def __init__(self, config, device=None, seed=0):
+        super().__init__()
+        c = dict(config)
+        self.config = c
+        self.device = resolve_device(device)
+        self.dtype = torch.float32
+        self.fbank, self.normalize, self.frontend = _front_end(c)
+        self.transformer = _transformer(c)
+        self.enc_lin = Linear(c["d_model"], c["joint_dim"])
+        self.emb = Embedding(c["vocab_size"], c["dec_emb_dim"])
+        self.dec = GRU(c["dec_emb_dim"], c["dec_neurons"], num_layers=1)
+        self.dec_lin = Linear(c["dec_neurons"], c["joint_dim"])
+        self.joint = Transducer_joint("sum", c["joint_dim"], "tanh")
+        self.out_lin = Linear(c["joint_dim"], c["vocab_size"])
+        _random_init(self, torch.Generator().manual_seed(seed))
+        self.to(self.device)
+        self.eval()
 
     def set_kernels(self, flag=True):
-        """Route kernel calls (the modules' and the CTC loss's) to the CUDA
-        kernels or to the plain versions."""
-        self.model.set_kernels(flag)
-        self.use_kernels = bool(flag)
+        """Route kernel calls to the CUDA kernels (True) or to their
+        plain PyTorch versions (False)."""
+        _set_kernels(self, flag)
         return self
+
+    def forward(self, sig, sig_lens, tokens_blank, dtype=None, epoch=0):
+        """sig (B, samples), sig_lens (B,) relative, tokens_blank (B, U+1)
+        = [blank] + tokens -> ``(logits (B, T_enc, U+1, vocab) float32,
+        enc (B, T_enc, joint_dim))``.  The normalization updates its
+        statistics in training mode (``epoch`` is the epoch it sees)."""
+        dtype = self.dtype if dtype is None else dtype
+        feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
+        src = self.frontend(feats.to(dtype))
+        enc = self.enc_lin(self.transformer.encode(src, sig_lens))
+        pred, _ = self.dec(self.emb(tokens_blank))
+        joint = self.joint(enc, self.dec_lin(pred))  # bf16 + f32 -> f32
+        return self.out_lin(joint).float(), enc
+
+
+class ConformerTransducerBrain(_ModelBrain):
+    """The LibriSpeech conformer-transducer recipe's training step on the
+    modules of ``ConformerTransducer``.
+
+    ``compute_forward``: ``ConformerTransducer.forward`` (Fbank ->
+    ``InputNormalization``, updated in training -> cast to the activation
+    dtype -> front end -> 12 conformer layers -> ``enc_lin``; ``emb`` of
+    ``tokens_blank`` -> GRU -> ``dec_lin``; tanh joint -> ``out_lin``).
+    ``compute_objectives``: ``transducer_loss`` (``mean``) with the
+    lengths ``sig_lens * batch_mask`` and ``tokens_lens * batch_mask``,
+    whose lattice runs in K8 (forward) and K9 (backward) on the card.
+    After each optimizer step the Noam schedule sets the learning rate.
+
+    A batch is a dict of ``sig`` (B, samples) and ``sig_lens`` (B,)
+    relative, ``tokens`` (B, U) (padding: the pad id 0), the relative
+    ``tokens_lens`` and ``tokens_blank`` (B, U+1) = [blank] + tokens.
+    Arguments as for ``ConformerASRBrain``, with the keys of
+    ``CONFORMER_TRANSDUCER``.
+
+    Example
+    -------
+    >>> import numpy as np
+    >>> cfg = dict(CONFORMER_TRANSDUCER, frontend_channels=(4, 4),
+    ...     input_size=40, d_model=16, nhead=2, num_encoder_layers=1,
+    ...     d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> brain = ConformerTransducerBrain(cfg, device="cpu")
+    >>> batch = {"sig": np.zeros((1, 4000), np.float32),
+    ...     "sig_lens": np.ones(1, np.float32),
+    ...     "tokens": np.array([[3, 4]]), "tokens_lens": np.ones(1, np.float32),
+    ...     "tokens_blank": np.array([[0, 3, 4]])}
+    >>> brain.step += 1
+    >>> bool(torch.isfinite(brain.fit_batch(batch)))
+    True
+    """
+
+    MODEL, DEFAULTS = ConformerTransducer, CONFORMER_TRANSDUCER
+    MODULES = ("normalize", "frontend", "transformer", "enc_lin", "emb", "dec",
+               "dec_lin", "out_lin")
+
+    def compute_forward(self, batch, stage):
+        """Returns ``(logits float32, enc)``."""
+        return self.model(batch["sig"], batch["sig_lens"],
+                          batch["tokens_blank"], dtype=self.dtype,
+                          epoch=self.epoch)
+
+    def compute_objectives(self, predictions, batch, stage):
+        """The RNN-T loss, ``mean`` over the batch."""
+        logits, _ = predictions
+        mask = batch["batch_mask"]
+        return transducer_loss(
+            logits, batch["tokens"], batch["sig_lens"] * mask,
+            batch["tokens_lens"] * mask,
+            blank_index=self.config["blank_index"], reduction="mean",
+            use_kernels=self.use_kernels)

@@ -13,7 +13,11 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
 - LayerNorm ``scale`` -> ``weight`` (the port's LayerNorms use Flax's
   eps, 1e-6);
 - BatchNorm ``scale``/``bias`` plus ``batch_stats`` ``mean``/``var``;
-- ``InputNormalization``'s global state ``count``/``mean``/``std``.
+- ``InputNormalization``'s global state ``count``/``mean``/``std``;
+- GRU ``l{i}_wx`` Dense ``(in, 3H)`` + bias -> ``weight_ih``/``bias_ih``,
+  ``l{i}_u (H, 3H)`` -> ``weight_hh``, ``l{i}_u_bias`` -> ``bias_hh``
+  (``_bwd`` -> the ``_reverse`` direction), gates r, z, n in both;
+- ``Embed_0.embedding`` -> ``weight`` (nothing in one-hot mode).
 """
 
 import numpy as np
@@ -33,6 +37,11 @@ __all__ = [
     "input_norm_state_dict",
     "conformer_asr_state_dict",
     "to_jax_conformer_asr",
+    "gru",
+    "embedding",
+    "conformer_transducer_state_dict",
+    "to_jax_gru",
+    "to_jax_conformer_transducer",
 ]
 
 
@@ -147,19 +156,22 @@ def frontend_state_dict(variables):
 
 
 def transformer_asr_state_dict(params):
-    """TransformerASR (conformer encoder) params -> state_dict."""
-    sd = {
-        **_prefixed("custom_src_module", dense(params["custom_src_module"])),
-        "custom_tgt_module.emb.weight":
-            _t(params["custom_tgt_module"]["Embed_0"]["embedding"]),
-    }
-    enc, dec = params["encoder"], params["decoder"]
+    """TransformerASR (conformer encoder) params -> state_dict; an
+    encoder-only model (0 decoder layers) has no target embedding and no
+    decoder."""
+    sd = _prefixed("custom_src_module", dense(params["custom_src_module"]))
+    if "custom_tgt_module" in params:
+        sd["custom_tgt_module.emb.weight"] = _t(
+            params["custom_tgt_module"]["Embed_0"]["embedding"])
+    enc = params["encoder"]
     for i, layer in enumerate(_numbered(enc, "layer_")):
         sd.update(_prefixed(f"encoder.layers.{i}", conformer_layer(layer)))
     sd.update(_prefixed("encoder.norm_out", layer_norm(enc["norm_out"])))
-    for i, layer in enumerate(_numbered(dec, "layer_")):
-        sd.update(_prefixed(f"decoder.layers.{i}", decoder_layer(layer)))
-    sd.update(_prefixed("decoder.norm_out", layer_norm(dec["norm_out"])))
+    if "decoder" in params:
+        dec = params["decoder"]
+        for i, layer in enumerate(_numbered(dec, "layer_")):
+            sd.update(_prefixed(f"decoder.layers.{i}", decoder_layer(layer)))
+        sd.update(_prefixed("decoder.norm_out", layer_norm(dec["norm_out"])))
     return sd
 
 
@@ -168,21 +180,69 @@ def input_norm_state_dict(state):
     return {k: _t(state[k]) for k in ("count", "mean", "std")}
 
 
+def _head(p):
+    """A ``Linear``'s params ({"Dense_0": {...}} or {kernel, bias})."""
+    return dense(p.get("Dense_0", p))
+
+
 def conformer_asr_state_dict(frontend_vars, transformer_params,
                              ctc_lin_params, seq_lin_params, norm_state):
     """Everything ``asr.ConformerASR`` holds, from the JAX pieces:
     frontend variables, TransformerASR params, the two Linear heads'
     params ({"Dense_0": {...}} or {kernel, bias}) and the global
     input-normalization state."""
-    def head(p):
-        return dense(p.get("Dense_0", p))
-
     return {
         **_prefixed("normalize", input_norm_state_dict(norm_state)),
         **_prefixed("frontend", frontend_state_dict(frontend_vars)),
         **_prefixed("transformer", transformer_asr_state_dict(transformer_params)),
-        **_prefixed("ctc_lin", head(ctc_lin_params)),
-        **_prefixed("seq_lin", head(seq_lin_params)),
+        **_prefixed("ctc_lin", _head(ctc_lin_params)),
+        **_prefixed("seq_lin", _head(seq_lin_params)),
+    }
+
+
+def gru(p):
+    """JAX GRU params -> the port's ``GRU`` state_dict (``rnns.{i}``, one
+    one-layer ``torch.nn.GRU`` per layer)."""
+    sd = {}
+    layers = sorted({int(k[1:].split("_")[0]) for k in p})
+    for i in layers:
+        for name, suffix in ((f"l{i}", ""), (f"l{i}_bwd", "_reverse")):
+            if f"{name}_wx" not in p:
+                continue
+            wx = dense(p[f"{name}_wx"])
+            sd[f"rnns.{i}.weight_ih_l0{suffix}"] = wx["weight"]
+            sd[f"rnns.{i}.weight_hh_l0{suffix}"] = (
+                _t(p[f"{name}_u"]).T.contiguous())
+            sd[f"rnns.{i}.bias_ih_l0{suffix}"] = wx["bias"]
+            sd[f"rnns.{i}.bias_hh_l0{suffix}"] = _t(p[f"{name}_u_bias"])
+    return sd
+
+
+def embedding(p):
+    """Flax ``Embedding`` params ({"Embed_0": {"embedding"}}, or nothing
+    in one-hot mode) -> {weight (num, dim)}."""
+    if "Embed_0" not in p:
+        return {}
+    return {"weight": _t(p["Embed_0"]["embedding"])}
+
+
+def conformer_transducer_state_dict(frontend_vars, transformer_params,
+                                    enc_lin, emb, dec, dec_lin, out_lin,
+                                    norm_state):
+    """Everything ``asr.ConformerTransducer`` holds, from the JAX pieces:
+    frontend variables, the encoder-only TransformerASR params, the
+    ``enc_lin``/``dec_lin``/``out_lin`` Linear params, the ``emb``
+    Embedding and ``dec`` GRU params and the global input-normalization
+    state."""
+    return {
+        **_prefixed("normalize", input_norm_state_dict(norm_state)),
+        **_prefixed("frontend", frontend_state_dict(frontend_vars)),
+        **_prefixed("transformer", transformer_asr_state_dict(transformer_params)),
+        **_prefixed("enc_lin", _head(enc_lin)),
+        **_prefixed("emb", embedding(emb)),
+        **_prefixed("dec", gru(dec)),
+        **_prefixed("dec_lin", _head(dec_lin)),
+        **_prefixed("out_lin", _head(out_lin)),
     }
 
 
@@ -278,21 +338,24 @@ def to_jax_transformer_asr(state_dict, prefix=""):
     """TransformerASR state_dict (entries under ``prefix``) -> JAX params."""
     s = _Sub(state_dict, prefix)
     enc, dec = s.sub("encoder"), s.sub("decoder")
-    return {
+    out = {
         "custom_src_module": _dense_to_jax(s.sub("custom_src_module")),
-        "custom_tgt_module": {
-            "Embed_0": {"embedding": _a(s["custom_tgt_module.emb.weight"])}},
         "encoder": {
             **{f"layer_{i}": _conformer_layer_to_jax(enc.sub(f"layers.{i}"))
                for i in range(enc.count("layers"))},
             "norm_out": _ln_to_jax(enc.sub("norm_out")),
         },
-        "decoder": {
+    }
+    if "custom_tgt_module.emb.weight" in s:
+        out["custom_tgt_module"] = {
+            "Embed_0": {"embedding": _a(s["custom_tgt_module.emb.weight"])}}
+    if "norm_out.weight" in dec:
+        out["decoder"] = {
             **{f"layer_{i}": _decoder_layer_to_jax(dec.sub(f"layers.{i}"))
                for i in range(dec.count("layers"))},
             "norm_out": _ln_to_jax(dec.sub("norm_out")),
-        },
-    }
+        }
+    return out
 
 
 def to_jax_frontend(state_dict, prefix=""):
@@ -324,5 +387,40 @@ def to_jax_conformer_asr(state_dict):
         "transformer": to_jax_transformer_asr(state_dict, "transformer."),
         "ctc_lin": {"Dense_0": _dense_to_jax(s.sub("ctc_lin"))},
         "seq_lin": {"Dense_0": _dense_to_jax(s.sub("seq_lin"))},
+        "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
+    }
+
+
+def to_jax_gru(state_dict, prefix=""):
+    """The port's ``GRU`` state_dict -> JAX GRU params."""
+    s = _Sub(state_dict, prefix)
+    p = {}
+    for i in range(s.count("rnns")):
+        r = s.sub(f"rnns.{i}")
+        for name, suffix in ((f"l{i}", ""), (f"l{i}_bwd", "_reverse")):
+            if f"weight_ih_l0{suffix}" not in r:
+                continue
+            p[f"{name}_wx"] = {"kernel": _a(r[f"weight_ih_l0{suffix}"]).T.copy(),
+                               "bias": _a(r[f"bias_ih_l0{suffix}"])}
+            p[f"{name}_u"] = _a(r[f"weight_hh_l0{suffix}"]).T.copy()
+            p[f"{name}_u_bias"] = _a(r[f"bias_hh_l0{suffix}"])
+    return p
+
+
+def to_jax_conformer_transducer(state_dict):
+    """``asr.ConformerTransducer`` (or ``ConformerTransducerBrain.modules``)
+    state_dict -> the JAX pieces ``conformer_transducer_state_dict``
+    takes: ``{"frontend", "transformer", "enc_lin", "emb", "dec",
+    "dec_lin", "out_lin", "norm"}``."""
+    s = _Sub(state_dict)
+    emb = ({"Embed_0": {"embedding": _a(s["emb.weight"])}}
+           if "emb.weight" in s else {})
+    return {
+        "frontend": to_jax_frontend(state_dict, "frontend."),
+        "transformer": to_jax_transformer_asr(state_dict, "transformer."),
+        **{name: {"Dense_0": _dense_to_jax(s.sub(name))}
+           for name in ("enc_lin", "dec_lin", "out_lin")},
+        "emb": emb,
+        "dec": to_jax_gru(state_dict, "dec."),
         "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
     }

@@ -5,7 +5,10 @@ Counterpart of ``speechbrain_tpu/lobes/models/transformer/TransformerASR.py``
 ``decode_cache_init``, ``decode_step``) for the configuration the
 conformer recipes use: ``encoder_module="conformer"``,
 ``attention_type="RelPosMHAXL"``.  The CTC and seq2seq heads live
-outside, as in the JAX package.
+outside, as in the JAX package.  With ``num_decoder_layers=0`` (the
+conformer-transducer, whose prediction network lives outside) neither
+the decoder nor the target embedding is built, as Flax creates no
+parameters for them, and ``forward`` returns ``(enc_out, None)``.
 """
 
 import torch
@@ -45,6 +48,11 @@ class TransformerASR(torch.nn.Module):
     ...     torch.ones(2))
     >>> enc.shape, dec.shape
     (torch.Size([2, 9, 16]), torch.Size([2, 3, 16]))
+    >>> enc_only = TransformerASR(tgt_vocab=40, input_size=20, d_model=16,
+    ...     nhead=2, num_encoder_layers=1, num_decoder_layers=0, d_ffn=32,
+    ...     kernel_size=5)
+    >>> enc_only(torch.ones(2, 9, 20), None, torch.ones(2))[1] is None
+    True
     """
 
     def __init__(self, tgt_vocab, input_size, d_model=512, nhead=8,
@@ -53,23 +61,29 @@ class TransformerASR(torch.nn.Module):
                  causal=False, max_length=2500, dropout=0.0):
         super().__init__()
         self.custom_src_module = Linear(input_size, d_model)
-        self.custom_tgt_module = NormalizedEmbedding(d_model, tgt_vocab)
+        self.custom_tgt_module = (NormalizedEmbedding(d_model, tgt_vocab)
+                                  if num_decoder_layers > 0 else None)
         self.positional_encoding_mod = PositionalEncoding(d_model, max_length)
         self.relpos_enc = RelPosEncXL(d_model)
         self.encoder = ConformerEncoder(
             num_encoder_layers, d_model, d_ffn, nhead, kernel_size, causal,
             activation="swish", dropout=dropout,
         )
-        self.decoder = TransformerDecoder(
-            num_decoder_layers, nhead, d_ffn, d_model, activation,
-            normalize_before, dropout,
-        )
+        self.decoder = None
+        if num_decoder_layers > 0:
+            self.decoder = TransformerDecoder(
+                num_decoder_layers, nhead, d_ffn, d_model, activation,
+                normalize_before, dropout,
+            )
 
     def forward(self, src, tgt, wav_len=None, pad_idx=0):
         """Training forward: src (B, T, input_size), tgt (B, L) token ids
         (positions equal to ``pad_idx`` are masked as keys), wav_len (B,)
-        relative lengths.  Returns ``(enc_out + PE, dec_out)``."""
+        relative lengths.  Returns ``(enc_out + PE, dec_out)``, or
+        ``(enc_out, None)`` without a decoder."""
         enc_out, src_mask = self._encode(src, wav_len)
+        if self.decoder is None:
+            return enc_out, None
         enc_out = enc_out + self.positional_encoding_mod(enc_out)
         tgt_mask = get_lookahead_mask(tgt.shape[1], device=tgt.device)
         tgt_emb = self.custom_tgt_module(tgt).to(enc_out.dtype)

@@ -5,7 +5,9 @@ Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
 (batch,), padded positions are masked before the reduction, and the
 reductions keep the reference's definitions, quirks included.
 ``ctc_loss`` runs on ``ops.ctc.ctc_loss_per_seq`` (the CTC kernels on
-CUDA tensors), or on its plain recursions with ``use_kernels=False``.
+CUDA tensors), or on its plain recursions with ``use_kernels=False``;
+``transducer_loss`` on ``nnet.loss.transducer_loss.TransducerLoss`` (the
+RNN-T lattice kernels on CUDA tensors).
 """
 
 import math
@@ -13,8 +15,10 @@ import math
 import torch
 
 from ..ops.ctc import ctc_loss_per_seq, ctc_loss_per_seq_plain
+from .loss.transducer_loss import TransducerLoss
 
-__all__ = ["compute_masked_loss", "ctc_loss", "nll_loss", "kldiv_loss"]
+__all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
+           "kldiv_loss"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -101,6 +105,38 @@ def ctc_loss(log_probs, targets, input_lens, target_lens, blank_index,
         return per_seq
     if reduction == "sum":
         return per_seq.sum()
+    raise ValueError(f"Unknown reduction {reduction}")
+
+
+def transducer_loss(logits, targets, input_lens, target_lens, blank_index,
+                    reduction="mean", use_kernels=True):
+    """RNN-T loss on (batch, time, labels + 1, vocab) logits with relative
+    lengths, rounded to frames and labels as ``round(rel * T)`` and
+    ``round(rel * U)`` (half to even, as ``jnp.round``).
+
+    Reductions over the per-utterance losses: ``mean``, ``batch`` (none),
+    ``sum``.  ``use_kernels=False`` runs the plain recursions on any
+    device (to check the kernels on the card).
+
+    Example
+    -------
+    >>> loss = transducer_loss(torch.zeros(1, 2, 2, 3), torch.tensor([[1]]),
+    ...     torch.ones(1), torch.ones(1), blank_index=0)
+    >>> round(float(loss), 4)
+    2.6027
+    """
+    T = logits.shape[1]
+    U = targets.shape[1]
+    abs_t = torch.round(input_lens.float() * T).to(torch.int32)
+    abs_u = torch.round(target_lens.float() * U).to(torch.int32)
+    loss = TransducerLoss(blank_index, use_kernels=use_kernels)(
+        logits, targets, abs_t, abs_u)
+    if reduction == "mean":
+        return loss.mean()
+    if reduction == "batch":
+        return loss
+    if reduction == "sum":
+        return loss.sum()
     raise ValueError(f"Unknown reduction {reduction}")
 
 

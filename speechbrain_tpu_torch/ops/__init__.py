@@ -4,8 +4,9 @@ version and a launch counter (``<wrapper>.launches``).
 ``depthwise_conv`` (conformer convolution module: forward and dx, and
 the taps' gradient), ``relpos_attention`` (long-utterance encoder
 attention, forward and backward), ``ctc`` (CTC loss: alpha, and beta
-with the gradient) and ``beam_cache`` (beam-search decoder
-self-attention step).  ``_build`` compiles ``csrc/*.cu``.
+with the gradient), ``beam_cache`` (beam-search decoder self-attention
+step) and ``transducer`` (RNN-T loss: alpha, and beta with the
+occupancy gradients).  ``_build`` compiles ``csrc/*.cu``.
 """
 
 from .beam_cache import append_attend, beam_attend_step, beam_attend_step_plain
@@ -29,6 +30,14 @@ from .relpos_attention import (
     relpos_attention_bwd_plain,
     relpos_attention_plain,
 )
+from .transducer import (
+    transducer_alpha,
+    transducer_alpha_plain,
+    transducer_beta_grad,
+    transducer_beta_grad_plain,
+    transducer_loss_logits,
+    transducer_loss_per_seq,
+)
 
 __all__ = [
     "append_attend",
@@ -48,13 +57,20 @@ __all__ = [
     "relpos_attention_bwd",
     "relpos_attention_bwd_plain",
     "relpos_attention_plain",
+    "transducer_alpha",
+    "transducer_alpha_plain",
+    "transducer_beta_grad",
+    "transducer_beta_grad_plain",
+    "transducer_loss_logits",
+    "transducer_loss_per_seq",
     "launch_counters",
     "reset_launch_counters",
 ]
 
 # every kernel wrapper, in the order of the repository's kernel table
 _WRAPPERS = (depthwise_conv1d, depthwise_conv1d_dw, ctc_alpha, ctc_beta_grad,
-             relpos_attention, relpos_attention_bwd, beam_attend_step)
+             relpos_attention, relpos_attention_bwd, beam_attend_step,
+             transducer_alpha, transducer_beta_grad)
 
 
 def launch_counters():

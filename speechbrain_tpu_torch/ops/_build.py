@@ -23,7 +23,8 @@ __all__ = [
     "dtype_code", "stream_of", "check_launch", "refuse_grad",
 ]
 
-KERNELS = ("depthwise_conv", "relpos_attention", "ctc", "beam_cache")
+KERNELS = ("depthwise_conv", "relpos_attention", "ctc", "beam_cache",
+           "transducer")
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (

@@ -187,6 +187,64 @@ def test_relpos_attention_backward_kernel(gen, dtype, causal, T, Tp):
         assert float((got - ref).abs().max()) <= tol * scale
 
 
+def _transducer_inputs(gen, B, T, U, V):
+    """Logits (B, T, U+1, V), labels 1..V-1 padded with 0 past U_b, and
+    ragged frame and label counts (U_b <= 40 and a U_b = U row)."""
+    logits = torch.randn(B, T, U + 1, V, device="cuda", generator=gen)
+    tg = torch.randint(1, V, (B, U), device="cuda", generator=gen)
+    tlen = torch.tensor([max(1, T - 7 * (i % 4)) for i in range(B)],
+                        device="cuda")
+    ulen = torch.tensor([U if i == 1 else max(0, min(U, 40) - 3 * (i % 5))
+                         for i in range(B)], device="cuda")
+    tg[torch.arange(U, device="cuda")[None, :] >= ulen[:, None]] = 0
+    return logits, tg, tlen, ulen
+
+
+@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (2, 37, 256), (3, 1, 5),
+                                   (2, 9, 1023)])
+def test_transducer_kernels(gen, B, T, U):
+    """K8 (alpha, final) and K9 (dblank, demit) against their plain
+    versions, float32, at the training shape (B 12, T 251, U 64), a wide
+    one (U+1 = 257 threads: several warps), T = 1 and the widest lattice
+    the kernels take (U+1 = 1024 threads)."""
+    logits, tg, tlen, ulen = _transducer_inputs(gen, B, T, U, 16)
+    tables = ops.transducer.transducer_tables(
+        torch.log_softmax(logits, -1), tg, 0, tlen, ulen)
+    before = (ops.transducer_alpha.launches, ops.transducer_beta_grad.launches)
+    alpha, final = ops.transducer_alpha(*tables, tlen, ulen)
+    alpha_p, final_p = ops.transducer_alpha_plain(*tables, tlen, ulen)
+    grads = ops.transducer_beta_grad(*tables, alpha, tlen, ulen, final)
+    grads_p = ops.transducer_beta_grad_plain(*tables, alpha_p, tlen, ulen,
+                                             final_p)
+    assert (ops.transducer_alpha.launches,
+            ops.transducer_beta_grad.launches) == (before[0] + 1, before[1] + 1)
+    # the same recursion, cell by cell in the same order; expf/logf of the
+    # two libraries differ in ulps, ~1e-4 at |alpha| ~ 1e3
+    torch.testing.assert_close(final, final_p, atol=1e-3, rtol=2e-5)
+    torch.testing.assert_close(alpha, alpha_p, atol=1e-3, rtol=2e-5)
+    for got, ref in zip(grads, grads_p):  # occupancies in [-1, 0]
+        torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+
+
+@pytest.mark.parametrize("normalize_by_T", [False, True])
+def test_transducer_loss_logits_kernels_vs_plain(gen, normalize_by_T):
+    """The logits entry through K8/K9 against its plain route: the loss and
+    d loss / d logits, with a T_b = 0 row (loss 0, zero gradient)."""
+    logits, tg, tlen, ulen = _transducer_inputs(gen, 5, 40, 12, 30)
+    tlen[3] = 0
+    g = torch.randn(5, device="cuda", generator=gen)
+    out = []
+    for use_kernels in (True, False):
+        x = logits.clone().requires_grad_(True)
+        loss = ops.transducer_loss_logits(x, tg, tlen, ulen, 0, normalize_by_T,
+                                          use_kernels=use_kernels)
+        loss.backward(g)
+        out.append((loss.detach(), x.grad))
+    torch.testing.assert_close(out[0][0], out[1][0], atol=1e-3, rtol=2e-5)
+    torch.testing.assert_close(out[0][1], out[1][1], atol=2e-3, rtol=0)
+    assert out[0][0][3] == 0 and not out[0][1][3].any()
+
+
 def test_every_kernel_wrapper_keeps_the_graph(gen):
     """On CUDA inputs that require grad, each differentiable wrapper's
     result requires grad (the kernels sit inside autograd Functions);
@@ -215,6 +273,17 @@ def test_every_kernel_wrapper_keeps_the_graph(gen):
         ops.ctc_alpha(lp, torch.tensor([[1, 2]], device="cuda"),
                       torch.tensor([6], device="cuda"),
                       torch.tensor([2], device="cuda"))
+    x = torch.randn(1, 3, 3, 4, device="cuda", generator=gen, requires_grad=True)
+    loss = ops.transducer_loss_logits(x, torch.tensor([[1, 2]], device="cuda"),
+                                      torch.tensor([3], device="cuda"),
+                                      torch.tensor([2], device="cuda"), 0)
+    assert loss.requires_grad
+    loss.sum().backward()
+    assert x.grad is not None
+    blank = torch.zeros(1, 3, 3, device="cuda", requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        ops.transducer_alpha(blank, torch.zeros(1, 3, 2, device="cuda"),
+                             torch.tensor([3]), torch.tensor([2]))
     kv = torch.zeros(2, 8, 8, device="cuda")
     with pytest.raises(RuntimeError, match="decode-only"):
         ops.beam_attend_step(kv, torch.zeros(2, dtype=torch.long, device="cuda"),
@@ -230,3 +299,25 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="overlaps"):
         ops.beam_attend_step(kv, torch.zeros(2, dtype=torch.long), kv[:, :, 0],
                              kv[:, :, 0], kv[:, :, 0], 1, 2, dst=kv)
+    # the lattice kernels: type, layout, lengths, labels, width
+    blank = torch.zeros(2, 5, 4, device="cuda")
+    emit = torch.zeros(2, 5, 3, device="cuda")
+    lens = (torch.tensor([5, 4]), torch.tensor([3, 1]))
+    with pytest.raises(TypeError):
+        ops.transducer_alpha(blank.double(), emit.double(), *lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.transducer_alpha(blank.transpose(1, 2).contiguous().transpose(1, 2),
+                             emit, *lens)
+    with pytest.raises(ValueError, match="length"):
+        ops.transducer_alpha(blank, emit, torch.tensor([6, 4]), lens[1])
+    with pytest.raises(ValueError, match="length"):
+        ops.transducer_beta_grad(blank, emit, blank, lens[0],
+                                 torch.tensor([4, 1]), torch.zeros(2))
+    with pytest.raises(ValueError):
+        ops.transducer_alpha(torch.zeros(1, 2, 1025, device="cuda"),
+                             torch.zeros(1, 2, 1024, device="cuda"),
+                             torch.tensor([2]), torch.tensor([3]))
+    with pytest.raises(ValueError, match="target"):
+        ops.transducer_loss_logits(torch.zeros(1, 2, 3, 4, device="cuda"),
+                                   torch.tensor([[1, 4]], device="cuda"),
+                                   torch.tensor([2]), torch.tensor([2]), 0)

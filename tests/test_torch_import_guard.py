@@ -49,7 +49,10 @@ def test_no_forbidden_import(path):
 def test_import_leaves_jax_unloaded():
     code = (
         "import sys, speechbrain_tpu_torch, speechbrain_tpu_torch.asr, "
-        "speechbrain_tpu_torch.bridge; "
+        "speechbrain_tpu_torch.bridge, speechbrain_tpu_torch.ops.transducer, "
+        "speechbrain_tpu_torch.nnet.loss.transducer_loss, "
+        "speechbrain_tpu_torch.nnet.embedding, speechbrain_tpu_torch.nnet.RNN, "
+        "speechbrain_tpu_torch.nnet.transducer.transducer_joint; "
         "bad = [m for m in ('jax', 'flax', 'optax', 'speechbrain_tpu') "
         "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)"
     )
