@@ -11,7 +11,10 @@ Phases, each printing one JSON line when it ends:
    at the shapes the serving and training paths give it, in float32 and
    bfloat16 (CTC: float32): max |error| against the stated tolerance,
    kernel / plain / library times (CUDA events) and the least time the
-   card could take (bound).
+   card could take (bound).  The rel-pos kernels K5/K6 also run with
+   attention dropout (rate 0.1, role "dropout"): against the plain
+   version with the same seed (the same Philox mask), bit-identical
+   across two launches with one seed, different at seed + 1.
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
    weights from a seed) transcribes 8 synthetic 10 s utterances with
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
@@ -59,6 +62,7 @@ SEED = 0
 BLANK_BIAS, EOS_BIAS = 8.0, 5.0  # see phase_serve
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
+DROPOUT_SEED = (3 << 32) + 7  # uses both words of the Philox key
 
 
 def emit(obj):
@@ -374,9 +378,10 @@ def _materialized_bias(q, p, vb, madd, scale):
             + madd[:, None, None, :])
 
 
-def _check_relpos_bwd(dtype_name, B=8, T=512):
+def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
     """K6 at the training shape (B = 8 utterances, T_enc = 512) against
-    autograd through the plain version."""
+    autograd through the plain version; with ``rate > 0`` both with the
+    dropout mask of seed DROPOUT_SEED, and the kernel's determinism."""
     import torch
     import torch.nn.functional as F
 
@@ -387,10 +392,13 @@ def _check_relpos_bwd(dtype_name, B=8, T=512):
     H, dh = 4, 36
     q, k, v, p, u, vb, madd, dout = _relpos_inputs(dtype, B, H, T, dh, SEED + 3)
     scale = 1.0 / (H * dh) ** 0.5
-    out, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, False)
+    seed = DROPOUT_SEED if rate > 0 else 0
+    tail = (False, rate, seed)  # causal, dropout rate, its seed
+    out, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, *tail)
     dsum = (dout * out).sum(-1)
-    got = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale)
-    ref = relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale)
+    got = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
+                               *tail)
+    ref = relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale, *tail)
     torch.cuda.synchronize()
     names = ("dq", "dk", "dv", "dp", "du", "dvb")
     rel = {n: _err(a, b) / max(1e-6, float(b.abs().max()))
@@ -400,17 +408,34 @@ def _check_relpos_bwd(dtype_name, B=8, T=512):
     # up to B*T^2 terms (dp, du, dvb) in other orders
     tol = 1e-4
     assert max(rel.values()) <= tol, f"relpos_attention_bwd {dtype_name}: {rel}"
+    extra = {}
+    if rate > 0:
+        again = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
+                                     scale, False, rate, seed)
+        other = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
+                                     scale, False, rate, seed + 1)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+            "relpos_attention_bwd: one seed, two results")
+        seed_diff = max(_err(a, b) for a, b in zip(got, other))
+        assert seed_diff > 1e-3, f"relpos_attention_bwd: seed + 1 changes {seed_diff}"
+        extra = {"role": "dropout", "rate": rate, "seed": seed,
+                 "bit_identical_same_seed": True,
+                 "seed_plus_one_max_abs_diff": seed_diff}
     # library yardstick: SDPA's backward through a materialized bias
     qu = (q.float() + u[None, :, None]).to(dtype).requires_grad_(True)
     kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
     bias = _materialized_bias(q, p, vb, madd, scale).to(dtype).requires_grad_(True)
     library_ms, library = None, "none"
     try:
-        lib_out = F.scaled_dot_product_attention(qu, kl, vl, attn_mask=bias, scale=scale)
+        lib_out = F.scaled_dot_product_attention(qu, kl, vl, attn_mask=bias,
+                                                 dropout_p=rate, scale=scale)
         do_l = dout.to(dtype)
         library_ms = _time_ms(lambda: torch.autograd.grad(
             lib_out, (qu, kl, vl, bias), do_l, retain_graph=True))
         library = "SDPA backward with a bias that requires grad"
+        if rate > 0:
+            library += f", dropout_p {rate} (its own generator)"
     except RuntimeError as e:  # no SDPA backend differentiates the bias
         library = f"none ({str(e).splitlines()[0][:80]})"
     item = q.element_size()
@@ -420,18 +445,22 @@ def _check_relpos_bwd(dtype_name, B=8, T=512):
     bound, by = _bound_ms(nbytes, 16 * B * H * T * T * dh, dtype_name)
     return {
         "name": "relpos_attention_bwd", "dtype": dtype_name, "shape": [B, H, T, dh],
+        **extra,
         "max_abs_err": err, "max_rel_err": rel, "tol": tol, "tol_kind": "relative",
         "ms": _time_ms(lambda: relpos_attention_bwd(
-            q, k, v, p, u, vb, madd, dout, lse, dsum, scale), iters=10),
+            q, k, v, p, u, vb, madd, dout, lse, dsum, scale, *tail), iters=10),
         "plain_ms": _time_ms(lambda: relpos_attention_bwd_plain(
-            q, k, v, p, u, vb, madd, dout, scale), iters=5),
+            q, k, v, p, u, vb, madd, dout, scale, *tail), iters=5),
         "library_ms": library_ms, "library": library,
         "bound_ms": bound, "bound_by": by,
         "kernel_flops": 28 * B * H * T * T * dh,
     }
 
 
-def _check_relpos(dtype_name, T, B=2):
+def _check_relpos(dtype_name, T, B=2, rate=0.0):
+    """K5 against its plain version, and its lse; with ``rate > 0`` both
+    with the dropout mask of seed DROPOUT_SEED, and the kernel's
+    determinism."""
     import torch
     import torch.nn.functional as F
 
@@ -442,15 +471,30 @@ def _check_relpos(dtype_name, T, B=2):
     H, dh = 4, 36
     q, k, v, p, u, vb, madd, _ = _relpos_inputs(dtype, B, H, T, dh, SEED + T)
     scale = 1.0 / (H * dh) ** 0.5
-    got = relpos_attention(q, k, v, p, u, vb, madd, scale)
-    ref = relpos_attention_plain(q, k, v, p, u, vb, madd, scale)
-    _, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, False)
+    seed = DROPOUT_SEED if rate > 0 else 0
+    tail = (False, rate, seed)  # causal, dropout rate, its seed
+    got = relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)
+    ref = relpos_attention_plain(q, k, v, p, u, vb, madd, scale, *tail)
+    _, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, *tail)
     torch.cuda.synchronize()
     err = _err(got, ref)
     # both compute in f32 from the same stored values; sums in other orders
     tol = 1e-4
     assert err <= tol, f"relpos_attention {dtype_name} T={T}: max|err| {err} > {tol}"
-    # the log-sum-exp the backward reads, against the materialized scores
+    extra = {}
+    if rate > 0:
+        again = relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)
+        other = relpos_attention(q, k, v, p, u, vb, madd, scale, False, rate,
+                                 seed + 1)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), "relpos_attention: one seed, two results"
+        seed_diff = _err(got, other)
+        assert seed_diff > 1e-3, f"relpos_attention: seed + 1 changes {seed_diff}"
+        extra = {"role": "dropout", "rate": rate, "seed": seed,
+                 "bit_identical_same_seed": True,
+                 "seed_plus_one_max_abs_diff": seed_diff}
+    # the log-sum-exp the backward reads (taken before dropout), against
+    # the materialized scores
     bias = _materialized_bias(q, p, vb, madd, scale)
     content = torch.einsum("bhqd,bhkd->bhqk", q.float() + u[None, :, None],
                            k.float())
@@ -463,13 +507,22 @@ def _check_relpos(dtype_name, T, B=2):
     nbytes = ((3 * B * H * T * dh + H * (2 * T - 1) * dh) * item
               + 4 * (2 * H * dh + B * T + B * H * T * dh + B * H * T))  # + lse
     bound, by = _bound_ms(nbytes, 6 * B * H * T * T * dh, dtype_name)
+    library_ms, library = None, "SDPA with the materialized bias"
+    try:
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qu, k, v, attn_mask=bias, dropout_p=rate, scale=scale))
+        if rate > 0:
+            library += f", dropout_p {rate} (its own generator)"
+    except RuntimeError as e:  # no SDPA backend takes this combination
+        library = f"none ({str(e).splitlines()[0][:80]})"
     return {
         "name": "relpos_attention", "dtype": dtype_name, "shape": [B, H, T, dh],
+        **extra,
         "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
-        "ms": _time_ms(lambda: relpos_attention(q, k, v, p, u, vb, madd, scale)),
-        "plain_ms": _time_ms(lambda: relpos_attention_plain(q, k, v, p, u, vb, madd, scale)),
-        "library_ms": _time_ms(
-            lambda: F.scaled_dot_product_attention(qu, k, v, attn_mask=bias, scale=scale)),
+        "ms": _time_ms(lambda: relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)),
+        "plain_ms": _time_ms(lambda: relpos_attention_plain(
+            q, k, v, p, u, vb, madd, scale, *tail)),
+        "library_ms": library_ms, "library": library,
         "bound_ms": bound, "bound_by": by,
     }
 
@@ -673,6 +726,9 @@ def phase_kernels():
             records.append(_check_relpos(dtype_name, T))
         records.append(_check_relpos(dtype_name, 512, B=8))
         records.append(_check_relpos_bwd(dtype_name))
+        # attention dropout at conformer_small's transformer_dropout
+        records.append(_check_relpos(dtype_name, 512, B=8, rate=0.1))
+        records.append(_check_relpos_bwd(dtype_name, rate=0.1))
         records.append(_check_beam_cache(dtype_name))
     records.extend(_check_ctc())
     records.extend(_check_transducer(64))
@@ -1218,11 +1274,12 @@ def kernels_line(records, main_runs):
                 "library_ms")
         if "bfloat16" in by_dtype:
             entry["bfloat16"] = {k: by_dtype["bfloat16"][k] for k in keys}
-        # the same kernel in another role (K1 as dx, the wide lattice)
+        # the same kernel in another role (K1 as dx, the wide lattice,
+        # K5/K6 with dropout)
         for r in records:
             if r["name"] == rec_name and r.get("role", role) != role:
                 entry.setdefault(r["role"], {})[r["dtype"]] = {
-                    k: r[k] for k in keys + ("shape",)}
+                    k: r[k] for k in keys + ("shape", "rate", "seed") if k in r}
         out.append(entry)
     assert all(e["launches"] > 0 for e in out), launches
     return {"kernels": out}

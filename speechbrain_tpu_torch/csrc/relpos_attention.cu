@@ -13,6 +13,25 @@
 //
 // with q, k, v (B, H, Tp, dh), p (H, 2T-1, dh) and madd (B, Tp).
 //
+// ---- attention dropout (rate > 0) ----
+//
+// As in the TPU kernels, dropout acts on the normalized weights and
+// leaves the normalizer and the lse as they are:
+//   out[q] = sum_k softmax_k(s[q, :]) keep[q,k] / (1 - rate) v_k.
+// keep is a pure function of (seed, b, h, q, k): Philox4x32-10 (Salmon
+// et al., SC'11) with key (seed & 0xffffffff, seed >> 32) and counter
+// (k >> 2, q, b H + h, 0); output word k & 3 belongs to key k, which is
+// kept iff that word >= thresh = min(2^32 - 1, floor(rate 2^32)).  The
+// TPU's hardware generator has no counterpart here, so its bits are not
+// reproduced; its threshold rule and gradient formulas are.  Because the
+// mask depends on no tile, block order or Tp, every pass regenerates
+// exactly the bits it needs for the (q, k) pairs it visits: a thread of
+// K5 or pass A generates its row's 64 bits of each key tile (16 Philox
+// calls), passes B and D generate the tile's 64 rows cooperatively into
+// shared memory.  The case rate = 0 is a separate instantiation
+// (DROP = false) that runs no generator code.  The plain version is
+// relpos_dropout_keep in ops/relpos_attention.py.
+//
 // ---- forward (sb_relpos_attention_fwd) ----
 //
 // What bounds it on the H100: at the long-utterance shape that routes
@@ -41,6 +60,8 @@
 //   dvb = sum_{b,q} sum_k ds p_l,  dk = sum_q ds (q + u),
 //   dv = sum_q P dO,  dp[l] = sum over (b, q, k) with clip(T-1-q+k) = l
 //   of ds (q + vb);  madd gets no gradient.
+// With dropout, dP = dO . v keep / (1 - rate) and dv = sum_q P keep /
+// (1 - rate) dO; D is the dropped output's, so ds keeps its form.
 //
 // What bounds it on the H100: operations.  The function needs 16 dh
 // FLOPs per (b, h, q, k): 16 x 8 x 4 x 512^2 x 36 = 4.8 GFLOP at the
@@ -91,6 +112,61 @@ struct Stride {
   // floats per shared row: an odd number of float4 words
   static constexpr int value = ((DH / 4) % 2 == 1) ? DH : DH + 4;
 };
+
+// Dropout parameters (see the header); unused when DROP is false.
+struct Drop {
+  unsigned thresh, k0, k1;  // keep threshold, Philox key
+  float inv;                // 1 / (1 - rate)
+};
+
+// Philox4x32-10: four 32-bit words from a 128-bit counter and a 64-bit key.
+__device__ __forceinline__ uint4 philox(uint4 c, unsigned k0, unsigned k1) {
+  constexpr unsigned M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
+  constexpr unsigned W0 = 0x9E3779B9u, W1 = 0xBB67AE85u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(M0, c.x), lo0 = M0 * c.x;
+    const unsigned hi1 = __umulhi(M1, c.z), lo1 = M1 * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+    k0 += W0;
+    k1 += W1;
+  }
+  return c;
+}
+
+// Keep bits of query row q over the 64 keys kstart .. kstart + 63 of head
+// bh = b H + h: bit t is the pair (q, kstart + t).  kstart need not be a
+// multiple of 4 (pass D's diagonal bands); bits of keys outside [0, Tp)
+// are computed all the same and never read.
+__device__ __forceinline__ uint64_t keep_bits(const Drop& d, int bh, int q,
+                                              int kstart) {
+  const int mis = kstart & 3;
+  const int g0 = kstart >> 2;  // floor(kstart / 4), negative kstart too
+  uint64_t bits = 0;
+#pragma unroll
+  for (int i = 0; i < 17; ++i) {
+    if (i == 16 && mis == 0) break;
+    const uint4 r = philox(
+        make_uint4((unsigned)(g0 + i), (unsigned)q, (unsigned)bh, 0u), d.k0,
+        d.k1);
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int t = 4 * i + c - mis;
+      if (t >= 0 && t < 64 && w[c] >= d.thresh) bits |= 1ull << t;
+    }
+  }
+  return bits;
+}
+
+// The keep bit of the single pair (q, k), 0 <= k.
+__device__ __forceinline__ bool keep_one(const Drop& d, int bh, int q, int k) {
+  const uint4 r = philox(make_uint4((unsigned)(k >> 2), (unsigned)q,
+                                    (unsigned)bh, 0u),
+                         d.k0, d.k1);
+  const int c = k & 3;
+  return (c == 0 ? r.x : c == 1 ? r.y : c == 2 ? r.z : r.w) >= d.thresh;
+}
 
 template <int DH>
 __device__ __forceinline__ float dot_row(const float (&a)[DH],
@@ -176,7 +252,7 @@ constexpr size_t fwd_smem_bytes() {
          BK * sizeof(float);
 }
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 __global__ void __launch_bounds__(BQ)
     relpos_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
                       const E* __restrict__ v, const E* __restrict__ p,
@@ -184,7 +260,7 @@ __global__ void __launch_bounds__(BQ)
                       const float* __restrict__ vb,
                       const float* __restrict__ madd, float* __restrict__ out,
                       float* __restrict__ lse, int H, int Tp, int T,
-                      float scale, int causal) {
+                      float scale, int causal, Drop dr) {
   constexpr int S = Stride<DH>::value;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;               // (BK, S)
@@ -219,6 +295,8 @@ __global__ void __launch_bounds__(BQ)
     // band row r holds p[clip(T-1 - (q0+BQ-1) + k0 + r)]
     stage_band<E, DH>(Ps, ph, T - 1 - (q0 + BQ - 1) + k0, T);
     for (int e = i; e < BK; e += BQ) Ms[e] = madd[(int64_t)b * Tp + k0 + e];
+    uint64_t keep = 0;
+    if (DROP) keep = keep_bits(dr, b * H + h, qrow, k0);
     __syncthreads();
 
     for (int j = 0; j < BK; ++j) {
@@ -234,8 +312,10 @@ __global__ void __launch_bounds__(BQ)
         m = s;
       }
       const float pj = expf(s - m);
-      l += pj;
-      axpy_row<DH>(o, pj, Vs + j * S);
+      l += pj;  // the normalizer is taken before dropout
+      float w = pj;
+      if (DROP) w = ((keep >> j) & 1) ? pj * dr.inv : 0.f;
+      axpy_row<DH>(o, w, Vs + j * S);
     }
   }
   const float inv = 1.f / l;
@@ -252,7 +332,7 @@ constexpr size_t bwd_a_smem_bytes() {
   return fwd_smem_bytes<DH>();
 }
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 __global__ void __launch_bounds__(BQ)
     relpos_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const E* __restrict__ v, const E* __restrict__ p,
@@ -264,7 +344,7 @@ __global__ void __launch_bounds__(BQ)
                          const float* __restrict__ dsum,
                          float* __restrict__ dq, float* __restrict__ part,
                          int H, int Tp, int T, float scale, int causal,
-                         int ks_n) {
+                         int ks_n, Drop dr) {
   constexpr int S = Stride<DH>::value;
   extern __shared__ __align__(16) float smem[];
   float* Ks = smem;
@@ -302,6 +382,8 @@ __global__ void __launch_bounds__(BQ)
     stage<E, DH>(Vs, v + head, k0, BK, Tp, nullptr);
     stage_band<E, DH>(Ps, ph, T - 1 - (q0 + BQ - 1) + k0, T);
     for (int e = i; e < BK; e += BQ) Ms[e] = madd[(int64_t)b * Tp + k0 + e];
+    uint64_t keep = 0;
+    if (DROP) keep = keep_bits(dr, b * H + h, qrow, k0);
     __syncthreads();
     for (int j = 0; j < BK; ++j) {
       const float* prow = Ps + (BQ - 1 - i + j) * S;
@@ -309,7 +391,9 @@ __global__ void __launch_bounds__(BQ)
                 Ms[j];
       if (causal && k0 + j > qrow) s = NEG;
       const float pr = expf(s - L);
-      const float ds = pr * (dot_row<DH>(g, Vs + j * S) - Dr) * scale;
+      float dpw = dot_row<DH>(g, Vs + j * S);
+      if (DROP) dpw = ((keep >> j) & 1) ? dpw * dr.inv : 0.f;
+      const float ds = pr * (dpw - Dr) * scale;
       axpy_row<DH>(dqc, ds, Ks + j * S);
       axpy_row<DH>(dqp, ds, prow);
     }
@@ -341,13 +425,13 @@ __global__ void __launch_bounds__(BQ)
 
 // -------------------------------------------- backward, pass B: dk, dv
 
-template <int DH>
+template <int DH, bool DROP>
 constexpr size_t bwd_b_smem_bytes() {
   return (size_t)(3 * BQ + BAND) * Stride<DH>::value * sizeof(float) +
-         2 * BQ * sizeof(float);
+         (DROP ? BQ * sizeof(uint64_t) : 0) + 2 * BQ * sizeof(float);
 }
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 __global__ void __launch_bounds__(BK)
     relpos_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
                           const E* __restrict__ v, const E* __restrict__ p,
@@ -359,14 +443,16 @@ __global__ void __launch_bounds__(BK)
                           const float* __restrict__ dsum,
                           float* __restrict__ dk, float* __restrict__ dv,
                           int H, int Tp, int T, float scale, int causal,
-                          int qs_n) {
+                          int qs_n, Drop dr) {
   constexpr int S = Stride<DH>::value;
   extern __shared__ __align__(16) float smem[];
   float* QUs = smem;              // (BQ, S) q + u
   float* QVs = QUs + BQ * S;      // (BQ, S) q + vb
   float* Gs = QVs + BQ * S;       // (BQ, S) dO
   float* Ps = Gs + BQ * S;        // (BAND, S)
-  float* Ls = Ps + BAND * S;      // (BQ,) lse
+  // (BQ,) keep bits of the tile's query rows over its keys, when DROP
+  uint64_t* Km = reinterpret_cast<uint64_t*>(Ps + BAND * S);
+  float* Ls = Ps + BAND * S + (DROP ? 2 * BQ : 0);  // (BQ,) lse
   float* Ds = Ls + BQ;            // (BQ,) dsum
 
   // blockIdx.z = b * qs_n + qs: query chunk qs of batch row b
@@ -400,6 +486,8 @@ __global__ void __launch_bounds__(BK)
       Ls[e] = lse[rows + q0 + e];
       Ds[e] = dsum[rows + q0 + e];
     }
+    // thread j generates row q0 + j of the tile's mask (BK == BQ)
+    if (DROP) Km[j] = keep_bits(dr, b * H + h, q0 + j, k0);
     __syncthreads();
     for (int il = 0; il < BQ; ++il) {
       const float* qur = QUs + il * S;
@@ -410,9 +498,15 @@ __global__ void __launch_bounds__(BK)
                 mj;
       if (causal && kcol > q0 + il) s = NEG;
       const float pr = expf(s - Ls[il]);
-      const float ds = pr * (dot_row<DH>(vv, gr) - Ds[il]) * scale;
+      float dpw = dot_row<DH>(vv, gr), pw = pr;
+      if (DROP) {
+        const bool kept = (Km[il] >> j) & 1;
+        dpw = kept ? dpw * dr.inv : 0.f;
+        pw = kept ? pr * dr.inv : 0.f;
+      }
+      const float ds = pr * (dpw - Ds[il]) * scale;
       axpy_row<DH>(dka, ds, qur);
-      axpy_row<DH>(dva, pr, gr);
+      axpy_row<DH>(dva, pw, gr);
     }
   }
   // dk, dv themselves when qs_n == 1, else slice qs of the partials
@@ -426,15 +520,15 @@ __global__ void __launch_bounds__(BK)
 
 // ------------------------------------------------- backward, pass D: dp
 
-template <int DH>
+template <int DH, bool DROP>
 constexpr size_t bwd_d_smem_bytes() {
   return (size_t)(3 * BQ + 2 * BAND) * Stride<DH>::value * sizeof(float) +
-         (2 * BQ + BAND) * sizeof(float);
+         (DROP ? BQ * sizeof(uint64_t) : 0) + (2 * BQ + BAND) * sizeof(float);
 }
 
 // ds and (q + vb) of one (b, q, k) pair from global memory: the clipped
 // pairs of pass D (only when Tp > T).
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 __device__ float pair_ds(const E* __restrict__ q, const E* __restrict__ k,
                          const E* __restrict__ v, const float* __restrict__ u,
                          const float* __restrict__ vb,
@@ -444,7 +538,7 @@ __device__ float pair_ds(const E* __restrict__ q, const E* __restrict__ k,
                          const float* __restrict__ dsum,
                          const float (&pl)[DH], float (&qv)[DH], int b, int h,
                          int H, int Tp, int qi, int kj, float scale,
-                         int causal) {
+                         int causal, const Drop& dr) {
   const int64_t head = ((int64_t)b * H + h) * Tp * DH;
   const int64_t row = ((int64_t)b * H + h) * Tp + qi;
   float su = 0.f, sv = 0.f, dpv = 0.f;
@@ -459,10 +553,11 @@ __device__ float pair_ds(const E* __restrict__ q, const E* __restrict__ k,
   }
   float s = (su + sv) * scale + madd[(int64_t)b * Tp + kj];
   if (causal && kj > qi) s = NEG;
+  if (DROP) dpv = keep_one(dr, b * H + h, qi, kj) ? dpv * dr.inv : 0.f;
   return expf(s - lse[row]) * (dpv - dsum[row]) * scale;
 }
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 __global__ void __launch_bounds__(BQ)
     relpos_bwd_dp_kernel(const E* __restrict__ q, const E* __restrict__ k,
                          const E* __restrict__ v, const E* __restrict__ p,
@@ -473,7 +568,7 @@ __global__ void __launch_bounds__(BQ)
                          const float* __restrict__ lse,
                          const float* __restrict__ dsum,
                          float* __restrict__ dp, int H, int Tp, int T,
-                         float scale, int causal, int ds_n) {
+                         float scale, int causal, int ds_n, Drop dr) {
   constexpr int S = Stride<DH>::value;
   extern __shared__ __align__(16) float smem[];
   float* QUs = smem;              // (BQ, S)
@@ -481,7 +576,9 @@ __global__ void __launch_bounds__(BQ)
   float* Gs = QVs + BQ * S;       // (BQ, S)
   float* Kb = Gs + BQ * S;        // (BAND, S) keys of the band
   float* Vb = Kb + BAND * S;      // (BAND, S)
-  float* Ls = Vb + BAND * S;      // (BQ,)
+  // (BQ,) keep bits when DROP: row il over the keys jb0 + il + [0, 64)
+  uint64_t* Dm = reinterpret_cast<uint64_t*>(Vb + BAND * S);
+  float* Ls = Vb + BAND * S + (DROP ? 2 * BQ : 0);  // (BQ,)
   float* Ds = Ls + BQ;            // (BQ,)
   float* Mb = Ds + BQ;            // (BAND,)
 
@@ -524,6 +621,7 @@ __global__ void __launch_bounds__(BQ)
         const int kj = jb0 + e;
         Mb[e] = (kj >= 0 && kj < Tp) ? madd[(int64_t)b * Tp + kj] : 0.f;
       }
+      if (DROP) Dm[ll] = keep_bits(dr, b * H + h, q0 + ll, jb0 + ll);
       __syncthreads();
       if (!live) continue;
       for (int il = 0; il < BQ; ++il) {
@@ -537,8 +635,9 @@ __global__ void __launch_bounds__(BQ)
                   Mb[r];
         if (causal && kj > q0 + il) s = NEG;
         const float pr = expf(s - Ls[il]);
-        const float ds = pr * (dot_rows<DH>(Gs + il * S, Vb + r * S) - Ds[il]) *
-                         scale;
+        float dpw = dot_rows<DH>(Gs + il * S, Vb + r * S);
+        if (DROP) dpw = ((Dm[il] >> ll) & 1) ? dpw * dr.inv : 0.f;
+        const float ds = pr * (dpw - Ds[il]) * scale;
         axpy_row<DH>(dpa, ds, qvr);
       }
     }
@@ -551,9 +650,9 @@ __global__ void __launch_bounds__(BQ)
       for (int kj = 0; kj < Tp; ++kj) {
         const int idx = T - 1 - qi + kj;
         if ((l == 0 && idx >= 0) || (l == L - 1 && idx <= L - 1)) continue;
-        const float ds = pair_ds<E, DH>(q, k, v, u, vb, madd, dout, lse,
-                                        dsum, pl, qv, b, h, H, Tp, qi, kj,
-                                        scale, causal);
+        const float ds = pair_ds<E, DH, DROP>(q, k, v, u, vb, madd, dout,
+                                              lse, dsum, pl, qv, b, h, H, Tp,
+                                              qi, kj, scale, causal, dr);
 #pragma unroll
         for (int d = 0; d < DH; ++d) dpa[d] += ds * qv[d];
       }
@@ -612,19 +711,21 @@ struct Args {
   int B, H, Tp, T;
   float scale;
   int causal;
+  int drop;  // 0: rate = 0, the DROP = false kernels
+  Drop dr;
   cudaStream_t s;
 };
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 int launch_fwd(const Args& a, float* out, float* lse) {
   const size_t smem = fwd_smem_bytes<DH>();
-  auto kern = relpos_fwd_kernel<E, DH>;
+  auto kern = relpos_fwd_kernel<E, DH, DROP>;
   cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(a.Tp / BQ, a.H, a.B);
   kern<<<grid, BQ, smem, a.s>>>((const E*)a.q, (const E*)a.k, (const E*)a.v,
                                 (const E*)a.p, a.u, a.vb, a.madd, out, lse,
-                                a.H, a.Tp, a.T, a.scale, a.causal);
+                                a.H, a.Tp, a.T, a.scale, a.causal, a.dr);
   return (int)cudaGetLastError();
 }
 
@@ -668,7 +769,7 @@ cudaError_t sum_parts(const float* parts, float* out, int nparts, int64_t n,
   return cudaGetLastError();
 }
 
-template <typename E, int DH>
+template <typename E, int DH, bool DROP>
 int launch_bwd(const Args& a, const float* dout, const float* lse,
                const float* dsum, float* dq, float* dk, float* dv, float* dp,
                float* du, float* dvb, float* scratch) {
@@ -688,37 +789,35 @@ int launch_bwd(const Args& a, const float* dout, const float* lse,
   }
   float* dp_part = next;
 
-  auto ka = relpos_bwd_dq_kernel<E, DH>;
+  auto ka = relpos_bwd_dq_kernel<E, DH, DROP>;
   cudaError_t err = allow_smem(ka, bwd_a_smem_bytes<DH>());
   if (err != cudaSuccess) return (int)err;
   ka<<<dim3(nqt, a.H, a.B * pl.ks), BQ, bwd_a_smem_bytes<DH>(), a.s>>>(
       q, k, v, p, a.u, a.vb, a.madd, dout, lse, dsum, dq_out, bias_part, a.H,
-      a.Tp, a.T, a.scale, a.causal, pl.ks);
+      a.Tp, a.T, a.scale, a.causal, pl.ks, a.dr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (pl.ks > 1 && (err = sum_parts(dq_out, dq, pl.ks, pl.n, a.s))) {
     return (int)err;
   }
 
-  auto kb = relpos_bwd_dkv_kernel<E, DH>;
-  if ((err = allow_smem(kb, bwd_b_smem_bytes<DH>())) != cudaSuccess) {
-    return (int)err;
-  }
-  kb<<<dim3(nkt, a.H, a.B * pl.qs), BK, bwd_b_smem_bytes<DH>(), a.s>>>(
+  auto kb = relpos_bwd_dkv_kernel<E, DH, DROP>;
+  constexpr size_t smem_b = bwd_b_smem_bytes<DH, DROP>();
+  if ((err = allow_smem(kb, smem_b)) != cudaSuccess) return (int)err;
+  kb<<<dim3(nkt, a.H, a.B * pl.qs), BK, smem_b, a.s>>>(
       q, k, v, p, a.u, a.vb, a.madd, dout, lse, dsum, dk_out, dv_out, a.H,
-      a.Tp, a.T, a.scale, a.causal, pl.qs);
+      a.Tp, a.T, a.scale, a.causal, pl.qs, a.dr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (pl.qs > 1) {
     if ((err = sum_parts(dk_out, dk, pl.qs, pl.n, a.s))) return (int)err;
     if ((err = sum_parts(dv_out, dv, pl.qs, pl.n, a.s))) return (int)err;
   }
 
-  auto kd = relpos_bwd_dp_kernel<E, DH>;
-  if ((err = allow_smem(kd, bwd_d_smem_bytes<DH>())) != cudaSuccess) {
-    return (int)err;
-  }
-  kd<<<dim3(nlt, a.H, a.B * pl.ds), BQ, bwd_d_smem_bytes<DH>(), a.s>>>(
+  auto kd = relpos_bwd_dp_kernel<E, DH, DROP>;
+  constexpr size_t smem_d = bwd_d_smem_bytes<DH, DROP>();
+  if ((err = allow_smem(kd, smem_d)) != cudaSuccess) return (int)err;
+  kd<<<dim3(nlt, a.H, a.B * pl.ds), BQ, smem_d, a.s>>>(
       q, k, v, p, a.u, a.vb, a.madd, dout, lse, dsum, dp_part, a.H, a.Tp,
-      a.T, a.scale, a.causal, pl.ds);
+      a.T, a.scale, a.causal, pl.ds, a.dr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if ((err = sum_parts(dp_part, dp, a.B * pl.ds, (int64_t)a.H * L * DH,
                        a.s))) {
@@ -731,40 +830,55 @@ int launch_bwd(const Args& a, const float* dout, const float* lse,
   return (int)cudaGetLastError();
 }
 
-// Returns CALL with the compile-time head width DH set to the runtime dh.
-#define SB_DISPATCH_DH(E, dh, CALL)       \
-  switch (dh) {                           \
+// Returns CALL with the compile-time head width DH set to the runtime dh
+// and DROP to whether the call has dropout.
+#define SB_DISPATCH_DH_1(dh, CALL)                   \
+  switch (dh) {                                      \
     case 16: { constexpr int DH = 16; return CALL; } \
     case 32: { constexpr int DH = 32; return CALL; } \
     case 36: { constexpr int DH = 36; return CALL; } \
     case 64: { constexpr int DH = 64; return CALL; } \
     default: return (int)cudaErrorInvalidValue;      \
   }
+#define SB_DISPATCH_DH(drop, dh, CALL)                              \
+  if (drop) {                                                       \
+    constexpr bool DROP = true;                                     \
+    SB_DISPATCH_DH_1(dh, CALL)                                      \
+  } else {                                                          \
+    constexpr bool DROP = false;                                    \
+    SB_DISPATCH_DH_1(dh, CALL)                                      \
+  }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, p).  u, vb, madd, out and
 // lse (B, H, Tp) are float32.  Tp must be a multiple of 64 and dh one of
-// 16, 32, 36, 64.  Returns cudaGetLastError() after the launch.
+// 16, 32, 36, 64.  drop = 0 is rate 0 (thresh, inv and the key unread);
+// else thresh = min(2^32 - 1, floor(rate 2^32)), inv = 1 / (1 - rate) and
+// (key0, key1) = (seed & 0xffffffff, seed >> 32).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int sb_relpos_attention_fwd(const void* q, const void* k,
                                        const void* v, const void* p,
                                        const void* u, const void* vb,
                                        const void* madd, void* out,
                                        void* lse, int B, int H, int Tp, int T,
                                        int dh, float scale, int causal,
+                                       int drop, unsigned thresh, float inv,
+                                       unsigned key0, unsigned key1,
                                        int dtype, void* stream) {
   if (B == 0 || H == 0 || Tp == 0) return 0;
   if (Tp % BQ != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, p, (const float*)u, (const float*)vb,
-               (const float*)madd, B, H, Tp, T, scale, causal,
-               (cudaStream_t)stream};
+               (const float*)madd, B, H, Tp, T, scale, causal, drop,
+               Drop{thresh, key0, key1, inv}, (cudaStream_t)stream};
   if (dtype == 0) {
-    SB_DISPATCH_DH(float, dh,
-                   (launch_fwd<float, DH>(a, (float*)out, (float*)lse)))
+    SB_DISPATCH_DH(drop, dh, (launch_fwd<float, DH, DROP>(a, (float*)out,
+                                                          (float*)lse)))
   }
   if (dtype == 1) {
-    SB_DISPATCH_DH(__nv_bfloat16, dh,
-                   (launch_fwd<__nv_bfloat16, DH>(a, (float*)out, (float*)lse)))
+    SB_DISPATCH_DH(drop, dh,
+                   (launch_fwd<__nv_bfloat16, DH, DROP>(a, (float*)out,
+                                                        (float*)lse)))
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -778,31 +892,32 @@ extern "C" long long sb_relpos_attention_bwd_scratch(int B, int H, int Tp,
 // Backward.  dout (B, H, Tp, dh), lse and dsum (B, H, Tp) and every
 // output are float32: dq, dk, dv (B, H, Tp, dh), dp (H, 2T-1, dh), du and
 // dvb (H, dh).  part is scratch of sb_relpos_attention_bwd_scratch floats.
-// Returns cudaGetLastError() after the launches.
+// The dropout arguments are the forward's.  Returns cudaGetLastError()
+// after the launches.
 extern "C" int sb_relpos_attention_bwd(
     const void* q, const void* k, const void* v, const void* p, const void* u,
     const void* vb, const void* madd, const void* dout, const void* lse,
     const void* dsum, void* dq, void* dk, void* dv, void* dp, void* du,
     void* dvb, void* part, int B, int H, int Tp, int T, int dh, float scale,
-    int causal, int dtype, void* stream) {
+    int causal, int drop, unsigned thresh, float inv, unsigned key0,
+    unsigned key1, int dtype, void* stream) {
   if (B == 0 || H == 0 || Tp == 0) return 0;
   if (Tp % BQ != 0) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, p, (const float*)u, (const float*)vb,
-               (const float*)madd, B, H, Tp, T, scale, causal,
-               (cudaStream_t)stream};
+               (const float*)madd, B, H, Tp, T, scale, causal, drop,
+               Drop{thresh, key0, key1, inv}, (cudaStream_t)stream};
   const float *g = (const float*)dout, *l = (const float*)lse,
               *D = (const float*)dsum;
   float *oq = (float*)dq, *ok = (float*)dk, *ov = (float*)dv,
         *op = (float*)dp, *ou = (float*)du, *ob = (float*)dvb,
         *pt = (float*)part;
   if (dtype == 0) {
-    SB_DISPATCH_DH(float, dh, (launch_bwd<float, DH>(a, g, l, D, oq, ok, ov,
-                                                     op, ou, ob, pt)))
+    SB_DISPATCH_DH(drop, dh, (launch_bwd<float, DH, DROP>(
+                                 a, g, l, D, oq, ok, ov, op, ou, ob, pt)))
   }
   if (dtype == 1) {
-    SB_DISPATCH_DH(__nv_bfloat16, dh,
-                   (launch_bwd<__nv_bfloat16, DH>(a, g, l, D, oq, ok, ov, op,
-                                                  ou, ob, pt)))
+    SB_DISPATCH_DH(drop, dh, (launch_bwd<__nv_bfloat16, DH, DROP>(
+                                 a, g, l, D, oq, ok, ov, op, ou, ob, pt)))
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -136,8 +136,9 @@ class RelPosMHAXL(torch.nn.Module):
 
     def _kernel_ok(self, query, T_q, T_k, attn_mask):
         # The JAX gate (speechbrain_tpu/nnet/attention.py): training with
-        # attention dropout takes the materialized path, which is the JAX
-        # semantics, not a fallback (the kernel has no dropout yet).
+        # attention dropout takes the materialized path there, so it does
+        # here too, though the kernels take a dropout rate (ops.
+        # relpos_attention's rate and seed, reached by direct calls only).
         return (
             self.use_kernels
             and query.device.type == "cuda"

@@ -29,6 +29,7 @@ from .relpos_attention import (
     relpos_attention_bwd,
     relpos_attention_bwd_plain,
     relpos_attention_plain,
+    relpos_dropout_keep,
 )
 from .transducer import (
     transducer_alpha,
@@ -57,6 +58,7 @@ __all__ = [
     "relpos_attention_bwd",
     "relpos_attention_bwd_plain",
     "relpos_attention_plain",
+    "relpos_dropout_keep",
     "transducer_alpha",
     "transducer_alpha_plain",
     "transducer_beta_grad",

@@ -187,6 +187,80 @@ def test_relpos_attention_backward_kernel(gen, dtype, causal, T, Tp):
         assert float((got - ref).abs().max()) <= tol * scale
 
 
+def _relpos_inputs(gen, dtype, T, Tp, B=2, H=3, dh=36):
+    """q, k, v, p in ``dtype``, f32 u, vb, a key mask with the T..Tp pad
+    and a shorter second utterance, and a cotangent zero past T."""
+    mk = lambda *s: (0.5 * torch.randn(*s, device="cuda", generator=gen)).to(dtype)  # noqa: E731
+    q, k, v, p = mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(H, 2 * T - 1, dh)
+    u, vb = mk(H, dh).float(), mk(H, dh).float()
+    madd = torch.zeros(B, Tp, device="cuda")
+    madd[:, T:] = -1e9
+    madd[1, T // 2:] = -65000.0
+    dout = torch.randn(B, H, Tp, dh, device="cuda", generator=gen)
+    dout[:, :, T:] = 0.0
+    return (q, k, v, p, u, vb, madd), dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,Tp", [(100, 128), (512, 512)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_relpos_attention_dropout_kernel(gen, dtype, causal, T, Tp, rate):
+    """K5 with dropout against the plain version with the same seed (the
+    same mask by construction); one seed gives the same bits twice,
+    another seed another output."""
+    args, _ = _relpos_inputs(gen, dtype, T, Tp)
+    before = ops.relpos_attention.launches
+    got = ops.relpos_attention(*args, 0.1, causal, rate, 1234)
+    again = ops.relpos_attention(*args, 0.1, causal, rate, 1234)
+    other = ops.relpos_attention(*args, 0.1, causal, rate, 1235)
+    ref = ops.relpos_attention_plain(*args, 0.1, causal, rate, 1234)
+    assert ops.relpos_attention.launches == before + 3
+    assert torch.equal(got, again)
+    assert float((got - other)[:, :, :T].abs().max()) > 1e-3
+    # same stored values, f32 arithmetic in both; sums in other orders
+    torch.testing.assert_close(got[:, :, :T], ref[:, :, :T], atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,Tp", [(100, 128), (512, 512)])
+@pytest.mark.parametrize("rate", [0.1, 0.5])
+def test_relpos_attention_dropout_backward_kernel(gen, dtype, causal, T, Tp, rate):
+    """K6 with dropout through the autograd Function against autograd
+    through the plain version with the same seed: all six gradients,
+    padded rows (pass D's clipped pairs) included."""
+    (q, k, v, p, u, vb, madd), dout = _relpos_inputs(gen, dtype, T, Tp)
+    grads = []
+    for fn in (ops.relpos_attention, ops.relpos_attention_plain):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v, p, u, vb)]
+        before = ops.relpos_attention_bwd.launches
+        fn(*leaves, madd, 0.1, causal, rate, 99).backward(dout)
+        grads.append([t.grad.float() for t in leaves])
+        if fn is ops.relpos_attention:
+            assert ops.relpos_attention_bwd.launches == before + 1
+    # as without dropout: f32 from the same stored values, the gradients
+    # returned in the inputs' dtype
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for got, ref in zip(*grads):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+def test_relpos_dropout_kernel_mask_is_the_plain_mask(gen):
+    """With v = the identity (dh = Tp = 64) K5's output is the dropped
+    weights themselves: zero exactly where the plain mask drops."""
+    B, H, T = 2, 2, 64
+    q = 0.5 * torch.randn(B, H, T, T, device="cuda", generator=gen)
+    v = torch.eye(T, device="cuda").expand(B, H, T, T).contiguous()
+    p = 0.5 * torch.randn(H, 2 * T - 1, T, device="cuda", generator=gen)
+    z = torch.zeros(H, T, device="cuda")
+    out = ops.relpos_attention(q, q, v, p, z, z, torch.zeros(B, T, device="cuda"),
+                               0.1, False, 0.3, (7 << 32) + 5)
+    keep = ops.relpos_dropout_keep(B, H, T, 0.3, (7 << 32) + 5, "cuda")
+    assert torch.equal(out > 0, keep)
+
+
 def _transducer_inputs(gen, B, T, U, V):
     """Logits (B, T, U+1, V), labels 1..V-1 padded with 0 past U_b, and
     ragged frame and label counts (U_b <= 40 and a U_b = U row)."""
@@ -258,6 +332,12 @@ def test_every_kernel_wrapper_keeps_the_graph(gen):
     assert out.requires_grad
     out.sum().backward()
     assert q.grad is not None
+    q.grad = None
+    out = ops.relpos_attention(q, q, q, p, z, z, torch.zeros(1, 64, device="cuda"),
+                               0.25, False, 0.1, 3)
+    assert out.requires_grad
+    out.sum().backward()
+    assert q.grad is not None
     lp = torch.log_softmax(torch.randn(1, 6, 4, device="cuda", generator=gen), -1)
     lp.requires_grad_(True)
     loss = ops.ctc_loss_per_seq(lp, torch.tensor([[1, 2]], device="cuda"),
@@ -299,6 +379,17 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="overlaps"):
         ops.beam_attend_step(kv, torch.zeros(2, dtype=torch.long), kv[:, :, 0],
                              kv[:, :, 0], kv[:, :, 0], 1, 2, dst=kv)
+    # the rel-pos dropout rate lies in [0, 1)
+    q = torch.zeros(1, 1, 64, 16, device="cuda")
+    rel = (q, q, q, torch.zeros(1, 127, 16, device="cuda"),
+           torch.zeros(1, 16, device="cuda"), torch.zeros(1, 16, device="cuda"),
+           torch.zeros(1, 64, device="cuda"), 0.25, False)
+    for rate in (1.0, -0.1):
+        with pytest.raises(ValueError, match="rate"):
+            ops.relpos_attention(*rel, rate, 0)
+        with pytest.raises(ValueError, match="rate"):
+            ops.relpos_attention_bwd(*rel[:7], q, q[..., 0], q[..., 0], 0.25,
+                                     False, rate, 0)
     # the lattice kernels: type, layout, lengths, labels, width
     blank = torch.zeros(2, 5, 4, device="cuda")
     emit = torch.zeros(2, 5, 3, device="cuda")
