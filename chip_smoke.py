@@ -14,7 +14,11 @@ Phases, each printing one JSON line when it ends:
    card could take (bound).  The rel-pos kernels K5/K6 also run with
    attention dropout (rate 0.1, role "dropout"): against the plain
    version with the same seed (the same Philox mask), bit-identical
-   across two launches with one seed, different at seed + 1.
+   across two launches with one seed, different at seed + 1.  K6 (on the
+   tensor cores) is bit-identical across two launches at rate 0 too, and
+   its bound divides by the peak of the tensor cores it uses.  The
+   lattice kernels also run wider than a block has threads (role
+   "wide_lattice": CTC 2U+1 = 1041, RNN-T U+1 = 1100).
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
    weights from a seed) transcribes 8 synthetic 10 s utterances with
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
@@ -52,6 +56,7 @@ is not printed.  Exits non-zero when no CUDA card is present.
 """
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -61,7 +66,8 @@ import numpy as np
 SEED = 0
 BLANK_BIAS, EOS_BIAS = 8.0, 5.0  # see phase_serve
 MEM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # CUDA-core f32; bf16 tensor cores
+# CUDA-core f32; bf16 and TF32 tensor cores (dense)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 DROPOUT_SEED = (3 << 32) + 7  # uses both words of the Philox key
 
 
@@ -84,6 +90,32 @@ def _time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _device_ms(fn, iters=10, warmup=3):
+    """Device time per call of ``fn``'s kernels, from the profiler: (total
+    ms, {kernel: ms}).  Where the host takes longer to issue a call than
+    the card to run it, CUDA events around back-to-back calls time the
+    host; this reads the kernels alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or 0
+        if t > 0:
+            name = re.search(r"(\w+)\s*[<(]",
+                             e.key.replace("(anonymous namespace)::", ""))
+            key = name.group(1) if name else e.key[:48]
+            per[key] = per.get(key, 0.0) + t / iters / 1e3
+    return sum(per.values()), per
 
 
 def _bound_ms(nbytes, flops, dtype):
@@ -404,24 +436,27 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
     rel = {n: _err(a, b) / max(1e-6, float(b.abs().max()))
            for n, a, b in zip(names, got, ref)}
     err = max(_err(a, b) for a, b in zip(got, ref))
-    # f32 arithmetic from the same stored values on both routes; sums of
-    # up to B*T^2 terms (dp, du, dvb) in other orders
-    tol = 1e-4
+    # f32: 3xTF32 products (~f32 rounding) against f32 autograd, sums of up
+    # to B*T^2 terms (dp, du, dvb) in other orders.  bf16: JAX's rounding
+    # points (q+u, q+vb, dO, dS and the dropped P cast to bf16 before each
+    # product, f32 sums) against f32 autograd from the same stored values
+    tol = 1e-4 if dtype_name == "float32" else 1e-2
     assert max(rel.values()) <= tol, f"relpos_attention_bwd {dtype_name}: {rel}"
-    extra = {}
+    # no atomics: a second call gives the same bits
+    again = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
+                                 scale, *tail)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again)), (
+        "relpos_attention_bwd: one seed, two results")
+    extra = {"bit_identical_same_seed": True}
     if rate > 0:
-        again = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
-                                     scale, False, rate, seed)
         other = relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum,
                                      scale, False, rate, seed + 1)
         torch.cuda.synchronize()
-        assert all(torch.equal(a, b) for a, b in zip(got, again)), (
-            "relpos_attention_bwd: one seed, two results")
         seed_diff = max(_err(a, b) for a, b in zip(got, other))
         assert seed_diff > 1e-3, f"relpos_attention_bwd: seed + 1 changes {seed_diff}"
-        extra = {"role": "dropout", "rate": rate, "seed": seed,
-                 "bit_identical_same_seed": True,
-                 "seed_plus_one_max_abs_diff": seed_diff}
+        extra.update({"role": "dropout", "rate": rate, "seed": seed,
+                      "seed_plus_one_max_abs_diff": seed_diff})
     # library yardstick: SDPA's backward through a materialized bias
     qu = (q.float() + u[None, :, None]).to(dtype).requires_grad_(True)
     kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
@@ -442,18 +477,38 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
     nbytes = ((3 * B * H * T * dh + H * (2 * T - 1) * dh) * item
               + 4 * (2 * H * dh + B * T + B * H * T * dh + 2 * B * H * T)
               + 4 * (3 * B * H * T * dh + H * (2 * T - 1) * dh + 2 * H * dh))
-    bound, by = _bound_ms(nbytes, 16 * B * H * T * T * dh, dtype_name)
+    # the function's 16 dh FLOPs per (b, h, q, k) at the peak of the tensor
+    # cores the kernel uses, beside the CUDA-core f32 bound of the design
+    # before it
+    flops = 16 * B * H * T * T * dh
+    core = "tf32" if dtype_name == "float32" else "bfloat16"
+    bound, by = _bound_ms(nbytes, flops, core)
+    cc_bound, _ = _bound_ms(nbytes, flops, "float32")
+    # MMA work the kernel issues: nine products per (64 x 64) tile pair,
+    # dh padded to the MMA depth, PB / dq-position / dBand over 80 band
+    # columns (rows); TF32 three times (hi hi, hi lo, lo hi)
+    dhp = -(-dh // (8 if core == "tf32" else 16)) * (8 if core == "tf32" else 16)
+    pairs = B * H * (T // 64) ** 2
+    mma_flops = pairs * 2 * dhp * (6 * 64 * 64 + 3 * 64 * 80) * (3 if core == "tf32" else 1)
     return {
         "name": "relpos_attention_bwd", "dtype": dtype_name, "shape": [B, H, T, dh],
         **extra,
         "max_abs_err": err, "max_rel_err": rel, "tol": tol, "tol_kind": "relative",
         "ms": _time_ms(lambda: relpos_attention_bwd(
-            q, k, v, p, u, vb, madd, dout, lse, dsum, scale, *tail), iters=10),
+            q, k, v, p, u, vb, madd, dout, lse, dsum, scale, *tail), iters=20),
+        **dict(zip(("device_ms", "device_ms_by_kernel"), _device_ms(
+            lambda: relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse,
+                                         dsum, scale, *tail)))),
         "plain_ms": _time_ms(lambda: relpos_attention_bwd_plain(
             q, k, v, p, u, vb, madd, dout, scale, *tail), iters=5),
         "library_ms": library_ms, "library": library,
         "bound_ms": bound, "bound_by": by,
-        "kernel_flops": 28 * B * H * T * T * dh,
+        "bound_peak": ("TF32 tensor cores, 495 TFLOP/s" if core == "tf32"
+                       else "bf16 tensor cores, 989 TFLOP/s"),
+        "cuda_core_f32_bound_ms": cc_bound,
+        "mma": ("mma.sync m16n8k8 TF32, 3xTF32" if core == "tf32"
+                else "mma.sync m16n8k16 bf16, f32 sums"),
+        "kernel_mma_flops": mma_flops,
     }
 
 
@@ -664,6 +719,104 @@ def _check_transducer(U, role=None):
     return rows
 
 
+def _check_lattice_wide():
+    """K3/K4 at 2U+1 = 1041 states (character CTC: 520 targets over 1100
+    frames) and K8/K9 at U+1 = 1100 columns: more than a block has
+    threads, two states or columns a thread.  Against the plain
+    recursions, float32, with the tolerances of the training shapes;
+    role "wide_lattice"."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.ops import transducer as ot
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    B, T, C, U = 4, 1100, 32, 520
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=g), -1)
+    tg = torch.randint(1, C, (B, U), device="cuda", generator=g)
+    tg[:, 1] = tg[:, 0]  # the skip rule
+    tlen = torch.tensor([T - 9 * i for i in range(B)], device="cuda")
+    ulen = torch.tensor([U - 7 * i for i in range(B)], device="cuda")
+    args = (lp, tg, tlen, ulen, 0)
+    alpha, loss, logz = ops.ctc_alpha(*args)
+    alpha_p, loss_p, logz_p = ops.ctc_alpha_plain(*args)
+    ones = torch.ones(B, device="cuda")
+    dlp = ops.ctc_beta_grad(*args, alpha, logz, ones)
+    dlp_p = ops.ctc_beta_grad_plain(*args, alpha_p, logz_p, ones)
+    torch.cuda.synchronize()
+    loss_err, grad_err = _err(loss, loss_p), _err(dlp, dlp_p)
+    tol_loss, tol_grad = 2e-2, 2e-3  # as at the training shape (_check_ctc)
+    assert loss_err <= tol_loss and grad_err <= tol_grad, (loss_err, grad_err)
+    n_live = int(sum(int(tlen[b]) * (2 * int(ulen[b]) + 1) for b in range(B)))
+    k3 = _bound_ms(8 * n_live + 4 * B * U + 12 * B, 12 * n_live, "float32")
+    k4 = _bound_ms(12 * n_live + 4 * B * T * C, 20 * n_live, "float32")
+    lpt = lp.transpose(0, 1)
+    try:
+        lib_ms = _time_ms(lambda: F.ctc_loss(lpt, tg, tlen, ulen, blank=0,
+                                             reduction="none"), iters=5)
+    except RuntimeError:  # no CUDA CTC path takes this length
+        lib_ms = None
+    common = {"role": "wide_lattice", "dtype": "float32", "shape": [B, T, C, U],
+              "states": 2 * U + 1}
+    rows = [
+        {"name": "ctc_alpha", **common, "max_abs_err": loss_err, "tol": tol_loss,
+         "ms": _time_ms(lambda: ops.ctc_alpha(*args), iters=5),
+         "plain_ms": _time_ms(lambda: ops.ctc_alpha_plain(*args), iters=1,
+                              warmup=1),
+         "library_ms": lib_ms, "bound_ms": k3[0], "bound_by": k3[1]},
+        {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
+         "tol": tol_grad,
+         "ms": _time_ms(lambda: ops.ctc_beta_grad(*args, alpha, logz, ones),
+                        iters=5),
+         "plain_ms": _time_ms(lambda: ops.ctc_beta_grad_plain(
+             *args, alpha_p, logz_p, ones), iters=1, warmup=1),
+         "library_ms": None, "bound_ms": k4[0], "bound_by": k4[1]},
+    ]
+    B, T, U, V = 2, 64, 1099, 8
+    logits = torch.randn(B, T, U + 1, V, device="cuda", generator=g)
+    targets = torch.randint(1, V, (B, U), device="cuda", generator=g)
+    tlen = torch.tensor([T, T - 5], device="cuda")
+    ulen = torch.tensor([U, U - 30], device="cuda")
+    targets[1, U - 30:] = 0
+    with torch.no_grad():
+        tables = ot.transducer_tables(torch.log_softmax(logits, -1), targets,
+                                      0, tlen, ulen)
+    alpha, final = ops.transducer_alpha(*tables, tlen, ulen)
+    alpha_p, final_p = ops.transducer_alpha_plain(*tables, tlen, ulen)
+    grads = ops.transducer_beta_grad(*tables, alpha, tlen, ulen, final)
+    grads_p = ops.transducer_beta_grad_plain(*tables, alpha_p, tlen, ulen,
+                                             final_p)
+    torch.cuda.synchronize()
+    rel = max(_err(final, final_p) / float(final_p.abs().max()),
+              _err(alpha, alpha_p) / float(alpha_p.abs().max()))
+    g_err = max(_err(a, b) for a, b in zip(grads, grads_p))
+    tol_rel, tol_grad = 2e-5, 2e-3  # as at the training shape
+    assert rel <= tol_rel and g_err <= tol_grad, (rel, g_err)
+    cells = B * T * (U + 1)
+    k8 = _bound_ms(4 * (2 * cells + B * T * U) + 12 * B, 12 * cells, "float32")
+    k9 = _bound_ms(4 * (3 * cells + 2 * B * T * U) + 12 * B, 20 * cells,
+                   "float32")
+    common = {"role": "wide_lattice", "dtype": "float32", "shape": [B, T, U, V],
+              "columns": U + 1, "library_ms": None}
+    rows += [
+        {"name": "transducer_alpha", **common, "max_abs_err": _err(alpha, alpha_p),
+         "max_rel_err": rel, "tol": tol_rel,
+         "ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen), iters=5),
+         "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
+             *tables, tlen, ulen), iters=1, warmup=1),
+         "bound_ms": k8[0], "bound_by": k8[1]},
+        {"name": "transducer_beta_grad", **common, "max_abs_err": g_err,
+         "tol": tol_grad,
+         "ms": _time_ms(lambda: ops.transducer_beta_grad(
+             *tables, alpha, tlen, ulen, final), iters=5),
+         "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
+             *tables, alpha_p, tlen, ulen, final_p), iters=1, warmup=1),
+         "bound_ms": k9[0], "bound_by": k9[1]},
+    ]
+    return rows
+
+
 # wrapper name -> (kernel source, the TPU kernel's pl.pallas_call, the
 # check record that gives its row: name and role)
 KERNEL_INFO = {
@@ -693,7 +846,7 @@ KERNEL_INFO = {
         ("relpos_attention", None),
     ),
     "relpos_attention_bwd": (
-        "speechbrain_tpu_torch/csrc/relpos_attention.cu",
+        "speechbrain_tpu_torch/csrc/relpos_attention_bwd.cu",
         "speechbrain_tpu/ops/pallas/relpos_attention.py:334",
         ("relpos_attention_bwd", None),
     ),
@@ -733,6 +886,7 @@ def phase_kernels():
     records.extend(_check_ctc())
     records.extend(_check_transducer(64))
     records.extend(_check_transducer(256, role="wide"))
+    records.extend(_check_lattice_wide())
     for r in records:
         emit({"phase": "kernels", **r})
     return records
@@ -1115,7 +1269,8 @@ def phase_train():
 def phase_train_long():
     """The same step on B = 8 utterances of 20.44 s (T_enc 512) with
     transformer_dropout 0, where the rel-pos kernels run forward and
-    backward: f32 then bf16, then kernel vs plain gradients in f32."""
+    backward: f32 then bf16; kernel vs plain gradients in f32 at the
+    seeded weights, before the steps."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -1126,6 +1281,12 @@ def phase_train_long():
     for precision in ("fp32", "bf16"):
         brain = _brain(precision, 0.0)
         batch = brain.prepare_batch(host_batch)
+        check = None
+        if precision == "fp32":
+            # at the seeded weights: after AdamW steps the weights depend on
+            # each route's last bits (Adam turns the rounding noise of
+            # near-zero gradients into steps of the learning rate's size)
+            check = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
         brain.step = 1
         first = float(brain.fit_batch(batch))  # warm-up, untimed
         ops.reset_launch_counters()
@@ -1143,8 +1304,7 @@ def phase_train_long():
                "loss_first": first, "loss_last": losses[-1]}
         if precision == "fp32":
             run["profile"] = _profile_step(brain, batch)
-            run["kernel_vs_plain"] = _compare_routes(
-                brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+            run["kernel_vs_plain"] = check
         emit(run)
         runs[precision] = run
         del brain, batch

@@ -29,7 +29,7 @@ from ..ops.beam_cache import (
     beam_attend_step,
     beam_attend_step_plain,
 )
-from ..ops.relpos_attention import relpos_attention
+from ..ops.relpos_attention import HEAD_DIMS, relpos_attention
 from .dropout import Dropout
 from .linear import Linear
 
@@ -139,9 +139,12 @@ class RelPosMHAXL(torch.nn.Module):
         # attention dropout takes the materialized path there, so it does
         # here too, though the kernels take a dropout rate (ops.
         # relpos_attention's rate and seed, reached by direct calls only).
+        # The kernels are built for the head widths in HEAD_DIMS only; JAX's
+        # take any, so other widths take the materialized path here.
         return (
             self.use_kernels
             and query.device.type == "cuda"
+            and self.embed_dim // self.num_heads in HEAD_DIMS
             and T_q == T_k
             and T_q % 128 == 0
             and 512 <= T_q <= 1024

@@ -189,12 +189,14 @@ def kldiv_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
     confidence = 1.0 - label_smoothing
     fill = label_smoothing / (C - 1)
     targets = targets.long()
-    # sum_c p_c (log p_c - log q_c), with p = fill except at the target
-    # (0 log 0 never occurs: fill > 0)
+    # sum_c p_c (log p_c - log q_c), with p = fill except at the target;
+    # 0 log 0 = 0: the target's term drops at label_smoothing = 1 (fill > 0
+    # on this branch)
     log_q_t = log_probabilities.gather(-1, targets[..., None])[..., 0]
-    per = (confidence * (math.log(confidence) - log_q_t)
-           + fill * ((C - 1) * math.log(fill)
-                     - (log_probabilities.sum(-1) - log_q_t)))
+    per = fill * ((C - 1) * math.log(fill)
+                  - (log_probabilities.sum(-1) - log_q_t))
+    if confidence > 0:
+        per = per + confidence * (math.log(confidence) - log_q_t)
     per = per * (targets != pad_idx).to(per.dtype)
     if length is not None:
         per = per * _sequence_mask(length, per.shape[1], per.dtype)

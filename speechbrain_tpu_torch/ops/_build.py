@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and becomes one shared
 library, ``build/kernels/lib<name>_<hash>.so`` under the repository
-root, loaded with ``ctypes``.  The hash covers the source and the
-compiler flags, so an edited source is never served from a stale build.
+root, loaded with ``ctypes``.  The hash covers the source, the
+``csrc/*.cuh`` headers it includes and the compiler flags, so an edited
+source or header is never served from a stale build.
 Building happens at first use (or up front through ``build()``, which
 starts one ``nvcc`` per source, all at once); nothing is built when a
 module is imported, and nothing here runs on a machine without
@@ -13,6 +14,7 @@ module is imported, and nothing here runs on a machine without
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,8 +25,8 @@ __all__ = [
     "dtype_code", "stream_of", "check_launch", "refuse_grad",
 ]
 
-KERNELS = ("depthwise_conv", "relpos_attention", "ctc", "beam_cache",
-           "transducer")
+KERNELS = ("depthwise_conv", "relpos_attention", "relpos_attention_bwd", "ctc",
+           "beam_cache", "transducer")
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -52,10 +54,15 @@ def _nvcc():
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
 def _lib_path(name):
-    src = CSRC_DIR / f"{name}.cu"
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    headers = sorted(set(_INCLUDE.findall(src)))  # csrc/ headers, one level
     digest = hashlib.sha1(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src + b"".join((CSRC_DIR / h.decode()).read_bytes() for h in headers)
+        + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 

@@ -33,6 +33,9 @@ __all__ = [
 ]
 
 NEG = -1.0e30
+# widest lattice the kernels take: 2U+1 states need (2 + frames) (2U+1)
+# floats of a block's 227 KB of shared memory, at least one frame
+MAX_STATES = 19370
 
 
 def _lae(x, y):
@@ -149,16 +152,19 @@ def _check(log_probs, targets, blank, name):
         raise ValueError(f"{name}: blank {blank} outside [0, C)")
     if targets.dim() != 2 or targets.shape[0] != log_probs.shape[0]:
         raise ValueError(f"{name}: targets must be (B, U)")
-    if 2 * targets.shape[1] + 1 > 1024:
-        raise ValueError(f"{name}: 2U+1 must be <= 1024")
+    if 2 * targets.shape[1] + 1 > MAX_STATES:
+        raise ValueError(f"{name}: 2U+1 must be <= {MAX_STATES} (shared "
+                         "memory of one block)")
 
 
 def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
     """K3: ``(alpha (B, T, S), loss (B,), logz (B,))`` float32.
 
     On CUDA, alpha is written only where the lattice is live (t < T_b
-    or t = 0, s < 2 U_b + 1); the rest of it is left unset.  On the CPU
-    the plain version runs.  Counts launches in ``ctc_alpha.launches``.
+    or t = 0, s < 2 U_b + 1); the rest of it is left unset, and 2U+1 may
+    be up to ``MAX_STATES`` (19370: the lattice rows a block's shared
+    memory holds); wider raises.  On the CPU the plain version runs,
+    with no limit.  Counts launches in ``ctc_alpha.launches``.
     """
     if log_probs.device.type == "cpu":
         return ctc_alpha_plain(log_probs, targets, input_lengths,
@@ -190,8 +196,9 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
 def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, blank,
                   alpha, logz, g):
     """K4: ``g[b] * d loss[b] / d log_probs`` (B, T, C) float32, from
-    ``ctc_alpha``'s alpha and logz; the plain version on the CPU.
-    Counts launches in ``ctc_beta_grad.launches``.
+    ``ctc_alpha``'s alpha and logz; the plain version on the CPU.  On
+    CUDA 2U+1 <= ``MAX_STATES``, as for ``ctc_alpha``.  Counts launches
+    in ``ctc_beta_grad.launches``.
     """
     if log_probs.device.type == "cpu":
         return ctc_beta_grad_plain(log_probs, targets, input_lengths,

@@ -8,12 +8,12 @@ Counterpart of ``speechbrain_tpu/ops/pallas/relpos_attention.py``:
 
 ``relpos_attention`` is differentiable.  On CUDA tensors it is an
 autograd Function whose forward launches the flash-style kernel
-``sb_relpos_attention_fwd`` (which never forms a (T, T) tensor and also
-writes the per-row log-sum-exp) and whose backward launches
-``sb_relpos_attention_bwd`` (``relpos_attention_bwd``), both in
-``csrc/relpos_attention.cu``.  On CPU tensors it runs
-``relpos_attention_plain``, the materialized form (equal to the JAX
-``relpos_attention_reference``), and autograd differentiates it;
+``sb_relpos_attention_fwd`` in ``csrc/relpos_attention.cu`` (which never
+forms a (T, T) tensor and also writes the per-row log-sum-exp) and whose
+backward launches ``sb_relpos_attention_bwd`` (``relpos_attention_bwd``)
+in ``csrc/relpos_attention_bwd.cu``, on the tensor cores.  On CPU
+tensors it runs ``relpos_attention_plain``, the materialized form (equal
+to the JAX ``relpos_attention_reference``), and autograd differentiates it;
 ``relpos_attention_bwd_plain`` is that gradient as a function.
 
 Attention dropout (``rate > 0``) acts on the normalized weights, as in
@@ -27,6 +27,7 @@ rule, normalizer and gradient formulas are.
 """
 
 import ctypes
+import functools
 import operator
 
 import torch
@@ -43,7 +44,7 @@ __all__ = [
 
 NEG = -1e9
 BLOCK = 64  # query/key tile of the kernel: Tp must be a multiple
-HEAD_DIMS = (16, 32, 36, 64)  # head widths the kernel is built for
+HEAD_DIMS = (16, 32, 36, 64)  # head widths the kernels are built for
 
 # Philox4x32-10 (Salmon et al., SC'11): round multipliers, key increments
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
@@ -236,6 +237,14 @@ def _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal, rate=0.0, seed=0):
     return out, lse
 
 
+@functools.lru_cache(maxsize=64)
+def _bwd_scratch(B, H, Tp, T, dh):
+    """Floats of scratch K6 needs at this shape (its partial sums)."""
+    return _build.entry(
+        "relpos_attention_bwd", "sb_relpos_attention_bwd_scratch",
+        [_build.I] * 5, restype=ctypes.c_longlong)(B, H, Tp, T, dh)
+
+
 def relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
                          causal=False, rate=0.0, seed=0):
     """K6: the gradients (dq, dk, dv, dp, du, dvb), float32, of
@@ -262,17 +271,17 @@ def relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
             or f32[5].shape != (B, H, Tp):
         raise ValueError("relpos_attention_bwd: dout (B, H, Tp, dh), lse and "
                          "dsum (B, H, Tp)")
-    dq, dk, dv = (torch.empty(q.shape, dtype=torch.float32, device=q.device)
-                  for _ in range(3))
-    dp = torch.empty((H, 2 * T - 1, dh), dtype=torch.float32, device=q.device)
-    du, dvb = (torch.empty((H, dh), dtype=torch.float32, device=q.device)
-               for _ in range(2))
-    n_scratch = _build.entry(
-        "relpos_attention", "sb_relpos_attention_bwd_scratch", [_build.I] * 5,
-        restype=ctypes.c_longlong)(B, H, Tp, T, dh)
-    part = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+    # the six gradients as views of one buffer, the scratch in another
+    n = q.numel()
+    sizes = (n, n, n, H * (2 * T - 1) * dh, H * dh, H * dh)
+    shapes = (q.shape, q.shape, q.shape, (H, 2 * T - 1, dh), (H, dh), (H, dh))
+    out = torch.empty(sum(sizes), dtype=torch.float32, device=q.device)
+    dq, dk, dv, dp, du, dvb = (
+        g.view(shape) for g, shape in zip(out.split(sizes), shapes))
+    part = torch.empty(_bwd_scratch(B, H, Tp, T, dh), dtype=torch.float32,
+                       device=q.device)
     fn = _build.entry(
-        "relpos_attention", "sb_relpos_attention_bwd",
+        "relpos_attention_bwd", "sb_relpos_attention_bwd",
         [_build.P] * 17 + [_build.I] * 5 + [_build.F, _build.I]
         + _DROP_ARGTYPES + [_build.I, _build.P],
     )

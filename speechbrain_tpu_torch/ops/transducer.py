@@ -52,7 +52,9 @@ __all__ = [
 ]
 
 NEG = -1.0e30
-MAX_COLS = 1024  # U + 1: one thread per lattice column
+# widest lattice the kernels take: U + 1 columns need 2 (U + 1) floats of
+# a block's 227 KB of shared memory
+MAX_COLS = 29056
 
 
 def _lae(a, b):
@@ -189,7 +191,8 @@ def transducer_beta_grad_plain(blank, emit, alpha, t_lens, u_lens, logz):
 
 def _check_tables(blank, emit, name, *others):
     """The kernels take contiguous float32 (B, T, U+1) / (B, T, U) tables
-    with T >= 1 and U + 1 <= 1024; anything else raises."""
+    with T >= 1 and U + 1 <= ``MAX_COLS`` (29056: the two anti-diagonals
+    a block's shared memory holds); anything else raises."""
     for x in (blank, emit) + others:
         if x.dtype != torch.float32:
             raise TypeError(f"{name}: tables must be float32, got {x.dtype}")
@@ -207,7 +210,8 @@ def _check_tables(blank, emit, name, *others):
         if x.shape != blank.shape:
             raise ValueError(f"{name}: alpha must have blank's shape")
     if T < 1 or U1 > MAX_COLS:
-        raise ValueError(f"{name}: needs T >= 1 and U + 1 <= {MAX_COLS}")
+        raise ValueError(f"{name}: needs T >= 1 and U + 1 <= {MAX_COLS} "
+                         "(shared memory of one block)")
 
 
 def _validated(t_lens, u_lens, T, U, device, name, targets=None, V=None):
@@ -264,7 +268,8 @@ def _beta_grad_kernel(blank, emit, alpha, tl, ul, logz):
 
 def transducer_alpha(blank, emit, t_lens, u_lens):
     """K8: ``(alpha (B, T, U+1), final (B,))`` float32 from the masked
-    tables; the plain version on the CPU.  Counts launches in
+    tables; the plain version on the CPU.  On CUDA, U + 1 <= ``MAX_COLS``
+    (29056); wider raises.  Counts launches in
     ``transducer_alpha.launches``.
     """
     if blank.device.type == "cpu":
@@ -282,8 +287,8 @@ def transducer_alpha(blank, emit, t_lens, u_lens):
 def transducer_beta_grad(blank, emit, alpha, t_lens, u_lens, logz):
     """K9: ``(dblank (B, T, U+1), demit (B, T, U))`` float32, the
     gradients of ``-final`` from ``transducer_alpha``'s alpha and logz =
-    final; the plain version on the CPU.  Counts launches in
-    ``transducer_beta_grad.launches``.
+    final; the plain version on the CPU.  On CUDA, U + 1 <= ``MAX_COLS``
+    (29056).  Counts launches in ``transducer_beta_grad.launches``.
     """
     if blank.device.type == "cpu":
         return transducer_beta_grad_plain(blank, emit, alpha, t_lens, u_lens,

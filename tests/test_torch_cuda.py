@@ -13,6 +13,7 @@ import torch
 from speechbrain_tpu_torch import ops
 from speechbrain_tpu_torch.nnet.attention import RelPosEncXL, RelPosMHAXL
 from speechbrain_tpu_torch.ops.beam_cache import _xla_ref
+from speechbrain_tpu_torch.ops.relpos_attention import _fwd_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -187,6 +188,38 @@ def test_relpos_attention_backward_kernel(gen, dtype, causal, T, Tp):
         assert float((got - ref).abs().max()) <= tol * scale
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,Tp", [(100, 128), (512, 512), (1024, 1024)])
+@pytest.mark.parametrize("dh", [16, 32, 36, 64])
+def test_relpos_attention_bwd_kernel_widths(gen, dh, T, Tp, causal, rate, dtype):
+    """K6 on the tensor cores against the plain gradients at every head
+    width the kernels are built for (36 is padded to the MMA depth), with
+    and without dropout, padded rows (the clipped band rows) included; two
+    calls with one seed give the same bits (no atomics)."""
+    (q, k, v, p, u, vb, madd), dout = _relpos_inputs(gen, dtype, T, Tp, dh=dh)
+    scale = dh ** -0.5
+    out, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal, rate, 5)
+    dsum = (dout * out).sum(-1)
+    before = ops.relpos_attention_bwd.launches
+    args = (q, k, v, p, u, vb, madd, dout, lse, dsum, scale, causal, rate, 5)
+    got = ops.relpos_attention_bwd(*args)
+    again = ops.relpos_attention_bwd(*args)
+    assert ops.relpos_attention_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = ops.relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale,
+                                         causal, rate, 5)
+    # f32: 3xTF32 products, ~f32 rounding, sums in other orders.  bf16:
+    # JAX's rounding points (q+u, q+vb, dO, dS, P keep/(1-rate) to bf16
+    # before each product) against f32 autograd: each product's operands
+    # carry a relative error up to 2^-9
+    tol = 1e-4 if dtype == torch.float32 else 1e-2
+    for name, a, b in zip(("dq", "dk", "dv", "dp", "du", "dvb"), got, ref):
+        err = float((a - b).abs().max()) / float(b.abs().max())
+        assert err <= tol, (name, err)
+
+
 def _relpos_inputs(gen, dtype, T, Tp, B=2, H=3, dh=36):
     """q, k, v, p in ``dtype``, f32 u, vb, a key mask with the T..Tp pad
     and a shorter second utterance, and a cotangent zero past T."""
@@ -247,6 +280,44 @@ def test_relpos_attention_dropout_backward_kernel(gen, dtype, causal, T, Tp, rat
         assert float((got - ref).abs().max()) <= tol * scale
 
 
+@pytest.mark.parametrize("B,T,U,ub,C", [(2, 1100, 520, 520, 30),
+                                        (2, 1500, 700, 700, 12),
+                                        (1, 1500, 8499, 1400, 3)])
+def test_ctc_kernels_wide(gen, B, T, U, ub, C):
+    """K3 and K4 on lattices wider than a block has threads (2U+1 = 1041
+    and 1401: two states a thread; 16999: 32 states a thread, one frame
+    gathered at a time, 2801 of them live) against the plain recursions."""
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
+    tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
+    tg[:, 1] = tg[:, 0]
+    tlen = torch.tensor([T - 5 * i for i in range(B)], device="cuda")
+    ulen = torch.tensor([ub - 3 * i for i in range(B)], device="cuda")
+    g = torch.randn(B, device="cuda", generator=gen)
+    alpha, loss, logz = ops.ctc_alpha(lp, tg, tlen, ulen, 0)
+    alpha_p, loss_p, logz_p = ops.ctc_alpha_plain(lp, tg, tlen, ulen, 0)
+    torch.testing.assert_close(loss, loss_p, atol=2e-2, rtol=1e-5)
+    dlp = ops.ctc_beta_grad(lp, tg, tlen, ulen, 0, alpha, logz, g)
+    dlp_p = ops.ctc_beta_grad_plain(lp, tg, tlen, ulen, 0, alpha_p, logz_p, g)
+    torch.testing.assert_close(dlp, dlp_p, atol=2e-3, rtol=1e-4)
+
+
+def test_relpos_mha_other_head_widths_take_the_materialized_path(gen):
+    """d_head 18 (144 / 8) is no width the kernels are built for: at
+    T = 512 on CUDA the module takes the materialized path (JAX's kernel
+    takes any width) instead of raising, and matches the plain route."""
+    m = RelPosMHAXL(144, 8).cuda().eval()
+    x = torch.randn(2, 512, 144, device="cuda", generator=gen)
+    pe = RelPosEncXL(144)(x)
+    before = ops.relpos_attention.launches
+    with torch.no_grad():
+        out, attn = m(x, x, x, pe)
+        m.use_kernels = False
+        ref, _ = m(x, x, x, pe)
+    assert ops.relpos_attention.launches == before
+    assert attn is not None and torch.isfinite(out).all()
+    torch.testing.assert_close(out, ref, atol=0, rtol=0)
+
+
 def test_relpos_dropout_kernel_mask_is_the_plain_mask(gen):
     """With v = the identity (dh = Tp = 64) K5's output is the dropped
     weights themselves: zero exactly where the plain mask drops."""
@@ -275,12 +346,15 @@ def _transducer_inputs(gen, B, T, U, V):
 
 
 @pytest.mark.parametrize("B,T,U", [(12, 251, 64), (2, 37, 256), (3, 1, 5),
-                                   (2, 9, 1023)])
+                                   (2, 9, 1023), (2, 9, 1099), (1, 5, 5000),
+                                   (1, 3, 16999)])
 def test_transducer_kernels(gen, B, T, U):
     """K8 (alpha, final) and K9 (dblank, demit) against their plain
     versions, float32, at the training shape (B 12, T 251, U 64), a wide
-    one (U+1 = 257 threads: several warps), T = 1 and the widest lattice
-    the kernels take (U+1 = 1024 threads)."""
+    one (U+1 = 257 threads: several warps), T = 1, U+1 = 1024 (one column
+    a thread), and lattices wider than a block has threads: U+1 = 1100
+    (two columns a thread), 5001 (eight) and 17000 (32, the inputs loaded
+    when each cell is reached instead of prefetched)."""
     logits, tg, tlen, ulen = _transducer_inputs(gen, B, T, U, 16)
     tables = ops.transducer.transducer_tables(
         torch.log_softmax(logits, -1), tg, 0, tlen, ulen)
@@ -404,10 +478,14 @@ def test_wrappers_reject_bad_inputs(gen):
     with pytest.raises(ValueError, match="length"):
         ops.transducer_beta_grad(blank, emit, blank, lens[0],
                                  torch.tensor([4, 1]), torch.zeros(2))
-    with pytest.raises(ValueError):
-        ops.transducer_alpha(torch.zeros(1, 2, 1025, device="cuda"),
-                             torch.zeros(1, 2, 1024, device="cuda"),
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.transducer_alpha(torch.zeros(1, 2, 29057, device="cuda"),
+                             torch.zeros(1, 2, 29056, device="cuda"),
                              torch.tensor([2]), torch.tensor([3]))
+    lp = torch.zeros(1, 2, 3, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ctc_alpha(lp, torch.ones(1, 9685, dtype=torch.long, device="cuda"),
+                      torch.tensor([2]), torch.tensor([1]))
     with pytest.raises(ValueError, match="target"):
         ops.transducer_loss_logits(torch.zeros(1, 2, 3, 4, device="cuda"),
                                    torch.tensor([[1, 4]], device="cuda"),

@@ -145,6 +145,37 @@ def test_ctc_loss_per_seq_matches_jax(blank):
                                    atol=1e-5, rtol=1e-4)
 
 
+def test_ctc_plain_wide_lattice_matches_jax():
+    """The plain recursions at 2U+1 = 1041 states, above the 1024 that the
+    kernels once took, against the JAX optax route: per-sequence loss and
+    the gradient w.r.t. the logits, with a weight per sequence."""
+    B, T, C, U = 2, 1100, 8, 520
+    rng = np.random.default_rng(11)
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    tg = rng.integers(1, C, (B, U)).astype(np.int32)
+    tg[:, 1] = tg[:, 0]  # a repeated label: the skip rule
+    tb = np.array([1100, 1087], np.int32)
+    ub = np.array([520, 497], np.int32)
+    g = np.array([1.0, 0.5], np.float32)
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    per = ctc_loss_per_seq(torch.log_softmax(lt, -1), torch.from_numpy(tg),
+                           torch.from_numpy(tb), torch.from_numpy(ub), 0)
+    (per * torch.from_numpy(g)).sum().backward()
+
+    def f(lg):
+        loss = jctc.ctc_loss_per_seq(jax.nn.log_softmax(lg, -1),
+                                     jnp.asarray(tg), tb, ub, 0)
+        return jnp.sum(loss * g), loss
+
+    (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    # 1100 dependent log-semiring steps in f32 in two forms: losses ~ 2e3,
+    # where one ulp is 1.2e-4; the occupancies exp(alpha + beta - logZ)
+    # carry alpha's absolute error as a relative one
+    np.testing.assert_allclose(per.detach().numpy(), _np(j_per), rtol=2e-5)
+    np.testing.assert_allclose(lt.grad.numpy(), _np(j_grad), atol=2e-3)
+
+
 def test_ctc_plain_alpha_and_occupancy_are_consistent():
     """Autograd through the plain alpha loop (the cross-check the
     explicit beta pass stands beside) gives the explicit gradient."""

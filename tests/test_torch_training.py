@@ -92,6 +92,26 @@ def test_kldiv_loss_matches_jax(smoothing, reduction):
     np.testing.assert_allclose(got.numpy(), _np(ref), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("smoothing", [0.5, 1.0])
+@pytest.mark.parametrize("reduction", ["none", "batchmean"])
+def test_kldiv_loss_at_full_smoothing_matches_jax(smoothing, reduction):
+    """At label_smoothing 1.0 the target's weight is 0 and JAX takes
+    0 log 0 = 0; the port returned a math domain error there.  Per
+    position and summed, against JAX on the same inputs."""
+    B, T, C = 3, 5, 6
+    lp = _log_probs(B, T, C, seed=9)
+    tg = np.random.default_rng(10).integers(1, C, (B, T)).astype(np.int32)
+    tg[1, 3:] = 0  # padded targets (pad_idx 0)
+    length = np.array([1.0, 1.0, 0.6], np.float32)
+    got = tl.kldiv_loss(_t(lp), _t(tg), _t(length), smoothing,
+                        reduction=reduction)
+    ref = jl.kldiv_loss(jnp.asarray(lp), jnp.asarray(tg), length, smoothing,
+                        reduction=reduction)
+    assert np.isfinite(got.numpy()).all()
+    # the same f32 terms, C of them per position, summed in other orders
+    np.testing.assert_allclose(got.numpy(), _np(ref), atol=1e-6, rtol=1e-6)
+
+
 @pytest.mark.parametrize("reduction", ["mean", "batchmean", "batch", "sum"])
 def test_nll_loss_with_smoothing_matches_jax(reduction):
     B, T, C = 3, 6, 5
@@ -263,12 +283,26 @@ def test_relpos_gate_is_the_jax_gate(T, attn_mask, dropout, training, expected):
     (``speechbrain_tpu/nnet/attention.py``: T_q == T_k, T % 128 == 0,
     512 <= T <= 1024, no attn_mask, ``dropout == 0 or not train``) with
     "the tensor is on CUDA" for "the backend is a TPU"."""
-    m = RelPosMHAXL(8, 2, dropout=dropout).train(training)
+    m = RelPosMHAXL(32, 2, dropout=dropout).train(training)  # d_head 16
     assert m._kernel_ok(_fake_cuda(T), T, T, attn_mask) is expected
     assert m._kernel_ok(_fake_cuda(T), T, T + 128, attn_mask) is False
     assert m._kernel_ok(torch.zeros(1, T, 8), T, T, attn_mask) is False
     m.use_kernels = False
     assert m._kernel_ok(_fake_cuda(T), T, T, attn_mask) is False
+
+
+@pytest.mark.parametrize("embed_dim,num_heads,expected", [
+    (144, 8, False),  # d_head 18: no kernel built for it
+    (144, 4, True),   # d_head 36: conformer_small's
+    (128, 2, True),   # d_head 64
+])
+def test_relpos_gate_needs_a_head_width_the_kernels_take(embed_dim, num_heads,
+                                                         expected):
+    """The kernels exist for ``ops.relpos_attention.HEAD_DIMS`` only (JAX's
+    take any width): other widths take the materialized path on CUDA
+    instead of reaching a kernel that raises."""
+    m = RelPosMHAXL(embed_dim, num_heads).eval()
+    assert m._kernel_ok(_fake_cuda(512), 512, 512, None) is expected
 
 
 def test_beam_attend_step_refuses_inputs_that_require_grad():

@@ -164,6 +164,32 @@ def test_loss_per_seq_matches_jax(interpret, case):
                f"{name} grad")
 
 
+@pytest.mark.parametrize("logits", [True, False])
+def test_wide_lattice_matches_jax(interpret, logits):
+    """U+1 = 1030 columns, above the 1024 that the port's kernels once
+    took: the plain recursions against the JAX Pallas entries (interpret
+    mode), loss and gradient.  (JAX's scan form walks U in Python-sized
+    steps: a minute at this width, so it is left to the narrow cases.)"""
+    x, tg, tl, ul = _inputs(2, 8, 1029, 2, [8, 6], [1029, 700], 0, seed=3)
+    if not logits:
+        x = np.asarray(jax.nn.log_softmax(jnp.asarray(x), -1))
+    entry = ot.transducer_loss_logits if logits else ot.transducer_loss_per_seq
+    got, g_got = _port_loss_and_grad(entry, x, tg, tl, ul, 0, False)
+    pallas = (jpt.transducer_loss_pallas_logits if logits
+              else jpt.transducer_loss_pallas)
+
+    def fn(z):
+        return pallas(z, tg, tl, ul, 0, False)
+
+    xj = jnp.asarray(x)
+    # losses ~ 1e3 (a thousand emissions, V = 2), where one f32 ulp is
+    # 6e-5: the two forms' sums agree to a few ulps, 1e-6 relative; the
+    # occupancies exp(alpha + beta - logZ) in [-1, 0] carry that absolute
+    # error of the exponent as a relative one
+    np.testing.assert_allclose(got, np.asarray(fn(xj)), rtol=1e-6)
+    _close(g_got, jax.grad(lambda z: fn(z).sum())(xj), "grad", tol=1e-3)
+
+
 def test_zero_frame_row_follows_the_kernels(interpret):
     """A row with T_b = 0 (a masked replica row): the lattice kernels never
     harvest it, so loss 0 and zero gradient, as the JAX Pallas entry
