@@ -3,6 +3,7 @@
 NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --only depthwise,relpos   # build + those checks
 
 Phases, each printing one JSON line when it ends:
 
@@ -11,14 +12,17 @@ Phases, each printing one JSON line when it ends:
    at the shapes the serving and training paths give it, in float32 and
    bfloat16 (CTC: float32): max |error| against the stated tolerance,
    kernel / plain / library times (CUDA events) and the least time the
-   card could take (bound).  The rel-pos kernels K5/K6 also run with
-   attention dropout (rate 0.1, role "dropout"): against the plain
-   version with the same seed (the same Philox mask), bit-identical
-   across two launches with one seed, different at seed + 1.  K6 (on the
-   tensor cores) is bit-identical across two launches at rate 0 too, and
-   its bound divides by the peak of the tensor cores it uses.  The
-   lattice kernels also run wider than a block has threads (role
-   "wide_lattice": CTC 2U+1 = 1041, RNN-T U+1 = 1100).
+   card could take (bound).  K1 (forward, dx) and K5 also give their
+   device time and the library call's (profiler), and K1 the host
+   microseconds a call takes; K1's forward is timed at every main-path
+   shape.  The rel-pos kernels K5/K6 also run with attention dropout
+   (rate 0.1, role "dropout"): against the plain version with the same
+   seed (the same Philox mask), bit-identical across two launches with
+   one seed, different at seed + 1.  K5 and K6 run on the tensor cores:
+   their bounds divide by the peak of the tensor cores they use; bf16 K5
+   is also held to the rounding-point reference.  The lattice kernels
+   also run wider than a block has threads (role "wide_lattice": CTC
+   2U+1 = 1041, RNN-T U+1 = 1100).
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
    weights from a seed) transcribes 8 synthetic 10 s utterances with
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
@@ -118,6 +122,36 @@ def _device_ms(fn, iters=10, warmup=3):
     return sum(per.values()), per
 
 
+def _host_us(fn, n=200):
+    """Host microseconds a call takes to issue: ``time.perf_counter``
+    around ``n`` calls with no synchronisation, over ``n`` (the card runs
+    behind the host; its queue does not fill at these sizes)."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = 1e6 * (time.perf_counter() - t0) / n
+    torch.cuda.synchronize()
+    return us
+
+
+def _call_times(fn, library=None):
+    """Card ms (CUDA events around back-to-back calls), device ms (the
+    kernels alone, profiler) and host us a call, of ``fn`` and of the
+    library call beside it."""
+    out = {"ms": _time_ms(fn), "device_ms": _device_ms(fn)[0],
+           "host_us_per_call": _host_us(fn)}
+    if library is not None:
+        out.update({"library_ms": _time_ms(library),
+                    "library_device_ms": _device_ms(library)[0],
+                    "library_host_us_per_call": _host_us(library)})
+    return out
+
+
 def _bound_ms(nbytes, flops, dtype):
     t_bytes = nbytes / MEM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -161,9 +195,10 @@ def _check_depthwise(dtype_name):
     ref = depthwise_conv1d_plain(x, w, bias)
     torch.cuda.synchronize()
     err = _err(got, ref)
-    # f32: same taps, same order, FMA contraction only; bf16: the kernel
-    # rounds once after the bias, the plain version twice (<= 1 ulp of |out| < 8)
-    tol = 1e-4 if dtype == torch.float32 else 6.25e-2
+    # f32: same taps, same order, FMA contraction only; bf16: both round
+    # the f32 sum, then the bias sum (JAX's order), so the FMA contraction
+    # moves a result by one bf16 ulp at most
+    tol = 1e-4 if dtype == torch.float32 else _bf16_ulp(ref)
     assert err <= tol, f"depthwise_conv1d {dtype_name}: max|err| {err} > {tol}"
     xc = x.transpose(1, 2).contiguous()
     wc = w.t().contiguous()[:, None, :]
@@ -171,14 +206,29 @@ def _check_depthwise(dtype_name):
     item = x.element_size()
     bound, by = _bound_ms((2 * B * T * C + K * C + C) * item,
                           2 * B * C * _valid_taps(T, K, pad), dtype_name)
+    # the other shapes the main paths give it: training (B 32), train_long
+    # (T 512), the transducer (B 12)
+    shapes = {}
+    for Bs, Ts in ((32, 251), (8, 512), (12, 251)):
+        xs, ws, bs, _ = _depthwise_inputs(dtype, Bs, Ts, C, K)
+        xsc = xs.transpose(1, 2).contiguous()
+        shapes[f"B{Bs} T{Ts}"] = _call_times(
+            lambda: depthwise_conv1d(xs, ws, bs),
+            lambda: F.conv1d(xsc, wc, bs, padding=pad, groups=C))
     return {
         "name": "depthwise_conv1d", "dtype": dtype_name, "shape": [B, T, C, K],
         "max_abs_err": err, "tol": tol,
-        "ms": _time_ms(lambda: depthwise_conv1d(x, w, bias)),
+        **_call_times(lambda: depthwise_conv1d(x, w, bias),
+                      lambda: F.conv1d(xc, wc, bias, padding=pad, groups=C)),
         "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(x, w, bias)),
-        "library_ms": _time_ms(lambda: F.conv1d(xc, wc, bias, padding=pad, groups=C)),
-        "bound_ms": bound, "bound_by": by,
+        "bound_ms": bound, "bound_by": by, "other_shapes": shapes,
     }
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at max|t|: the spacing of bf16 values there."""
+    m = float(t.float().abs().max())
+    return float(2.0 ** (np.floor(np.log2(m)) - 7)) if m > 0 else 0.0
 
 
 def _depthwise_inputs(dtype, B, T, C, K):
@@ -198,22 +248,29 @@ def _valid_taps(T, K, pad):
 
 
 def _check_depthwise_dx(dtype_name):
-    """K1 as the input gradient at the training shape: the forward
-    kernel on the flipped taps (centered K = 31: the same padding), and
-    the autograd Function's three gradients against the plain route."""
+    """K1 as the input gradient at the training shape: the kernel
+    reading the taps flipped (centered K = 31: the same padding), as the
+    backward launches it, and the autograd Function's three gradients
+    against the plain route."""
     import torch
     import torch.nn.functional as F
 
     from speechbrain_tpu_torch.ops import depthwise_conv1d, depthwise_conv1d_plain
+    from speechbrain_tpu_torch.ops.depthwise_conv import _fwd_kernel
 
     dtype = getattr(torch, dtype_name)
     B, T, C, K = 32, 251, 144, 31
     x, w, bias, dy = _depthwise_inputs(dtype, B, T, C, K)
     w_flip = w.flip(0).contiguous()
-    got = depthwise_conv1d(dy, w_flip)
+    pad = (K - 1) // 2  # centered, odd K: the dx's padding is the same
+
+    def dx():  # the backward's launch: K1 reading the taps flipped
+        return _fwd_kernel(dy, w, None, pad, flip=True)
+
+    got = dx()
     ref = depthwise_conv1d_plain(dy, w_flip)
     err = _err(got, ref)
-    tol = 1e-4 if dtype == torch.float32 else 6.25e-2  # as the forward row
+    tol = 1e-4 if dtype == torch.float32 else _bf16_ulp(ref)  # as the forward
     assert err <= tol, f"depthwise dx {dtype_name}: max|err| {err} > {tol}"
     # the Function's gradients against autograd through the plain route
     grads = []
@@ -232,20 +289,30 @@ def _check_depthwise_dx(dtype_name):
                    for a, b in zip(*grads))
     assert grad_err <= grad_tol, (
         f"depthwise grads {dtype_name}: rel err {grad_err} > {grad_tol}")
-    pad = (K - 1) // 2
     item = x.element_size()
     xc = dy.transpose(1, 2).contiguous()
     wc = w_flip.t().contiguous()[:, None, :]
     bound, by = _bound_ms((2 * B * T * C + K * C) * item,
                           2 * B * C * _valid_taps(T, K, pad), dtype_name)
+    # dx as the backward issues it (x alone requires grad: no dw, no
+    # dbias): the autograd engine, dy's layout, the taps, K1
+    xr = x.detach().clone().requires_grad_(True)
+    out = depthwise_conv1d(xr, w)
+
+    def backward_dx():
+        return torch.autograd.grad(out, xr, dy, retain_graph=True)
+
+    total, by_kernel = _device_ms(backward_dx)
     return {
         "name": "depthwise_conv1d", "role": "dx", "dtype": dtype_name,
         "shape": [B, T, C, K], "max_abs_err": err, "tol": tol,
         "grads_max_rel_err_vs_plain_autograd": grad_err, "grads_tol": grad_tol,
-        "ms": _time_ms(lambda: depthwise_conv1d(dy, w_flip)),
+        **_call_times(dx, lambda: F.conv1d(xc, wc, padding=pad, groups=C)),
         "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(dy, w_flip)),
-        "library_ms": _time_ms(lambda: F.conv1d(xc, wc, padding=pad, groups=C)),
         "bound_ms": bound, "bound_by": by,
+        "backward_dx": {"ms": _time_ms(backward_dx), "device_ms": total,
+                        "device_ms_by_kernel": by_kernel,
+                        "host_us_per_call": _host_us(backward_dx)},
     }
 
 
@@ -513,14 +580,15 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
 
 
 def _check_relpos(dtype_name, T, B=2, rate=0.0):
-    """K5 against its plain version, and its lse; with ``rate > 0`` both
-    with the dropout mask of seed DROPOUT_SEED, and the kernel's
-    determinism."""
+    """K5 against its plain version, and its lse; bf16 also against the
+    rounding-point reference; with ``rate > 0`` all with the dropout mask
+    of seed DROPOUT_SEED, and the kernel's determinism."""
     import torch
     import torch.nn.functional as F
 
     from speechbrain_tpu_torch.ops import relpos_attention, relpos_attention_plain
-    from speechbrain_tpu_torch.ops.relpos_attention import _fwd_kernel
+    from speechbrain_tpu_torch.ops.relpos_attention import (
+        _fwd_kernel, _relpos_attention_rounded)
 
     dtype = getattr(torch, dtype_name)
     H, dh = 4, 36
@@ -528,40 +596,74 @@ def _check_relpos(dtype_name, T, B=2, rate=0.0):
     scale = 1.0 / (H * dh) ** 0.5
     seed = DROPOUT_SEED if rate > 0 else 0
     tail = (False, rate, seed)  # causal, dropout rate, its seed
-    got = relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)
-    ref = relpos_attention_plain(q, k, v, p, u, vb, madd, scale, *tail)
-    _, lse = _fwd_kernel(q, k, v, p, u, vb, madd, scale, *tail)
+    args = (q, k, v, p, u, vb, madd, scale, *tail)
+    got = relpos_attention(*args)
+    ref = relpos_attention_plain(*args)
+    _, lse = _fwd_kernel(*args)
+    # the rounding-point reference, keys in the kernel's 64-key tiles
+    # (weights rounded against the running max) and in one pass (against
+    # the row's max, as JAX's kernel)
+    rounded, rounded_lse = _relpos_attention_rounded(*args, key_tile=64)
+    jax_rounded = _relpos_attention_rounded(*args)[0]
     torch.cuda.synchronize()
     err = _err(got, ref)
-    # both compute in f32 from the same stored values; sums in other orders
-    tol = 1e-4
-    assert err <= tol, f"relpos_attention {dtype_name} T={T}: max|err| {err} > {tol}"
-    extra = {}
+    ref_max = float(ref.abs().max())
+    extra = {"max_rel_err": err / ref_max}
+    bias = _materialized_bias(q, p, vb, madd, scale)
+    if dtype == torch.float32:
+        # 3xTF32 products (~f32 rounding) against f32 arithmetic from the
+        # same stored values; sums in other orders
+        tol, tol_kind = 1e-4, "absolute"
+        assert err <= tol, f"relpos_attention f32 T={T}: max|err| {err} > {tol}"
+        # the log-sum-exp the backward reads (taken before dropout),
+        # against the materialized scores
+        content = torch.einsum("bhqd,bhkd->bhqk", q.float() + u[None, :, None],
+                               k.float())
+        lse_ref = torch.logsumexp(content * scale + bias, -1)
+    else:
+        # the operands of each product rounded to bf16 where JAX's kernel
+        # rounds them: against the f32 plain version relative to max|ref|,
+        # and against the rounding-point reference of the kernel's tiles
+        tol, tol_kind = 1e-2, "relative to max|ref|"
+        rel_rounded = _err(got, rounded) / ref_max
+        assert err / ref_max <= tol and rel_rounded <= 2e-3, (
+            f"relpos_attention bf16 T={T}: rel err {err / ref_max} (tol {tol}), "
+            f"vs the rounding-point reference {rel_rounded} (tol 2e-3)")
+        extra.update({"max_rel_err_vs_rounded": rel_rounded,
+                      "tol_vs_rounded": 2e-3,
+                      "max_rel_err_vs_jax_rounding": _err(got, jax_rounded) / ref_max})
+        lse_ref = rounded_lse  # the same products, sums in other orders
+    lse_err = _err(lse, lse_ref)
+    assert lse_err <= 1e-4, f"relpos_attention lse {dtype_name}: {lse_err}"
     if rate > 0:
-        again = relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)
+        again = relpos_attention(*args)
         other = relpos_attention(q, k, v, p, u, vb, madd, scale, False, rate,
                                  seed + 1)
         torch.cuda.synchronize()
         assert torch.equal(got, again), "relpos_attention: one seed, two results"
         seed_diff = _err(got, other)
         assert seed_diff > 1e-3, f"relpos_attention: seed + 1 changes {seed_diff}"
-        extra = {"role": "dropout", "rate": rate, "seed": seed,
-                 "bit_identical_same_seed": True,
-                 "seed_plus_one_max_abs_diff": seed_diff}
-    # the log-sum-exp the backward reads (taken before dropout), against
-    # the materialized scores
-    bias = _materialized_bias(q, p, vb, madd, scale)
-    content = torch.einsum("bhqd,bhkd->bhqk", q.float() + u[None, :, None],
-                           k.float())
-    lse_err = _err(lse, torch.logsumexp(content * scale + bias, -1))
-    assert lse_err <= tol, f"relpos_attention lse {dtype_name}: {lse_err}"
+        extra.update({"role": "dropout", "rate": rate, "seed": seed,
+                      "bit_identical_same_seed": True,
+                      "seed_plus_one_max_abs_diff": seed_diff})
     # library yardstick: SDPA with the materialized position bias
     qu = (q.float() + u[None, :, None]).to(dtype)
     bias = bias.to(dtype)
     item = q.element_size()
     nbytes = ((3 * B * H * T * dh + H * (2 * T - 1) * dh) * item
               + 4 * (2 * H * dh + B * T + B * H * T * dh + B * H * T))  # + lse
-    bound, by = _bound_ms(nbytes, 6 * B * H * T * T * dh, dtype_name)
+    # the function's 6 dh FLOPs per (b, h, q, k) at the peak of the tensor
+    # cores the kernel uses, beside the CUDA-core f32 bound of the design
+    # before it
+    flops = 6 * B * H * T * T * dh
+    core = "tf32" if dtype_name == "float32" else "bfloat16"
+    bound, by = _bound_ms(nbytes, flops, core)
+    cc_bound, _ = _bound_ms(nbytes, flops, "float32")
+    # MMA work the kernel issues: per (64-query, 64-key) tile pair PB over
+    # 80 band columns, S and PV, dh padded to the MMA depth; TF32 thrice
+    dhp = -(-dh // (8 if core == "tf32" else 16)) * (8 if core == "tf32" else 16)
+    pairs = B * H * (T // 64) ** 2
+    mma_flops = pairs * 2 * dhp * 64 * (80 + 2 * 64) * (3 if core == "tf32" else 1)
     library_ms, library = None, "SDPA with the materialized bias"
     try:
         library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
@@ -570,15 +672,27 @@ def _check_relpos(dtype_name, T, B=2, rate=0.0):
             library += f", dropout_p {rate} (its own generator)"
     except RuntimeError as e:  # no SDPA backend takes this combination
         library = f"none ({str(e).splitlines()[0][:80]})"
+    library_device_ms = None
+    if library_ms is not None:
+        library_device_ms = _device_ms(lambda: F.scaled_dot_product_attention(
+            qu, k, v, attn_mask=bias, dropout_p=rate, scale=scale))[0]
     return {
         "name": "relpos_attention", "dtype": dtype_name, "shape": [B, H, T, dh],
         **extra,
-        "max_abs_err": err, "tol": tol, "lse_max_abs_err": lse_err,
-        "ms": _time_ms(lambda: relpos_attention(q, k, v, p, u, vb, madd, scale, *tail)),
-        "plain_ms": _time_ms(lambda: relpos_attention_plain(
-            q, k, v, p, u, vb, madd, scale, *tail)),
+        "max_abs_err": err, "tol": tol, "tol_kind": tol_kind,
+        "lse_max_abs_err": lse_err, "lse_tol": 1e-4,
+        "ms": _time_ms(lambda: relpos_attention(*args)),
+        "device_ms": _device_ms(lambda: relpos_attention(*args))[0],
+        "plain_ms": _time_ms(lambda: relpos_attention_plain(*args)),
         "library_ms": library_ms, "library": library,
+        "library_device_ms": library_device_ms,
         "bound_ms": bound, "bound_by": by,
+        "bound_peak": ("TF32 tensor cores, 495 TFLOP/s" if core == "tf32"
+                       else "bf16 tensor cores, 989 TFLOP/s"),
+        "cuda_core_f32_bound_ms": cc_bound,
+        "mma": ("mma.sync m16n8k8 TF32, 3xTF32" if core == "tf32"
+                else "mma.sync m16n8k16 bf16, f32 sums"),
+        "kernel_mma_flops": mma_flops,
     }
 
 
@@ -868,25 +982,36 @@ KERNEL_INFO = {
 }
 
 
-def phase_kernels():
-    """Each kernel against its plain version; returns the records."""
+def phase_kernels(only=None):
+    """Each kernel against its plain version; returns the records.
+    ``only`` (a set of "depthwise", "relpos", "relpos_bwd", "beam_cache",
+    "ctc", "transducer", or None for all) picks the families checked."""
+    def want(family):
+        return only is None or family in only
+
     records = []
     for dtype_name in ("float32", "bfloat16"):
-        records.append(_check_depthwise(dtype_name))
-        records.append(_check_depthwise_dx(dtype_name))
-        records.append(_check_depthwise_dw(dtype_name))
-        for T in (512, 1024):
-            records.append(_check_relpos(dtype_name, T))
-        records.append(_check_relpos(dtype_name, 512, B=8))
-        records.append(_check_relpos_bwd(dtype_name))
-        # attention dropout at conformer_small's transformer_dropout
-        records.append(_check_relpos(dtype_name, 512, B=8, rate=0.1))
-        records.append(_check_relpos_bwd(dtype_name, rate=0.1))
-        records.append(_check_beam_cache(dtype_name))
-    records.extend(_check_ctc())
-    records.extend(_check_transducer(64))
-    records.extend(_check_transducer(256, role="wide"))
-    records.extend(_check_lattice_wide())
+        if want("depthwise"):
+            records.append(_check_depthwise(dtype_name))
+            records.append(_check_depthwise_dx(dtype_name))
+            records.append(_check_depthwise_dw(dtype_name))
+        if want("relpos"):
+            for T in (512, 1024):
+                records.append(_check_relpos(dtype_name, T))
+            records.append(_check_relpos(dtype_name, 512, B=8))
+            # attention dropout at conformer_small's transformer_dropout
+            records.append(_check_relpos(dtype_name, 512, B=8, rate=0.1))
+        if want("relpos_bwd"):
+            records.append(_check_relpos_bwd(dtype_name))
+            records.append(_check_relpos_bwd(dtype_name, rate=0.1))
+        if want("beam_cache"):
+            records.append(_check_beam_cache(dtype_name))
+    if want("ctc"):
+        records.extend(_check_ctc())
+    if want("transducer"):
+        records.extend(_check_transducer(64))
+        records.extend(_check_transducer(256, role="wide"))
+        records.extend(_check_lattice_wide())
     for r in records:
         emit({"phase": "kernels", **r})
     return records
@@ -949,6 +1074,13 @@ def _profile(fn):
         per_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
     busy_us = sum(us for us, _ in per_name.values())
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:8]
+    # the port's own kernels: device ms and share of the busy time
+    port = {}
+    for name, (us, n) in per_name.items():
+        for fn in _PORT_KERNEL_FUNCTIONS:
+            if fn in name:
+                ms, count = port.get(fn, (0.0, 0))
+                port[fn] = (ms + us / 1e3, count + n)
     return {
         "profiled_steps": steps,
         "profiled_wall_ms": 1e3 * seconds,
@@ -957,7 +1089,18 @@ def _profile(fn):
         "device_kernels_per_step": len(events) / steps if busy_us else "not measured",
         "top_device_kernels_ms": [[name[:60], us / 1e3, n]
                                   for name, (us, n) in top],
+        "port_kernels": {fn: {"ms": ms, "launches": count,
+                              "busy_share": 1e3 * ms / busy_us}
+                         for fn, (ms, count) in port.items()} if busy_us else {},
     }
+
+
+# the __global__ functions of csrc/*.cu, as the profiler names them
+_PORT_KERNEL_FUNCTIONS = (
+    "depthwise_conv1d_fwd", "depthwise_conv1d_dw_partial",
+    "depthwise_conv1d_dw_reduce", "relpos_fwd_kernel", "relpos_bwd_kernel",
+    "relpos_bwd_sum_kernel", "relpos_bwd_fold_kernel",
+    "relpos_bwd_bias_kernel", "ctc_", "transducer_", "beam_attend_step")
 
 
 def phase_serve():
@@ -1430,6 +1573,9 @@ def kernels_line(records, main_runs):
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = main[key]
+        for key in ("device_ms", "library_device_ms", "host_us_per_call"):
+            if key in main:
+                entry[key] = main[key]
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms")
         if "bfloat16" in by_dtype:
@@ -1468,6 +1614,10 @@ def main():
           "cudnn_deterministic": True,
           "torch": torch.__version__, "cuda": torch.version.cuda})
     phase_build()
+    if len(sys.argv) > 2 and sys.argv[1] == "--only":
+        # a subset of the kernel checks, and nothing else
+        phase_kernels(set(sys.argv[2].split(",")))
+        return 0
     records = phase_kernels()
     serve = phase_serve()
     long_run = phase_long()

@@ -19,16 +19,29 @@
 // own channel, but neighbouring outputs share them, so the least traffic
 // is x read once and out written once: at the conformer_small shape
 // (B=8, T=251, C=144, K=31, f32) 2.3 MB against 18 MFLOP, far below the
-// ~20 FLOP/byte where f32 FMA throughput would take over.
+// ~20 FLOP/byte where f32 FMA throughput would take over.  At these
+// sizes (0.7 us of traffic) the launch, the first loads' latency and the
+// host's call dominate.
 //
-// What the simple design does about it: one thread per output element,
-// channel fastest, so every tap's loads across a warp are consecutive
-// addresses (coalesced) and the K overlapping reads of a value hit L1/L2
-// instead of device memory.  x is read unpadded (no padded copy is made),
-// the accumulator is f32 whatever the storage type, and the bias is
-// fused into the single store.  The TPU kernel's lane packing of the
-// 144 % 128 remainder channels and its VMEM size guard are TPU devices
-// and have no counterpart here.
+// The design: one block per (batch row, 32-step time tile, channel
+// group) stages x's rows [t0 - pad_left, t0 + 32 + K - 1 - pad_left) of
+// its channels in shared memory, with 16-byte loads where the rows'
+// byte widths allow (C = 144: 36 float4 in f32, 18 in bf16) and scalar
+// loads otherwise; taps outside [0, T) stage as zero.  Each thread owns
+// two neighbouring channels (float2 or __nv_bfloat162 reads) and R = 8
+// consecutive outputs: it holds its channels' K taps in registers (for
+// the K the kernel is instantiated for; other K read the taps from
+// L1) and slides over R + K - 1 shared rows, (R + K - 1) / R reads an
+// output where one thread per output made 2K.  Each output sums its
+// taps in order k = 0 .. K-1 in f32, then is rounded to x's dtype; a
+// bias, rounded to that dtype, is added after and the sum rounded again
+// (the JAX package's order; for f32 the roundings are exact).  Index
+// arithmetic is 32-bit from block coordinates, with one 64-bit offset
+// per batch row.  `flip` reads the taps as w[K-1-k], so the input
+// gradient needs no flipped copy of w.  No atomics: the same bits in
+// every run.  The TPU kernel's lane packing of the 144 % 128 remainder
+// channels and its VMEM size guard are TPU devices and have no
+// counterpart here.
 //
 // ---- taps' gradient (sb_depthwise_conv1d_dw) ----
 //
@@ -67,29 +80,215 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
 }
 
+// Two neighbouring channels of storage type T, and their f32 values.
 template <typename T>
-__global__ void depthwise_conv1d_fwd(const T* __restrict__ x,
-                                     const T* __restrict__ w,
-                                     const T* __restrict__ bias,
-                                     T* __restrict__ out, int B, int T_len,
-                                     int C, int K, int pad_left) {
-  const int64_t total = (int64_t)B * T_len * C;
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % C);
-  const int64_t bt = idx / C;
-  const int t = (int)(bt % T_len);
-  const int64_t b = bt / T_len;
-  const T* xb = x + b * (int64_t)T_len * C;
-  float acc = 0.f;
-  for (int k = 0; k < K; ++k) {
-    const int ti = t + k - pad_left;
-    if (ti >= 0 && ti < T_len) {
-      acc += to_f32(xb[(int64_t)ti * C + c]) * to_f32(w[k * C + c]);
+struct Pair;
+template <>
+struct Pair<float> {
+  using V = float2;
+  static __device__ __forceinline__ float2 f32(V v) { return v; }
+  static __device__ __forceinline__ V from(float2 v) { return v; }
+};
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  static __device__ __forceinline__ float2 f32(V v) {
+    return __bfloat1622float2(v);
+  }
+  static __device__ __forceinline__ V from(float2 v) {
+    return __floats2bfloat162_rn(v.x, v.y);
+  }
+};
+
+constexpr int FR = 8;          // outputs a thread, consecutive in time
+constexpr int FTY = 4;         // thread rows a block
+constexpr int FTT = FR * FTY;  // time steps a block
+constexpr int FMAX_TX = 64;    // channel pairs (threads) across a block
+
+// The f32 taps of channels (c, c + 1) at tap k (w[K-1-k] when flip).
+template <typename T>
+__device__ __forceinline__ float2 tap(const T* __restrict__ w, int k, int K,
+                                      int C, int c, bool two, bool flip) {
+  const T* row = w + (flip ? K - 1 - k : k) * C + c;
+  return make_float2(to_f32(row[0]), two ? to_f32(row[1]) : 0.f);
+}
+
+// Out rows t0 + ty R .. + R - 1 of channels (c, c + 1): f32 sums rounded
+// to T, then the bias (rounded to T) added and rounded again.
+template <typename T>
+__device__ __forceinline__ void store_outputs(
+    const float2 (&acc)[FR], const T* __restrict__ bias, T* __restrict__ ob,
+    int t, int T_len, int C, int c, bool two, bool pair_store) {
+  float2 bv = make_float2(0.f, 0.f);
+  if (bias != nullptr) {
+    bv = make_float2(to_f32(bias[c]), two ? to_f32(bias[c + 1]) : 0.f);
+  }
+#pragma unroll
+  for (int r = 0; r < FR; ++r) {
+    if (t + r >= T_len) break;
+    float2 v = Pair<T>::f32(Pair<T>::from(acc[r]));  // round to T
+    if (bias != nullptr) v = make_float2(v.x + bv.x, v.y + bv.y);
+    const typename Pair<T>::V o = Pair<T>::from(v);
+    T* dst = ob + (t + r) * C + c;
+    if (pair_store) {
+      *reinterpret_cast<typename Pair<T>::V*>(dst) = o;
+    } else {
+      dst[0] = o.x;
+      if (two) dst[1] = o.y;
     }
   }
-  if (bias != nullptr) acc += to_f32(bias[c]);
-  out[idx] = from_f32<T>(acc);
+}
+
+// Grid (channel groups, time tiles, B), block (TX, FTY); shared rows of
+// SW elements.  KC is the number of taps when known at compile time (the
+// taps then live in registers), 0 for any K.
+template <typename T, int KC>
+__global__ void __launch_bounds__(FMAX_TX * FTY)
+    depthwise_conv1d_fwd(const T* __restrict__ x, const T* __restrict__ w,
+                         const T* __restrict__ bias, T* __restrict__ out,
+                         int T_len, int C, int K, int pad_left, int flip,
+                         int cgw, int SW, int vec16) {
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  T* xs = reinterpret_cast<T*>(fwd_smem);  // (FTT + K - 1, SW)
+  const int cg0 = blockIdx.x * cgw;
+  const int gw = min(cgw, C - cg0);  // channels of this group
+  const int t0 = blockIdx.y * FTT;
+  const int64_t base = (int64_t)blockIdx.z * T_len * C;
+  const T* xb = x + base + cg0;
+  const int nrows = FTT + K - 1;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nth = blockDim.x * blockDim.y;
+  const int tlo = t0 - pad_left;  // time of shared row 0
+  if (vec16 && (gw * (int)sizeof(T)) % 16 == 0) {
+    const int cpr = gw * (int)sizeof(T) / 16;  // 16-byte chunks a row
+    for (int e = tid; e < nrows * cpr; e += nth) {
+      const int r = e / cpr, j = e - r * cpr;
+      const int ti = tlo + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (ti >= 0 && ti < T_len) {
+        v = reinterpret_cast<const uint4*>(xb + ti * C)[j];
+      }
+      reinterpret_cast<uint4*>(xs + r * SW)[j] = v;
+    }
+  } else {
+    for (int e = tid; e < nrows * gw; e += nth) {
+      const int r = e / gw, c = e - r * gw;
+      const int ti = tlo + r;
+      xs[r * SW + c] = (ti >= 0 && ti < T_len) ? xb[ti * C + c]
+                                               : from_f32<T>(0.f);
+    }
+  }
+  __syncthreads();
+  const int c = 2 * threadIdx.x;  // the thread's channels c, c + 1
+  if (c >= gw) return;
+  const bool two = c + 1 < gw;
+  const bool fl = flip != 0;
+  const T* wc = w + cg0;
+  const T* xr = xs + threadIdx.y * FR * SW + c;
+  float2 acc[FR];
+#pragma unroll
+  for (int r = 0; r < FR; ++r) acc[r] = make_float2(0.f, 0.f);
+  if constexpr (KC > 0) {
+    float2 wr[KC];
+#pragma unroll
+    for (int k = 0; k < KC; ++k) wr[k] = tap(wc, k, KC, C, c, two, fl);
+    // shared row j feeds output r through tap j - r: each output's taps
+    // are added in order k = 0 .. KC-1
+#pragma unroll
+    for (int j = 0; j < FR + KC - 1; ++j) {
+      const float2 xv =
+          Pair<T>::f32(*reinterpret_cast<const typename Pair<T>::V*>(
+              xr + j * SW));
+#pragma unroll
+      for (int r = 0; r < FR; ++r) {
+        const int k = j - r;
+        if (k >= 0 && k < KC) {
+          acc[r].x = fmaf(wr[k].x, xv.x, acc[r].x);
+          acc[r].y = fmaf(wr[k].y, xv.y, acc[r].y);
+        }
+      }
+    }
+  } else {
+    for (int k = 0; k < K; ++k) {
+      const float2 wk = tap(wc, k, K, C, c, two, fl);
+#pragma unroll
+      for (int r = 0; r < FR; ++r) {
+        const float2 xv =
+            Pair<T>::f32(*reinterpret_cast<const typename Pair<T>::V*>(
+                xr + (r + k) * SW));
+        acc[r].x = fmaf(wk.x, xv.x, acc[r].x);
+        acc[r].y = fmaf(wk.y, xv.y, acc[r].y);
+      }
+    }
+  }
+  store_outputs<T>(acc, bias == nullptr ? nullptr : bias + cg0,
+                   out + base + cg0, t0 + threadIdx.y * FR, T_len, C, c, two,
+                   two && C % 2 == 0);
+}
+
+// The forward's launch shape for (T, C, K) in storage type T: channel
+// pairs split into balanced groups of at most FMAX_TX, halved while the
+// staged rows exceed the shared memory a block may take.
+struct FwdPlan {
+  int tx, groups, cgw, sw;
+  size_t smem;
+};
+
+FwdPlan plan_fwd(int C, int K, int es) {
+  const int ncv = (C + 1) / 2;  // channel pairs
+  const int align = 16 / es;    // elements in 16 bytes
+  FwdPlan p;
+  int cap = FMAX_TX;
+  for (;;) {
+    p.groups = (ncv + cap - 1) / cap;
+    p.tx = (ncv + p.groups - 1) / p.groups;
+    p.cgw = 2 * p.tx;
+    p.sw = (p.cgw + align - 1) / align * align;
+    p.smem = (size_t)(FTT + K - 1) * p.sw * es;
+    if (p.smem <= 200 * 1024 || cap == 1) return p;
+    cap = (cap + 1) / 2;
+  }
+}
+
+template <typename T, int KC>
+int launch_fwd(const void* x, const void* w, const void* bias, void* out,
+               int B, int T_len, int C, int K, int pad_left, int flip,
+               int vec16, cudaStream_t s) {
+  const FwdPlan p = plan_fwd(C, K, (int)sizeof(T));
+  if (p.smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+  auto kern = depthwise_conv1d_fwd<T, KC>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 16-byte loads need every group to start on a 16-byte boundary too
+  const int v16 = vec16 && (p.cgw * (int)sizeof(T)) % 16 == 0;
+  const dim3 grid(p.groups, (T_len + FTT - 1) / FTT, B);
+  kern<<<grid, dim3(p.tx, FTY), p.smem, s>>>(
+      (const T*)x, (const T*)w, (const T*)bias, (T*)out, T_len, C, K,
+      pad_left, flip, p.cgw, p.sw, v16);
+  return (int)cudaGetLastError();
+}
+
+// K with its taps in registers; any other K reads them from L1.
+template <typename T>
+int dispatch_fwd(const void* x, const void* w, const void* bias, void* out,
+                 int B, int T_len, int C, int K, int pad_left, int flip,
+                 int vec16, cudaStream_t s) {
+#define SB_FWD(KC)                                                       \
+  return launch_fwd<T, KC>(x, w, bias, out, B, T_len, C, K, pad_left,    \
+                           flip, vec16, s)
+  switch (K) {
+    case 3: SB_FWD(3);
+    case 5: SB_FWD(5);
+    case 7: SB_FWD(7);
+    case 9: SB_FWD(9);
+    case 15: SB_FWD(15);
+    case 31: SB_FWD(31);
+    default: SB_FWD(0);
+  }
+#undef SB_FWD
 }
 
 constexpr int DW_TC = 64;  // time rows per chunk
@@ -195,27 +394,25 @@ extern "C" int sb_depthwise_conv1d_dw(const void* x, const void* dy,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (x, w, bias and out share it).
-// bias may be null.  Returns cudaGetLastError() after the launch.
+// bias may be null.  flip != 0 reads the taps as w[K-1-k] (the input
+// gradient).  vec16 != 0 allows 16-byte loads of x's rows: x is 16-byte
+// aligned and a row, C elements, is a multiple of 16 bytes.  T * C must
+// be below 2^31.  Returns cudaGetLastError() after the launch.
 extern "C" int sb_depthwise_conv1d_fwd(const void* x, const void* w,
                                        const void* bias, void* out, int B,
                                        int T, int C, int K, int pad_left,
-                                       int dtype, void* stream) {
-  const int threads = 256;
-  const int64_t total = (int64_t)B * T * C;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+                                       int flip, int vec16, int dtype,
+                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (total == 0) return 0;
+  if (B == 0 || T == 0 || C == 0) return 0;
+  if (K < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    depthwise_conv1d_fwd<float><<<blocks, threads, 0, s>>>(
-        (const float*)x, (const float*)w, (const float*)bias, (float*)out,
-        B, T, C, K, pad_left);
-  } else if (dtype == 1) {
-    depthwise_conv1d_fwd<__nv_bfloat16><<<blocks, threads, 0, s>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-        (const __nv_bfloat16*)bias, (__nv_bfloat16*)out, B, T, C, K,
-        pad_left);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return dispatch_fwd<float>(x, w, bias, out, B, T, C, K, pad_left, flip,
+                               vec16, s);
   }
-  return (int)cudaGetLastError();
+  if (dtype == 1) {
+    return dispatch_fwd<__nv_bfloat16>(x, w, bias, out, B, T, C, K, pad_left,
+                                       flip, vec16, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -1,6 +1,6 @@
 // Flash-style attention with the Transformer-XL relative-position bias
-// computed in the kernel: the forward, with the per-row log-sum-exp that
-// the backward (relpos_attention_bwd.cu) reads.
+// computed in the kernel, on the tensor cores: the forward, with the
+// per-row log-sum-exp that the backward (relpos_attention_bwd.cu) reads.
 //
 // Replaces: the Pallas TPU kernel
 //   speechbrain_tpu/ops/pallas/relpos_attention.py _fwd_kernel / _fwd,
@@ -17,133 +17,115 @@
 // As in the TPU kernels, dropout acts on the normalized weights and
 // leaves the normalizer and the lse as they are:
 //   out[q] = sum_k softmax_k(s[q, :]) keep[q,k] / (1 - rate) v_k.
-// keep is the pure function of (seed, b, h, q, k) in relpos_dropout.cuh;
-// the TPU's hardware generator has no counterpart here, so its bits are
-// not reproduced; its threshold rule and gradient formulas are.  A thread
-// generates its row's 64 bits of each key tile (16 Philox calls).  The
-// case rate = 0 is a separate instantiation (DROP = false) that runs no
+// keep is the pure function of (seed, b, h, q, k) in relpos_dropout.cuh,
+// so no tiling changes it; the TPU's hardware generator has no
+// counterpart here, so its bits are not reproduced; its threshold rule
+// and gradient formulas are.  The block's threads make the key tile's
+// keep bits together into shared memory (a row half, 8 Philox calls, a
+// thread) while the tile is staged.  DROP = false instantiations run no
 // generator code.
 //
 // ---- what bounds it, and the design ----
 //
-// What bounds it on the H100: at the long-utterance shape that routes
-// here (B=2..8, H=4, T=512..1024, dh=36) the least traffic is q, k, v, p
-// and out once each, a few MB, against 2 x B x H x T^2 x 3 dh FLOPs in
-// f32 outside the tensor cores (67 TFLOP/s): operations bound.
+// What bounds it on the H100: operations.  At the long-utterance shape
+// that routes here (B=2..8, H=4, T=512..1024, dh=36) the least traffic
+// is q, k, v, p, out and lse once each, a few MB, against 6 dh FLOPs per
+// (b, h, q, k) (the content, position and context products): 1.8 GFLOP
+// at B8 H4 T512, 3.7 us at TF32's 495 TFLOP/s (bf16: its 6.3 MB of
+// traffic, 1.9 us).  The design before this one ran them on CUDA cores
+// (67 TFLOP/s: 27 us), one thread per query row.
 //
-// What the simple design does about it: one block per (b, h, 64-query
-// tile), one thread per query row, with q+u, q+vb and the output
-// accumulator in registers.  The block walks 64-key tiles, staging K, V
-// and the band of P rows the tile needs (64 + 64 - 1 rows: for query i
-// and key j of the tile the row is band[63 - i + j]) in shared memory,
-// and keeps an online softmax (running max and sum) in f32.  No (T, T)
-// or (T, 2T-1) tensor is formed.  Shared rows are read as float4 with a
-// row stride of dh or dh + 4 floats, whichever makes it an odd number of
-// 16-byte words, so the eight threads of a float4 load phase hit eight
-// different bank groups.  The TPU kernel's log-roll shear is a TPU
-// device and has no counterpart here.  No tensor cores: that is for the
-// PR that makes this fast.
+// The design: one block of 4 warps per (b, h, 64-query tile); warp w owns
+// query rows 16w .. 16w+15.  (q + u) and (q + vb) are staged once.
+// The block walks the 64-key tiles, staging K, V and the band of P rows
+// the tile pair needs (row c is p[clip(T-1-q0-63+k0 + c)]; query i and
+// key j read c = 63 - i + j), and each warp computes with mma.sync (f32
+// sums):
+//   PB = (q+vb) Band^T over the 80 band columns its rows reach, staged in
+//        shared memory and read sheared, M[i, j] = PB[i, 63 - i + j]
+//        (JAX's _shear, here an index), as the backward does;
+//   S  = (q+u) K^T, then s = (S + M) scale + madd, the causal mask;
+//   an online softmax in the accumulator fragments (FlashAttention-2): the
+//        row max and sum over the quad of lanes that holds a row, O and
+//        the sum rescaled when the max grows;
+//   O += (P keep/(1-rate)) V, the weights staged per warp as the A
+//        operand;
+// and writes out = O / l and lse = m + log l once per row.
+// Operands: bf16 inputs use bf16 multiplicands (m16n8k16), rounded where
+// JAX's kernel rounds them ((q+u), (q+vb), k, the band, v and the weights
+// before the context product); the weights are taken against the running
+// max, where JAX's single pass takes the row's, so the rounding of a
+// weight can differ by a bf16 step.  f32 inputs use 3xTF32 (m16n8k8):
+// x = hi + lo, x y ~ hi hi + hi lo + lo hi, each k-step's three products
+// summed apart and added to the f32 accumulator on the CUDA cores
+// (warp_mma's STEP_SUM): ~f32 precision without the drift of the tensor
+// core's own accumulation, which flipped ReLUs in the decoder of the
+// training step's gradient check.  The head width is padded with zero
+// columns to the MMA depth (dh 36: 48 for bf16, 40 for TF32); the padded
+// columns are never written out.  The fragment loads, warp_mma, the
+// operand strides and the staging helpers are the backward's, in
+// relpos_mma.cuh.  No atomics: the same bits in every run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "relpos_dropout.cuh"
+#include "relpos_mma.cuh"
 
 namespace {
 
-using relpos::Drop;
-using relpos::keep_bits;
+using namespace relpos;
 
-constexpr int BQ = 64;  // queries per block, one per thread
-constexpr int BK = 64;  // keys per shared-memory tile
-constexpr int BAND = BQ + BK - 1;  // rows of P (or K) one tile pair needs
-constexpr float NEG = -1e9f;
+constexpr int BQ = 64;          // queries per block
+constexpr int BK = 64;          // keys per tile
+constexpr int BAND = BQ + BK;   // band rows a tile pair stages (127 read)
+constexpr int NW = 4;           // warps per block, 16 query rows each
+constexpr int NTH = 32 * NW;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <int DH>
-struct Stride {
-  // floats per shared row: an odd number of float4 words
-  static constexpr int value = ((DH / 4) % 2 == 1) ? DH : DH + 4;
+// A forward block's operand tiles of E and f32 scratch in shared memory.
+template <typename E, int DH>
+struct FwdCfg {
+  // rows staged a round trip: the whole band while a thread's share fits
+  // in a few registers (dh <= 36), else 32 rows (dh 64 spilled)
+  static constexpr int BAND_PIECE = BAND * DH / 4 / NTH <= 14 ? BAND : 32;
+  static constexpr int DHP = (DH + Op<E>::KS - 1) / Op<E>::KS * Op<E>::KS;
+  static constexpr int NTD = DHP / 8;  // 8-column MMA tiles over the head
+  static constexpr int LD_D = Op<E>::ld(DHP);
+  static constexpr int LD_P = Op<E>::ld(BK);  // a warp's weights (16, BK)
+  // operand tiles (elements of E)
+  static constexpr int oQU = 0, oQV = oQU + BQ * LD_D, oK = oQV + BQ * LD_D,
+                       oV = oK + BK * LD_D, oBand = oV + BK * LD_D,
+                       oP = oBand + BAND * LD_D, nE = oP + NW * 16 * LD_P;
+  // f32 scratch: the warps' PB, the tile's madd
+  static constexpr int fPB = 0, fM = fPB + NW * 16 * LD_PB, nF = fM + BK;
+  static constexpr size_t bytesE = (nE * sizeof(E) + 15) / 16 * 16;
+  static constexpr size_t smem =
+      bytesE + nF * sizeof(float) + 2 * BQ * sizeof(unsigned);
 };
 
-template <int DH>
-__device__ __forceinline__ float dot_row(const float (&a)[DH],
-                                         const float* __restrict__ row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-  float acc = 0.f;
-#pragma unroll
-  for (int d4 = 0; d4 < DH / 4; ++d4) {
-    const float4 c = r[d4];
-    acc += a[4 * d4] * c.x + a[4 * d4 + 1] * c.y + a[4 * d4 + 2] * c.z +
-           a[4 * d4 + 3] * c.w;
-  }
-  return acc;
-}
-
-template <int DH>
-__device__ __forceinline__ void axpy_row(float (&acc)[DH], float a,
-                                         const float* __restrict__ row) {
-  const float4* r = reinterpret_cast<const float4*>(row);
-#pragma unroll
-  for (int d4 = 0; d4 < DH / 4; ++d4) {
-    const float4 c = r[d4];
-    acc[4 * d4] += a * c.x;
-    acc[4 * d4 + 1] += a * c.y;
-    acc[4 * d4 + 2] += a * c.z;
-    acc[4 * d4 + 3] += a * c.w;
+// Rows 0 .. N-1 of a DH-wide operand (row r is src + row(r) DH) into
+// shared rows of stride LD, P rows a round trip: the loads of a piece
+// are in flight together, in the registers of one piece.
+template <int N, int P, int DH, int NT, int LD, typename E, typename Row>
+__device__ __forceinline__ void stage(E* __restrict__ dst,
+                                      const E* __restrict__ src, Row row) {
+  static_assert(N % P == 0, "whole pieces");
+#pragma unroll 1
+  for (int r0 = 0; r0 < N; r0 += P) {
+    Tile<P, DH, NT> x;
+    x.load(src, [&](int r) { return row(r0 + r); });
+    x.template store<LD>(dst + r0 * LD, nullptr);
   }
 }
 
-// Stage rows [r0, r0 + n) of a (rows, DH) tensor into shared rows of
-// stride S; rows outside [0, limit) read zero.  `add` (DH floats or null)
-// is added to every element.
-template <typename E, int DH>
-__device__ __forceinline__ void stage(float* __restrict__ dst,
-                                      const E* __restrict__ src, int r0,
-                                      int n, int limit,
-                                      const float* __restrict__ add) {
-  constexpr int S = Stride<DH>::value;
-  for (int e = threadIdx.x; e < n * DH; e += blockDim.x) {
-    const int r = e / DH, d = e % DH;
-    const int row = r0 + r;
-    float v = 0.f;
-    if (row >= 0 && row < limit) {
-      v = to_f32(src[(int64_t)row * DH + d]);
-      if (add != nullptr) v += add[d];
-    }
-    dst[r * S + d] = v;
-  }
-}
-
-// Stage the band of P rows p[clip(band0 + r)], r in [0, BAND).
-template <typename E, int DH>
-__device__ __forceinline__ void stage_band(float* __restrict__ dst,
-                                           const E* __restrict__ ph,
-                                           int band0, int T) {
-  constexpr int S = Stride<DH>::value;
-  for (int e = threadIdx.x; e < BAND * DH; e += blockDim.x) {
-    const int r = e / DH, d = e % DH;
-    const int lp = min(max(band0 + r, 0), 2 * T - 2);
-    dst[r * S + d] = to_f32(ph[(int64_t)lp * DH + d]);
-  }
-}
-
-// ------------------------------------------------------------- forward
-
-template <int DH>
-constexpr size_t fwd_smem_bytes() {
-  return (size_t)(2 * BK + BAND) * Stride<DH>::value * sizeof(float) +
-         BK * sizeof(float);
-}
-
+// Grid (Tp / BQ, H, B), NTH threads.  Writes out (B, H, Tp, DH) and lse
+// (B, H, Tp), both f32.
 template <typename E, int DH, bool DROP>
-__global__ void __launch_bounds__(BQ)
+__global__ void __launch_bounds__(NTH)
     relpos_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
                       const E* __restrict__ v, const E* __restrict__ p,
                       const float* __restrict__ u,
@@ -151,77 +133,161 @@ __global__ void __launch_bounds__(BQ)
                       const float* __restrict__ madd, float* __restrict__ out,
                       float* __restrict__ lse, int H, int Tp, int T,
                       float scale, int causal, Drop dr) {
-  constexpr int S = Stride<DH>::value;
-  extern __shared__ __align__(16) float smem[];
-  float* Ks = smem;               // (BK, S)
-  float* Vs = Ks + BK * S;        // (BK, S)
-  float* Ps = Vs + BK * S;        // (BAND, S)
-  float* Ms = Ps + BAND * S;      // (BK,)
+  using C = FwdCfg<E, DH>;
+  constexpr int NTD = C::NTD, LD_D = C::LD_D, LD_P = C::LD_P;
+  constexpr bool F32 = std::is_same<E, float>::value;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  E* sm = reinterpret_cast<E*>(smem_raw);
+  E* QUs = sm + C::oQU;
+  E* QVs = sm + C::oQV;
+  E* Ks = sm + C::oK;
+  E* Vs = sm + C::oV;
+  E* Bs = sm + C::oBand;
+  float* fs = reinterpret_cast<float*>(smem_raw + C::bytesE);
+  float* Ms = fs + C::fM;
+  unsigned* Km = reinterpret_cast<unsigned*>(fs + C::nF);  // (BQ, 2)
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
+  const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * BQ;
-  const int i = threadIdx.x;
-  const int qrow = q0 + i;
-  const int64_t head = ((int64_t)b * H + h) * Tp * DH;
-  const E* qh = q + head;
+  const int tid = threadIdx.x, w = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int bh = b * H + h;
+  const int64_t head = (int64_t)bh * Tp * DH;
   const E* ph = p + (int64_t)h * (2 * T - 1) * DH;
-
-  float qu[DH], qv[DH], o[DH];
-#pragma unroll
-  for (int d = 0; d < DH; ++d) {
-    const float x = to_f32(qh[(int64_t)qrow * DH + d]);
-    qu[d] = x + u[h * DH + d];
-    qv[d] = x + vb[h * DH + d];
-    o[d] = 0.f;
+  // zero every operand tile once (their padded columns stay 0), then
+  // stage the block's (q + u) and (q + vb)
+  for (int e = tid; e < (int)(C::bytesE / 16); e += NTH) {
+    reinterpret_cast<uint4*>(smem_raw)[e] = make_uint4(0u, 0u, 0u, 0u);
   }
-  float m = -INFINITY;
-  float l = 0.f;
+  __syncthreads();
+  {
+    Tile<BQ, DH, NTH> qx;
+    qx.load(q + head, Rows{q0});
+    qx.template store<LD_D>(QUs, u + h * DH);
+    qx.template store<LD_D>(QVs, vb + h * DH);
+  }
+
+  const int i0 = 16 * w;             // the warp's rows
+  const int c0 = BQ - 16 - 16 * w;   // its first band column in PB
+  float* pbw = fs + C::fPB + w * 16 * LD_PB;
+  E* Pw = sm + C::oP + w * 16 * LD_P;
+  float o[NTD][4] = {};
+  float m_run[2] = {-INFINITY, -INFINITY};  // rows g and g + 8
+  float l_run[2] = {0.f, 0.f};              // this lane's share of the sums
 
   for (int k0 = 0; k0 < Tp; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    stage<E, DH>(Ks, k + head, k0, BK, Tp, nullptr);
-    stage<E, DH>(Vs, v + head, k0, BK, Tp, nullptr);
-    // band row r holds p[clip(T-1 - (q0+BQ-1) + k0 + r)]
-    stage_band<E, DH>(Ps, ph, T - 1 - (q0 + BQ - 1) + k0, T);
-    for (int e = i; e < BK; e += BQ) Ms[e] = madd[(int64_t)b * Tp + k0 + e];
-    uint64_t keep = 0;
-    if (DROP) keep = keep_bits(dr, b * H + h, qrow, k0);
+    {  // K and V in one round trip
+      Tile<BK, DH, NTH> kx, vx;
+      kx.load(k + head, Rows{k0});
+      vx.load(v + head, Rows{k0});
+      kx.template store<LD_D>(Ks, nullptr);
+      vx.template store<LD_D>(Vs, nullptr);
+    }
+    stage<BAND, C::BAND_PIECE, DH, NTH, LD_D>(
+        Bs, ph, BandRows{T - 1 - (q0 + BQ - 1) + k0, 2 * T - 2});
+    for (int e = tid; e < BK; e += NTH) Ms[e] = madd[(int64_t)b * Tp + k0 + e];
+    // thread tid: row tid / 2, keys 32 (tid % 2) .. + 31 of the tile
+    if (DROP) Km[tid] = keep_bits32(dr, bh, q0 + (tid >> 1), k0 + 32 * (tid & 1));
     __syncthreads();
 
-    for (int j = 0; j < BK; ++j) {
-      const float su = dot_row<DH>(qu, Ks + j * S);
-      const float sv = dot_row<DH>(qv, Ps + (BQ - 1 - i + j) * S);
-      float s = (su + sv) * scale + Ms[j];
-      if (causal && k0 + j > qrow) s = NEG;
-      if (s > m) {  // rescale the running sums to the new maximum
-        const float corr = expf(m - s);
-        l *= corr;
+    // PB over the band columns c0 .. c0 + 79 that rows i0 .. i0 + 15 read
+    {
+      float pb[PB_N / 8][4] = {};
+      warp_mma<E, false, false, PB_N / 8, F32>(pb, QVs, LD_D, i0, Bs, LD_D,
+                                               c0, 0, C::DHP);
 #pragma unroll
-        for (int d = 0; d < DH; ++d) o[d] *= corr;
-        m = s;
+      for (int nt = 0; nt < PB_N / 8; ++nt) {
+        const int col = 8 * nt + 2 * t;
+        pbw[g * LD_PB + col] = pb[nt][0];
+        pbw[g * LD_PB + col + 1] = pb[nt][1];
+        pbw[(g + 8) * LD_PB + col] = pb[nt][2];
+        pbw[(g + 8) * LD_PB + col + 1] = pb[nt][3];
       }
-      const float pj = expf(s - m);
-      l += pj;  // the normalizer is taken before dropout
-      float w = pj;
-      if (DROP) w = ((keep >> j) & 1) ? pj * dr.inv : 0.f;
-      axpy_row<DH>(o, w, Vs + j * S);
+      __syncwarp();
     }
-  }
-  const float inv = 1.f / l;
-  float* oh = out + head + (int64_t)qrow * DH;
+    // S over the 64 keys, the scores and the tile's row max
+    float s[BK / 8][4] = {};
+    warp_mma<E, false, false, BK / 8, F32>(s, QUs, LD_D, i0, Ks, LD_D, 0, 0,
+                                           C::DHP);
+    float mt[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-  for (int d = 0; d < DH; ++d) oh[d] = o[d] * inv;
-  lse[((int64_t)b * H + h) * Tp + qrow] = m + logf(l);
+    for (int half = 0; half < 2; ++half) {
+      const int il = g + 8 * half, i = i0 + il;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * t + e, x = 2 * half + e;
+          // M[i, j] = PB[i, 63 - i + j], column 15 - il + j of the warp's
+          const float mpos = pbw[il * LD_PB + 15 - il + j];
+          float sc = (s[nt][x] + mpos) * scale + Ms[j];
+          if (causal && k0 + j > q0 + i) sc = NEG;
+          s[nt][x] = sc;
+          mt[half] = fmaxf(mt[half], sc);
+        }
+      }
+    }
+    // online softmax: the new row max over the quad, rescale O and l;
+    // the weights (before dropout, as the normalizer) into Pw
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float mx = mt[half];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[half], mx);
+      const float corr = expf(m_run[half] - m_new);  // 0 at the first tile
+      m_run[half] = m_new;
+      l_run[half] *= corr;
+#pragma unroll
+      for (int nt = 0; nt < NTD; ++nt) {
+        o[nt][2 * half] *= corr;
+        o[nt][2 * half + 1] *= corr;
+      }
+      const int il = g + 8 * half, i = i0 + il;
+#pragma unroll
+      for (int nt = 0; nt < BK / 8; ++nt) {
+        float wgt[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 8 * nt + 2 * t + e;
+          const float pr = expf(s[nt][2 * half + e] - m_new);
+          l_run[half] += pr;
+          wgt[e] = pr;
+          if (DROP) {
+            const bool kept = (Km[2 * i + (j >> 5)] >> (j & 31)) & 1u;
+            wgt[e] = kept ? pr * dr.inv : 0.f;
+          }
+        }
+        store2(Pw + il * LD_P + 8 * nt + 2 * t, wgt[0], wgt[1]);
+      }
+    }
+    __syncwarp();
+    // O += (P keep/(1-rate)) V over the tile's keys
+    warp_mma<E, false, true, NTD, F32>(o, Pw, LD_P, 0, Vs, LD_D, 0, 0, BK);
+  }
+
+  // the row sums over the quad, then out = O / l and lse = m + log l
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float l = l_run[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int row = q0 + i0 + g + 8 * half;
+    const float inv = 1.f / l;
+    float* orow = out + head + (int64_t)row * DH;
+#pragma unroll
+    for (int nt = 0; nt < NTD; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < DH) {  // DH even: col + 1 < DH too
+        store2(orow + col, o[nt][2 * half] * inv, o[nt][2 * half + 1] * inv);
+      }
+    }
+    if (t == 0) lse[(int64_t)bh * Tp + row] = m_run[half] + logf(l);
+  }
 }
 
 // ------------------------------------------------------------ launchers
-
-template <typename K>
-cudaError_t allow_smem(K kern, size_t bytes) {
-  return cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
 
 struct Args {
   const void *q, *k, *v, *p;
@@ -229,21 +295,22 @@ struct Args {
   int B, H, Tp, T;
   float scale;
   int causal;
-  int drop;  // 0: rate = 0, the DROP = false kernels
   Drop dr;
   cudaStream_t s;
 };
 
 template <typename E, int DH, bool DROP>
 int launch_fwd(const Args& a, float* out, float* lse) {
-  const size_t smem = fwd_smem_bytes<DH>();
+  using C = FwdCfg<E, DH>;
   auto kern = relpos_fwd_kernel<E, DH, DROP>;
-  cudaError_t err = allow_smem(kern, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.Tp / BQ, a.H, a.B);
-  kern<<<grid, BQ, smem, a.s>>>((const E*)a.q, (const E*)a.k, (const E*)a.v,
-                                (const E*)a.p, a.u, a.vb, a.madd, out, lse,
-                                a.H, a.Tp, a.T, a.scale, a.causal, a.dr);
+  // once per instantiation: the attribute call costs host time on every
+  // launch otherwise
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::smem);
+  if (attr != cudaSuccess) return (int)attr;
+  kern<<<dim3(a.Tp / BQ, a.H, a.B), NTH, C::smem, a.s>>>(
+      (const E*)a.q, (const E*)a.k, (const E*)a.v, (const E*)a.p, a.u, a.vb,
+      a.madd, out, lse, a.H, a.Tp, a.T, a.scale, a.causal, a.dr);
   return (int)cudaGetLastError();
 }
 
@@ -257,13 +324,13 @@ int launch_fwd(const Args& a, float* out, float* lse) {
     case 64: { constexpr int DH = 64; return CALL; } \
     default: return (int)cudaErrorInvalidValue;      \
   }
-#define SB_DISPATCH_DH(drop, dh, CALL)                              \
-  if (drop) {                                                       \
-    constexpr bool DROP = true;                                     \
-    SB_DISPATCH_DH_1(dh, CALL)                                      \
-  } else {                                                          \
-    constexpr bool DROP = false;                                    \
-    SB_DISPATCH_DH_1(dh, CALL)                                      \
+#define SB_DISPATCH_DH(drop, dh, CALL) \
+  if (drop) {                          \
+    constexpr bool DROP = true;        \
+    SB_DISPATCH_DH_1(dh, CALL)         \
+  } else {                             \
+    constexpr bool DROP = false;       \
+    SB_DISPATCH_DH_1(dh, CALL)         \
   }
 
 }  // namespace
@@ -284,18 +351,16 @@ extern "C" int sb_relpos_attention_fwd(const void* q, const void* k,
                                        unsigned key0, unsigned key1,
                                        int dtype, void* stream) {
   if (B == 0 || H == 0 || Tp == 0) return 0;
-  if (Tp % BQ != 0) return (int)cudaErrorInvalidValue;
+  if (Tp % 64 != 0 || T < 1 || T > Tp) return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, p, (const float*)u, (const float*)vb,
-               (const float*)madd, B, H, Tp, T, scale, causal, drop,
+               (const float*)madd, B, H, Tp, T, scale, causal,
                Drop{thresh, key0, key1, inv}, (cudaStream_t)stream};
+  float *o = (float*)out, *l = (float*)lse;
   if (dtype == 0) {
-    SB_DISPATCH_DH(drop, dh, (launch_fwd<float, DH, DROP>(a, (float*)out,
-                                                          (float*)lse)))
+    SB_DISPATCH_DH(drop, dh, (launch_fwd<float, DH, DROP>(a, o, l)))
   }
   if (dtype == 1) {
-    SB_DISPATCH_DH(drop, dh,
-                   (launch_fwd<__nv_bfloat16, DH, DROP>(a, (float*)out,
-                                                        (float*)lse)))
+    SB_DISPATCH_DH(drop, dh, (launch_fwd<bf16, DH, DROP>(a, o, l)))
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -20,8 +20,10 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 __all__ = [
-    "KERNELS", "BUILD_DIR", "CSRC_DIR", "build", "load", "entry",
+    "KERNELS", "BUILD_DIR", "CSRC_DIR", "build", "load", "Entry",
     "dtype_code", "stream_of", "check_launch", "refuse_grad",
 ]
 
@@ -35,9 +37,8 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Loaded libraries by kernel name, and their bound entry points by
-# (library, function): a cache of read-only handles, filled once per
-# process.
+# Loaded libraries by kernel name: a cache of read-only handles, filled
+# once per process.
 _LOADED = {}
 
 
@@ -119,33 +120,52 @@ def load(name):
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def entry(lib_name, fn_name, argtypes, restype=ctypes.c_int):
+class Entry:
     """C function ``fn_name`` of library ``lib_name`` with its argument
     and result types declared (a launch returns ``cudaGetLastError()`` as
-    an int)."""
-    fn = _LOADED.get((lib_name, fn_name))
-    if fn is None:
-        fn = getattr(load(lib_name), fn_name)
-        fn.argtypes = list(argtypes)
-        fn.restype = restype
-        _LOADED[(lib_name, fn_name)] = fn
-    return fn
+    an int).  A wrapper makes one per function when its module is
+    imported; the library is loaded (built if need be) and the function
+    bound at the first call, once per process, and every later call goes
+    straight to the bound function."""
+
+    __slots__ = ("lib_name", "fn_name", "argtypes", "restype", "fn")
+
+    def __init__(self, lib_name, fn_name, argtypes, restype=ctypes.c_int):
+        self.lib_name, self.fn_name = lib_name, fn_name
+        self.argtypes, self.restype = list(argtypes), restype
+        self.fn = None
+
+    def __call__(self, *args):
+        fn = self.fn
+        if fn is None:
+            fn = getattr(load(self.lib_name), self.fn_name)
+            fn.argtypes = self.argtypes
+            fn.restype = self.restype
+            self.fn = fn
+        return fn(*args)
+
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def dtype_code(t):
     """0 for float32, 1 for bfloat16: the storage types the kernels take."""
-    import torch
-
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if t.dtype not in codes:
+    code = _DTYPE_CODES.get(t.dtype)
+    if code is None:
         raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
-    return codes[t.dtype]
+    return code
+
+
+# The raw handle of a device's current stream, as an int, without the
+# torch.cuda.Stream object that current_stream() builds; PyTorch's own
+# code generators call the same function.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
 def stream_of(t):
     """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
-    import torch
-
+    if _raw_stream is not None:
+        return _raw_stream(t.device.index)
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
@@ -160,8 +180,6 @@ def refuse_grad(what, *tensors):
     no backward of its own (it runs inside an autograd Function's
     forward or backward, where grad mode is off), so a result without a
     gradient must not pass silently."""
-    import torch
-
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(

@@ -83,6 +83,10 @@ def _check_disjoint(a, b):
         )
 
 
+_STEP = _build.Entry("beam_cache", "sb_beam_attend_step",
+                     [_build.P] * 7 + [_build.I] * 6 + [_build.P])
+
+
 def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
     """Fused permute + append + self-attend over a merged time-minor
     K|V cache.
@@ -146,11 +150,7 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
         raise ValueError("beam_attend_step: rows must be (n,)")
     ctx = torch.empty((n, HD), dtype=torch.float32, device=kv.device)
     new = dst if dst is not None else torch.empty_like(kv)
-    fn = _build.entry(
-        "beam_cache", "sb_beam_attend_step",
-        [_build.P] * 7 + [_build.I] * 6 + [_build.P],
-    )
-    rc = fn(
+    rc = _STEP(
         kv.data_ptr(), rows.data_ptr(), q.data_ptr(), k_new.data_ptr(),
         v_new.data_ptr(), ctx.data_ptr(), new.data_ptr(),
         n, nhead, HD // nhead, L2 // 2, pos, code, _build.stream_of(kv),

@@ -157,6 +157,12 @@ def _check(log_probs, targets, blank, name):
                          "memory of one block)")
 
 
+_ALPHA = _build.Entry("ctc", "sb_ctc_alpha",
+                      [_build.P] * 7 + [_build.I] * 5 + [_build.P])
+_BETA_GRAD = _build.Entry("ctc", "sb_ctc_beta_grad",
+                          [_build.P] * 9 + [_build.I] * 5 + [_build.P])
+
+
 def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
     """K3: ``(alpha (B, T, S), loss (B,), logz (B,))`` float32.
 
@@ -183,9 +189,7 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
     alpha = torch.empty(B, T, 2 * U + 1, dtype=torch.float32, device=dev)
     loss = torch.empty(B, dtype=torch.float32, device=dev)
     logz = torch.empty(B, dtype=torch.float32, device=dev)
-    fn = _build.entry("ctc", "sb_ctc_alpha",
-                      [_build.P] * 7 + [_build.I] * 5 + [_build.P])
-    rc = fn(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
+    rc = _ALPHA(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
             alpha.data_ptr(), loss.data_ptr(), logz.data_ptr(),
             B, T, C, U, int(blank), _build.stream_of(lp))
     _build.check_launch(rc, "ctc_alpha")
@@ -221,9 +225,7 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, blank,
     g = g.to(device=dev, dtype=torch.float32).contiguous()
     occ = torch.empty_like(alpha)
     dlp = torch.empty(B, T, C, dtype=torch.float32, device=dev)
-    fn = _build.entry("ctc", "sb_ctc_beta_grad",
-                      [_build.P] * 9 + [_build.I] * 5 + [_build.P])
-    rc = fn(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
+    rc = _BETA_GRAD(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
             alpha.data_ptr(), logz.data_ptr(), g.data_ptr(), occ.data_ptr(),
             dlp.data_ptr(), B, T, C, U, int(blank), _build.stream_of(lp))
     _build.check_launch(rc, "ctc_beta_grad")

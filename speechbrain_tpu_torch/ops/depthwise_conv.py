@@ -89,19 +89,26 @@ def _check(x, w, name):
         )
 
 
-def _fwd_kernel(x, w, bias, pad_left):
-    """Launch K1 on CUDA tensors of one dtype (checked by the caller)."""
+_FWD = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_fwd",
+                    [_build.P] * 4 + [_build.I] * 8 + [_build.P])
+_DW_CHUNKS = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw_chunks",
+                          [_build.I] * 2)
+_DW = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw",
+                   [_build.P] * 4 + [_build.I] * 6 + [_build.P])
+
+
+def _fwd_kernel(x, w, bias, pad_left, flip=False):
+    """Launch K1 on contiguous CUDA tensors of one dtype (checked by the
+    caller); ``flip`` reads the taps as ``w[K-1-k]`` (the input
+    gradient)."""
     B, T, C = x.shape
     out = torch.empty_like(x)
-    fn = _build.entry(
-        "depthwise_conv", "sb_depthwise_conv1d_fwd",
-        [_build.P] * 4 + [_build.I] * 6 + [_build.P],
-    )
-    rc = fn(
-        x.data_ptr(), w.data_ptr(),
-        bias.data_ptr() if bias is not None else None,
-        out.data_ptr(), B, T, C, w.shape[0], pad_left, _build.dtype_code(x),
-        _build.stream_of(x),
+    ptr = x.data_ptr()
+    rc = _FWD(
+        ptr, w.data_ptr(), bias.data_ptr() if bias is not None else None,
+        out.data_ptr(), B, T, C, w.shape[0], pad_left, int(flip),
+        int((C * x.element_size()) % 16 == 0 and ptr % 16 == 0),
+        _build.dtype_code(x), _build.stream_of(x),
     )
     _build.check_launch(rc, "depthwise_conv1d")
     depthwise_conv1d.launches += 1
@@ -126,17 +133,11 @@ def depthwise_conv1d_dw(x, dy, K, causal=False):
         raise ValueError(f"depthwise_conv1d_dw: K={K} outside [1, 1024]")
     x, dy = x.contiguous(), dy.contiguous()
     B, T, C = x.shape
-    n_chunks = _build.entry(
-        "depthwise_conv", "sb_depthwise_conv1d_dw_chunks", [_build.I] * 2
-    )(B, T)
+    n_chunks = _DW_CHUNKS(B, T)
     partial = torch.empty(max(n_chunks, 1) * K * C, dtype=torch.float32,
                           device=x.device)
     dw = torch.empty(K, C, dtype=torch.float32, device=x.device)
-    fn = _build.entry(
-        "depthwise_conv", "sb_depthwise_conv1d_dw",
-        [_build.P] * 4 + [_build.I] * 6 + [_build.P],
-    )
-    rc = fn(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
+    rc = _DW(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
             B, T, C, K, _pad(K, causal)[0], _build.dtype_code(x),
             _build.stream_of(x))
     _build.check_launch(rc, "depthwise_conv1d_dw")
@@ -145,9 +146,10 @@ def depthwise_conv1d_dw(x, dy, K, causal=False):
 
 
 class _DepthwiseConv1d(torch.autograd.Function):
-    """Forward K1 (+ bias); backward dx = K1 on the flipped taps with the
-    complementary left padding, dw = K2, dbias = sum of dy.  ``kernel``
-    selects the CUDA kernels (True) or the plain versions (False)."""
+    """Forward K1 (+ bias); backward dx = K1 reading the taps flipped,
+    with the complementary left padding, dw = K2, dbias = sum of dy.
+    ``kernel`` selects the CUDA kernels (True) or the plain versions
+    (False)."""
 
     @staticmethod
     def forward(ctx, x, w, bias, causal, kernel):
@@ -167,9 +169,8 @@ class _DepthwiseConv1d(torch.autograd.Function):
         dx = dw = dbias = None
         if ctx.needs_input_grad[0]:
             left = K - 1 - _pad(K, ctx.causal)[0]
-            w_flip = w.flip(0).contiguous()
-            dx = (_fwd_kernel(dy, w_flip, None, left) if ctx.kernel
-                  else _conv_plain(dy, w_flip, left))
+            dx = (_fwd_kernel(dy, w, None, left, flip=True) if ctx.kernel
+                  else _conv_plain(dy, w.flip(0), left))
         if ctx.needs_input_grad[1]:
             dw = (depthwise_conv1d_dw if ctx.kernel
                   else depthwise_conv1d_dw_plain)(x, dy, K, ctx.causal)
@@ -185,9 +186,11 @@ def depthwise_conv1d(x, w, bias=None, causal=False):
 
     ``w`` and ``bias`` are cast to ``x``'s dtype (float32 or bfloat16)
     before the call, so their gradients come back in their own dtypes;
-    the kernel accumulates in f32 and adds the bias before its single
-    rounding.  Counts kernel launches (forward and dx) in
-    ``depthwise_conv1d.launches``.
+    the kernel sums in f32, rounds to ``x``'s dtype, then adds the bias
+    and rounds again (the JAX package's order).  Where autograd records
+    nothing (no grad mode, or no input that requires grad) the kernel is
+    launched without the autograd Function.  Counts kernel launches
+    (forward and dx) in ``depthwise_conv1d.launches``.
     """
     if x.device.type == "cpu":
         return _DepthwiseConv1d.apply(x, w, bias, causal, False)
@@ -197,12 +200,22 @@ def depthwise_conv1d(x, w, bias=None, causal=False):
     _build.dtype_code(x)
     if not x.is_contiguous():
         raise ValueError("depthwise_conv1d: x must be contiguous")
-    w = w.to(device=x.device, dtype=x.dtype).contiguous()
+    B, T, C = x.shape
+    if T * C >= 1 << 31:
+        raise ValueError("depthwise_conv1d: T * C must be below 2^31")
+    if w.dtype != x.dtype or w.device != x.device or not w.is_contiguous():
+        w = w.to(device=x.device, dtype=x.dtype).contiguous()
     if bias is not None:
-        if bias.shape != (x.shape[2],):
+        if bias.shape != (C,):
             raise ValueError("depthwise_conv1d: bias must be (C,)")
-        bias = bias.to(device=x.device, dtype=x.dtype).contiguous()
-    return _DepthwiseConv1d.apply(x, w, bias, causal, True)
+        if bias.dtype != x.dtype or bias.device != x.device:
+            bias = bias.to(device=x.device, dtype=x.dtype)
+        bias = bias.contiguous()
+    if torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad
+            or (bias is not None and bias.requires_grad)):
+        return _DepthwiseConv1d.apply(x, w, bias, causal, True)
+    return _fwd_kernel(x, w, bias, _pad(w.shape[0], causal)[0])
 
 
 depthwise_conv1d.launches = 0

@@ -11,7 +11,10 @@ autograd Function whose forward launches the flash-style kernel
 ``sb_relpos_attention_fwd`` in ``csrc/relpos_attention.cu`` (which never
 forms a (T, T) tensor and also writes the per-row log-sum-exp) and whose
 backward launches ``sb_relpos_attention_bwd`` (``relpos_attention_bwd``)
-in ``csrc/relpos_attention_bwd.cu``, on the tensor cores.  On CPU
+in ``csrc/relpos_attention_bwd.cu``, both on the tensor cores (their
+shared pieces in ``csrc/relpos_mma.cuh``).  A bf16 call rounds the
+operands of each product to bf16 where JAX's kernel does;
+``_relpos_attention_rounded`` is that arithmetic, materialized.  On CPU
 tensors it runs ``relpos_attention_plain``, the materialized form (equal
 to the JAX ``relpos_attention_reference``), and autograd differentiates it;
 ``relpos_attention_bwd_plain`` is that gradient as a function.
@@ -128,6 +131,17 @@ def _drop_cargs(rate, seed):
 
 _DROP_ARGTYPES = [_build.I, ctypes.c_uint, _build.F, ctypes.c_uint,
                   ctypes.c_uint]
+_FWD = _build.Entry(
+    "relpos_attention", "sb_relpos_attention_fwd",
+    [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.I] + _DROP_ARGTYPES
+    + [_build.I, _build.P])
+_BWD_SCRATCH = _build.Entry(
+    "relpos_attention_bwd", "sb_relpos_attention_bwd_scratch", [_build.I] * 5,
+    restype=ctypes.c_longlong)
+_BWD = _build.Entry(
+    "relpos_attention_bwd", "sb_relpos_attention_bwd",
+    [_build.P] * 17 + [_build.I] * 5 + [_build.F, _build.I] + _DROP_ARGTYPES
+    + [_build.I, _build.P])
 
 
 def relpos_attention_plain(q, k, v, p, u, vb, madd, scale, causal=False,
@@ -168,6 +182,68 @@ def relpos_attention_plain(q, k, v, p, u, vb, madd, scale, causal=False,
         keep = relpos_dropout_keep(B, H, Tp, rate, seed, q.device)
         attn = attn * keep * (1.0 / (1.0 - rate))
     return torch.einsum("bhqk,bhkd->bhqd", attn, vf)
+
+
+def _relpos_attention_rounded(q, k, v, p, u, vb, madd, scale, causal=False,
+                              rate=0.0, seed=0, key_tile=None):
+    """The bf16 kernel's arithmetic, materialized: (out, lse) float32.
+
+    The operands of each product are rounded to bf16 where the JAX
+    package's Pallas kernel rounds them (``_scores`` and ``_fwd_kernel``):
+    (q + u), k, (q + vb), the position rows p, the weights
+    exp(s - max) keep / (1 - rate) and v; every product and sum is f32,
+    and the normalizer is taken before dropout.  With ``key_tile=None``
+    the max is the row's global one, as in JAX's single pass; with
+    ``key_tile=64`` the keys are taken in tiles of 64 with a running max
+    and the earlier tiles' sums rescaled, as in the CUDA kernel's online
+    softmax, so each weight is rounded against the max so far.
+
+    Example
+    -------
+    >>> x = torch.randn(1, 1, 4, 8)
+    >>> out, lse = _relpos_attention_rounded(x, x, x, torch.randn(1, 7, 8),
+    ...     torch.zeros(1, 8), torch.zeros(1, 8), torch.zeros(1, 4), 0.3)
+    >>> out.shape, lse.shape
+    (torch.Size([1, 1, 4, 8]), torch.Size([1, 1, 4]))
+    """
+    rate, seed = _dropout_args(rate, seed)
+    B, H, Tp, dh = q.shape
+    T = (p.shape[1] + 1) // 2
+
+    def bf(t):
+        return t.float().to(torch.bfloat16).float()
+
+    qf = q.float()
+    content = torch.einsum("bhqd,bhkd->bhqk", bf(qf + u.float()[None, :, None]),
+                           bf(k))
+    ps = torch.einsum("bhqd,hld->bhql", bf(qf + vb.float()[None, :, None]),
+                      bf(p))
+    ar = torch.arange(Tp, device=q.device)
+    idx = (T - 1 - ar[:, None] + ar[None, :]).clamp(0, 2 * T - 2)
+    pos = torch.gather(ps, -1, idx.expand(B, H, Tp, Tp))
+    s = (content + pos) * scale + madd.float()[:, None, None, :]
+    if causal:
+        s = s.masked_fill(ar[None, :] > ar[:, None], NEG)
+    mult = torch.ones_like(s)  # keep / (1 - rate)
+    if rate > 0.0:
+        keep = relpos_dropout_keep(B, H, Tp, rate, seed, q.device)
+        mult = keep * (1.0 / (1.0 - rate))
+    vr = bf(v)
+    tile = Tp if key_tile is None else key_tile
+    mx = torch.full(s.shape[:-1] + (1,), float("-inf"), device=q.device)
+    denom = torch.zeros_like(mx)
+    out = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, Tp, tile):
+        st = s[..., k0:k0 + tile]
+        m_new = torch.maximum(mx, st.amax(-1, keepdim=True))
+        corr = torch.exp(mx - m_new)
+        e = torch.exp(st - m_new)
+        denom = denom * corr + e.sum(-1, keepdim=True)
+        out = out * corr + torch.einsum(
+            "bhqk,bhkd->bhqd", bf(e * mult[..., k0:k0 + tile]),
+            vr[:, :, k0:k0 + tile])
+        mx = m_new
+    return out / denom, (mx + torch.log(denom)).squeeze(-1)
 
 
 def relpos_attention_bwd_plain(q, k, v, p, u, vb, madd, dout, scale,
@@ -221,12 +297,7 @@ def _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal, rate=0.0, seed=0):
     T = (p.shape[1] + 1) // 2
     out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, Tp), dtype=torch.float32, device=q.device)
-    fn = _build.entry(
-        "relpos_attention", "sb_relpos_attention_fwd",
-        [_build.P] * 9 + [_build.I] * 5 + [_build.F, _build.I]
-        + _DROP_ARGTYPES + [_build.I, _build.P],
-    )
-    rc = fn(
+    rc = _FWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         u.data_ptr(), vb.data_ptr(), madd.data_ptr(), out.data_ptr(),
         lse.data_ptr(), B, H, Tp, T, dh, float(scale), int(bool(causal)),
@@ -240,9 +311,7 @@ def _fwd_kernel(q, k, v, p, u, vb, madd, scale, causal, rate=0.0, seed=0):
 @functools.lru_cache(maxsize=64)
 def _bwd_scratch(B, H, Tp, T, dh):
     """Floats of scratch K6 needs at this shape (its partial sums)."""
-    return _build.entry(
-        "relpos_attention_bwd", "sb_relpos_attention_bwd_scratch",
-        [_build.I] * 5, restype=ctypes.c_longlong)(B, H, Tp, T, dh)
+    return _BWD_SCRATCH(B, H, Tp, T, dh)
 
 
 def relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
@@ -280,12 +349,7 @@ def relpos_attention_bwd(q, k, v, p, u, vb, madd, dout, lse, dsum, scale,
         g.view(shape) for g, shape in zip(out.split(sizes), shapes))
     part = torch.empty(_bwd_scratch(B, H, Tp, T, dh), dtype=torch.float32,
                        device=q.device)
-    fn = _build.entry(
-        "relpos_attention_bwd", "sb_relpos_attention_bwd",
-        [_build.P] * 17 + [_build.I] * 5 + [_build.F, _build.I]
-        + _DROP_ARGTYPES + [_build.I, _build.P],
-    )
-    rc = fn(
+    rc = _BWD(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p.data_ptr(),
         *(t.data_ptr() for t in f32),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dp.data_ptr(),

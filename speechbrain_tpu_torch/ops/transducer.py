@@ -234,15 +234,19 @@ def _validated(t_lens, u_lens, T, U, device, name, targets=None, V=None):
     return tl, ul
 
 
+_ALPHA = _build.Entry("transducer", "sb_transducer_alpha",
+                      [_build.P] * 6 + [_build.I] * 3 + [_build.P])
+_BETA_GRAD = _build.Entry("transducer", "sb_transducer_beta_grad",
+                          [_build.P] * 8 + [_build.I] * 3 + [_build.P])
+
+
 def _alpha_kernel(blank, emit, tl, ul):
     """Launch K8 on checked tables and validated int32 lengths (no host
     sync)."""
     B, T, U1 = blank.shape
     alpha = torch.empty_like(blank)
     final = torch.empty(B, dtype=torch.float32, device=blank.device)
-    fn = _build.entry("transducer", "sb_transducer_alpha",
-                      [_build.P] * 6 + [_build.I] * 3 + [_build.P])
-    rc = fn(blank.data_ptr(), emit.data_ptr(), tl.data_ptr(), ul.data_ptr(),
+    rc = _ALPHA(blank.data_ptr(), emit.data_ptr(), tl.data_ptr(), ul.data_ptr(),
             alpha.data_ptr(), final.data_ptr(), B, T, U1 - 1,
             _build.stream_of(blank))
     _build.check_launch(rc, "transducer_alpha")
@@ -256,9 +260,7 @@ def _beta_grad_kernel(blank, emit, alpha, tl, ul, logz):
     B, T, U1 = blank.shape
     dblank = torch.empty_like(blank)
     demit = torch.empty_like(emit)
-    fn = _build.entry("transducer", "sb_transducer_beta_grad",
-                      [_build.P] * 8 + [_build.I] * 3 + [_build.P])
-    rc = fn(blank.data_ptr(), emit.data_ptr(), alpha.data_ptr(),
+    rc = _BETA_GRAD(blank.data_ptr(), emit.data_ptr(), alpha.data_ptr(),
             tl.data_ptr(), ul.data_ptr(), logz.data_ptr(), dblank.data_ptr(),
             demit.data_ptr(), B, T, U1 - 1, _build.stream_of(blank))
     _build.check_launch(rc, "transducer_beta_grad")

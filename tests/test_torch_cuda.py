@@ -7,6 +7,8 @@ skipped):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import pytest
 import torch
 
@@ -37,8 +39,71 @@ def test_depthwise_conv1d_kernel(gen, dtype, causal):
     got = ops.depthwise_conv1d(x, w, b, causal=causal)
     ref = ops.depthwise_conv1d_plain(x, w, b, causal=causal)
     assert ops.depthwise_conv1d.launches == before + 1
-    tol = 1e-5 if dtype == torch.float32 else 3e-2  # bf16: one rounding less
-    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=tol)
+    # bf16: both round the f32 sum, then the bias sum (JAX's order); the
+    # sums differ only by FMA contraction, so at most one bf16 ulp apart
+    tol = 1e-5 if dtype == torch.float32 else _bf16_ulp(ref)
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at max|t|: the spacing of bf16 values there."""
+    m = float(t.float().abs().max())
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("K", [3, 4, 15, 17, 31])
+@pytest.mark.parametrize("T", [1, 30, 31, 100, 251, 512])
+@pytest.mark.parametrize("C", [1, 7, 144, 256, 512])
+def test_depthwise_conv1d_kernel_edges(gen, C, T, K, causal, dtype):
+    """K1's time tiles, channel groups and vector paths at their edges: T
+    below K and not a multiple of the 32-step tile, C odd, not a multiple
+    of the vector width, and over one group (256, 512); K with its taps in
+    registers (3, 15, 31) and read from L1 (4, 17).  The forward with and
+    without a bias and the dx (taps read flipped) against the plain
+    versions; two calls give the same bits."""
+    from speechbrain_tpu_torch.ops.depthwise_conv import _conv_plain, _fwd_kernel, _pad
+
+    x = torch.randn(3, T, C, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(K, C, device="cuda", generator=gen) / K ** 0.5).to(dtype)
+    b = (0.1 * torch.randn(C, device="cuda", generator=gen)).to(dtype)
+    left = _pad(K, causal)[0]
+    for bias in (None, b):
+        got = ops.depthwise_conv1d(x, w, bias, causal=causal)
+        ref = ops.depthwise_conv1d_plain(x, w, bias, causal=causal)
+        tol = 1e-4 if dtype == torch.float32 else _bf16_ulp(ref)
+        torch.testing.assert_close(got.float(), ref.float(), atol=tol, rtol=0)
+        assert torch.equal(got, ops.depthwise_conv1d(x, w, bias, causal=causal))
+    dx = _fwd_kernel(x, w, None, K - 1 - left, flip=True)
+    ref = _conv_plain(x, w.flip(0), K - 1 - left)
+    tol = 1e-4 if dtype == torch.float32 else _bf16_ulp(ref)
+    torch.testing.assert_close(dx.float(), ref.float(), atol=tol, rtol=0)
+    assert torch.equal(dx, _fwd_kernel(x, w, None, K - 1 - left, flip=True))
+
+
+def test_depthwise_conv1d_dx_is_one_launch_without_a_flipped_copy(gen):
+    """The backward's dx (x alone requires grad) is one K1 launch that
+    reads the taps flipped: no flip or copy of w runs on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(4, 45, 144, device="cuda", generator=gen, requires_grad=True)
+    w = torch.randn(31, 144, device="cuda", generator=gen) / 6
+    dy = torch.randn(4, 45, 144, device="cuda", generator=gen)
+    out = ops.depthwise_conv1d(x, w)
+    torch.cuda.synchronize()
+    before = ops.depthwise_conv1d.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (dx,) = torch.autograd.grad(out, x, dy)
+        torch.cuda.synchronize()
+    assert ops.depthwise_conv1d.launches == before + 1
+    names = [e.name for e in prof.events()]
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert not any("flip" in n for n in names), names
+    assert len(kernels) == 1 and "depthwise_conv1d_fwd" in kernels[0], kernels
+    ref = ops.depthwise_conv1d_plain(dy, w.flip(0))  # centered K = 31
+    torch.testing.assert_close(dx, ref, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -54,8 +119,27 @@ def test_relpos_attention_kernel(gen, dtype, causal, T, Tp):
     madd[1, T // 2:] = -65000.0
     got = ops.relpos_attention(q, k, v, p, u, vb, madd, 0.1, causal)
     ref = ops.relpos_attention_plain(q, k, v, p, u, vb, madd, 0.1, causal)
-    # same stored values, f32 arithmetic in both; sums in other orders
-    torch.testing.assert_close(got[:, :, :T], ref[:, :, :T], atol=1e-5, rtol=1e-5)
+    _assert_relpos_close(got, ref, (q, k, v, p, u, vb, madd, 0.1, causal), T)
+
+
+def _assert_relpos_close(got, ref, args, T, rate=0.0, seed=0):
+    """K5's output against the plain version's (rows below T).  f32:
+    3xTF32 products, ~f32 rounding, sums in other orders (as the CUDA-core
+    design before it was held).  bf16: the operands of each product
+    rounded to bf16 where JAX's kernel rounds them, so within 1e-2 of
+    max|ref| of the f32 plain version, and within 2e-3 of the
+    rounding-point reference that takes the keys in the kernel's 64-key
+    tiles (each weight rounded against the running max)."""
+    from speechbrain_tpu_torch.ops.relpos_attention import _relpos_attention_rounded
+
+    got, ref = got[:, :, :T], ref[:, :, :T]
+    if args[0].dtype == torch.float32:
+        torch.testing.assert_close(got, ref, atol=1e-5, rtol=1e-5)
+        return
+    scale = float(ref.abs().max())
+    assert float((got - ref).abs().max()) <= 1e-2 * scale
+    rounded = _relpos_attention_rounded(*args, rate, seed, key_tile=64)[0]
+    assert float((got - rounded[:, :, :T]).abs().max()) <= 2e-3 * scale
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -251,8 +335,56 @@ def test_relpos_attention_dropout_kernel(gen, dtype, causal, T, Tp, rate):
     assert ops.relpos_attention.launches == before + 3
     assert torch.equal(got, again)
     assert float((got - other)[:, :, :T].abs().max()) > 1e-3
-    # same stored values, f32 arithmetic in both; sums in other orders
-    torch.testing.assert_close(got[:, :, :T], ref[:, :, :T], atol=1e-5, rtol=1e-5)
+    _assert_relpos_close(got, ref, (*args, 0.1, causal), T, rate, 1234)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,Tp", [(100, 128), (512, 512), (1024, 1024)])
+@pytest.mark.parametrize("dh", [16, 32, 36, 64])
+def test_relpos_attention_fwd_kernel_widths(gen, dh, T, Tp, causal, rate, dtype):
+    """K5 on the tensor cores at every head width the kernels are built
+    for (36 is padded to the MMA depth), with and without dropout, padded
+    rows included: out against the plain version (and, in bf16, the
+    rounding-point reference), lse against the materialized scores of the
+    same arithmetic; two calls give the same bits."""
+    from speechbrain_tpu_torch.ops.relpos_attention import _relpos_attention_rounded
+
+    (q, k, v, p, u, vb, madd), _ = _relpos_inputs(gen, dtype, T, Tp, dh=dh)
+    scale = dh ** -0.5
+    args = (q, k, v, p, u, vb, madd, scale, causal, rate, 5)
+    before = ops.relpos_attention.launches
+    out, lse = _fwd_kernel(*args)
+    again = _fwd_kernel(*args)
+    assert ops.relpos_attention.launches == before + 2
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref = ops.relpos_attention_plain(*args)
+    _assert_relpos_close(out, ref, args[:9], T, rate, 5)
+    # lse: f32 against the f32 scores; bf16 against the scores of the
+    # rounded operands (the same products, sums in other orders)
+    if dtype == torch.bfloat16:
+        ref_lse = _relpos_attention_rounded(*args, key_tile=64)[1]
+    else:
+        ref_lse = torch.logsumexp(_plain_scores(*args[:9]), -1)
+    torch.testing.assert_close(lse[:, :, :T], ref_lse[:, :, :T], atol=1e-4,
+                               rtol=1e-5)
+
+
+def _plain_scores(q, k, v, p, u, vb, madd, scale, causal):
+    """The materialized f32 scores of ``relpos_attention_plain``."""
+    B, H, Tp, _ = q.shape
+    T = (p.shape[1] + 1) // 2
+    content = torch.einsum("bhqd,bhkd->bhqk", q.float() + u[None, :, None],
+                           k.float())
+    ps = torch.einsum("bhqd,hld->bhql", q.float() + vb[None, :, None], p.float())
+    ar = torch.arange(Tp, device=q.device)
+    idx = (T - 1 - ar[:, None] + ar[None, :]).clamp(0, 2 * T - 2)
+    s = (content + torch.gather(ps, -1, idx.expand(B, H, Tp, Tp))) * scale
+    s = s + madd[:, None, None, :]
+    if causal:
+        s = s.masked_fill(ar[None, :] > ar[:, None], -1e9)
+    return s
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

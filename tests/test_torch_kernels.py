@@ -4,7 +4,8 @@ references, on the same numpy inputs.
 
 Covers K1 ``depthwise_conv1d`` and its backward (K1 on flipped taps
 for dx, K2 for dw), K3/K4 ``ctc_loss_per_seq``, K5/K6
-``relpos_attention`` (forward and backward) and K7 ``beam_attend_step``.
+``relpos_attention`` (forward and backward), the bf16 rounding points
+of K1 and K5, and K7 ``beam_attend_step``.
 On the card the CUDA kernels are held against these same plain versions
 by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
@@ -21,6 +22,7 @@ from speechbrain_tpu.ops.pallas.depthwise_conv import (
     depthwise_conv1d as j_depthwise,
 )
 from speechbrain_tpu.ops.pallas.relpos_attention import (
+    _fwd as j_relpos_fwd,
     relpos_attention as j_relpos,
     relpos_attention_reference as j_relpos_ref,
 )
@@ -29,8 +31,10 @@ from speechbrain_tpu_torch.ops import (
     beam_attend_step,
     ctc_loss_per_seq,
     depthwise_conv1d,
+    depthwise_conv1d_plain,
     relpos_attention,
 )
+from speechbrain_tpu_torch.ops.relpos_attention import _relpos_attention_rounded
 
 
 def _np(x):
@@ -91,6 +95,27 @@ def test_depthwise_conv1d_backward_matches_jax(shape, causal, with_bias):
         # f32 sums of K (dx) or B*T (dw, dbias) products in other orders
         for g, r in zip(got, ref):
             np.testing.assert_allclose(g, _np(r), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 16, 7), (8, 25, 144, 31),
+                                   (3, 40, 20, 4)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_depthwise_conv1d_plain_bf16_matches_jax_bit_for_bit(shape, causal):
+    """bf16 inputs with a bias: the plain version (the reference of the
+    kernel on the card) rounds where the JAX package does, the f32 sum to
+    bf16 and then the bias add, so the two agree bit for bit.  C = 144
+    takes the JAX wrapper's lane packing of its 16 remainder channels."""
+    B, T, C, K = shape
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, T, C)).astype(np.float32)
+    w = (rng.standard_normal((K, C)) / np.sqrt(K)).astype(np.float32)
+    b = rng.standard_normal(C).astype(np.float32)
+    got = depthwise_conv1d_plain(
+        *(torch.from_numpy(a).bfloat16() for a in (x, w, b)), causal)
+    assert got.dtype == torch.bfloat16
+    ref = j_depthwise(*(jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)),
+                      causal=causal, interpret=True)
+    np.testing.assert_array_equal(got.float().numpy(), _np(ref.astype(jnp.float32)))
 
 
 # ---------------------------------------------------------------- K3/K4
@@ -222,6 +247,43 @@ def test_relpos_attention_matches_jax(T, Tp, causal):
                                atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(got[:, :, :T], kern[:, :, :T],
                                atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("T,Tp", [(128, 128), (100, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_relpos_attention_rounded_matches_jax_kernel(T, Tp, causal):
+    """The bf16 kernel's reference (bf16 operands where JAX's Pallas
+    kernel rounds them, f32 products and sums, the global row max)
+    against JAX's Pallas forward in interpret mode on bf16 inputs: out and
+    lse.  Rows past T are left out: JAX's kernel reads zero position rows
+    there, where every other version clips."""
+    B, H, dh = 2, 2, 16
+    rng = np.random.default_rng(T + 3 * Tp + causal)
+    mk = lambda *s: (0.5 * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    q, k, v = mk(B, H, Tp, dh), mk(B, H, Tp, dh), mk(B, H, Tp, dh)
+    p = mk(H, 2 * T - 1, dh)
+    u, vb = 0.2 * mk(H, dh), 0.2 * mk(H, dh)
+    madd = np.zeros((B, Tp), np.float32)
+    madd[:, T:] = -1e9
+    madd[1, T - T // 4:] = -65000.0
+    scale = 1.0 / np.sqrt(H * dh)
+    bf = [torch.from_numpy(a).bfloat16() for a in (q, k, v, p)]
+    out, lse = _relpos_attention_rounded(
+        *bf, *(torch.from_numpy(a) for a in (u, vb, madd)), scale, causal)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (q, k, v, p)]
+    j_out, (*_, j_lse) = j_relpos_fwd(*jb, *map(jnp.asarray, (u, vb, madd)),
+                                      scale, causal, 0.0, 0)
+    # the same bf16 operands and f32 products; f32 sums in other orders.
+    # Where a weight exp(s - max) lies within an f32 ulp of a bf16
+    # rounding midpoint, XLA's exp and torch's (or a last-bit difference
+    # in s) round it to neighbouring bf16 values: a row in a few hundred
+    # then differs by that one bf16 step of one weight times v
+    d = np.abs(out.numpy()[:, :, :T] - _np(j_out)[:, :, :T])
+    close = d <= 1e-5 + 1e-5 * np.abs(_np(j_out)[:, :, :T])
+    assert close.all(-1).mean() >= 0.99, close.all(-1).mean()
+    assert d.max() <= 2.0 ** -8 * np.abs(v).max(), d.max()
+    np.testing.assert_allclose(lse.numpy()[:, :, :T],
+                               _np(j_lse)[:, :, :T, 0], atol=1e-5, rtol=1e-5)
 
 
 @pytest.mark.parametrize("T,Tp", [(128, 128), (100, 128)])
