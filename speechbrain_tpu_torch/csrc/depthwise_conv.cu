@@ -45,19 +45,32 @@
 //
 // ---- taps' gradient (sb_depthwise_conv1d_dw) ----
 //
+//   dbias[c] = sum_{b,t} dy[b,t,c]   (with dw, from the same pass)
+//
 // What bounds it on the H100: bytes.  K*C outputs, each a sum over B*T
 // products; the least traffic is x and dy read once (training shape
-// B=32, T=251, C=144, K=31, f32: 9.3 MB) against 2*K*B*T*C = 72 MFLOP.
+// B=32, T=251, C=144, K=31, f32: 9.3 MB, 2.8 us) against 2*K*B*T*C = 72
+// MFLOP.
 //
-// What the simple design does about it: the TPU kernel carries the sum
-// across its sequential grid (init at b == 0); blocks on the card run in
-// no order, so the sum becomes two passes.  Pass 1: one block per
-// (32-channel tile, 64-row time chunk of one utterance) stages the chunk
-// of dy and the chunk of x with its K-1 halo rows in shared memory
-// (channels fastest: coalesced loads, conflict-free reads) and writes
-// one partial dw (K, 32) per chunk, f32.  Pass 2: one thread per (k, c)
-// adds the partials of every chunk in chunk order.  No atomics: the
-// result is the same bits in every run.
+// The design: the TPU kernel carries the sum across its sequential grid
+// (init at b == 0); blocks on the card run in no order, so each block
+// sums one piece and the pieces are added in the same launch.  One block
+// per (16-channel tile, time chunk of one utterance): chunks of up to
+// 256 rows, cut shorter only to reach ~2 blocks an SM (B32 T251: one
+// chunk an utterance, 288 blocks; B8 T512: 128 rows).  The block stages
+// its dy rows and x rows with the K-1 halo in shared memory by cp.async,
+// 16 bytes a copy where the rows allow (scalar loads otherwise), taps
+// outside [0, T) as zero.  Each thread owns two channels (float2 or
+// __nv_bfloat162 reads), a group of taps and a time group of rows: its
+// accumulators and a window of the x values its taps need sit in
+// registers (the common K, 3 to 31, are template cases; any other K runs
+// taps in groups of 8), so each row costs one x and one dy read for 2K
+// FMAs, and dbias is one more add.  The time groups' sums meet in shared
+// memory and are added in order into the block's partial (K+1 rows of 16
+// f32).  Then the last block of a channel tile to finish, picked by an
+// integer ticket (atomicAdd on a counter that it sets back to zero),
+// adds the tile's partials in chunk order.  No float atomics: the same
+// bits on every call.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -291,104 +304,317 @@ int dispatch_fwd(const void* x, const void* w, const void* bias, void* out,
 #undef SB_FWD
 }
 
-constexpr int DW_TC = 64;  // time rows per chunk
-constexpr int DW_CT = 32;  // channels per block (one warp wide)
-constexpr int DW_KY = 8;   // block rows; each strides over the taps
+constexpr int DW_CT = 16;     // channels a tile: 8 pairs, one per thread column
+constexpr int DW_TY = 16;     // thread rows a block
+constexpr int DW_NT = (DW_CT / 2) * DW_TY;
+constexpr int DW_TC_MAX = 256;  // time rows a chunk at most
+constexpr int DW_BLOCKS = 264;  // blocks to aim for: two a streaming multiprocessor
 
-template <typename T>
-__global__ void __launch_bounds__(DW_CT * DW_KY)
-    depthwise_conv1d_dw_partial(const T* __restrict__ x,
-                                const T* __restrict__ dy,
-                                float* __restrict__ partial, int T_len,
-                                int C, int K, int pad_left) {
-  extern __shared__ float smem[];
-  float* xs = smem;                          // (DW_TC + K - 1, DW_CT)
-  float* dys = smem + (DW_TC + K - 1) * DW_CT;  // (DW_TC, DW_CT)
-  const int n_tchunks = (T_len + DW_TC - 1) / DW_TC;
-  const int chunk = blockIdx.y;
-  const int b = chunk / n_tchunks;
-  const int t0 = (chunk % n_tchunks) * DW_TC;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int c = blockIdx.x * DW_CT + tx;
-  const int64_t base = (int64_t)b * T_len * C;
-  for (int r = ty; r < DW_TC + K - 1; r += DW_KY) {
-    const int ti = t0 + r - pad_left;
-    float v = 0.f;
-    if (c < C && ti >= 0 && ti < T_len) v = to_f32(x[base + (int64_t)ti * C + c]);
-    xs[r * DW_CT + tx] = v;
+__device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
+                                                 bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// The taps' gradient's launch shape for (B, T, C, K): channel tiles of
+// DW_CT; each utterance cut into ntc time chunks of at most TC rows, as
+// many as it takes to reach DW_BLOCKS blocks with chunks of 32 rows or
+// more; taps in NG groups of KG (KG = K for the common K, whose taps and
+// window then sit in registers; 8 for any other K, the taps padded to
+// Kp); the block's DW_TY thread rows split into TGn time groups of RP
+// rows (RP = 1 mod 4: the groups of a warp read other shared banks).
+struct DwPlan {
+  int tiles, ntc, TC, KG, NG, Kp, TGn, RP;
+  size_t smem;
+};
+
+int dw_kg(int K) {
+  switch (K) {
+    case 3: case 4: case 5: case 7: case 9: case 15: case 31: return K;
+    default: return 8;
   }
-  for (int r = ty; r < DW_TC; r += DW_KY) {
-    const int t = t0 + r;
-    float v = 0.f;
-    if (c < C && t < T_len) v = to_f32(dy[base + (int64_t)t * C + c]);
-    dys[r * DW_CT + tx] = v;
+}
+
+DwPlan plan_dw(int B, int T, int C, int K, int es) {
+  DwPlan p;
+  p.tiles = (C + DW_CT - 1) / DW_CT;
+  const int per_utt = (DW_BLOCKS + B * p.tiles - 1) / (B * p.tiles);
+  p.ntc = max((T + DW_TC_MAX - 1) / DW_TC_MAX, min(per_utt, max(1, T / 32)));
+  p.TC = (T + p.ntc - 1) / p.ntc;
+  p.ntc = (T + p.TC - 1) / p.TC;
+  p.KG = dw_kg(K);
+  p.NG = (K + p.KG - 1) / p.KG;
+  p.Kp = p.NG * p.KG;
+  p.TGn = p.NG >= DW_TY ? 1 : DW_TY / p.NG;
+  p.RP = (p.TC + p.TGn - 1) / p.TGn;
+  p.RP += (5 - p.RP % 4) % 4;
+  const size_t stage = ((size_t)(2 * p.TC + p.Kp - 1) * DW_CT * es + 15) & ~(size_t)15;
+  p.smem = stage + (size_t)p.TGn * (p.Kp + 1) * DW_CT * sizeof(float);
+  return p;
+}
+
+// Stage rows [t_lo, t_lo + nrows) of one utterance's tile channels into
+// shared rows of DW_CT elements; rows outside [0, T) and channels past C
+// read zero.  16-byte cp.async copies when vec16, scalar loads otherwise.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* __restrict__ s,
+                                           const T* __restrict__ g, int t_lo,
+                                           int nrows, int T_len, int C,
+                                           int gw, bool vec16) {
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  if (vec16) {
+    constexpr int cpr = DW_CT * (int)sizeof(T) / 16;  // copies a shared row
+    const int valid_c = gw * (int)sizeof(T) / 16;     // of them in range
+    for (int e = tid; e < nrows * cpr; e += DW_NT) {
+      const int r = e / cpr, j = e - r * cpr;
+      const int t = t_lo + r;
+      const bool ok = t >= 0 && t < T_len && j < valid_c;
+      cp_async16_zfill(reinterpret_cast<uint4*>(s + r * DW_CT) + j,
+                       ok ? reinterpret_cast<const uint4*>(g + (int64_t)t * C) + j
+                          : reinterpret_cast<const void*>(g),
+                       ok);
+    }
+  } else {
+    for (int e = tid; e < nrows * DW_CT; e += DW_NT) {
+      const int r = e / DW_CT, c = e - r * DW_CT;
+      const int t = t_lo + r;
+      s[e] = (t >= 0 && t < T_len && c < gw) ? g[(int64_t)t * C + c]
+                                             : from_f32<T>(0.f);
+    }
+  }
+}
+
+// dy (rows r0 .. r0+n-1) against the staged x rows through taps k0 ..
+// k0+KG-1 of channels (c, c+1): acc[i] += dy[r] * x[r + k0 + i] over r,
+// in row order, with the KG x values a row needs held in a register
+// window that moves one row a step (slot (u + i) % KG holds x[r + k0 +
+// i] at step u of each KG-step block: compile-time indices); bacc sums
+// dy.
+template <typename T, int KG>
+__device__ __forceinline__ void dw_rows(const T* __restrict__ xs,
+                                        const T* __restrict__ dys, int r0,
+                                        int n, int k0, int c, float2 (&acc)[KG],
+                                        float2& bacc) {
+  using V = typename Pair<T>::V;
+  auto xv = [&](int row) {
+    return Pair<T>::f32(*reinterpret_cast<const V*>(xs + row * DW_CT + c));
+  };
+  float2 w[KG];
+#pragma unroll
+  for (int i = 0; i < KG - 1; ++i) w[i] = xv(r0 + k0 + i);
+  for (int base = 0; base < n; base += KG) {
+#pragma unroll
+    for (int u = 0; u < KG; ++u) {
+      const int s = base + u;
+      if (s >= n) break;
+      w[(u + KG - 1) % KG] = xv(r0 + s + k0 + KG - 1);
+      const float2 d = Pair<T>::f32(*reinterpret_cast<const V*>(dys + (r0 + s) * DW_CT + c));
+      bacc.x += d.x;
+      bacc.y += d.y;
+#pragma unroll
+      for (int i = 0; i < KG; ++i) {
+        const float2 xw = w[(u + i) % KG];
+        acc[i].x = fmaf(d.x, xw.x, acc[i].x);
+        acc[i].y = fmaf(d.y, xw.y, acc[i].y);
+      }
+    }
+  }
+}
+
+// Grid (tiles, B * ntc), block (DW_CT / 2, DW_TY).  partial: (tiles, B *
+// ntc, K + 1, DW_CT) f32 scratch; counters: tiles ints, zero on entry
+// and left zero; dbias may be null.
+template <typename T, int KG>
+__global__ void __launch_bounds__(DW_NT)
+    depthwise_conv1d_dw_kernel(const T* __restrict__ x,
+                               const T* __restrict__ dy,
+                               float* __restrict__ partial,
+                               unsigned* __restrict__ counters,
+                               float* __restrict__ dw,
+                               float* __restrict__ dbias, int T_len, int C,
+                               int K, int pad_left, int ntc, int TC, int NG,
+                               int TGn, int RP, int vec16) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  __shared__ int is_last;
+  const int Kp = NG * KG;
+  const int tile = blockIdx.x;
+  const int chunk = blockIdx.y;  // b * ntc + time chunk
+  const int n_chunks = gridDim.y;
+  const int b = chunk / ntc;
+  const int t0 = (chunk - b * ntc) * TC;
+  const int nrows = min(TC, T_len - t0);
+  const int c0 = tile * DW_CT;
+  const int gw = min(DW_CT, C - c0);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int c = 2 * threadIdx.x;
+  const int64_t base = (int64_t)b * T_len * C + c0;
+  T* xs = reinterpret_cast<T*>(dw_smem);  // (TC + Kp - 1, DW_CT)
+  T* dys = xs + (TC + Kp - 1) * DW_CT;     // (TC, DW_CT)
+  stage_rows(xs, x + base, t0 - pad_left, nrows + Kp - 1, T_len, C, gw, vec16 != 0);
+  stage_rows(dys, dy + base, t0, nrows, T_len, C, gw, vec16 != 0);
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // items (tap group g, time group tg), each summed in row order into
+  // its reduction rows
+  float* red = reinterpret_cast<float*>(
+      dw_smem + (((size_t)(2 * TC + Kp - 1) * DW_CT * sizeof(T) + 15) & ~(size_t)15));
+  for (int it = threadIdx.y; it < NG * TGn; it += DW_TY) {
+    const int g = it % NG, tg = it / NG;
+    const int r0 = tg * RP;
+    const int n = max(0, min(RP, nrows - r0));
+    float2 acc[KG];
+#pragma unroll
+    for (int i = 0; i < KG; ++i) acc[i] = make_float2(0.f, 0.f);
+    float2 bacc = make_float2(0.f, 0.f);
+    if (n > 0) dw_rows<T, KG>(xs, dys, r0, n, g * KG, c, acc, bacc);
+    float* rr = red + (tg * (Kp + 1) + g * KG) * DW_CT + c;
+#pragma unroll
+    for (int i = 0; i < KG; ++i) *reinterpret_cast<float2*>(rr + i * DW_CT) = acc[i];
+    if (g == 0) *reinterpret_cast<float2*>(red + (tg * (Kp + 1) + Kp) * DW_CT + c) = bacc;
   }
   __syncthreads();
-  if (c >= C) return;
-  for (int k = ty; k < K; k += DW_KY) {
-    float acc = 0.f;
-    for (int r = 0; r < DW_TC; ++r) {
-      acc += dys[r * DW_CT + tx] * xs[(r + k) * DW_CT + tx];
+
+  // the block's partial: time groups added in order; row K is dbias
+  const int nout = (K + (dbias != nullptr)) * DW_CT;
+  float* part = partial + ((int64_t)tile * n_chunks + chunk) * (K + 1) * DW_CT;
+  for (int e = tid; e < nout; e += DW_NT) {
+    const int k = e / DW_CT, cc = e - k * DW_CT;
+    const int row = k < K ? k : Kp;
+    float s = 0.f;
+    for (int tg = 0; tg < TGn; ++tg) s += red[(tg * (Kp + 1) + row) * DW_CT + cc];
+    part[e] = s;
+  }
+  // the last block of a tile to finish adds the tile's partials in chunk
+  // order (an integer ticket picks it; no float atomics) and sets the
+  // tile's counter back to zero for the next call
+  // (the block's barrier orders its threads' partial writes before
+  // thread 0's device-scope fence and ticket: the release; the last
+  // block's fence after its ticket, then the barrier: the acquire)
+  __syncthreads();
+  if (tid == 0) {
+    __threadfence();
+    const unsigned ticket = atomicAdd(counters + tile, 1u);
+    is_last = ticket == (unsigned)n_chunks - 1;
+    if (is_last) {
+      counters[tile] = 0u;
+      __threadfence();
     }
-    partial[((int64_t)chunk * K + k) * C + c] = acc;
+  }
+  __syncthreads();
+  if (!is_last) return;
+  // a thread per 4 channels of a row: its chunks' loads in flight (8 at
+  // a time: deeper was slower on the H100), then added in chunk order
+  const float4* tp = reinterpret_cast<const float4*>(
+      partial + (int64_t)tile * n_chunks * (K + 1) * DW_CT);
+  const int cs = (K + 1) * DW_CT / 4;  // float4 a chunk
+  constexpr int U = 8;
+  for (int e = tid; e < nout / 4; e += DW_NT) {
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int ch = 0; ch < n_chunks; ch += U) {
+      float4 v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (ch + u < n_chunks) v[u] = __ldcg(tp + (int64_t)(ch + u) * cs + e);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (ch + u < n_chunks) {
+          s.x += v[u].x;
+          s.y += v[u].y;
+          s.z += v[u].z;
+          s.w += v[u].w;
+        }
+      }
+    }
+    const int k = 4 * e / DW_CT, cc = 4 * e - k * DW_CT;
+    float* o = k < K ? dw + k * C : dbias;
+    const float sv[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (cc + j < gw) o[c0 + cc + j] = sv[j];
+    }
   }
 }
 
-__global__ void depthwise_conv1d_dw_reduce(const float* __restrict__ partial,
-                                           float* __restrict__ dw,
-                                           int n_chunks, int KC) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= KC) return;
-  float acc = 0.f;
-  for (int i = 0; i < n_chunks; ++i) acc += partial[(int64_t)i * KC + idx];
-  dw[idx] = acc;
+template <typename T, int KG>
+int launch_dw(const DwPlan& p, const void* x, const void* dy, float* partial,
+              unsigned* counters, float* dw, float* dbias, int B, int T_len,
+              int C, int K, int pad_left, int vec16, cudaStream_t s) {
+  auto kern = depthwise_conv1d_dw_kernel<T, KG>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(p.tiles, B * p.ntc);
+  kern<<<grid, dim3(DW_CT / 2, DW_TY), p.smem, s>>>(
+      (const T*)x, (const T*)dy, partial, counters, dw, dbias, T_len, C, K,
+      pad_left, p.ntc, p.TC, p.NG, p.TGn, p.RP, vec16);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_dw(const void* x, const void* dy, float* partial, float* dw,
-              int B, int T_len, int C, int K, int pad_left, cudaStream_t s) {
-  const int n_chunks = B * ((T_len + DW_TC - 1) / DW_TC);
-  if (n_chunks > 0) {
-    const size_t smem = (size_t)(2 * DW_TC + K - 1) * DW_CT * sizeof(float);
-    auto kern = depthwise_conv1d_dw_partial<T>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((C + DW_CT - 1) / DW_CT, n_chunks);
-    kern<<<grid, dim3(DW_CT, DW_KY), smem, s>>>(
-        (const T*)x, (const T*)dy, partial, T_len, C, K, pad_left);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+int dispatch_dw(const void* x, const void* dy, float* partial,
+                unsigned* counters, float* dw, float* dbias, int B, int T_len,
+                int C, int K, int pad_left, int vec16, cudaStream_t s) {
+  const DwPlan p = plan_dw(B, T_len, C, K, (int)sizeof(T));
+  if (p.smem > 227 * 1024) return (int)cudaErrorInvalidValue;
+#define SB_DW(KG)                                                          \
+  return launch_dw<T, KG>(p, x, dy, partial, counters, dw, dbias, B,       \
+                          T_len, C, K, pad_left, vec16, s)
+  switch (p.KG) {
+    case 3: SB_DW(3);
+    case 4: SB_DW(4);
+    case 5: SB_DW(5);
+    case 7: SB_DW(7);
+    case 9: SB_DW(9);
+    case 15: SB_DW(15);
+    case 31: SB_DW(31);
+    default: SB_DW(8);
   }
-  const int KC = K * C;
-  depthwise_conv1d_dw_reduce<<<(KC + 255) / 256, 256, 0, s>>>(partial, dw,
-                                                               n_chunks, KC);
-  return (int)cudaGetLastError();
+#undef SB_DW
 }
 
 }  // namespace
 
-// Number of time chunks of the taps' gradient: its scratch `partial`
-// holds n_chunks * K * C floats.
-extern "C" int sb_depthwise_conv1d_dw_chunks(int B, int T) {
-  return B * ((T + DW_TC - 1) / DW_TC);
+// Floats of the taps' gradient's scratch `partial` for (B, T, C, K),
+// and its channel tiles (the ints of `counters`).
+extern "C" long long sb_depthwise_conv1d_dw_scratch(int B, int T, int C, int K) {
+  const DwPlan p = plan_dw(B, T, C, K, 4);
+  return (long long)p.tiles * B * p.ntc * (K + 1) * DW_CT;
+}
+extern "C" int sb_depthwise_conv1d_dw_tiles(int C) {
+  return (C + DW_CT - 1) / DW_CT;
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (x and dy); partial (scratch) and dw
-// (K, C) are float32.  Returns cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = bfloat16 (x and dy); partial (scratch), dw
+// (K, C) and dbias (C,) are float32; dbias may be null (no bias
+// gradient).  counters: sb_depthwise_conv1d_dw_tiles(C) ints, zero, left
+// zero; one set a stream (calls on one stream run in order).  vec16 != 0
+// allows 16-byte copies: x and dy 16-byte aligned, C elements a
+// multiple of 16 bytes.  B, T >= 1.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int sb_depthwise_conv1d_dw(const void* x, const void* dy,
-                                      void* partial, void* dw, int B, int T,
-                                      int C, int K, int pad_left, int dtype,
+                                      void* partial, void* counters, void* dw,
+                                      void* dbias, int B, int T, int C, int K,
+                                      int pad_left, int vec16, int dtype,
                                       void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (K == 0 || C == 0) return 0;
+  if (B < 1 || T < 1 || K < 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    return launch_dw<float>(x, dy, (float*)partial, (float*)dw, B, T, C, K,
-                            pad_left, s);
+    return dispatch_dw<float>(x, dy, (float*)partial, (unsigned*)counters,
+                              (float*)dw, (float*)dbias, B, T, C, K, pad_left,
+                              vec16, s);
   }
   if (dtype == 1) {
-    return launch_dw<__nv_bfloat16>(x, dy, (float*)partial, (float*)dw, B, T,
-                                    C, K, pad_left, s);
+    return dispatch_dw<__nv_bfloat16>(x, dy, (float*)partial,
+                                      (unsigned*)counters, (float*)dw,
+                                      (float*)dbias, B, T, C, K, pad_left,
+                                      vec16, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -116,8 +116,10 @@ def load(name):
 
 
 # Argument kinds of the C entry points: every pointer (and the stream)
-# as c_void_p, so ctypes never truncates it to a 32-bit int.
+# as c_void_p, so ctypes never truncates it to a 32-bit int; I64 for a
+# stride or size that may pass 2^31.
 P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+I64 = ctypes.c_longlong
 
 
 class Entry:

@@ -8,7 +8,10 @@ row ``rows[i]``, writes the new K at lane ``pos`` and the new V at lane
 head.  On a CUDA tensor ``beam_attend_step`` launches the kernel in
 ``csrc/beam_cache.cu``; on a CPU tensor it runs
 ``beam_attend_step_plain``, which is ``_xla_ref`` (gather +
-``append_attend``, named after its JAX counterpart) with the same casts.
+``append_attend``, named after its JAX counterpart) with the same casts;
+both round the softmax weights to the cache's dtype before the context
+product, as JAX's Pallas kernel does.  ``append_attend``, the non-beam
+path, keeps them f32, as JAX's does.
 """
 
 import torch
@@ -20,8 +23,11 @@ __all__ = ["beam_attend_step", "beam_attend_step_plain", "append_attend"]
 _NEG = -1e30
 
 
-def _append_attend_(kv, pos, q, k_new, v_new, H):
-    """``append_attend`` writing the new columns into ``kv`` itself."""
+def _append_attend_(kv, pos, q, k_new, v_new, H, round_p=False):
+    """``append_attend`` writing the new columns into ``kv`` itself.
+    ``round_p`` rounds the softmax weights to the cache's dtype before
+    the context product, as JAX's Pallas kernel does (exact in f32);
+    the scores, the softmax and the context's sums stay f32."""
     n, HD, L2 = kv.shape
     L = L2 // 2
     Dh = HD // H
@@ -36,6 +42,8 @@ def _append_attend_(kv, pos, q, k_new, v_new, H):
     m = s.amax(dim=-1, keepdim=True)
     e = torch.exp(s - m)
     p = e / e.sum(dim=-1, keepdim=True)
+    if round_p:
+        p = p.to(kv.dtype).float()
     out = torch.einsum("nhl,nhdl->nhd", p, vf).reshape(n, HD)
     return out, kv
 
@@ -57,9 +65,12 @@ def append_attend(kv, pos, q, k_new, v_new, H):
 
 def _xla_ref(kv, rows, pos, q, k_new, v_new, H):
     """Plain version of the fused step: gather the predecessor rows,
-    then ``append_attend`` (the gather already made a fresh tensor)."""
+    then ``append_attend`` (the gather already made a fresh tensor) with
+    the weights rounded to the cache's dtype before the context product,
+    where JAX's Pallas kernel rounds them (JAX's ``_xla_ref``, its
+    fallback off the TPU, keeps them f32)."""
     kv = kv.index_select(0, rows.long())
-    return _append_attend_(kv, pos, q, k_new, v_new, H)
+    return _append_attend_(kv, pos, q, k_new, v_new, H, round_p=True)
 
 
 def beam_attend_step_plain(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
@@ -83,8 +94,36 @@ def _check_disjoint(a, b):
         )
 
 
-_STEP = _build.Entry("beam_cache", "sb_beam_attend_step",
-                     [_build.P] * 7 + [_build.I] * 6 + [_build.P])
+_STEP = _build.Entry(
+    "beam_cache", "sb_beam_attend_step",
+    [_build.P, _build.P, _build.I] + [_build.P, _build.I64] * 3
+    + [_build.P] * 2 + [_build.I] * 6 + [_build.P])
+
+
+def _rows_operand(x, n):
+    """(n,) predecessor rows for the kernel: a one-row-stride view of
+    the caller's int32 or int64 rows, or a copy."""
+    if x.dim() != 1:
+        raise ValueError("beam_attend_step: rows must be (n,)")
+    if x.dtype not in (torch.int32, torch.int64):
+        x = x.long()
+    if x.stride(0) != 1:
+        x = x.contiguous()
+    if x.shape != (n,):
+        raise ValueError("beam_attend_step: rows must be (n,)")
+    return x
+
+
+def _row_operand(x, kv, n, HD):
+    """An (n, H*Dh) operand on the cache's device in its dtype, with unit
+    feature stride (a strided view such as ``qkv.chunk(3, -1)``'s is
+    taken as it is)."""
+    x = x.to(device=kv.device, dtype=kv.dtype)
+    if x.shape != (n, HD):
+        raise ValueError("beam_attend_step: q/k_new/v_new must be (n, H*Dh)")
+    if x.stride(1) != 1:
+        x = x.contiguous()
+    return x
 
 
 def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
@@ -94,8 +133,8 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
     Arguments
     ---------
     kv : (n, H*Dh, 2L) cache, float32 or bfloat16.
-    rows : (n,) int predecessor rows: output row i is built from cache
-        row ``rows[i]``.
+    rows : (n,) int32 or int64 predecessor rows: output row i is built
+        from cache row ``rows[i]``.
     q : (n, H*Dh) pre-scaled query (times 1/sqrt(Dh) upstream).
     k_new, v_new : (n, H*Dh) this step's K/V, written at lanes ``pos``
         and ``L + pos``.
@@ -106,9 +145,11 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
         returned.  Its contents are ignored.
 
     Returns ``(ctx (n, H*Dh) float32, new cache)``.  q, k_new and v_new
-    are cast to the cache dtype first, as in the JAX package (and made
-    contiguous: they are one row each).  Counts
-    kernel launches in ``beam_attend_step.launches``.
+    are cast to the cache dtype first, as in the JAX package; on the
+    card they are read with their row strides, so views of a fused
+    projection need no copy.  The softmax weights are rounded to the
+    cache dtype before the context product (JAX's Pallas kernel).
+    Counts kernel launches in ``beam_attend_step.launches``.
 
     Decode only: the step has no backward, so it raises when an input
     requires grad rather than return a result without a gradient.
@@ -117,9 +158,6 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
         raise RuntimeError(
             "beam_attend_step is decode-only: call it under torch.no_grad()"
         )
-    q = q.to(kv.dtype).contiguous()
-    k_new = k_new.to(kv.dtype).contiguous()
-    v_new = v_new.to(kv.dtype).contiguous()
     pos = int(pos)
     n, HD, L2 = kv.shape
     if not 0 <= pos < L2 // 2:
@@ -136,23 +174,25 @@ def beam_attend_step(kv, rows, q, k_new, v_new, pos, nhead, dst=None):
     code = _build.dtype_code(kv)
     if HD % nhead:
         raise ValueError("beam_attend_step: H*Dh not divisible by nhead")
-    if (HD * L2 * kv.element_size()) % 16 or kv.data_ptr() % 16:
+    new = dst if dst is not None else torch.empty_like(kv)
+    if ((L2 * kv.element_size()) % 16 or kv.data_ptr() % 16
+            or new.data_ptr() % 16):
         raise ValueError(
             "beam_attend_step: a cache row must be whole, aligned 16-byte "
             "words (2L * itemsize a multiple of 16)"
         )
-    if not kv.is_contiguous():
-        raise ValueError("beam_attend_step: kv must be contiguous")
-    if q.shape != (n, HD) or k_new.shape != (n, HD) or v_new.shape != (n, HD):
-        raise ValueError("beam_attend_step: q/k_new/v_new must be (n, H*Dh)")
-    rows = rows.to(device=kv.device, dtype=torch.int32).contiguous()
-    if rows.shape != (n,):
-        raise ValueError("beam_attend_step: rows must be (n,)")
+    if not (kv.is_contiguous() and new.is_contiguous()):
+        raise ValueError("beam_attend_step: kv and dst must be contiguous")
+    q, k_new, v_new = (_row_operand(t, kv, n, HD)
+                       for t in (q, k_new, v_new))
+    if rows.device != kv.device:
+        rows = rows.to(kv.device)
+    rows = _rows_operand(rows, n)
     ctx = torch.empty((n, HD), dtype=torch.float32, device=kv.device)
-    new = dst if dst is not None else torch.empty_like(kv)
     rc = _STEP(
-        kv.data_ptr(), rows.data_ptr(), q.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), ctx.data_ptr(), new.data_ptr(),
+        kv.data_ptr(), rows.data_ptr(), int(rows.dtype == torch.int64),
+        q.data_ptr(), q.stride(0), k_new.data_ptr(), k_new.stride(0),
+        v_new.data_ptr(), v_new.stride(0), ctx.data_ptr(), new.data_ptr(),
         n, nhead, HD // nhead, L2 // 2, pos, code, _build.stream_of(kv),
     )
     _build.check_launch(rc, "beam_attend_step")

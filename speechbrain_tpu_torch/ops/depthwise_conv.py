@@ -6,12 +6,12 @@ Counterpart of ``speechbrain_tpu/ops/pallas/depthwise_conv.py``:
     out[b,t,c] = sum_k w[k,c] * x[b, t+k-pad_left, c]  (+ bias[c])
     dx         = the same convolution of dy with the flipped taps
     dw[k,c]    = sum_{b,t} dy[b,t,c] * x[b, t+k-pad_left, c]   (f32)
-    dbias[c]   = sum_{b,t} dy[b,t,c]
+    dbias[c]   = sum_{b,t} dy[b,t,c]   (f32, from dw's pass)
 
 with centered padding ((K-1)//2, K-1-(K-1)//2) or causal padding
 (K-1, 0), f32 accumulation.  ``depthwise_conv1d`` is an autograd
 Function: on CUDA tensors its forward and dx launch the kernel
-``sb_depthwise_conv1d_fwd`` and its dw the kernel
+``sb_depthwise_conv1d_fwd`` and its dw and dbias the kernel
 ``sb_depthwise_conv1d_dw`` (both in ``csrc/depthwise_conv.cu``); on CPU
 tensors they run the plain versions beside them.
 """
@@ -64,21 +64,25 @@ def depthwise_conv1d_plain(x, w, bias=None, causal=False):
     return out
 
 
-def depthwise_conv1d_dw_plain(x, dy, K, causal=False):
+def depthwise_conv1d_dw_plain(x, dy, K, causal=False, bias_grad=False):
     """Plain version of the taps' gradient: the K-tap sum over (b, t) in
-    f32.  x, dy : (B, T, C); returns (K, C) float32.
+    f32.  x, dy : (B, T, C); returns (K, C) float32, and with
+    ``bias_grad`` also dbias = the sum of dy over (b, t), (C,) float32.
 
     Example
     -------
     >>> x = torch.ones(1, 4, 2); dy = torch.ones(1, 4, 2)
     >>> depthwise_conv1d_dw_plain(x, dy, 3)[:, 0].tolist()
     [3.0, 4.0, 3.0]
+    >>> depthwise_conv1d_dw_plain(x, dy, 3, bias_grad=True)[1].tolist()
+    [4.0, 4.0]
     """
     T = x.shape[1]
     left, right = _pad(K, causal)
     xp = F.pad(x.float(), (0, 0, left, right))
     dyf = dy.float()
-    return torch.stack([(xp[:, k : k + T] * dyf).sum((0, 1)) for k in range(K)])
+    dw = torch.stack([(xp[:, k : k + T] * dyf).sum((0, 1)) for k in range(K)])
+    return (dw, dyf.sum((0, 1))) if bias_grad else dw
 
 
 def _check(x, w, name):
@@ -91,10 +95,29 @@ def _check(x, w, name):
 
 _FWD = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_fwd",
                     [_build.P] * 4 + [_build.I] * 8 + [_build.P])
-_DW_CHUNKS = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw_chunks",
-                          [_build.I] * 2)
+_DW_SCRATCH = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw_scratch",
+                           [_build.I] * 4, _build.I64)
+_DW_TILES = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw_tiles",
+                         [_build.I])
 _DW = _build.Entry("depthwise_conv", "sb_depthwise_conv1d_dw",
-                   [_build.P] * 4 + [_build.I] * 6 + [_build.P])
+                   [_build.P] * 6 + [_build.I] * 7 + [_build.P])
+
+# (B, T, C, K) -> (floats of the taps' gradient's scratch, channel tiles)
+_DW_PLANS = {}
+# (device index, stream handle) -> the tile counters of the taps'
+# gradient: zero, and left zero by every launch; one set a stream, since
+# calls on one stream run in order
+_DW_COUNTERS = {}
+
+
+def _dw_counters(t, tiles, stream):
+    key = (t.device.index, stream)
+    counters = _DW_COUNTERS.get(key)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                               device=t.device)
+        _DW_COUNTERS[key] = counters
+    return counters
 
 
 def _fwd_kernel(x, w, bias, pad_left, flip=False):
@@ -115,14 +138,16 @@ def _fwd_kernel(x, w, bias, pad_left, flip=False):
     return out
 
 
-def depthwise_conv1d_dw(x, dy, K, causal=False):
+def depthwise_conv1d_dw(x, dy, K, causal=False, bias_grad=False):
     """Taps' gradient dw (K, C) float32 of ``x`` (B, T, C) and ``dy``
-    (B, T, C); the kernel on CUDA tensors (x and dy of one dtype,
-    float32 or bfloat16), ``depthwise_conv1d_dw_plain`` on the CPU.
-    Counts its launches in ``depthwise_conv1d_dw.launches``.
+    (B, T, C); with ``bias_grad`` also dbias (C,) float32, the sum of
+    dy over (b, t), from the same pass.  The kernel on CUDA tensors (x
+    and dy of one dtype, float32 or bfloat16): one launch;
+    ``depthwise_conv1d_dw_plain`` on the CPU.  Counts its launches in
+    ``depthwise_conv1d_dw.launches``.
     """
     if x.device.type == "cpu":
-        return depthwise_conv1d_dw_plain(x, dy, K, causal)
+        return depthwise_conv1d_dw_plain(x, dy, K, causal, bias_grad)
     if x.device.type != "cuda":
         raise RuntimeError(f"depthwise_conv1d_dw: unsupported device {x.device}")
     _build.refuse_grad("depthwise_conv1d_dw", x, dy)
@@ -131,23 +156,38 @@ def depthwise_conv1d_dw(x, dy, K, causal=False):
                          "of one dtype")
     if not 1 <= K <= 1024:
         raise ValueError(f"depthwise_conv1d_dw: K={K} outside [1, 1024]")
+    code = _build.dtype_code(x)
     x, dy = x.contiguous(), dy.contiguous()
     B, T, C = x.shape
-    n_chunks = _DW_CHUNKS(B, T)
-    partial = torch.empty(max(n_chunks, 1) * K * C, dtype=torch.float32,
-                          device=x.device)
     dw = torch.empty(K, C, dtype=torch.float32, device=x.device)
-    rc = _DW(x.data_ptr(), dy.data_ptr(), partial.data_ptr(), dw.data_ptr(),
-            B, T, C, K, _pad(K, causal)[0], _build.dtype_code(x),
-            _build.stream_of(x))
+    dbias = (torch.empty(C, dtype=torch.float32, device=x.device)
+             if bias_grad else None)
+    if B * T * C == 0:  # nothing to sum, nothing launched
+        dw.zero_()
+        if bias_grad:
+            dbias.zero_()
+        return (dw, dbias) if bias_grad else dw
+    shape = (B, T, C, K)
+    plan = _DW_PLANS.get(shape)
+    if plan is None:
+        plan = _DW_PLANS[shape] = (_DW_SCRATCH(B, T, C, K), _DW_TILES(C))
+    n_scratch, tiles = plan
+    partial = torch.empty(n_scratch, dtype=torch.float32, device=x.device)
+    stream = _build.stream_of(x)
+    xp, dp = x.data_ptr(), dy.data_ptr()
+    vec16 = (C * x.element_size()) % 16 == 0 and xp % 16 == 0 and dp % 16 == 0
+    rc = _DW(xp, dp, partial.data_ptr(), _dw_counters(x, tiles, stream).data_ptr(),
+             dw.data_ptr(), dbias.data_ptr() if bias_grad else None,
+             B, T, C, K, _pad(K, causal)[0], int(vec16), code, stream)
     _build.check_launch(rc, "depthwise_conv1d_dw")
     depthwise_conv1d_dw.launches += 1
-    return dw
+    return (dw, dbias) if bias_grad else dw
 
 
 class _DepthwiseConv1d(torch.autograd.Function):
     """Forward K1 (+ bias); backward dx = K1 reading the taps flipped,
-    with the complementary left padding, dw = K2, dbias = sum of dy.
+    with the complementary left padding, dw and dbias (the sum of dy)
+    from one K2 launch.
     ``kernel`` selects the CUDA kernels (True) or the plain versions
     (False)."""
 
@@ -171,12 +211,16 @@ class _DepthwiseConv1d(torch.autograd.Function):
             left = K - 1 - _pad(K, ctx.causal)[0]
             dx = (_fwd_kernel(dy, w, None, left, flip=True) if ctx.kernel
                   else _conv_plain(dy, w.flip(0), left))
-        if ctx.needs_input_grad[1]:
+        want_bias = ctx.bias_dtype is not None and ctx.needs_input_grad[2]
+        if ctx.needs_input_grad[1] or want_bias:
+            # K2 returns dbias from the pass that makes dw
             dw = (depthwise_conv1d_dw if ctx.kernel
-                  else depthwise_conv1d_dw_plain)(x, dy, K, ctx.causal)
-            dw = dw.to(w.dtype)
-        if ctx.bias_dtype is not None and ctx.needs_input_grad[2]:
-            dbias = dy.float().sum((0, 1)).to(ctx.bias_dtype)
+                  else depthwise_conv1d_dw_plain)(x, dy, K, ctx.causal,
+                                                  bias_grad=want_bias)
+            if want_bias:
+                dw, dbias = dw
+                dbias = dbias.to(ctx.bias_dtype)
+            dw = dw.to(w.dtype) if ctx.needs_input_grad[1] else None
         return dx, dw, dbias, None, None
 
 

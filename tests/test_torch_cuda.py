@@ -142,6 +142,27 @@ def _assert_relpos_close(got, ref, args, T, rate=0.0, seed=0):
     assert float((got - rounded[:, :, :T]).abs().max()) <= 2e-3 * scale
 
 
+def _assert_beam_ctx(ctx, ref, new, H, pos, dtype):
+    """K7's context against the plain version, which rounds the weights
+    where the kernel does.  f32: 1e-5.  bf16: 1e-5 too, but CUDA's expf
+    and the sums' order move a weight's last f32 bit, and a weight on a
+    bf16 rounding midpoint then rounds one bf16 step (at most 2^-8 for a
+    weight below 1) the other way: that moves the whole head, so at most
+    1 % of the heads (and at least one) may differ, each element by at
+    most 2^-8 * sum_l |v[l]| over the lanes <= pos."""
+    n, HD = ctx.shape
+    L = new.shape[2] // 2
+    diff = (ctx - ref).abs()
+    close = diff <= 1e-5 + 1e-5 * ref.abs()
+    if dtype == torch.float32:
+        assert bool(close.all()), float(diff.max())
+        return
+    bad_heads = int((~close).reshape(n, H, -1).any(-1).sum())
+    assert bad_heads <= max(1, n * H // 100), (bad_heads, float(diff.max()))
+    v = new[:, :, L:L + pos + 1].float().abs().sum(-1)
+    assert bool((diff <= 2.0 ** -8 * v + 1e-5).all()), float(diff.max())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("pos", [0, 63, 255])
 def test_beam_attend_step_kernel(gen, dtype, pos):
@@ -155,7 +176,100 @@ def test_beam_attend_step_kernel(gen, dtype, pos):
     ref_ctx, ref_new = _xla_ref(kv, rows, pos, q, kn, vn, H)
     assert new.data_ptr() == dst.data_ptr()
     assert torch.equal(new, ref_new)  # bit for bit
-    torch.testing.assert_close(ctx, ref_ctx, atol=1e-5, rtol=1e-5)
+    _assert_beam_ctx(ctx, ref_ctx, new, H, pos, dtype)
+
+
+def _beam_rows(kind, n, gen):
+    if kind == "identity":
+        return torch.arange(n, device="cuda")
+    if kind == "same":
+        return torch.full((n,), n // 2, device="cuda", dtype=torch.long)
+    if kind == "reversed":
+        return torch.arange(n - 1, -1, -1, device="cuda")
+    # many-to-one: every row from the first ceil(n / 3)
+    return torch.randint(0, (n + 2) // 3, (n,), device="cuda", generator=gen)
+
+
+# (n, H, Dh, L): the beam counts around the serving shape (1, 3, 80,
+# 100 rows); heads and widths; L of 128, 256, 1024 and the largest L
+# that the first kernel's shared-memory limit, (H*Dh + H*L) * 4 <= 48 KB,
+# allowed at H4 Dh36 (3036) and at H1 Dh8 (12280: the scores alone take
+# 48 KB); "half" is an L whose half row is not whole 16-byte words (f32
+# 130, bf16 132: the 8-byte copies); Dh 64 and 200 split the rows of a
+# tile into chunks
+_BEAM_EDGES = [
+    (1, 4, 36, 256), (3, 4, 36, 256), (80, 4, 36, 256), (100, 4, 36, 256),
+    (5, 1, 8, 128), (5, 2, 36, 1024), (5, 8, 64, 128), (4, 4, 64, 1024),
+    (3, 4, 36, 3036), (2, 1, 8, 12280), (4, 2, 8, "half"), (2, 1, 200, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("where", ["first", "second", "last"])
+@pytest.mark.parametrize("shape", _BEAM_EDGES, ids=str)
+def test_beam_attend_step_kernel_edges(gen, shape, where, dtype):
+    """K7 at its edges against the plain version, over four kinds of
+    rows (identity, all the same, reversed, many-to-one), int32 and
+    int64 rows, strided (``qkv.chunk`` views) and contiguous q/k/v, with
+    and without ``dst``: the cache bit for bit, the context as
+    ``_assert_beam_ctx`` states; two calls give the same bits."""
+    n, H, Dh, L = shape
+    if L == "half":
+        L = 130 if dtype == torch.float32 else 132
+    HD = H * Dh
+    pos = {"first": 0, "second": 1, "last": L - 1}[where]
+    kv = torch.randn(n, HD, 2 * L, device="cuda", generator=gen).to(dtype)
+    qkv = (torch.randn(n, 3 * HD, device="cuda", generator=gen) / 6).to(dtype)
+    for v, kind in enumerate(("identity", "same", "reversed", "many")):
+        rows = _beam_rows(kind, n, gen)
+        if v % 2:
+            rows = rows.to(torch.int32)
+        q, kn, vn = qkv.chunk(3, dim=-1)
+        if v >= 2:
+            q, kn, vn = q.contiguous(), kn.contiguous(), vn.contiguous()
+        dst = torch.empty_like(kv) if v in (0, 3) else None
+        ctx, new = ops.beam_attend_step(kv, rows, q, kn, vn, pos, H, dst=dst)
+        ref_ctx, ref_new = _xla_ref(kv, rows, pos, q, kn, vn, H)
+        assert dst is None or new.data_ptr() == dst.data_ptr()
+        assert torch.equal(new, ref_new), kind
+        _assert_beam_ctx(ctx, ref_ctx, new, H, pos, dtype)
+        ctx2, new2 = ops.beam_attend_step(kv, rows, q, kn, vn, pos, H)
+        assert torch.equal(ctx, ctx2) and torch.equal(new, new2), kind
+
+
+def test_beam_attend_step_decoder_call_is_one_launch(gen):
+    """The decoder's call (q scaled, k and v strided views of the fused
+    projection, the search's int64 rows) issues K7 and nothing else.
+    Over three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n, H, Dh, L = 80, 4, 36, 256
+    kv = torch.randn(n, H * Dh, 2 * L, device="cuda", generator=gen)
+    qkv = torch.randn(n, 3 * H * Dh, device="cuda", generator=gen)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = q * (1.0 / math.sqrt(Dh))
+    rows = torch.randint(0, 36, (n,), device="cuda", generator=gen)
+    dst = torch.empty_like(kv)
+    ops.beam_attend_step(kv, rows, q, k, v, 57, H, dst=dst)  # loads the library
+    torch.cuda.synchronize()
+    before = ops.beam_attend_step.launches
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            ctx, new = ops.beam_attend_step(kv, rows, q, k, v, 57, H, dst=dst)
+        torch.cuda.synchronize()
+    # the wrapper launched K7 once a call; the profiler saw no other
+    # kernel (it may miss the first launch of its window: the count is
+    # bounded, the names are exact)
+    assert ops.beam_attend_step.launches == before + calls
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0}
+    assert len(kernels) == 1, kernels
+    assert all("beam_attend_step" in k for k in kernels), kernels
+    assert sum(kernels.values()) <= calls, kernels
+    ref_ctx, ref_new = _xla_ref(kv, rows, 57, q, k, v, H)
+    assert torch.equal(new, ref_new)
+    _assert_beam_ctx(ctx, ref_ctx, new, H, 57, torch.float32)
 
 
 @pytest.mark.parametrize("T", [256, 512])
@@ -216,6 +330,79 @@ def test_depthwise_conv1d_dw_kernel(gen, dtype):
         assert got.dtype == torch.float32
         # the same f32 products, summed in other orders
         torch.testing.assert_close(got, ref, atol=1e-4, rtol=1e-5)
+
+
+def _dw_tol(x, dy, K, causal):
+    """K2 against its plain version: the same f32 products summed in
+    other orders (the kernel: rows in a thread, then time groups, then
+    chunks), within 1e-5 of the sum of the products' magnitudes, and
+    dbias within 1e-5 of the sum of |dy|."""
+    dw_abs, db_abs = ops.depthwise_conv1d_dw_plain(
+        x.float().abs(), dy.float().abs(), K, causal, bias_grad=True)
+    return 1e-5 * dw_abs + 1e-6, 1e-5 * db_abs + 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [3, 4, 15, 31, 17])
+@pytest.mark.parametrize("C", [1, 7, 130, 144, 512])
+@pytest.mark.parametrize("T", [1, 30, 31, 64, 65, 251, 512])
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_depthwise_conv1d_dw_kernel_edges(gen, B, T, C, K, dtype):
+    """K2 at its edges, centred and causal, with and without the bias
+    gradient: T below K and around the chunk lengths, C odd, not a
+    multiple of the 16-channel tile or of the 16-byte copies, K with its
+    taps in registers (3, 4, 15, 31) and in groups of 8 (17); dw and
+    dbias against the plain version (``_dw_tol``), the same bits twice."""
+    x = torch.randn(B, T, C, device="cuda", generator=gen).to(dtype)
+    dy = torch.randn(B, T, C, device="cuda", generator=gen).to(dtype)
+    for causal in (False, True):
+        ref_dw, ref_db = ops.depthwise_conv1d_dw_plain(x, dy, K, causal,
+                                                       bias_grad=True)
+        tol_dw, tol_db = _dw_tol(x, dy, K, causal)
+        dw, db = ops.depthwise_conv1d_dw(x, dy, K, causal, bias_grad=True)
+        assert dw.dtype == db.dtype == torch.float32
+        assert bool(((dw - ref_dw).abs() <= tol_dw).all()), float((dw - ref_dw).abs().max())
+        assert bool(((db - ref_db).abs() <= tol_db).all()), float((db - ref_db).abs().max())
+        dw2, db2 = ops.depthwise_conv1d_dw(x, dy, K, causal, bias_grad=True)
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)
+        assert torch.equal(dw, ops.depthwise_conv1d_dw(x, dy, K, causal))
+
+
+def test_depthwise_conv1d_backward_with_bias_is_two_launches(gen):
+    """The backward of a conv with a bias (x, w and b require grad) is
+    K1 reading the taps flipped (dx) and one K2 launch (dw and dbias):
+    no other kernel runs on the card (f32: no casts).  Over three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = torch.randn(4, 45, 144, device="cuda", generator=gen, requires_grad=True)
+    w = (torch.randn(31, 144, device="cuda", generator=gen) / 6).requires_grad_(True)
+    b = torch.randn(144, device="cuda", generator=gen, requires_grad=True)
+    dy = torch.randn(4, 45, 144, device="cuda", generator=gen)
+    out = ops.depthwise_conv1d(x, w, b)
+    torch.autograd.grad(out, (x, w, b), dy, retain_graph=True)  # first call
+    torch.cuda.synchronize()
+    before = (ops.depthwise_conv1d.launches, ops.depthwise_conv1d_dw.launches)
+    calls = 3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            dx, dw, db = torch.autograd.grad(out, (x, w, b), dy, retain_graph=True)
+        torch.cuda.synchronize()
+    # the wrappers launched K1 and K2 once a call; the profiler saw no
+    # other kernel (it may miss the first launch of its window: the
+    # count is bounded, the names are exact)
+    assert (ops.depthwise_conv1d.launches - before[0],
+            ops.depthwise_conv1d_dw.launches - before[1]) == (calls, calls)
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0}
+    assert len(kernels) == 2, kernels
+    assert any("depthwise_conv1d_dw_kernel" in k for k in kernels), kernels
+    assert any("depthwise_conv1d_fwd" in k for k in kernels), kernels
+    assert sum(kernels.values()) <= 2 * calls, kernels
+    ref_dw, ref_db = ops.depthwise_conv1d_dw_plain(x.detach(), dy, 31,
+                                                   bias_grad=True)
+    tol_dw, tol_db = _dw_tol(x.detach(), dy, 31, False)
+    assert bool(((dw - ref_dw).abs() <= tol_dw).all())
+    assert bool(((db - ref_db).abs() <= tol_db).all())
 
 
 @pytest.mark.parametrize("blank", [0, 5])
