@@ -4,6 +4,7 @@ NVIDIA card.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --only depthwise,relpos   # build + those checks
+    python3 chip_smoke.py --only ctc                # K3/K4 records alone
 
 Phases, each printing one JSON line when it ends:
 
@@ -17,7 +18,14 @@ Phases, each printing one JSON line when it ends:
    K7 the host microseconds a call takes; K1's forward and K2 (with the
    bias gradient, as the backward calls it) are timed at every
    main-path shape, K7 at beam steps 200 and 57 and also as the decoder
-   calls it (strided q/k/v views, int64 rows: one device kernel).  The rel-pos kernels K5/K6 also run with attention dropout
+   calls it (strided q/k/v views, int64 rows: one device kernel).  K3
+   and K4 (CTC) give the same (card ms, device ms, host us, device
+   kernels a call by name, the library call's device ms), that two calls
+   give the same bits, their time at B1 U0 (``chain_floor_ms``, the frame
+   chain alone) and ``chain_term_ms``: 251 dependent steps of JAX's
+   ``lae(lae(a, a1), a2) + x`` behind one warp shuffle, timed by a
+   one-warp loop built here (``_chain_step_ms``); and that the kernels'
+   branch-free log1p gives log1pf's bits on all of [0, 1].  The rel-pos kernels K5/K6 also run with attention dropout
    (rate 0.1, role "dropout"): against the plain version with the same
    seed (the same Philox mask), bit-identical across two launches with
    one seed, different at seed + 1.  K5 and K6 run on the tensor cores:
@@ -417,10 +425,81 @@ def _ctc_inputs(B, T, C, U):
     return logits, lp, targets, tlen, ulen
 
 
+# One warp walks a chain of dependent steps of the CTC recursion's form,
+# lae(lae(a, a1), a2) + x with a1 shuffled from the next lower lane (the
+# K3/K4 warp kernels' step): the least time a step of any kernel that
+# follows JAX's recursion in these libm functions can take.
+_CHAIN_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+__device__ __forceinline__ float lae(float x, float y) {
+  const float m = fmaxf(x, y);
+  return m + log1pf(expf(fminf(x, y) - m));
+}
+__global__ void lae_chain_probe(float* out, float x, int steps) {
+  float a = -0.01f * threadIdx.x;
+  for (int i = 0; i < steps; ++i) {
+    const float a1 = __shfl_up_sync(0xffffffffu, a, 1);
+    a = lae(lae(a, a1), a) + x;
+  }
+  out[threadIdx.x] = a;
+}
+extern "C" int lae_chain_probe_run(void* out, float x, int steps, void* st) {
+  lae_chain_probe<<<1, 32, 0, (cudaStream_t)st>>>((float*)out, x, steps);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _chain_step_ms():
+    """Device ms of one dependent step of ``_CHAIN_PROBE_SRC``'s chain:
+    CUDA events around 2N and N steps of one warp, the difference over N
+    (the launch cancels)."""
+    import ctypes
+
+    import torch
+
+    from speechbrain_tpu_torch.ops import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "lae_chain_probe.cu"
+    lib_path = _build.BUILD_DIR / "liblae_chain_probe.so"
+    src.write_text(_CHAIN_PROBE_SRC)
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                    str(src)], check=True, capture_output=True)
+    fn = ctypes.CDLL(str(lib_path)).lae_chain_probe_run
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p]
+    out = torch.empty(32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    x = -1.0986123  # -log 3: lae(lae(a, ~a), a) = a + log 3, so a stays put
+    n = 100_000
+
+    def run(steps):
+        assert fn(out.data_ptr(), x, steps, stream) == 0
+
+    run(n)
+    ms = {}
+    for steps in (n, 2 * n):
+        ms[steps] = _time_ms(lambda: run(steps), iters=5, warmup=1)
+    assert bool(torch.isfinite(out).all()), "chain probe diverged"
+    return (ms[2 * n] - ms[n]) / n
+
+
+def _ctc_profile(fn):
+    """Device ms by kernel and device kernels a call of ``fn``."""
+    _, by_kernel, kernels = _device_profile(fn)
+    return {"device_ms_by_kernel": by_kernel, "device_kernels_per_call": kernels}
+
+
 def _check_ctc():
     """K3 (alpha + loss) and K4 (beta + gradient) at the training shape
     against their plain recursions, float32 only (the log-probs are f32
-    in the JAX package too)."""
+    in the JAX package too); two calls give the same bits.  Each timed
+    as a call (card ms, device ms, host us, beside ``F.ctc_loss``) with
+    its device kernels by name; at B1 U0 (one lattice state) as the
+    floor of the frame chain (``chain_floor_ms``); and beside
+    ``chain_term_ms``, 251 steps of ``_chain_step_ms``."""
     import torch
     import torch.nn.functional as F
 
@@ -449,6 +528,18 @@ def _check_ctc():
     tol_loss, tol_grad = 2e-2, 2e-3
     assert loss_err <= tol_loss and alpha_err <= tol_loss, (loss_err, alpha_err)
     assert grad_err <= tol_grad, f"ctc gradient: max|err| {grad_err} > {tol_grad}"
+    alpha2, loss2, logz2 = ctc_alpha(*args)
+    dlp2 = ctc_beta_grad(*args, alpha2, logz2, ones)
+    torch.cuda.synchronize()
+    assert (torch.equal(alpha2[live], alpha[live]) and torch.equal(loss2, loss)
+            and torch.equal(logz2, logz)), "ctc_alpha: two calls, other bits"
+    assert torch.equal(dlp2, dlp), "ctc_beta_grad: two calls, other bits"
+    # the kernels' lae keeps JAX's numerics through a branch-free log1p
+    # that must give log1pf's bits on all of [0, 1]
+    from speechbrain_tpu_torch.ops.ctc import _log1p_unit_mismatches
+
+    log1p_bad = _log1p_unit_mismatches(lp.device)
+    assert log1p_bad == 0, f"branch-free log1p: {log1p_bad} floats differ"
     # the gradient w.r.t. the logits agrees with F.ctc_loss's
     lg = logits.detach().clone().requires_grad_(True)
     lib = F.ctc_loss(torch.log_softmax(lg, -1).transpose(0, 1), targets, tlen,
@@ -466,6 +557,7 @@ def _check_ctc():
     lat_bytes = 4 * n_live  # gathered lattice values, read once
     k3_bound = _bound_ms(2 * lat_bytes + 4 * B * U + 12 * B, 12 * n_live, "float32")
     k4_bound = _bound_ms(3 * lat_bytes + 4 * B * T * C, 20 * n_live, "float32")
+    chain_term = T * _chain_step_ms()
     lpt = lp.detach().transpose(0, 1)
     lp_req = lp.detach().clone().requires_grad_(True)
 
@@ -479,25 +571,41 @@ def _check_ctc():
     def ours_fwd_bwd():
         ctc_loss_per_seq(lp_req, targets, tlen, ulen, 0).sum().backward()
 
+    def k3():
+        return ctc_alpha(*args)
+
+    def k4():
+        return ctc_beta_grad(*args, alpha, logz, ones)
+
+    # the frame chain alone: one sequence of one state, T frames
+    lp1 = lp[:1].contiguous()
+    args1 = (lp1, targets[:1, :0], tlen[:1], torch.zeros_like(ulen[:1]), 0)
+    alpha1, _, logz1 = ctc_alpha(*args1)
+    floor = {"ctc_alpha": _device_ms(lambda: ctc_alpha(*args1))[0],
+             "ctc_beta_grad": _device_ms(lambda: ctc_beta_grad(
+                 *args1, alpha1, logz1, ones[:1]))[0]}
     common = {"dtype": "float32", "shape": [B, T, C, U],
-              "vs_F_ctc_loss": lib_err, "live_states": n_live}
+              "vs_F_ctc_loss": lib_err, "live_states": n_live,
+              "same_bits_twice": True, "log1p_mismatches": log1p_bad,
+              "chain_term_ms": chain_term,
+              "chain_floor_shape": [1, T, C, 0]}
     rows = [
         {"name": "ctc_alpha", **common, "max_abs_err": max(loss_err, alpha_err),
-         "tol": tol_loss,
-         "ms": _time_ms(lambda: ctc_alpha(*args)),
+         "tol": tol_loss, **_call_times(k3, lib_fwd), **_ctc_profile(k3),
          "plain_ms": _time_ms(lambda: ctc_alpha_plain(*args), iters=3, warmup=1),
-         "library_ms": _time_ms(lib_fwd), "library": "F.ctc_loss forward",
+         "library": "F.ctc_loss forward",
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
-         "bound_note": f"plus a chain of up to {T} dependent steps"},
+         "chain_floor_ms": floor["ctc_alpha"],
+         "bound_note": f"plus a chain of up to {T} dependent steps: "
+                       "chain_term_ms"},
         {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
-         "tol": tol_grad,
-         "ms": _time_ms(lambda: ctc_beta_grad(*args, alpha, logz, ones)),
+         "tol": tol_grad, **_call_times(k4, lib_fwd_bwd), **_ctc_profile(k4),
          "plain_ms": _time_ms(lambda: ctc_beta_grad_plain(
              *args, alpha_p, logz_p, ones), iters=3, warmup=1),
-         "library_ms": _time_ms(lib_fwd_bwd),
          "library": "F.ctc_loss forward + backward",
          "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
-         "bound_ms": k4_bound[0], "bound_by": k4_bound[1]},
+         "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
+         "chain_floor_ms": floor["ctc_beta_grad"]},
     ]
     return rows
 
@@ -1679,7 +1787,9 @@ def kernels_line(records, main_runs):
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms", "shape"):
             entry[key] = main[key]
-        for key in ("device_ms", "library_device_ms", "host_us_per_call"):
+        for key in ("device_ms", "library_device_ms", "host_us_per_call",
+                    "device_kernels_per_call", "chain_floor_ms",
+                    "chain_term_ms"):
             if key in main:
                 entry[key] = main[key]
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

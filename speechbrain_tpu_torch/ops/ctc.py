@@ -12,9 +12,12 @@ zero from t = T_b on.
 
 ``ctc_loss_per_seq`` is an autograd Function.  On CUDA tensors its
 forward launches ``ctc_alpha`` (K3, ``sb_ctc_alpha``) and its backward
-``ctc_beta_grad`` (K4, ``sb_ctc_beta_grad``), both in ``csrc/ctc.cu``;
-on CPU tensors it runs ``ctc_alpha_plain`` and ``ctc_beta_grad_plain``,
-the explicit recursions over t.  The gradient is the JAX kernel's
+``ctc_beta_grad`` (K4, ``sb_ctc_beta_grad``), both in ``csrc/ctc.cu``:
+one device kernel each up to ``WARP_STATES`` lattice states (a warp per
+sequence; K4 also writes the dense gradient's zeros from the same
+launch), a block per sequence past it; on CPU tensors it runs
+``ctc_alpha_plain`` and ``ctc_beta_grad_plain``, the explicit
+recursions over t.  The gradient is the JAX kernel's
 (w.r.t. the log-probabilities); ``F.ctc_loss`` returns one w.r.t. the
 logits instead, and the two agree through a ``log_softmax``.
 """
@@ -36,6 +39,10 @@ NEG = -1.0e30
 # widest lattice the kernels take: 2U+1 states need (2 + frames) (2U+1)
 # floats of a block's 227 KB of shared memory, at least one frame
 MAX_STATES = 19370
+# lattices the warp kernels take (csrc/ctc.cu WARP_STATES and
+# WARP_MAX_CLASSES); K4 needs its occ scratch only past them
+WARP_STATES = 257
+WARP_MAX_CLASSES = 1 << 18
 
 
 def _lae(x, y):
@@ -52,6 +59,8 @@ def _lattice(log_probs, targets, blank):
     s = torch.arange(2 * U + 1, device=log_probs.device)
     lab_pos = ((s - 1) // 2).clamp(min=0)
     tg = targets.long().clamp(0, C - 1)  # padding past U_b may hold anything
+    if U == 0:  # no label column to index: the lattice is one blank state
+        tg = torch.zeros(B, 1, dtype=torch.long, device=log_probs.device)
     labels = torch.where(s % 2 == 1, tg[:, lab_pos], blank)
     prev2 = torch.roll(labels, 2, dims=1)
     skip = (s % 2 == 1) & (s >= 2) & (labels != prev2)
@@ -141,8 +150,23 @@ def ctc_beta_grad_plain(log_probs, targets, input_lengths, target_lengths,
     return dlp.scatter_add_(2, labels[:, None, :].expand(B, T, S), occ)
 
 
-def _int32(t, device):
-    return t.to(device=device, dtype=torch.int32).contiguous()
+def _index_operand(t, device):
+    """An int32 or int64 index tensor on ``device``, contiguous: the
+    caller's tensor where it is one already (the kernels read both
+    widths and clamp the lengths themselves)."""
+    t = t.to(device)
+    if t.dtype not in (torch.int32, torch.int64):
+        t = t.long()
+    return t.contiguous()
+
+
+def _index_operands(targets, input_lengths, target_lengths, device):
+    """The three index operands and the kernels' int64 flags (bit 0
+    targets, bit 1 input lengths, bit 2 target lengths)."""
+    ops = [_index_operand(t, device)
+           for t in (targets, input_lengths, target_lengths)]
+    flags = sum(1 << i for i, t in enumerate(ops) if t.dtype == torch.int64)
+    return ops, flags
 
 
 def _check(log_probs, targets, blank, name):
@@ -157,10 +181,24 @@ def _check(log_probs, targets, blank, name):
                          "memory of one block)")
 
 
+_LOG1P_CHECK = _build.Entry("ctc", "sb_ctc_log1p_check", [_build.P] * 2)
 _ALPHA = _build.Entry("ctc", "sb_ctc_alpha",
-                      [_build.P] * 7 + [_build.I] * 5 + [_build.P])
+                      [_build.P] * 4 + [_build.I] + [_build.P] * 3
+                      + [_build.I] * 5 + [_build.P])
 _BETA_GRAD = _build.Entry("ctc", "sb_ctc_beta_grad",
-                          [_build.P] * 9 + [_build.I] * 5 + [_build.P])
+                          [_build.P] * 4 + [_build.I] + [_build.P] * 3
+                          + [_build.I64] + [_build.P] * 2 + [_build.I] * 5
+                          + [_build.P])
+
+
+def _log1p_unit_mismatches(device):
+    """The floats x in [0, 1] where the kernels' branch-free log1p and
+    CUDA's log1pf differ in any bit, counted on ``device`` (a card):
+    the kernels' lae holds JAX's numerics only while this is 0."""
+    count = torch.zeros(1, dtype=torch.int32, device=device)
+    _build.check_launch(_LOG1P_CHECK(count.data_ptr(), _build.stream_of(count)),
+                        "log1p check")
+    return int(count)
 
 
 def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
@@ -169,8 +207,10 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
     On CUDA, alpha is written only where the lattice is live (t < T_b
     or t = 0, s < 2 U_b + 1); the rest of it is left unset, and 2U+1 may
     be up to ``MAX_STATES`` (19370: the lattice rows a block's shared
-    memory holds); wider raises.  On the CPU the plain version runs,
-    with no limit.  Counts launches in ``ctc_alpha.launches``.
+    memory holds); wider raises.  Targets and lengths are read as they
+    come, int32 or int64, and the lengths are clamped in the kernel: one
+    device kernel a call.  On the CPU the plain version runs, with no
+    limit.  Counts launches in ``ctc_alpha.launches``.
     """
     if log_probs.device.type == "cpu":
         return ctc_alpha_plain(log_probs, targets, input_lengths,
@@ -183,15 +223,14 @@ def ctc_alpha(log_probs, targets, input_lengths, target_lengths, blank=0):
     dev = lp.device
     B, T, C = lp.shape
     U = targets.shape[1]
-    tg = _int32(targets, dev)
-    tlen = _int32(input_lengths, dev).clamp(0, T)
-    ulen = _int32(target_lengths, dev).clamp(0, U)
+    (tg, tlen, ulen), idx64 = _index_operands(targets, input_lengths,
+                                              target_lengths, dev)
     alpha = torch.empty(B, T, 2 * U + 1, dtype=torch.float32, device=dev)
     loss = torch.empty(B, dtype=torch.float32, device=dev)
     logz = torch.empty(B, dtype=torch.float32, device=dev)
     rc = _ALPHA(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
-            alpha.data_ptr(), loss.data_ptr(), logz.data_ptr(),
-            B, T, C, U, int(blank), _build.stream_of(lp))
+                idx64, alpha.data_ptr(), loss.data_ptr(), logz.data_ptr(),
+                B, T, C, U, int(blank), _build.stream_of(lp))
     _build.check_launch(rc, "ctc_alpha")
     ctc_alpha.launches += 1
     return alpha, loss, logz
@@ -201,8 +240,11 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, blank,
                   alpha, logz, g):
     """K4: ``g[b] * d loss[b] / d log_probs`` (B, T, C) float32, from
     ``ctc_alpha``'s alpha and logz; the plain version on the CPU.  On
-    CUDA 2U+1 <= ``MAX_STATES``, as for ``ctc_alpha``.  Counts launches
-    in ``ctc_beta_grad.launches``.
+    CUDA 2U+1 <= ``MAX_STATES``, as for ``ctc_alpha``; up to
+    ``WARP_STATES`` one device kernel a call (targets and lengths as for
+    ``ctc_alpha``; ``g`` read through its stride, so the expanded
+    gradient of a ``sum`` is not copied), wider two and an occ scratch.
+    Counts launches in ``ctc_beta_grad.launches``.
     """
     if log_probs.device.type == "cpu":
         return ctc_beta_grad_plain(log_probs, targets, input_lengths,
@@ -216,18 +258,23 @@ def ctc_beta_grad(log_probs, targets, input_lengths, target_lengths, blank,
     dev = lp.device
     B, T, C = lp.shape
     U = targets.shape[1]
-    if alpha.shape != (B, T, 2 * U + 1) or not alpha.is_contiguous():
+    S = 2 * U + 1
+    if alpha.shape != (B, T, S) or not alpha.is_contiguous():
         raise ValueError("ctc_beta_grad: alpha must be contiguous (B, T, 2U+1)")
-    tg = _int32(targets, dev)
-    tlen = _int32(input_lengths, dev).clamp(0, T)
-    ulen = _int32(target_lengths, dev).clamp(0, U)
+    if logz.shape != (B,) or g.shape != (B,):
+        raise ValueError("ctc_beta_grad: logz and g must be (B,)")
+    (tg, tlen, ulen), idx64 = _index_operands(targets, input_lengths,
+                                              target_lengths, dev)
     logz = logz.to(device=dev, dtype=torch.float32).contiguous()
-    g = g.to(device=dev, dtype=torch.float32).contiguous()
-    occ = torch.empty_like(alpha)
+    g = g.to(device=dev, dtype=torch.float32)
+    # the block path's per-state scratch (the warp path needs none)
+    occ = (None if S <= WARP_STATES and C <= WARP_MAX_CLASSES
+           else torch.empty_like(alpha))
     dlp = torch.empty(B, T, C, dtype=torch.float32, device=dev)
     rc = _BETA_GRAD(lp.data_ptr(), tg.data_ptr(), tlen.data_ptr(), ulen.data_ptr(),
-            alpha.data_ptr(), logz.data_ptr(), g.data_ptr(), occ.data_ptr(),
-            dlp.data_ptr(), B, T, C, U, int(blank), _build.stream_of(lp))
+                    idx64, alpha.data_ptr(), logz.data_ptr(), g.data_ptr(),
+                    g.stride(0), None if occ is None else occ.data_ptr(),
+                    dlp.data_ptr(), B, T, C, U, int(blank), _build.stream_of(lp))
     _build.check_launch(rc, "ctc_beta_grad")
     ctc_beta_grad.launches += 1
     return dlp

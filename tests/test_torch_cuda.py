@@ -428,6 +428,136 @@ def test_ctc_kernels(gen, blank):
     torch.testing.assert_close(dlp, dlp_p, atol=1e-5, rtol=1e-4)
 
 
+def _ctc_edge_inputs(gen, B, T, U, C, blank, idx_dtype, variant0):
+    """Log-probs, targets and lengths whose sequences take turns through
+    the edge cases (sequence i: case (variant0 + i) % 6): full lengths
+    with a repeated label; T_b = 0; T_b > T and U_b > U; U_b = 0; all
+    labels one class; labels of any class (the blank too) with garbage
+    past U_b."""
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
+    tg = torch.randint(0, C, (B, U), device="cuda", generator=gen)
+    tg[tg == blank] = (blank + 1) % C
+    tlen = torch.randint(1, T + 1, (B,), device="cuda", generator=gen)
+    ulen = torch.randint(0, U + 1, (B,), device="cuda", generator=gen)
+    for i in range(B):
+        case = (variant0 + i) % 6
+        if case == 0:
+            tlen[i], ulen[i] = T, U
+            if U >= 2:
+                tg[i, 1] = tg[i, 0]
+        elif case == 1:
+            tlen[i] = 0
+        elif case == 2:
+            tlen[i], ulen[i] = T + 7, U + 3
+        elif case == 3:
+            ulen[i] = 0
+        elif case == 4:
+            tg[i] = (blank + 1) % C
+        else:
+            tg[i] = torch.randint(0, C, (U,), device="cuda", generator=gen)
+            ub = int(ulen[i])
+            tg[i, ub:ub + 1] = C + 7  # padding past U_b may hold anything
+            tg[i, ub + 1:] = -1
+    return lp, tg.to(idx_dtype), tlen.to(idx_dtype), ulen.to(idx_dtype)
+
+
+# one U past the warp path's WARP_STATES = 257 (2U+1 = 301)
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("U", [0, 1, 15, 16, 31, 32, 40, 128, 150])
+@pytest.mark.parametrize("T", [1, 2, 31, 32, 33, 251])
+@pytest.mark.parametrize("B", [1, 3, 32])
+def test_ctc_kernels_edges(gen, B, T, U, idx_dtype):
+    """K3 and K4 against their plain recursions at every side of the warp
+    kernels' steps (2U+1 = 1 ... 257 states, NC = 1 ... 9 a lane; 301
+    takes the block path), chunk edges in T, ragged and out-of-range
+    lengths, int32 and int64 targets and lengths taken as they come;
+    blank 0 or 5 and C = 3 (< S), 37 (< S from U = 19; not a multiple of
+    4: the fill's scalar head and tail) or 5000, by case.  Loss, alpha's
+    live part and the gradient at test_ctc_kernels' tolerances; rows
+    t >= T_b and classes outside the lattice exactly 0; two calls give
+    the same bits."""
+    case = B + 7 * T + 3 * U
+    blank, C = ((0, 3), (5, 37), (0, 5000), (5, 6))[case % 4]
+    lp, tg, tlen, ulen = _ctc_edge_inputs(gen, B, T, U, C, blank, idx_dtype,
+                                          case)
+    g = torch.randn(B, device="cuda", generator=gen)
+    args = (lp, tg, tlen, ulen, blank)
+    alpha, loss, logz = ops.ctc_alpha(*args)
+    alpha_p, loss_p, logz_p = ops.ctc_alpha_plain(*args)
+    dlp = ops.ctc_beta_grad(*args, alpha, logz, g)
+    dlp_p = ops.ctc_beta_grad_plain(*args, alpha_p, logz_p, g)
+    alpha2, loss2, logz2 = ops.ctc_alpha(*args)
+    dlp2 = ops.ctc_beta_grad(*args, alpha2, logz2, g)
+    torch.cuda.synchronize()
+    tb = tlen.long().clamp(0, T)
+    sb = 2 * ulen.long().clamp(0, U) + 1
+    live = torch.zeros(B, T, 2 * U + 1, dtype=torch.bool, device="cuda")
+    lattice = torch.zeros(B, T, C, dtype=torch.bool, device="cuda")
+    for b in range(B):
+        live[b, : max(int(tb[b]), 1), : int(sb[b])] = True
+        classes = [blank] + [min(max(int(c), 0), C - 1)
+                             for c in tg[b, : (int(sb[b]) - 1) // 2]]
+        lattice[b, : int(tb[b]), classes] = True
+    torch.testing.assert_close(loss, loss_p, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(alpha[live], alpha_p[live], atol=1e-4, rtol=1e-5)
+    # the same recursion; exp/log1p of the two libraries differ in ulps
+    torch.testing.assert_close(dlp, dlp_p, atol=1e-5, rtol=1e-4)
+    assert bool((dlp[~lattice] == 0).all())
+    assert torch.equal(alpha2[live], alpha[live]) and torch.equal(loss2, loss)
+    assert torch.equal(logz2, logz) and torch.equal(dlp2, dlp)
+
+
+def test_ctc_log1p_unit_is_log1pf_bit_for_bit(gen):
+    """The lattice kernels' branch-free log1p gives CUDA's log1pf's bits
+    for every float in [0, 1], the only arguments their lae passes it."""
+    from speechbrain_tpu_torch.ops.ctc import _log1p_unit_mismatches
+
+    assert _log1p_unit_mismatches(torch.device("cuda")) == 0
+
+
+def test_ctc_wrappers_are_one_launch(gen):
+    """At the training shape (B32 T251 C5000 U40; int64 targets, int32
+    lengths, as ``ctc_loss`` passes them) each of K3 and K4 is one device
+    kernel a call: no casts or clamps around it.  Over three calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, T, C, U = 32, 251, 5000, 40
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
+    tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
+    tlen = torch.tensor([T - (i % 8) * 4 for i in range(B)], device="cuda",
+                        dtype=torch.int32)
+    ulen = torch.tensor([U - (i % 5) for i in range(B)], device="cuda",
+                        dtype=torch.int32)
+    g = torch.randn(B, device="cuda", generator=gen)
+    args = (lp, tg, tlen, ulen, 0)
+    alpha, loss, logz = ops.ctc_alpha(*args)  # loads the library
+    ops.ctc_beta_grad(*args, alpha, logz, g)
+    torch.cuda.synchronize()
+    calls = 3
+    for name, fn in (("ctc_alpha_warp_kernel", lambda: ops.ctc_alpha(*args)),
+                     ("ctc_beta_grad_warp_kernel",
+                      lambda: ops.ctc_beta_grad(*args, alpha, logz, g))):
+        wrapper = ops.ctc_alpha if name.startswith("ctc_alpha") else ops.ctc_beta_grad
+        # the profiler may miss the first launch of its window (the count
+        # is bounded, the names are exact), and after many windows in one
+        # process it has recorded none at all: such a window is profiled
+        # again, as chip_smoke.py's _device_profile does
+        for _ in range(3):
+            before = wrapper.launches
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            assert wrapper.launches == before + calls
+            kernels = {e.key: e.count for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0) > 0}
+            if kernels:
+                break
+        assert len(kernels) == 1, kernels
+        assert all(name in k for k in kernels), kernels
+        assert sum(kernels.values()) <= calls, kernels
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("T,Tp", [(128, 128), (100, 128), (512, 512)])

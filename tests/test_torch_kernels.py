@@ -200,6 +200,55 @@ def test_ctc_loss_per_seq_matches_jax(blank):
                                    atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("U", [0, 15, 16, 31, 32, 128])
+def test_ctc_plain_matches_jax_at_warp_widths(U):
+    """The plain recursions, which the card tests hold the kernels to, at
+    2U+1 = 1, 31, 33, 63, 65 and 257 states: each side of every step of
+    the warp kernels' states per lane (32 a step), and the widest
+    lattice that warp path must take.  Per-sequence loss and the
+    gradient w.r.t. the logits, with a weight per sequence, against the
+    JAX Pallas kernels in interpret mode (B = 8: one of their batch
+    blocks).  Ragged lengths: U_b = U, 0 and in between; T_b = T and
+    less, T = U + 8, the fewest frames that leave every sequence a path
+    (no two neighbouring labels alike but the two repeats placed for
+    the skip rule).  JAX's kernel takes no (B, 0) targets: at U = 0 it
+    gets one padding column with U_b = 0, the same one-state lattice."""
+    B, C = 8, 11
+    T = U + 8
+    rng = np.random.default_rng(100 + U)
+    logits = rng.standard_normal((B, T, C)).astype(np.float32)
+    tg = np.zeros((B, U), np.int32)
+    for u in range(U):  # labels 1..C-1, each unlike the one before
+        step = rng.integers(1, C - 1, B)
+        tg[:, u] = (rng.integers(1, C, B) if u == 0
+                    else (tg[:, u - 1] - 1 + step) % (C - 1) + 1)
+    if U >= 2:
+        tg[0, 1] = tg[0, 0]
+        tg[5, U - 1] = tg[5, U - 2]
+    tb = np.array([T, T - 1, T - 3, T, T - 2, T, T - 5, T - 4], np.int32)
+    ub = np.array([U, U // 2, 0, U, max(U - 1, 0), U, U // 3, 1 if U else 0],
+                  np.int32)
+    g = rng.standard_normal(B).astype(np.float32)
+    lt = torch.from_numpy(logits).requires_grad_(True)
+    per = ctc_loss_per_seq(torch.log_softmax(lt, -1), torch.from_numpy(tg),
+                           torch.from_numpy(tb), torch.from_numpy(ub), 0)
+    (per * torch.from_numpy(g)).sum().backward()
+    j_tg = jnp.asarray(tg if U else np.ones((B, 1), np.int32))
+
+    def f(lg):
+        loss = jctc._ctc_pallas(jax.nn.log_softmax(lg, -1), j_tg,
+                                (jnp.asarray(tb), jnp.asarray(ub)), 0, True)
+        return jnp.sum(loss * g), loss
+
+    (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
+        jnp.asarray(logits))
+    # as test_ctc_loss_per_seq_matches_jax: the same f32 recursion
+    np.testing.assert_allclose(per.detach().numpy(), _np(j_per),
+                               atol=1e-4, rtol=1e-5)
+    np.testing.assert_allclose(lt.grad.numpy(), _np(j_grad),
+                               atol=1e-5, rtol=1e-4)
+
+
 def test_ctc_plain_wide_lattice_matches_jax():
     """The plain recursions at 2U+1 = 1041 states, above the 1024 that the
     kernels once took, against the JAX optax route: per-sequence loss and
