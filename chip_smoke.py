@@ -5,6 +5,7 @@ NVIDIA card.
     python3 chip_smoke.py
     python3 chip_smoke.py --only depthwise,relpos   # build + those checks
     python3 chip_smoke.py --only ctc                # K3/K4 records alone
+    python3 chip_smoke.py --only transducer         # K8/K9 records alone
 
 Phases, each printing one JSON line when it ends:
 
@@ -25,7 +26,11 @@ Phases, each printing one JSON line when it ends:
    chain alone) and ``chain_term_ms``: 251 dependent steps of JAX's
    ``lae(lae(a, a1), a2) + x`` behind one warp shuffle, timed by a
    one-warp loop built here (``_chain_step_ms``); and that the kernels'
-   branch-free log1p gives log1pf's bits on all of [0, 1].  The rel-pos kernels K5/K6 also run with attention dropout
+   branch-free log1p gives log1pf's bits on all of [0, 1].  K8 and K9
+   (RNN-T) give the same fields at U 64 and U 256 (role "wide"), with
+   ``chain_term_ms`` from the transducer form of the probe (``lae(a + x,
+   a1 + y)``, T + U steps), ``chain_floor_ms`` at B1 U0 T251,
+   and ``bit_identical_two_calls``.  The rel-pos kernels K5/K6 also run with attention dropout
    (rate 0.1, role "dropout"): against the plain version with the same
    seed (the same Philox mask), bit-identical across two launches with
    one seed, different at seed + 1.  K5 and K6 run on the tensor cores:
@@ -425,16 +430,23 @@ def _ctc_inputs(B, T, C, U):
     return logits, lp, targets, tlen, ulen
 
 
-# One warp walks a chain of dependent steps of the CTC recursion's form,
-# lae(lae(a, a1), a2) + x with a1 shuffled from the next lower lane (the
-# K3/K4 warp kernels' step): the least time a step of any kernel that
-# follows JAX's recursion in these libm functions can take.
+# One warp walks a chain of dependent steps of a lattice recursion's
+# form, with the neighbour's value shuffled from the next lower lane: the
+# least time a step of any kernel that follows JAX's recursion in these
+# libm functions can take.  ``ctc``: lae(lae(a, a1), a2) + x, the K3/K4
+# warp kernels' step (expf, log1pf); ``transducer``: lae(a + x, a1 + y)
+# in the RNN-T kernels' form (max floored at -1e30, exponents clamped at
+# -80, expf, expf, logf).
 _CHAIN_PROBE_SRC = r"""
 #include <cuda_runtime.h>
 #include <math.h>
 __device__ __forceinline__ float lae(float x, float y) {
   const float m = fmaxf(x, y);
   return m + log1pf(expf(fminf(x, y) - m));
+}
+__device__ __forceinline__ float lae_rnnt(float a, float b) {
+  const float m = fmaxf(fmaxf(a, b), -1.0e30f);
+  return m + logf(expf(fmaxf(a - m, -80.f)) + expf(fmaxf(b - m, -80.f)));
 }
 __global__ void lae_chain_probe(float* out, float x, int steps) {
   float a = -0.01f * threadIdx.x;
@@ -444,35 +456,68 @@ __global__ void lae_chain_probe(float* out, float x, int steps) {
   }
   out[threadIdx.x] = a;
 }
+__global__ void lae_rnnt_chain_probe(float* out, float x, int steps) {
+  float a = -0.01f * threadIdx.x;
+  for (int i = 0; i < steps; ++i) {
+    const float a1 = __shfl_up_sync(0xffffffffu, a, 1);
+    a = lae_rnnt(a + x, a1 + x);
+  }
+  out[threadIdx.x] = a;
+}
 extern "C" int lae_chain_probe_run(void* out, float x, int steps, void* st) {
   lae_chain_probe<<<1, 32, 0, (cudaStream_t)st>>>((float*)out, x, steps);
   return (int)cudaGetLastError();
 }
+extern "C" int lae_rnnt_chain_probe_run(void* out, float x, int steps,
+                                        void* st) {
+  lae_rnnt_chain_probe<<<1, 32, 0, (cudaStream_t)st>>>((float*)out, x, steps);
+  return (int)cudaGetLastError();
+}
 """
 
+# -log 3: lae(lae(a, ~a), a) = a + log 3; -log 2: lae(a - log 2, ~a -
+# log 2) = a.  Either way a stays put, so the chain neither overflows nor
+# reaches the clamps.
+_CHAIN_PROBE_X = {"ctc": -1.0986123, "transducer": -0.6931472}
 
-def _chain_step_ms():
-    """Device ms of one dependent step of ``_CHAIN_PROBE_SRC``'s chain:
-    CUDA events around 2N and N steps of one warp, the difference over N
-    (the launch cancels)."""
+
+def _chain_probe_lib():
+    """The probe library, built once for each version of
+    ``_CHAIN_PROBE_SRC`` and of the compiler flags (their hash names the
+    file, as ``_build`` names the kernels' libraries)."""
+    import ctypes
+    import hashlib
+
+    from speechbrain_tpu_torch.ops import _build
+
+    digest = hashlib.sha1((_CHAIN_PROBE_SRC + " ".join(
+        _build.NVCC_FLAGS)).encode()).hexdigest()[:12]
+    lib_path = _build.BUILD_DIR / f"liblae_chain_probe_{digest}.so"
+    if not lib_path.exists():
+        _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = _build.BUILD_DIR / "lae_chain_probe.cu"
+        src.write_text(_CHAIN_PROBE_SRC)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                        str(src)], check=True, capture_output=True)
+    return ctypes.CDLL(str(lib_path))
+
+
+def _chain_step_ms(kind="ctc"):
+    """Device ms of one dependent step of ``_CHAIN_PROBE_SRC``'s chain of
+    the given kind: CUDA events around 2N and N steps of one warp, the
+    difference over N (the launch cancels)."""
     import ctypes
 
     import torch
 
-    from speechbrain_tpu_torch.ops import _build
-
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "lae_chain_probe.cu"
-    lib_path = _build.BUILD_DIR / "liblae_chain_probe.so"
-    src.write_text(_CHAIN_PROBE_SRC)
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
-                    str(src)], check=True, capture_output=True)
-    fn = ctypes.CDLL(str(lib_path)).lae_chain_probe_run
+    lib = _chain_probe_lib()
+    fn = getattr(lib, {"ctc": "lae_chain_probe_run",
+                       "transducer": "lae_rnnt_chain_probe_run"}[kind])
     fn.argtypes = [ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                    ctypes.c_void_p]
     out = torch.empty(32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    x = -1.0986123  # -log 3: lae(lae(a, ~a), a) = a + log 3, so a stays put
+    x = _CHAIN_PROBE_X[kind]
     n = 100_000
 
     def run(steps):
@@ -486,7 +531,7 @@ def _chain_step_ms():
     return (ms[2 * n] - ms[n]) / n
 
 
-def _ctc_profile(fn):
+def _kernel_profile(fn):
     """Device ms by kernel and device kernels a call of ``fn``."""
     _, by_kernel, kernels = _device_profile(fn)
     return {"device_ms_by_kernel": by_kernel, "device_kernels_per_call": kernels}
@@ -591,7 +636,7 @@ def _check_ctc():
               "chain_floor_shape": [1, T, C, 0]}
     rows = [
         {"name": "ctc_alpha", **common, "max_abs_err": max(loss_err, alpha_err),
-         "tol": tol_loss, **_call_times(k3, lib_fwd), **_ctc_profile(k3),
+         "tol": tol_loss, **_call_times(k3, lib_fwd), **_kernel_profile(k3),
          "plain_ms": _time_ms(lambda: ctc_alpha_plain(*args), iters=3, warmup=1),
          "library": "F.ctc_loss forward",
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
@@ -599,7 +644,7 @@ def _check_ctc():
          "bound_note": f"plus a chain of up to {T} dependent steps: "
                        "chain_term_ms"},
         {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
-         "tol": tol_grad, **_call_times(k4, lib_fwd_bwd), **_ctc_profile(k4),
+         "tol": tol_grad, **_call_times(k4, lib_fwd_bwd), **_kernel_profile(k4),
          "plain_ms": _time_ms(lambda: ctc_beta_grad_plain(
              *args, alpha_p, logz_p, ones), iters=3, warmup=1),
          "library": "F.ctc_loss forward + backward",
@@ -963,9 +1008,13 @@ def _transducer_inputs(B, T, U, V, seed):
 def _check_transducer(U, role=None):
     """K8 (alpha + final) and K9 (beta + occupancy gradients) at the
     training shape (B 12, T 251, U 64: the recipe's token bucket, V 1000)
-    or the wide one (U 256, the top bucket: 257 threads, nine warps)
-    against their plain versions, float32; and the loss entry (tables,
-    K8, K9, fused softmax backward) against its plain route."""
+    or the wide one (U 256, the top bucket) against their plain versions,
+    float32; two calls give the same bits; and the loss entry (tables,
+    K8, K9, fused softmax backward) against its plain route.  Each kernel
+    timed as the loss entry launches it (card ms, device ms, host us,
+    device kernels a call by name); at B1 U0 T251 (one lattice column) as
+    the floor of the diagonal chain (``chain_floor_ms``); and beside
+    ``chain_term_ms``, T + U steps of ``_chain_step_ms("transducer")``."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -982,6 +1031,8 @@ def _check_transducer(U, role=None):
     grads = ops.transducer_beta_grad(*tables, alpha, tlen, ulen, final)
     grads_p = ops.transducer_beta_grad_plain(*tables, alpha_p, tlen, ulen,
                                              final_p)
+    alpha2, final2 = ops.transducer_alpha(*tables, tlen, ulen)
+    grads2 = ops.transducer_beta_grad(*tables, alpha2, tlen, ulen, final2)
     torch.cuda.synchronize()
     # the same recursion, cell by cell in the same order on both routes;
     # expf/logf differ in ulps.  |alpha| reaches ~2e3 (251 frames of
@@ -994,6 +1045,9 @@ def _check_transducer(U, role=None):
     tol_rel, tol_grad = 2e-5, 2e-3
     assert rel <= tol_rel, f"transducer alpha/final: rel err {rel} > {tol_rel}"
     assert grad_err <= tol_grad, f"transducer grads: {grad_err} > {tol_grad}"
+    same_bits = (torch.equal(alpha2, alpha) and torch.equal(final2, final)
+                 and all(torch.equal(a, b) for a, b in zip(grads2, grads)))
+    assert same_bits, "transducer kernels: two calls, other bits"
     # the loss entry, kernels against plain, loss and d loss / d logits
     out = []
     for use_kernels in (True, False):
@@ -1015,30 +1069,50 @@ def _check_transducer(U, role=None):
                          "float32")
     k9_bound = _bound_ms(4 * (2 * cells + B * T * U) + 4 * (cells + B * T * U)
                          + 12 * B, 20 * cells, "float32")
+    chain_term = (T + U) * _chain_step_ms("transducer")
     x = logits.clone().requires_grad_(True)
 
     def entry_fwd_bwd():
         ops.transducer_loss_logits(x, targets, tlen, ulen, 0).sum().backward()
 
+    def k8():
+        return ot._alpha_kernel(*tables, tl, ul)
+
+    def k9():
+        return ot._beta_grad_kernel(*tables, alpha, tl, ul, final)
+
+    # the diagonal chain alone: one utterance of one column, T frames
+    t1 = (tables[0][:1, :, :1].contiguous(), tables[1][:1, :, :0].contiguous())
+    tl1, ul1 = torch.full_like(tl[:1], T), torch.zeros_like(ul[:1])
+    alpha1, final1 = ot._alpha_kernel(*t1, tl1, ul1)
+    floor = {"transducer_alpha": _device_ms(lambda: ot._alpha_kernel(
+                 *t1, tl1, ul1))[0],
+             "transducer_beta_grad": _device_ms(lambda: ot._beta_grad_kernel(
+                 *t1, alpha1, tl1, ul1, final1))[0]}
     common = {"dtype": "float32", "shape": [B, T, U, V], "role": role,
               "cells": cells, "library_ms": None,
               "library": "none: no single call (PyTorch has no RNN-T loss)",
-              "tol_kind": "alpha/final relative, gradients absolute"}
-    chain = f"plus a chain of {T + U} dependent anti-diagonals"
+              "tol_kind": "alpha/final relative, gradients absolute",
+              "bit_identical_two_calls": same_bits,
+              "chain_term_ms": chain_term, "chain_floor_shape": [1, T, 0]}
+    chain = (f"plus a chain of {T + U} dependent anti-diagonals: "
+             "chain_term_ms")
     rows = [
         {"name": "transducer_alpha", **common, "max_abs_err": _err(alpha, alpha_p),
          "max_rel_err": rel, "tol": tol_rel,
-         "ms": _time_ms(lambda: ot._alpha_kernel(*tables, tl, ul)),
+         **_call_times(k8), **_kernel_profile(k8),
          "wrapper_ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen)),
          "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
              *tables, tlen, ulen), iters=3, warmup=1),
+         "chain_floor_ms": floor["transducer_alpha"],
          "bound_ms": k8_bound[0], "bound_by": k8_bound[1], "bound_note": chain},
         {"name": "transducer_beta_grad", **common, "max_abs_err": grad_err,
          "tol": tol_grad, "loss_entry_vs_plain": entry_err,
-         "ms": _time_ms(lambda: ot._beta_grad_kernel(*tables, alpha, tl, ul, final)),
+         **_call_times(k9), **_kernel_profile(k9),
          "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
              *tables, alpha_p, tlen, ulen, final_p), iters=3, warmup=1),
          "loss_fwd_bwd_ms": _time_ms(entry_fwd_bwd, iters=5),
+         "chain_floor_ms": floor["transducer_beta_grad"],
          "bound_ms": k9_bound[0], "bound_by": k9_bound[1], "bound_note": chain},
     ]
     del x, logits
@@ -1120,6 +1194,12 @@ def _check_lattice_wide():
     g_err = max(_err(a, b) for a, b in zip(grads, grads_p))
     tol_rel, tol_grad = 2e-5, 2e-3  # as at the training shape
     assert rel <= tol_rel and g_err <= tol_grad, (rel, g_err)
+    # the kernels alone (ms above: the wrappers, one host sync a call)
+    tl, ul = ot._validated(tlen, ulen, T, U, logits.device, "check")
+    device = {"transducer_alpha": _device_ms(lambda: ot._alpha_kernel(
+                  *tables, tl, ul))[0],
+              "transducer_beta_grad": _device_ms(lambda: ot._beta_grad_kernel(
+                  *tables, alpha, tl, ul, final))[0]}
     cells = B * T * (U + 1)
     k8 = _bound_ms(4 * (2 * cells + B * T * U) + 12 * B, 12 * cells, "float32")
     k9 = _bound_ms(4 * (3 * cells + 2 * B * T * U) + 12 * B, 20 * cells,
@@ -1130,6 +1210,7 @@ def _check_lattice_wide():
         {"name": "transducer_alpha", **common, "max_abs_err": _err(alpha, alpha_p),
          "max_rel_err": rel, "tol": tol_rel,
          "ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen), iters=5),
+         "device_ms": device["transducer_alpha"],
          "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
              *tables, tlen, ulen), iters=1, warmup=1),
          "bound_ms": k8[0], "bound_by": k8[1]},
@@ -1137,6 +1218,7 @@ def _check_lattice_wide():
          "tol": tol_grad,
          "ms": _time_ms(lambda: ops.transducer_beta_grad(
              *tables, alpha, tlen, ulen, final), iters=5),
+         "device_ms": device["transducer_beta_grad"],
          "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
              *tables, alpha_p, tlen, ulen, final_p), iters=1, warmup=1),
          "bound_ms": k9[0], "bound_by": k9[1]},
@@ -1801,7 +1883,8 @@ def kernels_line(records, main_runs):
         for r in records:
             if r["name"] == rec_name and r.get("role", role) != role:
                 entry.setdefault(r["role"], {})[r["dtype"]] = {
-                    k: r[k] for k in keys + ("shape", "rate", "seed") if k in r}
+                    k: r[k] for k in keys + ("shape", "rate", "seed", "device_ms")
+                    if k in r}
         out.append(entry)
     assert all(e["launches"] > 0 for e in out), launches
     return {"kernels": out}

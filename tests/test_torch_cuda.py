@@ -794,19 +794,43 @@ def _transducer_inputs(gen, B, T, U, V):
     return logits, tg, tlen, ulen
 
 
-@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (2, 37, 256), (3, 1, 5),
-                                   (2, 9, 1023), (2, 9, 1099), (1, 5, 5000),
-                                   (1, 3, 16999)])
-def test_transducer_kernels(gen, B, T, U):
-    """K8 (alpha, final) and K9 (dblank, demit) against their plain
-    versions, float32, at the training shape (B 12, T 251, U 64), a wide
-    one (U+1 = 257 threads: several warps), T = 1, U+1 = 1024 (one column
-    a thread), and lattices wider than a block has threads: U+1 = 1100
-    (two columns a thread), 5001 (eight) and 17000 (32, the inputs loaded
-    when each cell is reached instead of prefetched)."""
+def _transducer_tables(gen, B, T, U, edges=False):
+    """The masked tables of ``_transducer_inputs`` (V 16), its lengths and
+    the same as the kernels take them (int32); with ``edges`` (B >= 4)
+    the last row has T_b = 0 and the third U_b = 0."""
     logits, tg, tlen, ulen = _transducer_inputs(gen, B, T, U, 16)
+    if edges:
+        assert B >= 4
+        tlen[B - 1] = 0
+        ulen[2] = 0
     tables = ops.transducer.transducer_tables(
         torch.log_softmax(logits, -1), tg, 0, tlen, ulen)
+    tl, ul = ops.transducer._validated(tlen, ulen, T, U, tables[0].device, "t")
+    return tables, tlen, ulen, tl, ul
+
+
+# the warp-chain path's edges (U+1 = 1 ... 160: one to five chain warps;
+# 161 and 257 take the block path), at T 251 and T 1, B 4 with a T_b = 0
+# row, a U_b = 0 row and a U_b = U row
+_CHAIN_WIDTHS = [(4, T, U) for T in (251, 1)
+                 for U in (0, 31, 32, 63, 64, 95, 96, 127, 128, 159, 160, 256)]
+
+
+@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (2, 37, 256), (3, 1, 5),
+                                   (2, 9, 1023), (2, 9, 1099), (1, 5, 5000),
+                                   (1, 3, 16999)] + _CHAIN_WIDTHS)
+def test_transducer_kernels(gen, B, T, U):
+    """K8 (alpha, final) and K9 (dblank, demit) against their plain
+    versions, float32, at the training shape (B 12, T 251, U 64), T = 1,
+    the warp-chain path's edges (U+1 = 1, 32, 33, ..., 129, 160 at T 251
+    and T 1) and the block path: U+1 = 161 and 257 (several warps),
+    1024 (one column a thread), and lattices wider than a block has
+    threads: U+1 = 1100 (two columns a thread), 5001 (eight) and 17000
+    (32, the inputs loaded when each cell is reached instead of
+    prefetched).  At the path's edges the last row has T_b = 0 (final 0,
+    zero gradients) and the third U_b = 0."""
+    edges = (B, T, U) in _CHAIN_WIDTHS
+    tables, tlen, ulen, _, _ = _transducer_tables(gen, B, T, U, edges)
     before = (ops.transducer_alpha.launches, ops.transducer_beta_grad.launches)
     alpha, final = ops.transducer_alpha(*tables, tlen, ulen)
     alpha_p, final_p = ops.transducer_alpha_plain(*tables, tlen, ulen)
@@ -821,6 +845,57 @@ def test_transducer_kernels(gen, B, T, U):
     torch.testing.assert_close(alpha, alpha_p, atol=1e-3, rtol=2e-5)
     for got, ref in zip(grads, grads_p):  # occupancies in [-1, 0]
         torch.testing.assert_close(got, ref, atol=2e-3, rtol=0)
+    if edges:
+        assert final[B - 1] == 0
+        assert not grads[0][B - 1].any() and not grads[1][B - 1].any()
+
+
+@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (4, 251, 256), (4, 1, 0),
+                                   (2, 9, 1099)])
+def test_transducer_kernels_repeat_their_bits(gen, B, T, U):
+    """Two calls of K8 and of K9 give identical tensors (each element is
+    written by one thread, no float atomics), on the warp-chain path and
+    the block path (U+1 = 1100)."""
+    tables, _, _, tl, ul = _transducer_tables(gen, B, T, U, B >= 4)
+    ot = ops.transducer
+    runs = []
+    for _ in range(2):
+        alpha, final = ot._alpha_kernel(*tables, tl, ul)
+        runs.append((alpha, final,
+                     *ot._beta_grad_kernel(*tables, alpha, tl, ul, final)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_transducer_kernels_are_one_launch(gen):
+    """At the training shape (B12 T251 U64) each of K8 and K9 is one device
+    kernel a call, the warp-chain kernels by exact name.  Over three
+    calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tables, _, _, tl, ul = _transducer_tables(gen, 12, 251, 64, True)
+    ot = ops.transducer
+    alpha, final = ot._alpha_kernel(*tables, tl, ul)  # loads the library
+    ot._beta_grad_kernel(*tables, alpha, tl, ul, final)
+    torch.cuda.synchronize()
+    calls = 3
+    for name, fn in (
+            ("transducer_alpha_chain_kernel",
+             lambda: ot._alpha_kernel(*tables, tl, ul)),
+            ("transducer_beta_grad_chain_kernel",
+             lambda: ot._beta_grad_kernel(*tables, alpha, tl, ul, final))):
+        # a window in which the profiler recorded nothing is profiled again
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = {e.key: e.count for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0) > 0}
+            if kernels:
+                break
+        assert len(kernels) == 1, kernels
+        assert all(name in k for k in kernels), kernels
+        assert sum(kernels.values()) <= calls, kernels
 
 
 @pytest.mark.parametrize("normalize_by_T", [False, True])

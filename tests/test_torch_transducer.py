@@ -109,7 +109,8 @@ def _port_loss_and_grad(entry, x, targets, t_lens, u_lens, blank, norm):
 
 
 def _close(got, ref, what, tol=1e-4):
-    err = float(np.max(np.abs(np.asarray(got) - np.asarray(ref))))
+    assert np.shape(got) == np.shape(ref), (what, np.shape(got), np.shape(ref))
+    err = float(np.max(np.abs(np.asarray(got) - np.asarray(ref)), initial=0.0))
     assert err <= tol, f"{what}: max|port - jax| {err} > {tol}"
 
 
@@ -208,12 +209,11 @@ def test_zero_frame_row_follows_the_kernels(interpret):
     _close(got[[0, 2]], scan[[0, 2]], "scan loss, other rows")
 
 
-def test_kernel_functions_match_the_tpu_kernels(interpret):
+def _plain_vs_tpu_kernels(B, T, U, V, t_lens, u_lens, seed):
     """K8 and K9's plain versions against ``_run_forward`` and
     ``_run_backward`` on ``_pad_tables``' tables: alpha on the live cells
-    (t < T_b, u <= U_b), final, dblank and demit everywhere."""
-    B, T, U, V = 3, 7, 5, 6
-    x, tg, tl, ul = _inputs(B, T, U, V, [7, 5, 3], [5, 2, 0], 0, seed=9)
+    (t < T_b, u <= U_b), final, dblank and demit everywhere, within 1e-4."""
+    x, tg, tl, ul = _inputs(B, T, U, V, t_lens, u_lens, 0, seed=seed)
     lp = jax.nn.log_softmax(jnp.asarray(x), -1)
     blank_lp = lp[..., 0]
     emit_lp = jnp.take_along_axis(lp[:, :, :U], tg[:, None, :, None], -1)[..., 0]
@@ -237,6 +237,24 @@ def test_kernel_functions_match_the_tpu_kernels(interpret):
     _close(final.numpy(), np.asarray(final_j)[:B], "final")
     _close(db.numpy(), db_j, "dblank")
     _close(de.numpy(), de_j, "demit")
+
+
+def test_kernel_functions_match_the_tpu_kernels(interpret):
+    """K8 and K9's plain versions against ``_run_forward`` and
+    ``_run_backward`` on ``_pad_tables``' tables: alpha on the live cells
+    (t < T_b, u <= U_b), final, dblank and demit everywhere."""
+    _plain_vs_tpu_kernels(3, 7, 5, 6, [7, 5, 3], [5, 2, 0], seed=9)
+
+
+@pytest.mark.parametrize("U", [0, 31, 32, 63, 64, 96, 128])
+def test_plain_matches_jax_at_chain_widths(interpret, U):
+    """The same at the widths where the card kernels change shape (one to
+    five chain warps of 32 columns, one a lane: U+1 = 1 ... 129),
+    B 3, T 5: a U_b = U row, a U_b = 0 row and a T_b = 0 row (final 0,
+    zero gradients, as the TPU kernels give).  Tolerance 1e-4, the JAX
+    package's own for these entries."""
+    _plain_vs_tpu_kernels(3, 5, U, 6, [5, 3, 0], [U, 0, min(U, 7)],
+                          seed=100 + U)
 
 
 def test_scan_form_matches_jax():
