@@ -43,21 +43,34 @@ Phases, each printing one JSON line when it ends:
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
    counters must rise by 12 per encode (depthwise conv) and 4 per beam
    step (beam cache); the float32 run is compared with the same search
-   through the plain versions on the card.
-4. long    -- an utterance long enough for T_enc = 512 is encoded; the
+   through the plain versions on the card.  The CTC scores only the
+   attention's top 2 x beam tokens ("partial" mode), as in earlier runs.
+4. serve_lm -- the same model with a ``TransformerLM`` at the recipe's
+   dims (vocab 5000, d_model 768, 12 heads, 12 post-norm layers, d_ffn
+   3072, gelu; random weights from the seed) decodes as the recipe does:
+   full-vocabulary CTC scoring at 0.4, the LM fused at 0.6, no eos
+   threshold, length normalization.  The validation search (B = 8 x 10 s,
+   beam 10) in float32 and bfloat16, and the test search (B = 2 x 10 s,
+   beam 66) in float32: steps, encode and search ms, utt/s, peak memory,
+   the launches (depthwise conv 12, beam cache 4 per step) and, from a
+   profiled second run, the LM's device ms and share of the busy time
+   (its calls run in a ``record_function`` range).  The float32
+   validation search is repeated through the plain versions from the
+   same encoder states, with the same hypotheses.
+5. long    -- an utterance long enough for T_enc = 512 is encoded; the
    rel-pos attention kernel must run once per encoder layer, and the
    result must match the plain path.
-5. train   -- ``ConformerASRBrain(CONFORMER_SMALL)`` (full width,
+6. train   -- ``ConformerASRBrain(CONFORMER_SMALL)`` (full width,
    transformer_dropout 0.1) takes 30 AdamW steps on B = 32 synthetic
    10 s utterances in bf16, then in f32: ms/step, utt/s, peak memory,
    launches per step (depthwise 24, its dw 12, CTC alpha 1 and beta 1),
    finite losses that fall; then one f32 step's loss and gradients
    through the kernels against the plain versions (dropout 0), and the
    dropout keep fraction.
-6. train_long -- the same step with dropout 0 on B = 8 utterances of
+7. train_long -- the same step with dropout 0 on B = 8 utterances of
    20.44 s (T_enc = 512): the rel-pos kernels run forward and backward
    12 times per step; kernel vs plain gradients in f32.
-7. train_transducer -- ``ConformerTransducerBrain(CONFORMER_TRANSDUCER)``
+8. train_transducer -- ``ConformerTransducerBrain(CONFORMER_TRANSDUCER)``
    (full width, dropout 0.1) takes 30 AdamW steps on B = 12 synthetic
    10 s utterances with up to 40 tokens padded to 64, in bf16 then f32:
    ms/step, utt/s, peak memory, the busy share of a profiled step,
@@ -66,8 +79,9 @@ Phases, each printing one JSON line when it ends:
    only; then one f32 step's loss and gradients through the kernels
    against the plain versions (dropout 0).
 
-Then one ``{"kernels": [...]}`` line (launch counts from phases 3 to 7,
-each counted from 0 just before its run), and last the device line.
+Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
+(launch counts from phases 3 to 8, each counted from 0 just before its
+run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
 failed check raises, so the exit code is non-zero and the device line
@@ -1324,11 +1338,14 @@ def _synthetic(B, samples, seed):
     return torch.from_numpy(sig).cuda(), torch.from_numpy(lens).cuda()
 
 
-def _search(asr, enc, lens, beam, ctc_weight):
-    """Run the beam search; returns (hyps, scores, steps, seconds)."""
+def _search(asr, enc, lens, beam, ctc_weight, **options):
+    """Run the beam search (``options`` go to ``make_searcher``); returns
+    (hyps, scores, steps, seconds).  An LM's calls run inside a
+    ``record_function`` range named "lm_forward", which ``_profile``
+    reads."""
     import torch
 
-    searcher = asr.make_searcher(beam, ctc_weight)
+    searcher = asr.make_searcher(beam, ctc_weight, **options)
     steps = [0]
     step = searcher.forward_step
 
@@ -1337,6 +1354,14 @@ def _search(asr, enc, lens, beam, ctc_weight):
         return step(*args)
 
     searcher.forward_step = counted
+    if searcher.lm_fn is not None:
+        lm_fn = searcher.lm_fn
+
+        def lm_in_range(prefix):
+            with torch.profiler.record_function("lm_forward"):
+                return lm_fn(prefix)
+
+        searcher.lm_fn = lm_in_range
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     store = searcher.search_device(enc, lens)
@@ -1346,11 +1371,13 @@ def _search(asr, enc, lens, beam, ctc_weight):
     return hyps, scores, steps[0], seconds
 
 
-def _profile(fn):
+def _profile(fn, ranges=()):
     """Run ``fn`` (which returns how many steps it ran) under
     torch.profiler: how much of the wall time the card is busy, how many
-    kernels a step launches, and the kernels that take the most device
-    time."""
+    kernels a step launches, the kernels that take the most device
+    time, and the device time of the kernels launched inside each
+    ``record_function`` range named in ``ranges`` (and its share of the
+    busy time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1378,7 +1405,15 @@ def _profile(fn):
             if fn in name:
                 ms, count = port.get(fn, (0.0, 0))
                 port[fn] = (ms + us / 1e3, count + n)
+    in_ranges = {}
+    for e in prof.events():
+        if e.name in ranges and e.device_type == torch.autograd.DeviceType.CPU:
+            # the range's kernels and those of the ops inside it
+            in_ranges[e.name] = in_ranges.get(e.name, 0.0) + e.device_time_total
     return {
+        "ranges": {name: {"device_ms": us / 1e3,
+                          "busy_share": us / busy_us if busy_us else "not measured"}
+                   for name, us in in_ranges.items()},
         "profiled_steps": steps,
         "profiled_wall_ms": 1e3 * seconds,
         "device_busy_ms": busy_us / 1e3 if busy_us else "not measured",
@@ -1425,13 +1460,15 @@ def phase_serve():
             asr.seq_lin.bias[CONFORMER_SMALL["eos_index"]] += EOS_BIAS
         # warm-up (untimed): library handles, kernel loads, first-call
         # allocations of every shape the search meets
-        _search(asr, asr.encode(sig, lens), lens, beam, ctc_weight)
+        _search(asr, asr.encode(sig, lens), lens, beam, ctc_weight,
+                ctc_score_mode="partial")
         ops.reset_launch_counters()
         t0 = time.perf_counter()
         enc = asr.encode(sig, lens)
         torch.cuda.synchronize()
         encode_s = time.perf_counter() - t0
-        hyps, scores, steps, search_s = _search(asr, enc, lens, beam, ctc_weight)
+        hyps, scores, steps, search_s = _search(asr, enc, lens, beam, ctc_weight,
+                                                ctc_score_mode="partial")
         counts = ops.launch_counters()
         assert enc.shape == (B, 251, CONFORMER_SMALL["d_model"]), enc.shape
         assert bool(torch.isfinite(enc.float()).all()), "non-finite encoder output"
@@ -1442,7 +1479,8 @@ def phase_serve():
         assert counts["relpos_attention"] == 0, counts  # T_enc=251 < 512
         run = {
             "dtype": dtype_name, "batch": B, "seconds_audio": 10.0,
-            "beam": beam, "ctc_weight": ctc_weight, "T_enc": enc.shape[1],
+            "beam": beam, "ctc_weight": ctc_weight, "ctc_score_mode": "partial",
+            "T_enc": enc.shape[1],
             "steps": steps, "launches": counts, "encode_ms": 1e3 * encode_s,
             "search_ms": 1e3 * search_s,
             "utt_per_s": B / (encode_s + search_s),
@@ -1460,7 +1498,7 @@ def phase_serve():
             # states, so that it holds the beam-cache kernel alone; the
             # two encoders are compared just below
             hyps_p, scores_p, steps_p, plain_search_s = _search(
-                asr, enc, lens, beam, ctc_weight)
+                asr, enc, lens, beam, ctc_weight, ctc_score_mode="partial")
             asr.set_kernels(True)
             err = _err(enc, enc_p)
             # f32 on both routes; only summation order differs, 12 layers deep
@@ -1476,10 +1514,102 @@ def phase_serve():
                 "plain_utt_per_s": B / (plain_encode_s + plain_search_s),
             })
         run["profile"] = _profile(
-            lambda: _search(asr, enc, lens, beam, ctc_weight)[2])
+            lambda: _search(asr, enc, lens, beam, ctc_weight,
+                            ctc_score_mode="partial")[2])
         emit({"phase": "serve", **run})
         runs[dtype_name] = run
         del asr
+    return runs
+
+
+# recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml:59-67
+# and train.py:107-143: the searches of the conformer + TransformerLM
+# config (BASELINE.json config 4): (name, batch, beam, dtypes)
+SERVE_LM_SEARCHES = (("valid", 8, 10, ("float32", "bfloat16")),
+                     ("test", 2, 66, ("float32",)))
+
+
+def phase_serve_lm():
+    """conformer_small with a TransformerLM (recipe dims, random weights)
+    decodes as the recipe does: full CTC scoring at 0.4, the LM fused at
+    0.6, no eos threshold, length normalization.  The validation search
+    (B 8 x 10 s, beam 10) in f32 and bf16, the f32 one also through the
+    plain versions from the same encoder states; the test search (B 2 x
+    10 s, beam 66) in f32."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.asr import (
+        CONFORMER_SMALL,
+        TRANSFORMER_LM,
+        ConformerASR,
+        build_transformer_lm,
+    )
+
+    ctc_weight, lm_weight = 0.4, 0.6
+    n_dec = CONFORMER_SMALL["num_decoder_layers"]
+    n_enc = CONFORMER_SMALL["num_encoder_layers"]
+    lm = build_transformer_lm(TRANSFORMER_LM, seed=SEED)
+    options = {"lm": lm, "lm_weight": lm_weight, "ctc_score_mode": "full",
+               "using_eos_threshold": False, "length_normalization": True}
+    runs = {}
+    for search, B, beam, dtype_names in SERVE_LM_SEARCHES:
+        sig, lens = _synthetic(B, 160000, SEED)
+        for dtype_name in dtype_names:
+            asr = ConformerASR(CONFORMER_SMALL, dtype=getattr(torch, dtype_name),
+                               seed=SEED)
+            with torch.no_grad():  # as in phase_serve
+                asr.ctc_lin.bias[CONFORMER_SMALL["blank_index"]] += BLANK_BIAS
+                asr.seq_lin.bias[CONFORMER_SMALL["eos_index"]] += EOS_BIAS
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counters()
+            t0 = time.perf_counter()
+            enc = asr.encode(sig, lens)
+            torch.cuda.synchronize()
+            encode_s = time.perf_counter() - t0
+            hyps, scores, steps, search_s = _search(asr, enc, lens, beam,
+                                                    ctc_weight, **options)
+            counts = ops.launch_counters()
+            peak = torch.cuda.max_memory_allocated()
+            assert enc.shape == (B, 251, CONFORMER_SMALL["d_model"]), enc.shape
+            assert bool(torch.isfinite(enc.float()).all()), "non-finite encoder output"
+            assert np.isfinite(scores).all(), f"non-finite scores {scores}"
+            assert len(hyps) == B
+            assert counts["depthwise_conv1d"] == n_enc, counts
+            assert counts["beam_attend_step"] == n_dec * steps, (counts, steps)
+            run = {
+                "search": search, "dtype": dtype_name, "batch": B,
+                "seconds_audio": 10.0, "beam": beam, "rows": B * beam,
+                "ctc_weight": ctc_weight, "ctc_score_mode": "full",
+                "lm_weight": lm_weight, "T_enc": enc.shape[1], "steps": steps,
+                "launches": counts, "encode_ms": 1e3 * encode_s,
+                "search_ms": 1e3 * search_s,
+                "utt_per_s": B / (encode_s + search_s),
+                "peak_memory_gib": peak / 2**30,
+                "hyp_lens": [len(h) for h in hyps],
+                "note": "first call of each shape: no warm-up run",
+            }
+            if dtype_name == "float32" and search == "valid":
+                # the plain versions from the kernel route's encoder states
+                asr.set_kernels(False)
+                hyps_p, scores_p, _, plain_search_s = _search(
+                    asr, enc, lens, beam, ctc_weight, **options)
+                asr.set_kernels(True)
+                assert hyps == hyps_p, "hypotheses differ between kernels and plain"
+                run.update({
+                    "hyps_equal_plain": True,
+                    "score_max_abs_diff_vs_plain":
+                        float(np.abs(scores - scores_p).max()),
+                    "plain_search_ms": 1e3 * plain_search_s,
+                })
+            run["profile"] = _profile(
+                lambda: _search(asr, enc, lens, beam, ctc_weight, **options)[2],
+                ranges=("lm_forward",))
+            emit({"phase": "serve_lm", **run})
+            runs[f"{search}_{dtype_name}"] = run
+            del asr, enc
+            torch.cuda.empty_cache()
     return runs
 
 
@@ -1849,8 +1979,9 @@ def phase_train_transducer():
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
-    summed over the main-path runs (serve, long, train, train_long,
-    train_transducer), each counted from 0 just before its run."""
+    summed over the main-path runs (serve, serve_lm, long, train,
+    train_long, train_transducer), each counted from 0 just before its
+    run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -1917,15 +2048,25 @@ def main():
         # a subset of the kernel checks, and nothing else
         phase_kernels(set(sys.argv[2].split(",")))
         return 0
-    records = phase_kernels()
-    serve = phase_serve()
-    long_run = phase_long()
-    train = phase_train()
-    train_long = phase_train_long()
-    transducer = phase_train_transducer()
-    main_runs = [serve["float32"], serve["bfloat16"], long_run,
-                 train["bf16"], train["fp32"], train_long["fp32"],
+    seconds = {}
+
+    def timed(name, phase):
+        t0 = time.perf_counter()
+        out = phase()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    records = timed("kernels", phase_kernels)
+    serve = timed("serve", phase_serve)
+    serve_lm = timed("serve_lm", phase_serve_lm)
+    long_run = timed("long", phase_long)
+    train = timed("train", phase_train)
+    train_long = timed("train_long", phase_train_long)
+    transducer = timed("train_transducer", phase_train_transducer)
+    main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
+                 long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"]]
+    emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

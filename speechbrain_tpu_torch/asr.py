@@ -6,8 +6,10 @@ model (serving and the training step) and the conformer-transducer
 front end -> ``TransformerASR`` (conformer encoder, transformer
 decoder) -> CTC and seq2seq heads, and ``transcribe`` runs the joint
 CTC/attention beam search with the KV-cached decoder, as the
-LibriSpeech transformer recipe serves it.  ``ConformerASRBrain`` trains
-the same modules with the recipe's step
+LibriSpeech transformer recipe serves it: full-vocabulary CTC scoring,
+and with a ``TransformerLM`` (``build_transformer_lm``, the recipe's
+``TRANSFORMER_LM`` dims) fused at ``lm_weight`` 0.6.
+``ConformerASRBrain`` trains the same modules with the recipe's step
 (``recipes/LibriSpeech/ASR/transformer/train.py``, without SpecAugment
 and the WER search).  Weights are random from a seed, or loaded with
 ``load_state_dict`` from ``bridge.py``'s output; nothing is downloaded.
@@ -32,6 +34,7 @@ from .device import resolve_device
 from .lobes.features import Fbank
 from .lobes.models.convolution import ConvolutionFrontEnd
 from .lobes.models.transformer.TransformerASR import TransformerASR
+from .lobes.models.transformer.TransformerLM import TransformerLM
 from .nnet.embedding import Embedding
 from .nnet.linear import Linear
 from .nnet.losses import ctc_loss, kldiv_loss, transducer_loss
@@ -41,6 +44,7 @@ from .nnet.transducer.transducer_joint import Transducer_joint
 from .processing.features import InputNormalization
 
 __all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain",
+           "TRANSFORMER_LM", "build_transformer_lm",
            "CONFORMER_TRANSDUCER", "ConformerTransducer",
            "ConformerTransducerBrain"]
 
@@ -78,6 +82,18 @@ CONFORMER_SMALL = {
     "lr_adam": 8e-4,
     "n_warmup_steps": 25000,
     "max_grad_norm": 5.0,
+}
+
+# recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml:121-126
+# (lm_model; the other arguments are the JAX TransformerLM's defaults)
+TRANSFORMER_LM = {
+    "vocab": 5000,
+    "d_model": 768,
+    "nhead": 12,
+    "num_encoder_layers": 12,
+    "d_ffn": 3072,
+    "activation": "gelu",
+    "normalize_before": False,
 }
 
 # recipes/LibriSpeech/ASR/transducer/hparams/conformer_transducer.yaml
@@ -159,6 +175,23 @@ def _random_init(module, gen):
             p.copy_(torch.randn(p.shape, generator=gen) / math.sqrt(fan_in))
 
 
+def build_transformer_lm(config=TRANSFORMER_LM, device=None, seed=0):
+    """A ``TransformerLM`` of ``config``'s dims in eval mode on ``device``
+    (None: the CUDA card) with random weights from ``seed``, for
+    ``ConformerASR.transcribe(lm=...)``.
+
+    Example
+    -------
+    >>> lm = build_transformer_lm(dict(TRANSFORMER_LM, vocab=12, d_model=16,
+    ...     nhead=2, num_encoder_layers=1, d_ffn=32), device="cpu")
+    >>> lm(torch.zeros(1, 3, dtype=torch.long)).shape
+    torch.Size([1, 3, 12])
+    """
+    lm = TransformerLM(**config)
+    _random_init(lm, torch.Generator().manual_seed(seed))
+    return lm.to(resolve_device(device)).eval()
+
+
 def _set_kernels(module, flag):
     for m in module.modules():
         if hasattr(m, "use_kernels"):
@@ -225,11 +258,22 @@ class ConformerASR(torch.nn.Module):
         src = self.frontend(feats.to(self.dtype))
         return self.transformer.encode(src, sig_lens)
 
-    def make_searcher(self, beam_size=10, ctc_weight=0.4):
+    def make_searcher(self, beam_size=10, ctc_weight=0.4, lm=None,
+                      lm_weight=None, ctc_score_mode="full",
+                      using_eos_threshold=False, length_normalization=True,
+                      **options):
         """The joint CTC/attention beam searcher over this model, with
-        the recipe's decode settings (partial CTC scoring, length
-        normalization, no eos threshold)."""
+        the recipe's decode settings by default: full-vocabulary CTC
+        scoring, no eos threshold, length normalization, and with ``lm``
+        (a ``TransformerLM``, run in this model's dtype) shallow fusion at
+        ``lm_weight`` 0.6.  ``options`` go to ``S2STransformerBeamSearch``
+        (``topk``, ``eos_threshold``, ``length_rewarding``,
+        ``temperature``, ``temperature_lm``)."""
         c = self.config
+        if lm_weight is None:
+            lm_weight = 0.6 if lm is not None else 0.0
+        if lm_weight > 0 and lm is None:
+            raise ValueError("lm_weight > 0 needs an lm")
         return S2STransformerBeamSearch(
             step_fn=lambda tok, cache, pos, el, rows: (
                 self.transformer.decode_step(tok, cache, pos, el, rows=rows)
@@ -237,6 +281,8 @@ class ConformerASR(torch.nn.Module):
             cache_init_fn=self.transformer.decode_cache_init,
             linear_fn=self.seq_lin,
             ctc_linear_fn=self.ctc_lin,
+            lm_fn=None if lm is None else (
+                lambda prefix: lm(prefix, dtype=self.dtype)),
             bos_index=c["bos_index"],
             eos_index=c["eos_index"],
             blank_index=c["blank_index"],
@@ -244,14 +290,23 @@ class ConformerASR(torch.nn.Module):
             max_decode_ratio=c["max_decode_ratio"],
             beam_size=beam_size,
             ctc_weight=ctc_weight,
+            lm_weight=lm_weight,
+            ctc_score_mode=ctc_score_mode,
+            using_eos_threshold=using_eos_threshold,
+            length_normalization=length_normalization,
+            **options,
         )
 
     @torch.no_grad()
-    def transcribe(self, sig, sig_lens, beam_size=10, ctc_weight=0.4):
+    def transcribe(self, sig, sig_lens, beam_size=10, ctc_weight=0.4,
+                   **search_options):
         """Returns ``(hyps, scores)``: per utterance the best token list
-        (bos/eos stripped) and its length-normalized score (numpy)."""
+        (bos/eos stripped) and its score (numpy; with ``topk`` > 1 also
+        the top hypotheses, as ``S2SBeamSearcher.finalize`` returns them).
+        ``search_options`` are ``make_searcher``'s (``lm``,
+        ``lm_weight``, ``ctc_score_mode``, ...)."""
         enc = self.encode(sig, sig_lens)
-        searcher = self.make_searcher(beam_size, ctc_weight)
+        searcher = self.make_searcher(beam_size, ctc_weight, **search_options)
         return searcher(enc, sig_lens.to(self.device, torch.float32))
 
 

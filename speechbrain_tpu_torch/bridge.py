@@ -17,7 +17,13 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
 - GRU ``l{i}_wx`` Dense ``(in, 3H)`` + bias -> ``weight_ih``/``bias_ih``,
   ``l{i}_u (H, 3H)`` -> ``weight_hh``, ``l{i}_u_bias`` -> ``bias_hh``
   (``_bwd`` -> the ``_reverse`` direction), gates r, z, n in both;
-- ``Embed_0.embedding`` -> ``weight`` (nothing in one-hot mode).
+- ``Embed_0.embedding`` -> ``weight`` (nothing in one-hot mode);
+- ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
+  optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
+  last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
+  ``encoder`` (each layer's attention ``MultiheadAttention_0`` or
+  ``RelPosMHAXL_0`` -> ``self_attn``, ``LayerNorm_0``/``_1`` ->
+  ``norm1``/``norm2``, ``PositionalwiseFeedForward_0`` -> ``ffn``).
 """
 
 import numpy as np
@@ -42,6 +48,9 @@ __all__ = [
     "conformer_transducer_state_dict",
     "to_jax_gru",
     "to_jax_conformer_transducer",
+    "encoder_layer",
+    "transformer_lm_state_dict",
+    "to_jax_transformer_lm",
 ]
 
 
@@ -130,6 +139,20 @@ def decoder_layer(p):
     }
 
 
+def encoder_layer(p):
+    """TransformerEncoderLayer parameters (either attention type)."""
+    if "RelPosMHAXL_0" in p:
+        attn = relpos_mha(p["RelPosMHAXL_0"])
+    else:
+        attn = mha(p["MultiheadAttention_0"])
+    return {
+        **_prefixed("self_attn", attn),
+        **_prefixed("norm1", layer_norm(p["LayerNorm_0"])),
+        **_prefixed("norm2", layer_norm(p["LayerNorm_1"])),
+        **_prefixed("ffn", ffn(p["PositionalwiseFeedForward_0"])),
+    }
+
+
 def _numbered(p, prefix):
     return [p[k] for k in sorted(
         (k for k in p if k.startswith(prefix)),
@@ -172,6 +195,21 @@ def transformer_asr_state_dict(params):
         for i, layer in enumerate(_numbered(dec, "layer_")):
             sd.update(_prefixed(f"decoder.layers.{i}", decoder_layer(layer)))
         sd.update(_prefixed("decoder.norm_out", layer_norm(dec["norm_out"])))
+    return sd
+
+
+def transformer_lm_state_dict(params):
+    """TransformerLM params -> the port's ``TransformerLM`` state_dict."""
+    sd = {"emb.emb.weight": _t(
+        params["NormalizedEmbedding_0"]["Embed_0"]["embedding"])}
+    denses = _numbered(params, "Dense_")
+    if len(denses) == 2:  # the d_embedding projection, then the output
+        sd.update(_prefixed("emb_proj", dense(denses[0])))
+    sd.update(_prefixed("output_proj", dense(denses[-1])))
+    enc = params["TransformerEncoder_0"]
+    for i, layer in enumerate(_numbered(enc, "layer_")):
+        sd.update(_prefixed(f"encoder.layers.{i}", encoder_layer(layer)))
+    sd.update(_prefixed("encoder.norm_out", layer_norm(enc["norm_out"])))
     return sd
 
 
@@ -331,6 +369,44 @@ def _decoder_layer_to_jax(s):
         "LayerNorm_1": _ln_to_jax(s.sub("norm2")),
         "LayerNorm_2": _ln_to_jax(s.sub("norm3")),
         "PositionalwiseFeedForward_0": _ffn_to_jax(s.sub("ffn")),
+    }
+
+
+def _encoder_layer_to_jax(s):
+    a = s.sub("self_attn")
+    if "pos_bias_u" in a:
+        attn = {n: _dense_to_jax(a.sub(n)) for n in
+                ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")}
+        attn["pos_bias_u"] = _a(a["pos_bias_u"])
+        attn["pos_bias_v"] = _a(a["pos_bias_v"])
+        name = "RelPosMHAXL_0"
+    else:
+        attn = {n: _dense_to_jax(a.sub(n))
+                for n in ("q_proj", "k_proj", "v_proj", "out_proj")}
+        name = "MultiheadAttention_0"
+    return {
+        name: attn,
+        "LayerNorm_0": _ln_to_jax(s.sub("norm1")),
+        "LayerNorm_1": _ln_to_jax(s.sub("norm2")),
+        "PositionalwiseFeedForward_0": _ffn_to_jax(s.sub("ffn")),
+    }
+
+
+def to_jax_transformer_lm(state_dict, prefix=""):
+    """The port's ``TransformerLM`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    enc = s.sub("encoder")
+    denses = [_dense_to_jax(s.sub("output_proj"))]
+    if "emb_proj.weight" in s:
+        denses.insert(0, _dense_to_jax(s.sub("emb_proj")))
+    return {
+        "NormalizedEmbedding_0": {"Embed_0": {"embedding": _a(s["emb.emb.weight"])}},
+        **{f"Dense_{i}": d for i, d in enumerate(denses)},
+        "TransformerEncoder_0": {
+            **{f"layer_{i}": _encoder_layer_to_jax(enc.sub(f"layers.{i}"))
+               for i in range(enc.count("layers"))},
+            "norm_out": _ln_to_jax(enc.sub("norm_out")),
+        },
     }
 
 

@@ -1,14 +1,63 @@
-"""CTC prefix scoring for joint CTC/attention beam search.
+"""CTC greedy decoding, and CTC prefix scoring for joint CTC/attention
+beam search.
 
-Counterpart of ``speechbrain_tpu/decoders/ctc.py`` (``CTCPrefixScorer``,
-without the attention-window option).  The two time recursions are
-linear in the log semiring; like the JAX package they run as parallel
-prefix scans, here a Hillis-Steele scan of depth ceil(log2 T).
+Counterpart of ``speechbrain_tpu/decoders/ctc.py``
+(``filter_ctc_output``, ``ctc_greedy_decode``, ``CTCPrefixScorer``
+without the attention-window option).  The scorer's two time recursions
+are linear in the log semiring; like the JAX package they run as
+parallel prefix scans, here a Hillis-Steele scan of depth ceil(log2 T).
 """
 
 import torch
 
-__all__ = ["CTCPrefixScorer"]
+__all__ = ["filter_ctc_output", "ctc_greedy_decode", "CTCPrefixScorer"]
+
+
+def filter_ctc_output(string_pred, blank_id=-1):
+    """Merge repeats, then drop blanks, in one prediction list.
+
+    Example
+    -------
+    >>> filter_ctc_output([0, 0, 1, 1, 0, 2, 2], blank_id=0)
+    [1, 2]
+    """
+    if not isinstance(string_pred, list):
+        raise ValueError("filter_ctc_output expects a list")
+    merged = [v for i, v in enumerate(string_pred)
+              if i == 0 or v != string_pred[i - 1]]
+    return [v for v in merged if v != blank_id]
+
+
+def ctc_greedy_decode(probabilities, seq_lens, blank_id=-1):
+    """Per utterance: argmax over the classes of its first
+    round(len * T) frames (round half to even), merged and without
+    blanks.
+
+    Arguments
+    ---------
+    probabilities : (batch, T, classes) posteriors or log-probs.
+    seq_lens : (batch,) relative lengths.
+    blank_id : int; negative counts from the end of the classes.
+
+    Returns a list of token lists (on the host).
+
+    Example
+    -------
+    >>> probs = torch.tensor([[[0.1, 0.9, 0.0], [0.1, 0.9, 0.0],
+    ...                        [0.9, 0.1, 0.0], [0.0, 0.0, 1.0]]])
+    >>> ctc_greedy_decode(probs, torch.ones(1), blank_id=0)
+    [[1, 2]]
+    """
+    if blank_id < 0:
+        blank_id = probabilities.shape[-1] + blank_id
+    T = probabilities.shape[1]
+    argmaxes = probabilities.argmax(-1).cpu().numpy()
+    lens = torch.as_tensor(seq_lens).float().cpu().numpy()
+    return [
+        filter_ctc_output(seq[: int(round(float(n) * T))].tolist(),
+                          blank_id=blank_id)
+        for seq, n in zip(argmaxes, lens)
+    ]
 
 
 def _semiring_scan(a, b):

@@ -1,13 +1,22 @@
-"""Batched beam search for the joint CTC/attention transformer ASR.
+"""Batched beam search for the joint CTC/attention transformer ASR, with
+shallow fusion of a transformer LM.
 
 Counterpart of ``speechbrain_tpu/decoders/seq2seq.py``
-(``S2SBeamSearcher.search_device``/``finalize`` and
+(``S2SBeamSearcher.search_device``/``finalize``,
 ``S2STransformerBeamSearch`` on its KV-cache path with the deferred
-``rows`` permutation).  The JAX ``lax.while_loop`` becomes a Python loop
-with the same early exit (every batch item holds ``beam_size``
-finished hypotheses).  Hypothesis bookkeeping is the same masked,
-fixed-shape tensor code, so results match step for step.  Top-k breaks
-ties toward the lower index, as ``jax.lax.top_k`` does.
+``rows`` permutation and on its prefix-buffer path, its transformer-LM
+step, and the helpers ``inflate_tensor``, ``mask_by_condition``,
+``filter_seq2seq_output`` and ``batch_filter_seq2seq_output``).  The
+JAX ``lax.while_loop`` becomes a Python loop with the same early exit
+(every batch item holds ``beam_size`` finished hypotheses).  Hypothesis
+bookkeeping is the same masked, fixed-shape tensor code, so results
+match step for step.  Top-k breaks ties toward the lower index, as
+``jax.lax.top_k`` does.
+
+Not ported: the coverage penalty, the attention-shift limit and the CTC
+attention window, which act only on attention weights that the
+transformer searcher's step does not return (``None`` in JAX too), and
+the greedy and RNN searchers.
 """
 
 import numpy as np
@@ -15,7 +24,14 @@ import torch
 
 from .ctc import CTCPrefixScorer
 
-__all__ = ["S2SBeamSearcher", "S2STransformerBeamSearch"]
+__all__ = [
+    "S2SBeamSearcher",
+    "S2STransformerBeamSearch",
+    "inflate_tensor",
+    "mask_by_condition",
+    "filter_seq2seq_output",
+    "batch_filter_seq2seq_output",
+]
 
 MINUS_INF = -1e20
 
@@ -26,38 +42,86 @@ def _topk(x, k):
     return vals[..., :k], idx[..., :k]
 
 
+def _gather_rows(memory, rows):
+    """Reorder every tensor entry's leading axis by ``rows``; scalars
+    (and 0-d tensors) are left alone."""
+    return {k: v[rows] if torch.is_tensor(v) and v.dim() >= 1 else v
+            for k, v in memory.items()}
+
+
 class S2SBeamSearcher:
     """Batched beam search with masked fixed-shape bookkeeping.
 
     Subclasses provide ``reset_mem(n, enc_states)``,
     ``forward_step(inp_tokens, memory, enc_lens)`` -> (log_probs (n, V),
-    memory) with ``memory["rows"]`` holding the predecessor map the
-    next step applies, and ``ctc_forward_step(enc_states)``.
-    Calling the searcher returns ``(hyps, top_scores)``.
+    memory), where ``memory["rows"]`` is the predecessor map that the
+    search sets after each step and the next step applies,
+    ``ctc_forward_step(enc_states)``, and, for LM fusion,
+    ``reset_lm_mem(n)`` and ``lm_forward_step(inp_tokens, lm_memory)``.
+    Calling the searcher returns ``finalize``'s result.
 
-    The decode settings are those the recipe serves with: scores
-    length-normalized, no eos threshold, and with ``ctc_weight`` > 0 the
-    CTC prefix scores computed for the attention's top 2 * beam tokens
-    only (the JAX "partial" mode).  The JAX searcher's other options
-    (LM fusion, eos threshold, coverage and attention-shift penalties,
-    length rewarding, top-k output) are not ported yet.
+    Each step, as in JAX: the attention log-probs are scaled by
+    ``1 - ctc_weight``; the eos column is -inf before ``min_steps`` and,
+    with ``using_eos_threshold``, wherever eos scores below
+    ``eos_threshold`` x the row's best; then ``lm_weight`` x the LM's
+    log-probs are added; then, with ``ctc_weight`` > 0, the blank column
+    is set to -inf and ``ctc_weight`` x the CTC prefix scores are added:
+    in ``ctc_score_mode`` "full" (JAX's default and the recipe's) over the
+    whole vocabulary, keeping each row's top ``beam`` tokens, in
+    "partial" for the attention's top 2 * beam tokens only.  Scores are
+    divided by the length with ``length_normalization``;
+    ``length_rewarding`` x length is added to the finished hypotheses'
+    scores only (the two cannot be combined).  ``topk`` > 1 makes
+    ``finalize`` also return the ``topk`` best hypotheses per item;
+    ``return_log_probs`` is stored and unused, as in JAX.
     """
 
     def __init__(self, bos_index, eos_index, min_decode_ratio,
-                 max_decode_ratio, beam_size, ctc_weight=0.0, blank_index=0):
+                 max_decode_ratio, beam_size, topk=1, return_log_probs=False,
+                 using_eos_threshold=True, eos_threshold=1.5,
+                 length_normalization=True, length_rewarding=0,
+                 lm_weight=0.0, ctc_weight=0.0, blank_index=0,
+                 ctc_score_mode="full"):
+        if length_normalization and length_rewarding > 0:
+            raise ValueError(
+                "length normalization is not compatible with length rewarding"
+            )
+        if ctc_score_mode not in ("full", "partial"):
+            raise ValueError(f"Unknown ctc_score_mode {ctc_score_mode}")
         self.bos_index = bos_index
         self.eos_index = eos_index
         self.min_decode_ratio = min_decode_ratio
         self.max_decode_ratio = max_decode_ratio
         self.beam_size = beam_size
+        self.topk = topk
+        self.return_log_probs = return_log_probs
+        self.using_eos_threshold = using_eos_threshold
+        self.eos_threshold = eos_threshold
+        self.length_normalization = length_normalization
+        self.length_rewarding = length_rewarding
+        self.lm_weight = lm_weight
         self.ctc_weight = ctc_weight
         self.blank_index = blank_index
+        self.ctc_score_mode = ctc_score_mode
         self.minus_inf = MINUS_INF
         # attention scores are scaled once by (1 - ctc_weight)
         self.att_weight = 1.0 - ctc_weight
 
     def __call__(self, enc_states, wav_len):
         return self.finalize(*self.search_device(enc_states, wav_len))
+
+    def reset_lm_mem(self, n):
+        """Initial LM memory for a fresh search."""
+        return None
+
+    def lm_forward_step(self, inp_tokens, memory):
+        """One LM step: (log_probs (n, V), updated LM memory)."""
+        raise NotImplementedError
+
+    def _max_steps(self, T):
+        return max(1, int(T * self.max_decode_ratio))
+
+    _cur_max_steps = _device = None
 
     @torch.no_grad()
     def search_device(self, enc_states, wav_len):
@@ -72,10 +136,13 @@ class S2SBeamSearcher:
         n = B * beam
         dev = enc_states.device
         mi = self.minus_inf
-        max_steps = max(1, int(T * self.max_decode_ratio))
+        max_steps = self._max_steps(T)
         min_steps = int(T * self.min_decode_ratio)
+        # fixed for this search; reset_lm_mem sizes its buffer by them
+        self._cur_max_steps, self._device = max_steps, dev
         enc_lens_i = wav_len.repeat_interleave(beam)
         memory = self.reset_mem(n, enc_states)
+        lm_memory = self.reset_lm_mem(n) if self.lm_weight > 0 else None
         scorer = ctc_state = None
         if self.ctc_weight > 0:
             scorer = CTCPrefixScorer(
@@ -119,21 +186,37 @@ class S2SBeamSearcher:
             V = log_probs.shape[-1]
             if t < min_steps:
                 log_probs[:, self.eos_index] = mi
+            elif self.using_eos_threshold:
+                eos_col = log_probs[:, self.eos_index]
+                gate = eos_col > self.eos_threshold * log_probs.max(-1).values
+                log_probs[:, self.eos_index] = torch.where(gate, eos_col, mi)
+            if lm_memory is not None:
+                lm_log_probs, lm_memory = self.lm_forward_step(inp, lm_memory)
+                log_probs = log_probs + self.lm_weight * lm_log_probs.float()
             if scorer is not None:
                 log_probs[:, self.blank_index] = mi
-                # CTC-score only the attention's top 2*beam tokens
-                K = min(2 * beam, V)
-                cand_v, row_tokens = _topk(log_probs, K)
-                ctc_scores, ctc_state = scorer.forward_step(
-                    inp, ctc_state, candidates=row_tokens
-                )
-                row_scores = cand_v + self.ctc_weight * ctc_scores
+                if self.ctc_score_mode == "partial":
+                    # CTC-score only the attention's top 2*beam tokens
+                    K = min(2 * beam, V)
+                    cand_v, row_tokens = _topk(log_probs, K)
+                    ctc_scores, ctc_state = scorer.forward_step(
+                        inp, ctc_state, candidates=row_tokens
+                    )
+                    row_scores = cand_v + self.ctc_weight * ctc_scores
+                else:
+                    ctc_scores, ctc_state = scorer.forward_step(inp, ctc_state)
+                    K = min(beam, V)
+                    row_scores, row_tokens = _topk(
+                        log_probs + self.ctc_weight * ctc_scores, K
+                    )
             else:
                 K = min(beam, V)
                 row_scores, row_tokens = _topk(log_probs, K)
             # finished rows are out of the search
             row_scores = torch.where(finished[:, None], mi, row_scores)
-            cand = (beam_scores.reshape(n, 1) + row_scores) / (t + 1)
+            cand = beam_scores.reshape(n, 1) + row_scores
+            if self.length_normalization:
+                cand = cand / (t + 1)
             sel_scores, idx2 = _topk(cand.reshape(B, beam * K), beam)
             pred_beam = idx2 // K
             tokens = torch.gather(
@@ -141,8 +224,12 @@ class S2SBeamSearcher:
             )
             rows = (batch_idx * beam + pred_beam).reshape(-1)
             tokens_flat = tokens.reshape(-1)
-            beam_scores = sel_scores * (t + 1)  # raw running scores
-            memory["rows"] = rows  # applied by the next step's cache update
+            # raw running scores
+            beam_scores = (sel_scores * (t + 1) if self.length_normalization
+                           else sel_scores)
+            memory["rows"] = rows  # applied by the next step
+            if lm_memory is not None:
+                lm_memory = _gather_rows(lm_memory, rows)
             if scorer is not None:
                 ctc_state = scorer.permute_mem(
                     ctc_state, (pred_beam * V + tokens).reshape(-1)
@@ -154,7 +241,7 @@ class S2SBeamSearcher:
             store(
                 is_eos_bb, alived_seq.reshape(B, beam, -1),
                 torch.full((B, beam), t, dtype=torch.long, device=dev),
-                sel_scores,
+                sel_scores + self.length_rewarding * (t + 1),
             )
             beam_scores = torch.where(is_eos_bb.bool(), mi, beam_scores)
             inp = tokens_flat
@@ -167,92 +254,207 @@ class S2SBeamSearcher:
             torch.ones((B, beam), dtype=torch.long, device=dev),
             alived_seq.reshape(B, beam, -1),
             torch.full((B, beam), t, dtype=torch.long, device=dev),
-            sel_scores,
+            sel_scores + self.length_rewarding * (t + 1),
         )
         return store_seq[:, :beam], store_len[:, :beam], store_score[:, :beam]
 
     def finalize(self, store_seq, store_len, store_score):
-        """Host-side pick of the best stored hypothesis per item, cut at
-        its first eos.  Returns ``(best_hyps, best_scores)``."""
+        """Host-side ranking of the stored hypotheses, each cut at its
+        first eos.  Returns ``(best_hyps, best_scores (B,))``, or with
+        ``topk`` > 1 ``(best_hyps, top_scores (B, topk), topk_hyps)``."""
         seqs = store_seq.cpu().numpy()
         lens = store_len.cpu().numpy()
         scores = store_score.float().cpu().numpy()
-        best = np.argsort(-scores, axis=1, kind="stable")[:, 0]
-        hyps = []
-        for b, k in enumerate(best):
-            hyp = []
-            for tok in seqs[b, k, : lens[b, k]]:
-                if tok == self.eos_index:
-                    break
-                hyp.append(int(tok))
-            hyps.append(hyp)
-        return hyps, scores[np.arange(len(best)), best]
+        order = np.argsort(-scores, axis=1, kind="stable")
+        top_scores = np.take_along_axis(scores, order, axis=1)[:, : self.topk]
+
+        def hyp(b, k):
+            return filter_seq2seq_output(
+                [int(tok) for tok in seqs[b, k, : lens[b, k]]],
+                eos_id=self.eos_index,
+            )
+
+        best_hyps = [hyp(b, ks[0]) for b, ks in enumerate(order)]
+        if self.topk > 1:
+            topk_hyps = [[hyp(b, k) for k in ks[: self.topk]]
+                         for b, ks in enumerate(order)]
+            return best_hyps, top_scores, topk_hyps
+        return best_hyps, top_scores[:, 0]
 
 
 class S2STransformerBeamSearch(S2SBeamSearcher):
-    """Beam search over a KV-cached transformer decoder.
+    """Beam search over a transformer decoder, KV-cached or over a
+    prefix buffer, with optional transformer-LM shallow fusion.
 
     Arguments
     ---------
+    linear_fn : (n, d) -> (n, V) seq2seq logits.
     step_fn : (tokens (n,), caches, pos, enc_lens (n,), rows (n,)) ->
         (out (n, d), caches): one decoder step with the predecessor
         permutation ``rows`` fused into the self-cache update.
     cache_init_fn : (enc_states (B, T, d), max_steps) -> per-layer cache
         dicts {"skv", "ck", "cv"}.
-    linear_fn : (n, d) -> (n, V) seq2seq logits.
+    decode_fn : (prefix (n, L), enc_states (n, T, d), enc_lens (n,)) ->
+        (n, L, d): the buffer path, used when ``step_fn`` is None.
     ctc_linear_fn : (B, T, d) -> (B, T, V) CTC logits.
+    lm_fn : (prefix (n, L)) -> (n, L, V) LM logits; fused at
+        ``lm_weight``.
+    temperature, temperature_lm : divide the decoder's and the LM's
+        logits before their log-softmax.
+    Other keyword arguments are ``S2SBeamSearcher``'s.
 
-    Cross-attention K/V are built once per batch item (not per beam)
-    and never permuted: beams of one item share encoder states.  Each
-    layer keeps two self-cache buffers, ``skv`` and ``alt``; every step
-    writes the permuted and appended cache into ``alt`` and the two swap
-    roles, so the search allocates no cache per step.  (The JAX searcher
-    unrolls its loop by two for the same purpose; a Python loop needs
-    only the swap.)
+    KV-cache path: cross-attention K/V are built once per batch item
+    (not per beam) and never permuted: beams of one item share encoder
+    states.  Each layer keeps two self-cache buffers, ``skv`` and
+    ``alt``; every step writes the permuted and appended cache into
+    ``alt`` and the two swap roles, so the search allocates no cache per
+    step.  (The JAX searcher unrolls its loop by two for the same
+    purpose; a Python loop needs only the swap.)
+
+    Buffer path and LM: each step reruns the decoder (the LM) over the
+    whole prefix and reads its last position.  JAX keeps a fixed-size
+    buffer and runs over all of it, because ``lax.while_loop`` needs
+    fixed shapes; here only the written prefix ``buf[:, :len]`` is run.
+    Under the causal mask the last written position never sees the
+    later slots, so both compute the same function.
     """
 
-    def __init__(self, step_fn, cache_init_fn, linear_fn, ctc_linear_fn=None,
-                 **kwargs):
+    def __init__(self, linear_fn, step_fn=None, cache_init_fn=None,
+                 decode_fn=None, ctc_linear_fn=None, lm_fn=None,
+                 temperature=1.0, temperature_lm=1.0, **kwargs):
         super().__init__(**kwargs)
+        if step_fn is None and decode_fn is None:
+            raise ValueError("give step_fn and cache_init_fn, or decode_fn")
         self.step_fn = step_fn
         self.cache_init_fn = cache_init_fn
+        self.decode_fn = decode_fn
         self.linear_fn = linear_fn
         self.ctc_linear_fn = ctc_linear_fn
+        self.lm_fn = lm_fn
+        self.temperature = temperature
+        self.temperature_lm = temperature_lm
 
     def reset_mem(self, batch_size, enc_states):
-        """Caches for ``batch_size`` = B * beam rows from the (B, T, d)
-        encoder states, identity predecessors."""
-        max_steps = max(1, int(enc_states.shape[1] * self.max_decode_ratio))
+        """Memory for ``batch_size`` = B * beam rows from the (B, T, d)
+        encoder states, identity predecessors: per-layer caches
+        (KV-cache path), or an empty prefix buffer and the beam-tiled
+        states (buffer path)."""
+        max_steps = self._max_steps(enc_states.shape[1])
         group = batch_size // enc_states.shape[0]
+        rows = torch.arange(batch_size, device=enc_states.device)
+        if self.step_fn is None:
+            return {
+                "buf": torch.zeros((batch_size, max_steps), dtype=torch.long,
+                                   device=enc_states.device),
+                "enc": enc_states.repeat_interleave(group, dim=0),
+                "len": 0,
+                "rows": rows,
+            }
         cache = self.cache_init_fn(enc_states, max_steps)
         cross = []
         for c in cache:
             cross.append({"ck": c.pop("ck"), "cv": c.pop("cv")})
             c["skv"] = c["skv"].repeat_interleave(group, dim=0)
             c["alt"] = torch.zeros_like(c["skv"])
-        return {
-            "cache": cache,
-            "cross": cross,
-            "len": 0,
-            "rows": torch.arange(batch_size, device=enc_states.device),
-        }
+        return {"cache": cache, "cross": cross, "len": 0, "rows": rows}
 
     def forward_step(self, inp_tokens, memory, enc_lens):
         """One decoder step; returns (log_probs (n, V) f32, memory)."""
-        full = [{**dyn, **stat}
-                for dyn, stat in zip(memory["cache"], memory["cross"])]
-        out_t, cache = self.step_fn(
-            inp_tokens, full, memory["len"], enc_lens, memory["rows"]
-        )
-        log_probs = torch.log_softmax(self.linear_fn(out_t).float(), dim=-1)
-        new_mem = {
-            "cache": [{"skv": c["skv"], "alt": c["alt"]} for c in cache],
-            "cross": memory["cross"],
-            "len": memory["len"] + 1,
-            "rows": memory["rows"],
+        ln = memory["len"]
+        if self.step_fn is None:
+            buf = memory["buf"][memory["rows"]]
+            buf[:, ln] = inp_tokens
+            out_t = self.decode_fn(buf[:, : ln + 1], memory["enc"],
+                                   enc_lens)[:, ln]
+            new_mem = {**memory, "buf": buf, "len": ln + 1}
+        else:
+            full = [{**dyn, **stat}
+                    for dyn, stat in zip(memory["cache"], memory["cross"])]
+            out_t, cache = self.step_fn(inp_tokens, full, ln, enc_lens,
+                                        memory["rows"])
+            new_mem = {
+                "cache": [{"skv": c["skv"], "alt": c["alt"]} for c in cache],
+                "cross": memory["cross"],
+                "len": ln + 1,
+                "rows": memory["rows"],
+            }
+        logits = self.linear_fn(out_t).float()
+        return torch.log_softmax(logits / self.temperature, dim=-1), new_mem
+
+    def reset_lm_mem(self, n):
+        """LM memory: a prefix buffer of ``max_steps + 1`` slots seeded
+        with bos, its length, and how many steps have run (the first
+        step's input is the bos already there, so it is not appended)."""
+        return {
+            "buf": torch.full((n, self._cur_max_steps + 1), self.bos_index,
+                              dtype=torch.long, device=self._device),
+            "len": 1,
+            "calls": 0,
         }
-        return log_probs, new_mem
+
+    def lm_forward_step(self, inp_tokens, memory):
+        """One LM step: (log_probs (n, V) f32, updated LM memory)."""
+        buf, ln = memory["buf"], memory["len"]
+        if memory["calls"] > 0:
+            buf = buf.clone()
+            buf[:, ln] = inp_tokens
+            ln += 1
+        logits = self.lm_fn(buf[:, :ln])[:, ln - 1].float()
+        log_probs = torch.log_softmax(logits / self.temperature_lm, dim=-1)
+        return log_probs, {"buf": buf, "len": ln,
+                           "calls": memory["calls"] + 1}
 
     def ctc_forward_step(self, enc_states):
         """CTC log-probabilities (B, T, V) in float32."""
         return torch.log_softmax(self.ctc_linear_fn(enc_states).float(), -1)
+
+
+def inflate_tensor(tensor, times, dim):
+    """Repeat-interleave along ``dim``.
+
+    Example
+    -------
+    >>> inflate_tensor(torch.tensor([[1., 2.], [3., 4.]]), 2, dim=0).tolist()
+    [[1.0, 2.0], [1.0, 2.0], [3.0, 4.0], [3.0, 4.0]]
+    """
+    return torch.repeat_interleave(tensor, times, dim=dim)
+
+
+def mask_by_condition(tensor, cond, fill_value):
+    """Keep values where ``cond`` is True, else ``fill_value``.
+
+    Example
+    -------
+    >>> mask_by_condition(torch.tensor([[1., 2.], [3., 4.]]),
+    ...     torch.tensor([[True, False], [True, True]]), 0).tolist()
+    [[1.0, 0.0], [3.0, 4.0]]
+    """
+    return torch.where(cond, tensor, fill_value)
+
+
+def filter_seq2seq_output(string_pred, eos_id=-1):
+    """A predicted sequence up to its first eos (exclusive).
+
+    Example
+    -------
+    >>> filter_seq2seq_output(['a', 'b', 'c', 'eos', 'e'], eos_id='eos')
+    ['a', 'b', 'c']
+    """
+    if not isinstance(string_pred, list):
+        raise ValueError("The input must be a list.")
+    try:
+        return string_pred[: string_pred.index(eos_id)]
+    except ValueError:
+        return string_pred
+
+
+def batch_filter_seq2seq_output(prediction, eos_id=-1):
+    """``filter_seq2seq_output`` of each sequence in a batch.
+
+    Example
+    -------
+    >>> batch_filter_seq2seq_output([[1, 2, 3, -1], [4, -1, 5]])
+    [[1, 2, 3], [4]]
+    """
+    return [filter_seq2seq_output(list(seq), eos_id=eos_id)
+            for seq in prediction]

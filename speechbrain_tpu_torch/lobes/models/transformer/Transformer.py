@@ -2,11 +2,12 @@
 
 Counterpart of ``speechbrain_tpu/lobes/models/transformer/Transformer.py``
 (``PositionalEncoding``, ``get_key_padding_mask``, ``get_lookahead_mask``,
-``NormalizedEmbedding``, ``TransformerDecoderLayer``,
-``TransformerDecoder``).  In training mode the full-sequence decoder
-applies ``dropout`` where the JAX layer does: after the self-attention,
-after the cross-attention and after the FFN, besides the attention
-weights' and the FFN's own.
+``NormalizedEmbedding``, ``TransformerEncoderLayer``,
+``TransformerEncoder``, ``TransformerDecoderLayer``,
+``TransformerDecoder``).  In training mode the layers apply ``dropout``
+where the JAX layers do: on every residual branch (after each
+attention and after the FFN), besides the attention weights' and the
+FFN's own.
 """
 
 import math
@@ -14,7 +15,11 @@ import math
 import numpy as np
 import torch
 
-from ....nnet.attention import MultiheadAttention, PositionalwiseFeedForward
+from ....nnet.attention import (
+    MultiheadAttention,
+    PositionalwiseFeedForward,
+    RelPosMHAXL,
+)
 from ....nnet.dropout import Dropout
 from .Conformer import LayerNorm, _ln
 
@@ -23,6 +28,8 @@ __all__ = [
     "get_key_padding_mask",
     "get_lookahead_mask",
     "NormalizedEmbedding",
+    "TransformerEncoderLayer",
+    "TransformerEncoder",
     "TransformerDecoderLayer",
     "TransformerDecoder",
 ]
@@ -99,6 +106,100 @@ class NormalizedEmbedding(torch.nn.Module):
     def forward(self, x):
         """x: int token ids."""
         return self.emb(x.long()) * math.sqrt(self.d_model)
+
+
+class TransformerEncoderLayer(torch.nn.Module):
+    """Self-attention + FFN, pre- or post-norm.
+
+    ``attention_type`` "regularMHA" (``MultiheadAttention``, the
+    transformer LM's) or "RelPosMHAXL" (``forward`` then needs
+    ``pos_embs``; long inputs reach the rel-pos kernel behind its gate).
+
+    Example
+    -------
+    >>> layer = TransformerEncoderLayer(32, 2, 16)
+    >>> out, attn = layer(torch.ones(2, 5, 16))
+    >>> out.shape, attn.shape
+    (torch.Size([2, 5, 16]), torch.Size([2, 5, 5]))
+    """
+
+    def __init__(self, d_ffn, nhead, d_model, dropout=0.0, activation="relu",
+                 normalize_before=False, attention_type="regularMHA"):
+        super().__init__()
+        if attention_type not in ("regularMHA", "RelPosMHAXL"):
+            raise ValueError(f"Unknown attention_type {attention_type}")
+        self.normalize_before = normalize_before
+        self.attention_type = attention_type
+        if attention_type == "RelPosMHAXL":
+            self.self_attn = RelPosMHAXL(d_model, nhead, dropout=dropout)
+        else:
+            self.self_attn = MultiheadAttention(nhead, d_model, dropout)
+        self.norm1 = LayerNorm(d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.ffn = PositionalwiseFeedForward(d_ffn, d_model, activation,
+                                             dropout)
+        self.drop = Dropout(dropout)
+
+    def _pre(self, norm, x):
+        return _ln(norm, x) if self.normalize_before else x
+
+    def _post(self, norm, x):
+        return x if self.normalize_before else _ln(norm, x)
+
+    def forward(self, src, src_mask=None, src_key_padding_mask=None,
+                pos_embs=None):
+        """src (B, T, d); src_mask (T, T) and src_key_padding_mask (B, T)
+        True = disallowed; returns ``(out, attention weights)``."""
+        x = self._pre(self.norm1, src)
+        if self.attention_type == "RelPosMHAXL":
+            out, attn = self.self_attn(
+                x, x, x, pos_embs, key_padding_mask=src_key_padding_mask,
+                attn_mask=src_mask,
+            )
+        else:
+            out, attn = self.self_attn(
+                x, x, x, key_padding_mask=src_key_padding_mask,
+                attn_mask=src_mask,
+            )
+        x = self._post(self.norm1, src + self.drop(out))
+        out = self.ffn(self._pre(self.norm2, x))
+        return self._post(self.norm2, x + self.drop(out)), attn
+
+
+class TransformerEncoder(torch.nn.Module):
+    """Stack of encoder layers and a final LayerNorm, which (as in the
+    JAX module and its reference) is applied in post-norm too.
+
+    Example
+    -------
+    >>> enc = TransformerEncoder(2, 2, 32, 16)
+    >>> out, attns = enc(torch.ones(2, 5, 16))
+    >>> out.shape, len(attns)
+    (torch.Size([2, 5, 16]), 2)
+    """
+
+    def __init__(self, num_layers, nhead, d_ffn, d_model, dropout=0.0,
+                 activation="relu", normalize_before=False,
+                 attention_type="regularMHA"):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            TransformerEncoderLayer(d_ffn, nhead, d_model, dropout,
+                                    activation, normalize_before,
+                                    attention_type)
+            for _ in range(num_layers)
+        )
+        self.norm_out = LayerNorm(d_model)
+
+    def forward(self, src, src_mask=None, src_key_padding_mask=None,
+                pos_embs=None):
+        """Returns ``(out (B, T, d), per-layer attention weights)``."""
+        output, attns = src, []
+        for layer in self.layers:
+            output, attn = layer(output, src_mask=src_mask,
+                                 src_key_padding_mask=src_key_padding_mask,
+                                 pos_embs=pos_embs)
+            attns.append(attn)
+        return _ln(self.norm_out, output), attns
 
 
 class TransformerDecoderLayer(torch.nn.Module):

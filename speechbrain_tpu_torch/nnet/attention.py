@@ -354,8 +354,11 @@ class MultiheadAttention(torch.nn.Module):
 
 class PositionalwiseFeedForward(torch.nn.Module):
     """Two-layer position-wise FFN: Linear -> activation -> dropout ->
-    Linear, with the activations the conformer configs use ("relu" in the
-    decoder, "swish" in the encoder).
+    Linear, with the JAX module's activations: "relu" (the decoder),
+    "swish" (the conformer encoder), "gelu" (the transformer LM) and
+    "leaky_relu".  "gelu" is ``jax.nn.gelu``'s default, the tanh
+    approximation (the erf form differs by up to 4.7e-4), and
+    "leaky_relu" has JAX's slope, 0.01.
 
     Example
     -------
@@ -363,9 +366,16 @@ class PositionalwiseFeedForward(torch.nn.Module):
     torch.Size([2, 5, 16])
     """
 
+    ACTIVATIONS = {
+        "relu": F.relu,
+        "gelu": lambda h: F.gelu(h, approximate="tanh"),
+        "swish": lambda h: h * torch.sigmoid(h),
+        "leaky_relu": lambda h: F.leaky_relu(h, 0.01),
+    }
+
     def __init__(self, d_ffn, d_model, activation="relu", dropout=0.0):
         super().__init__()
-        if activation not in ("relu", "swish"):
+        if activation not in self.ACTIVATIONS:
             raise ValueError(f"Unknown activation {activation}")
         self.activation = activation
         self.w_1 = Linear(d_model, d_ffn)
@@ -374,6 +384,5 @@ class PositionalwiseFeedForward(torch.nn.Module):
 
     def forward(self, x):
         """x: (..., d_model)."""
-        h = self.w_1(x)
-        h = F.relu(h) if self.activation == "relu" else h * torch.sigmoid(h)
+        h = self.ACTIVATIONS[self.activation](self.w_1(x))
         return self.w_2(self.drop(h))

@@ -2,12 +2,12 @@
 
 JAX: Fbank -> InputNormalization (global, eval) -> ConvolutionFrontEnd
 -> TransformerASR.encode -> S2STransformerBeamSearch.search_device ->
-finalize, with the KV-cached ``decode_step`` (with ``rows``) and the
-decode settings of ``bench.py``'s decode section.  Port:
-``ConformerASR.transcribe(device="cpu")`` with the same weights through
-``bridge.py``.  Hypotheses must be identical, scores within 1e-3 and the
-encoder output within 1e-4.  The JAX side is computed once per module:
-its compile dominates the file's time.
+finalize, with the KV-cached ``decode_step`` (with ``rows``), in both
+CTC scoring modes: "full" (the recipe's) and "partial" (``bench.py``'s
+decode section).  Port: ``ConformerASR.transcribe(device="cpu")`` with
+the same weights through ``bridge.py``.  Hypotheses must be identical,
+scores and the encoder output within 1e-4.  The JAX side is computed
+once per module: its compile dominates the file's time.
 """
 
 import jax
@@ -37,6 +37,7 @@ CFG = dict(
     d_ffn=64, kernel_size=7, vocab_size=32,
 )
 BEAM, CTC_WEIGHT = 4, 0.4
+MODES = ("partial", "full")
 
 
 def _randomize(tree, names, rng, scale):
@@ -101,7 +102,7 @@ def jax_run():
     seq_p = {"Dense_0": dict(seq_p["Dense_0"])}
     seq_p["Dense_0"]["bias"] = seq_p["Dense_0"]["bias"].at[2].add(1.5)
 
-    searcher = S2STransformerBeamSearch(
+    searchers = {mode: S2STransformerBeamSearch(
         decode_fn=None,
         cache_init_fn=lambda e, max_steps: model.apply(
             {"params": tparams}, e, max_steps, method="decode_cache_init"
@@ -114,9 +115,9 @@ def jax_run():
         ctc_linear_fn=lambda e: ctc_lin.apply({"params": ctc_p}, e),
         bos_index=1, eos_index=2, blank_index=0,
         min_decode_ratio=0.0, max_decode_ratio=1.0, beam_size=BEAM,
-        ctc_weight=CTC_WEIGHT, ctc_score_mode="partial",
+        ctc_weight=CTC_WEIGHT, ctc_score_mode=mode,
         using_eos_threshold=False, length_normalization=True,
-    )
+    ) for mode in MODES}
 
     @jax.jit
     def run(sig, sig_lens):
@@ -127,10 +128,15 @@ def jax_run():
         )
         src = frontend.apply(fe_vars, feats, train=False)
         enc = model.apply({"params": tparams}, src, sig_lens, method="encode")
-        return enc, searcher.search_device(enc, sig_lens, early_exit=True)
+        return enc, {mode: s.search_device(enc, sig_lens, early_exit=True)
+                     for mode, s in searchers.items()}
 
-    enc, store = run(jnp.asarray(sig), jnp.asarray(sig_lens))
-    hyps, scores = searcher.finalize(*store)
+    enc, stores = run(jnp.asarray(sig), jnp.asarray(sig_lens))
+    search = {}
+    for mode, store in stores.items():
+        hyps, scores = searchers[mode].finalize(*store)
+        search[mode] = {"hyps": hyps, "scores": np.array(scores),
+                        "store": [np.array(a) for a in store]}
     tgt = rng.integers(3, CFG["vocab_size"], (B, 5)).astype(np.int64)
     dec, _ = model.apply({"params": tparams}, jnp.asarray(tgt), enc,
                          jnp.asarray(sig_lens), method="decode")
@@ -139,9 +145,7 @@ def jax_run():
     )
     return {
         "sig": sig, "sig_lens": sig_lens, "state_dict": state_dict,
-        "enc": np.array(enc), "hyps": hyps, "scores": np.array(scores),
-        "store": [np.array(a) for a in store],
-        "tgt": tgt, "dec": np.array(dec),
+        "enc": np.array(enc), "search": search, "tgt": tgt, "dec": np.array(dec),
     }
 
 
@@ -174,35 +178,45 @@ def test_full_prefix_decode_matches_jax(jax_run, port):
                                rtol=1e-5)
 
 
-def test_transcribe_matches_jax(jax_run, port):
+@pytest.mark.parametrize("mode", MODES)
+def test_transcribe_matches_jax(jax_run, port, mode):
+    ref = jax_run["search"][mode]
     hyps, scores = port.transcribe(
         torch.from_numpy(jax_run["sig"]),
         torch.from_numpy(jax_run["sig_lens"]),
-        beam_size=BEAM, ctc_weight=CTC_WEIGHT,
+        beam_size=BEAM, ctc_weight=CTC_WEIGHT, ctc_score_mode=mode,
     )
-    assert hyps == jax_run["hyps"]
+    assert hyps == ref["hyps"]
     assert any(len(h) > 0 for h in hyps)
-    np.testing.assert_allclose(scores, jax_run["scores"], atol=1e-3, rtol=0)
+    np.testing.assert_allclose(scores, ref["scores"], atol=1e-4, rtol=0)
 
 
-def test_search_store_matches_jax(jax_run, port):
+def test_score_modes_differ(jax_run):
+    """The two modes give different best hypotheses on this input, so
+    the full-mode cases above do not pass by scoring partially."""
+    s = jax_run["search"]
+    assert s["full"]["hyps"] != s["partial"]["hyps"]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_search_store_matches_jax(jax_run, port, mode):
     """Every stored hypothesis (not only the best) and its length."""
     sig_lens = torch.from_numpy(jax_run["sig_lens"])
     enc = port.encode(torch.from_numpy(jax_run["sig"]), sig_lens)
-    seqs, lens, scores = port.make_searcher(BEAM, CTC_WEIGHT).search_device(
-        enc, sig_lens
-    )
-    j_seqs, j_lens, j_scores = jax_run["store"]
+    seqs, lens, scores = port.make_searcher(
+        BEAM, CTC_WEIGHT, ctc_score_mode=mode).search_device(enc, sig_lens)
+    j_seqs, j_lens, j_scores = jax_run["search"][mode]["store"]
     assert np.array_equal(lens.numpy(), j_lens)
     assert np.array_equal(seqs.numpy(), j_seqs)
     live = j_scores > -1e19
     np.testing.assert_allclose(scores.numpy()[live], j_scores[live],
-                               atol=1e-3, rtol=0)
+                               atol=1e-4, rtol=0)
 
 
 def test_kernel_toggle_gives_same_result_on_cpu(jax_run, port):
     """With the kernels routed to their plain versions explicitly the
-    CPU result is unchanged (on the CPU both routes are the plain ones)."""
+    CPU result is unchanged (on the CPU both routes are the plain ones);
+    the default decode settings are the recipe's (full CTC scoring)."""
     sig = torch.from_numpy(jax_run["sig"])
     sig_lens = torch.from_numpy(jax_run["sig_lens"])
     try:
@@ -211,8 +225,9 @@ def test_kernel_toggle_gives_same_result_on_cpu(jax_run, port):
                                        ctc_weight=CTC_WEIGHT)
     finally:
         port.set_kernels(True)
-    assert hyps == jax_run["hyps"]
-    np.testing.assert_allclose(scores, jax_run["scores"], atol=1e-3, rtol=0)
+    ref = jax_run["search"]["full"]
+    assert hyps == ref["hyps"]
+    np.testing.assert_allclose(scores, ref["scores"], atol=1e-4, rtol=0)
 
 
 def test_bfloat16_route_runs(jax_run):

@@ -1014,3 +1014,52 @@ def test_wrappers_reject_bad_inputs(gen):
         ops.transducer_loss_logits(torch.zeros(1, 2, 3, 4, device="cuda"),
                                    torch.tensor([[1, 4]], device="cuda"),
                                    torch.tensor([2]), torch.tensor([2]), 0)
+
+
+def test_lm_fused_search_kernels_vs_plain(gen):
+    """The recipe's decode on the card (full CTC scoring at 0.4, a
+    ``TransformerLM`` fused at 0.6, no eos threshold, length
+    normalization) over conformer_small's widths, cut to 2 encoder and 2
+    decoder layers: the kernel route and the plain route give the same
+    hypotheses from the same encoder states; K7 runs once per decoder
+    layer and beam step, K1 once per encoder layer."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.asr import (
+        CONFORMER_SMALL,
+        TRANSFORMER_LM,
+        ConformerASR,
+        build_transformer_lm,
+    )
+
+    cfg = dict(CONFORMER_SMALL, num_encoder_layers=2, num_decoder_layers=2,
+               vocab_size=500)
+    asr = ConformerASR(cfg, seed=0)
+    with torch.no_grad():
+        asr.ctc_lin.bias[cfg["blank_index"]] += 8.0
+        asr.seq_lin.bias[cfg["eos_index"]] += 5.0
+    lm = build_transformer_lm(dict(TRANSFORMER_LM, vocab=500,
+                                   num_encoder_layers=2), seed=0)
+    sig = 0.1 * torch.randn(3, 48000, device="cuda", generator=gen)
+    lens = torch.tensor([1.0, 0.9, 0.7], device="cuda")
+    ops.reset_launch_counters()
+    enc = asr.encode(sig, lens)
+    assert ops.launch_counters()["depthwise_conv1d"] == 2
+    searcher = asr.make_searcher(beam_size=6, lm=lm)
+    assert (searcher.ctc_score_mode, searcher.lm_weight) == ("full", 0.6)
+    steps = [0]
+    step = searcher.forward_step
+
+    def counted(*args):
+        steps[0] += 1
+        return step(*args)
+
+    searcher.forward_step = counted
+    ops.reset_launch_counters()
+    hyps, scores = searcher(enc, lens)
+    assert ops.launch_counters()["beam_attend_step"] == 2 * steps[0] > 0
+    asr.set_kernels(False)
+    hyps_p, scores_p = asr.make_searcher(beam_size=6, lm=lm)(enc, lens)
+    assert hyps == hyps_p
+    assert np.isfinite(scores).all()
+    np.testing.assert_allclose(scores, scores_p, atol=1e-4, rtol=0)
