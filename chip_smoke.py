@@ -78,9 +78,29 @@ Phases, each printing one JSON line when it ends:
    finite losses that fall; ``evaluate_batch`` launches the alpha kernel
    only; then one f32 step's loss and gradients through the kernels
    against the plain versions (dropout 0).
+9. serve_transducer -- ``ConformerTransducer(CONFORMER_TRANSDUCER)``
+   (full width, random weights from the seed, the blank bias of
+   ``out_lin`` +4) decodes B = 8 synthetic 10 s utterances in f32 then
+   bf16: greedy (a loop over the frames on the card), the recipe's beam
+   4 (the host lockstep loop, state_beam and expand_beam 2.3) and the
+   device beam 4 (1024 symbols, see ``DEVICE_BEAM_SYMBOLS``): encode and
+   search ms, utt/s, lockstep rounds and device iterations,
+   ``forced_advance_count`` (must be 0), peak memory, K1's 12 launches
+   an encode, the busy share of one profiled host beam search, and the
+   device kernels an iteration and the busy share over 64 iterations of
+   the device beam's loop; the device beam must give the host beam's
+   hypotheses, and the f32 beam through the plain versions the same
+   hypotheses (scores within 1e-4).
+
+Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
+/ ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
+generator; its device ms is the "spec_augment" range of the profiled
+steps, and the kernel-vs-plain checks restore the generator between the
+routes, so both draw the same masks (phase 6 holds the gradients without
+it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 8, each counted from 0 just before its
+(launch counts from phases 3 to 9, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -1371,17 +1391,21 @@ def _search(asr, enc, lens, beam, ctc_weight, **options):
     return hyps, scores, steps[0], seconds
 
 
-def _profile(fn, ranges=()):
+def _profile(fn, ranges=(), cpu=True):
     """Run ``fn`` (which returns how many steps it ran) under
     torch.profiler: how much of the wall time the card is busy, how many
     kernels a step launches, the kernels that take the most device
     time, and the device time of the kernels launched inside each
     ``record_function`` range named in ``ranges`` (and its share of the
-    busy time)."""
+    busy time).  ``cpu=False`` traces the card alone (no ranges): the
+    host's events of a long search take minutes to collect."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.insert(0, ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         steps = fn()
@@ -1613,6 +1637,179 @@ def phase_serve_lm():
     return runs
 
 
+# recipes/LibriSpeech/ASR/transducer/hparams/conformer_transducer.yaml:47-49
+# (beam 4, state_beam and expand_beam 2.3: the config's defaults).  With
+# random weights and the blank bias +4 (bench.py's), blank is the top
+# token of every frame but holds ~2.5-7 % of the mass over vocab 1000, and
+# the length-normalised beam emits ~2.5-3 tokens a frame (616-748 over
+# 251 frames; +6 and more: none at all), so the device beam's token
+# buffer holds 4 x T_enc, where JAX's default of 100 would cut them.
+TRANSDUCER_BLANK_BIAS, DEVICE_BEAM_SYMBOLS = 4.0, 1024
+
+
+def _timed(fn):
+    """(fn's result, its seconds), the card synchronised on both sides."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _transducer_searches(model, enc, lens):
+    """The three decodes of ``ConformerTransducer``: greedy (the loop over
+    frames on the card), the recipe's beam 4 (host lockstep) and the
+    device beam 4; each with its seconds, and the lockstep rounds (one
+    joint call a round) and device iterations."""
+    searcher = model.make_searcher()
+    rounds = [0]
+    joint = searcher.joint_fn
+
+    def counted_joint(*args):
+        rounds[0] += 1
+        return joint(*args)
+
+    searcher.joint_fn = counted_joint
+    (hyps, scores), beam_s = _timed(lambda: searcher(enc, lens))
+    searcher.joint_fn = joint
+    iters = [0]
+    step = searcher._beam_device_step
+
+    def counted_step(*args):
+        iters[0] += 1
+        return step(*args)
+
+    searcher._beam_device_step = counted_step
+    (toks, tok_lens, dev_scores), device_s = _timed(
+        lambda: searcher.transducer_beam_search_device(
+            enc, lens, max_symbols=DEVICE_BEAM_SYMBOLS))
+    greedy = model.make_searcher(beam_size=1)
+    (g_hyps, g_scores), greedy_s = _timed(lambda: greedy(enc, lens))
+    dev_hyps = [toks[b, :tok_lens[b]].tolist() for b in range(len(hyps))]
+    return {"beam": (hyps, scores, beam_s, rounds[0],
+                     searcher.forced_advance_count),
+            "device": (dev_hyps, dev_scores.cpu().numpy(), device_s, iters[0],
+                       int(tok_lens.max())),
+            "greedy": (g_hyps, g_scores, greedy_s)}
+
+
+def _device_beam_profile(searcher, enc, lens, warm=32, window=64):
+    """The device beam's loop under the profiler, ``window`` iterations
+    from the start of a search (after ``warm``): device kernels an
+    iteration and the card's busy share (``_profile``'s "per step" is
+    per iteration here).  A whole search is ~1300 iterations of ~230
+    kernels, too many events to collect in the smoke run's time."""
+    carry, cap = searcher._beam_device_init(enc, lens, DEVICE_BEAM_SYMBOLS)
+    for _ in range(warm):
+        carry = searcher._beam_device_step(carry, enc, cap)
+
+    def steps():
+        nonlocal carry
+        for _ in range(window):
+            carry = searcher._beam_device_step(carry, enc, cap)
+        return window
+
+    return _profile(steps, cpu=False)
+
+
+def phase_serve_transducer():
+    """The conformer-transducer (recipe dims, random weights from the
+    seed, ``out_lin``'s blank bias +4 as bench.py's decode gives it)
+    decodes B = 8 synthetic 10 s utterances in f32 then bf16: greedy, the
+    recipe's beam 4 and the device beam 4.  The device beam must give the
+    host beam's hypotheses and no frame may be force-advanced; the f32
+    beam is repeated through the plain versions (encoder and search)
+    with the same hypotheses."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.asr import CONFORMER_TRANSDUCER, ConformerTransducer
+
+    B = 8
+    n_enc = CONFORMER_TRANSDUCER["num_encoder_layers"]
+    sig, lens = _synthetic(B, 160000, SEED)
+    runs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        model = ConformerTransducer(CONFORMER_TRANSDUCER,
+                                    dtype=getattr(torch, dtype_name), seed=SEED)
+        with torch.no_grad():
+            model.out_lin.bias[CONFORMER_TRANSDUCER["blank_index"]] += (
+                TRANSDUCER_BLANK_BIAS)
+        model.encode(sig, lens)  # warm-up (untimed)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counters()
+        enc, encode_s = _timed(lambda: model.encode(sig, lens))
+        out = _transducer_searches(model, enc, lens)
+        counts = ops.launch_counters()  # the searches launch no kernel
+        peak = torch.cuda.max_memory_allocated()
+        hyps, scores, beam_s, rounds, forced = out["beam"]
+        dev_hyps, dev_scores, device_s, iters, longest = out["device"]
+        g_hyps, g_scores, greedy_s = out["greedy"]
+        assert enc.shape == (B, 251, CONFORMER_TRANSDUCER["joint_dim"]), enc.shape
+        assert bool(torch.isfinite(enc.float()).all()), "non-finite encoder output"
+        assert counts["depthwise_conv1d"] == n_enc, counts
+        assert sum(counts.values()) == n_enc, counts
+        assert np.isfinite(scores).all() and np.isfinite(g_scores).all()
+        assert forced == 0, f"{forced} frames force-advanced"
+        assert len(hyps) == B and sum(map(len, hyps)) > 0
+        assert longest < DEVICE_BEAM_SYMBOLS, longest
+        diff = [b for b in range(B) if dev_hyps[b] != hyps[b]]
+        assert not diff, f"device beam vs host beam differ in rows {diff}"
+        run = {
+            "dtype": dtype_name, "batch": B, "seconds_audio": 10.0,
+            "T_enc": enc.shape[1], "beam": 4, "state_beam": 2.3,
+            "expand_beam": 2.3, "launches": counts, "encode_ms": 1e3 * encode_s,
+            "greedy": {"search_ms": 1e3 * greedy_s,
+                       "utt_per_s": B / (encode_s + greedy_s),
+                       "hyp_lens": [len(h) for h in g_hyps]},
+            "beam_host": {"search_ms": 1e3 * beam_s, "rounds": rounds,
+                          "rounds_per_frame": rounds / enc.shape[1],
+                          "ms_per_round": 1e3 * beam_s / rounds,
+                          "utt_per_s": B / (encode_s + beam_s),
+                          "forced_advance_count": forced,
+                          "hyp_lens": [len(h) for h in hyps]},
+            "beam_device": {"search_ms": 1e3 * device_s, "iterations": iters,
+                            "max_symbols": DEVICE_BEAM_SYMBOLS,
+                            "utt_per_s": B / (encode_s + device_s),
+                            "hyps_equal_host": True,
+                            "score_max_abs_diff_vs_host":
+                                float(np.abs(dev_scores - scores).max())},
+            "peak_memory_gib": peak / 2**30,
+        }
+        if dtype_name == "float32":
+            # the same encode and beam through the plain versions
+            model.set_kernels(False)
+            enc_p, plain_encode_s = _timed(lambda: model.encode(sig, lens))
+            searcher = model.make_searcher()
+            (hyps_p, scores_p), plain_beam_s = _timed(
+                lambda: searcher(enc_p, lens))
+            model.set_kernels(True)
+            err = _err(enc, enc_p)
+            tol, score_tol = 1e-3, 1e-4  # f32, 12 layers: summation orders
+            assert err <= tol, f"encoder kernel vs plain: {err} > {tol}"
+            assert hyps == hyps_p, "hypotheses differ between kernels and plain"
+            score_diff = float(np.abs(scores - scores_p).max())
+            assert score_diff <= score_tol, f"scores: {score_diff} > {score_tol}"
+            run.update({"enc_max_abs_err_vs_plain": err, "enc_tol": tol,
+                        "hyps_equal_plain": True,
+                        "score_max_abs_diff_vs_plain": score_diff,
+                        "score_tol": score_tol,
+                        "plain_encode_ms": 1e3 * plain_encode_s,
+                        "plain_beam_ms": 1e3 * plain_beam_s})
+        searcher = model.make_searcher()
+        run["profile"] = _profile(lambda: (searcher(enc, lens), 1)[1],
+                                  cpu=False)
+        run["beam_device"]["profile"] = _device_beam_profile(searcher, enc,
+                                                             lens)
+        emit({"phase": "serve_transducer", **run})
+        runs[dtype_name] = run
+        del model, enc
+        torch.cuda.empty_cache()
+    return runs
+
+
 def phase_long():
     """Encode an utterance long enough for T_enc = 512 (rel-pos kernel)."""
     import torch
@@ -1676,13 +1873,16 @@ def _train_batch(B, samples, U, seed):
     }
 
 
-def _brain(precision, dropout):
+def _brain(precision, dropout, augment=True):
     """``ConformerASRBrain(CONFORMER_SMALL)`` at full width with the
     recipe's optimizer settings: AdamW (0.9, 0.98, 1e-9, decay 1e-4),
-    clip 5, Noam (8e-4, 25000 warm-up), the first step at 8e-4."""
+    clip 5, Noam (8e-4, 25000 warm-up), the first step at 8e-4; with the
+    recipe's SpecAugment unless ``augment`` is false."""
     from speechbrain_tpu_torch.asr import CONFORMER_SMALL, ConformerASRBrain
 
     cfg = dict(CONFORMER_SMALL, transformer_dropout=dropout)
+    if not augment:
+        cfg["augmentation"] = None
     return ConformerASRBrain(
         cfg, seed=SEED, hparams={"lr": cfg["lr_adam"]},
         run_opts={"precision": precision, "loss_sync_interval": 10})
@@ -1690,13 +1890,15 @@ def _brain(precision, dropout):
 
 def _loss_and_grads(brain, batch):
     """One training forward and backward without an optimizer step; the
-    normalization and BatchNorm statistics are put back afterwards, so
-    that two calls start from the same state."""
+    normalization and BatchNorm statistics and the brain's generator (the
+    SpecAugment and dropout draws) are put back afterwards, so that two
+    calls start from the same state and draw the same values."""
     import torch
 
     from speechbrain_tpu_torch.core import Stage
 
     saved = {k: v.clone() for k, v in brain.modules.named_buffers()}
+    rng = brain.generator.get_state()
     brain.modules.train()
     loss = brain._loss(batch, Stage.TRAIN)
     names, params = zip(*brain.modules.named_parameters())
@@ -1704,6 +1906,7 @@ def _loss_and_grads(brain, batch):
     with torch.no_grad():
         for k, v in brain.modules.named_buffers():
             v.copy_(saved[k])
+    brain.generator.set_state(rng)
     return loss.detach(), dict(zip(names, grads))
 
 
@@ -1713,7 +1916,9 @@ def _compare_routes(brain, batch, tol_loss, tol_grad):
     gradient's error is max|kernel - plain| over (max|plain| + 1e-3 G),
     G the largest gradient entry of the model: tensors whose gradient
     is zero analytically (biases removed by a later BatchNorm or by the
-    softmax) hold rounding noise only and are held to 1e-3 G."""
+    softmax) hold rounding noise only and are held to 1e-3 G.
+    ``tol_grad`` None reports the gradients' error and holds the loss
+    only."""
     import torch
 
     loss_k, grads_k = _loss_and_grads(brain.set_kernels(True), batch)
@@ -1726,7 +1931,7 @@ def _compare_routes(brain, batch, tol_loss, tol_grad):
     worst = max(errs, key=errs.get)
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     assert loss_err <= tol_loss, f"loss kernel vs plain: rel {loss_err} > {tol_loss}"
-    assert errs[worst] <= tol_grad, (
+    assert tol_grad is None or errs[worst] <= tol_grad, (
         f"gradient kernel vs plain: {worst} {errs[worst]} > {tol_grad}")
     return {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
             "loss_rel_err": loss_err, "loss_tol": tol_loss,
@@ -1752,13 +1957,14 @@ def _run_steps(brain, batch, steps):
 
 
 def _profile_step(brain, batch):
-    """One more fit_batch under the profiler (see ``_profile``)."""
+    """One more fit_batch under the profiler (see ``_profile``), with the
+    device time of SpecAugment's "spec_augment" range."""
     def one_step():
         brain.step += 1
         brain.fit_batch(batch)
         return 1
 
-    return _profile(one_step)
+    return _profile(one_step, ranges=("spec_augment",))
 
 
 def _per_step(counts, steps):
@@ -1778,9 +1984,10 @@ TRAIN_LONG_LAUNCHES = dict(TRAIN_LAUNCHES, relpos_attention=_N_ENC,
 
 def phase_train():
     """The recipe's training step at full width: B = 32 synthetic 10 s
-    utterances with 40 tokens, transformer_dropout 0.1, 30 steps in
-    bf16 then f32 on one repeated batch; then kernel route vs plain
-    route (f32, dropout 0) and the dropout keep fraction."""
+    utterances with 40 tokens, transformer_dropout 0.1, SpecAugment, 30
+    steps in bf16 then f32 on one repeated batch; then kernel route vs
+    plain route (f32, dropout 0, the same SpecAugment draws) and the
+    dropout keep fraction."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -1805,6 +2012,7 @@ def phase_train():
         run = {"phase": "train", "precision": precision, "batch": B,
                "seconds_audio": samples / 16000, "tokens": U,
                "transformer_dropout": 0.1, "steps": steps,
+               "spec_augment": brain.config["augmentation"],
                "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
                "peak_mem_bytes": peak, "launches": counts,
                "launches_per_step": per_step,
@@ -1814,19 +2022,30 @@ def phase_train():
         emit(run)
         runs[precision] = run
         del brain, batch
-    # kernel route vs plain route, f32 with dropout 0, the same weights
-    brain = _brain("fp32", 0.0)
-    batch = brain.prepare_batch(host_batch)
+    # kernel route vs plain route, f32 with dropout 0, the same weights;
     # the loss and the gradients reach the plain route through other
     # summation orders (depthwise taps, CTC recursion's exp/log1p, f32
-    # throughout), 16 layers deep
+    # throughout), 16 layers deep.  Gradients are held without
+    # SpecAugment: with its mean-filled bands the largest error sits in
+    # a decoder FFN's first layer, weight and bias, the relu's input
+    # side, where a pre-activation near 0 can fall on either side in the
+    # two routes' last bits (0.4-1.2 % of the tensor's largest entry over
+    # the draws tried; 0.07 % without SpecAugment, 0.04 % with zero
+    # fill).  With the recipe's SpecAugment (both routes drawing the
+    # same masks) the loss is held and the gradients' error reported.
+    brain = _brain("fp32", 0.0, augment=False)
+    batch = brain.prepare_batch(host_batch)
     cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    del brain
+    brain = _brain("fp32", 0.0)
+    cmp_aug = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=None)
     # dropout draws from the brain's generator on the card
     drop = Dropout(0.1).train()
     drop.generator = brain.generator
     kept = float((drop(torch.ones(1 << 22, device="cuda")) > 0).float().mean())
     assert abs(kept - 0.9) <= 0.01, f"dropout keep fraction {kept}"
     run = {"phase": "train_check", "kernel_vs_plain": cmp,
+           "kernel_vs_plain_spec_augment": cmp_aug,
            "dropout_keep_fraction": kept}
     emit(run)
     runs["check"] = run
@@ -1837,9 +2056,9 @@ def phase_train():
 
 def phase_train_long():
     """The same step on B = 8 utterances of 20.44 s (T_enc 512) with
-    transformer_dropout 0, where the rel-pos kernels run forward and
-    backward: f32 then bf16; kernel vs plain gradients in f32 at the
-    seeded weights, before the steps."""
+    transformer_dropout 0 and no SpecAugment (see ``phase_train``), where
+    the rel-pos kernels run forward and backward: f32 then bf16; kernel
+    vs plain gradients in f32 at the seeded weights, before the steps."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -1848,7 +2067,7 @@ def phase_train_long():
     host_batch = _train_batch(B, samples, U, SEED + 1)
     runs = {}
     for precision in ("fp32", "bf16"):
-        brain = _brain(precision, 0.0)
+        brain = _brain(precision, 0.0, augment=False)
         batch = brain.prepare_batch(host_batch)
         check = None
         if precision == "fp32":
@@ -1920,8 +2139,9 @@ def _transducer_brain(precision, dropout):
 def phase_train_transducer():
     """The transducer recipe's training step at full width: B = 12
     synthetic 10 s utterances (the yaml's 120 s max_batch_length), tokens
-    padded to 64, dropout 0.1, 30 steps in bf16 then f32; evaluate_batch;
-    then kernel route vs plain route (f32, dropout 0)."""
+    padded to 64, dropout 0.1, SpecAugment, 30 steps in bf16 then f32;
+    evaluate_batch; then kernel route vs plain route (f32, dropout 0, the
+    same SpecAugment draws)."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -1946,6 +2166,7 @@ def phase_train_transducer():
                "batch": B, "seconds_audio": samples / 16000, "tokens_padded": U,
                "tokens": host_batch["tokens_lens"].tolist(),
                "transformer_dropout": 0.1, "steps": steps,
+               "spec_augment": brain.config["augmentation"],
                "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
                "peak_mem_bytes": peak, "launches": counts,
                "launches_per_step": per_step,
@@ -1980,8 +2201,8 @@ def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
-    train_long, train_transducer), each counted from 0 just before its
-    run."""
+    train_long, train_transducer, serve_transducer), each counted from 0
+    just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -2063,9 +2284,11 @@ def main():
     train = timed("train", phase_train)
     train_long = timed("train_long", phase_train_long)
     transducer = timed("train_transducer", phase_train_transducer)
+    serve_transducer = timed("serve_transducer", phase_serve_transducer)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
-                 train_long["bf16"], transducer["bf16"], transducer["fp32"]]
+                 train_long["bf16"], transducer["bf16"], transducer["fp32"],
+                 *serve_transducer.values()]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,27 +10,34 @@ LibriSpeech transformer recipe serves it: full-vocabulary CTC scoring,
 and with a ``TransformerLM`` (``build_transformer_lm``, the recipe's
 ``TRANSFORMER_LM`` dims) fused at ``lm_weight`` 0.6.
 ``ConformerASRBrain`` trains the same modules with the recipe's step
-(``recipes/LibriSpeech/ASR/transformer/train.py``, without SpecAugment
-and the WER search).  Weights are random from a seed, or loaded with
-``load_state_dict`` from ``bridge.py``'s output; nothing is downloaded.
+(``recipes/LibriSpeech/ASR/transformer/train.py``: SpecAugment in
+training, and the beam search's error rate in validation and test).
+Weights are random from a seed, or loaded with ``load_state_dict`` from
+``bridge.py``'s output; nothing is downloaded.
 
 ``ConformerTransducer`` chains the same features, front end and
 conformer encoder (no decoder) with ``enc_lin``, the prediction network
 (``emb`` -> one-layer ``GRU`` -> ``dec_lin``), the sum joiner with tanh
-and ``out_lin``; ``ConformerTransducerBrain`` trains it with the
-LibriSpeech transducer recipe's step
-(``recipes/LibriSpeech/ASR/transducer/train.py:27-100``, without
-SpecAugment and the test-stage search) on the RNN-T loss, whose lattice
-runs in the kernels K8/K9 on the card.
+and ``out_lin``, and ``transcribe`` decodes it as the transducer recipe's
+test stage does (``recipes/LibriSpeech/ASR/transducer/train.py:103-145``:
+``decoders.transducer.TransducerBeamSearcher`` at beam 4, state_beam and
+expand_beam 2.3; also greedy and the fixed-shape device beam);
+``ConformerTransducerBrain`` trains it with the recipe's step
+(``train.py:27-100``, SpecAugment included) on the RNN-T loss, whose
+lattice runs in the kernels K8/K9 on the card, and scores the test
+search's error rate.  Until the tokenizers are ported, the error rates
+are over token ids.
 """
 
 import math
 
 import torch
 
-from .core import Brain
+from .core import Brain, Stage
 from .decoders.seq2seq import S2STransformerBeamSearch
+from .decoders.transducer import TransducerBeamSearcher
 from .device import resolve_device
+from .lobes.augment import SpecAugment
 from .lobes.features import Fbank
 from .lobes.models.convolution import ConvolutionFrontEnd
 from .lobes.models.transformer.TransformerASR import TransformerASR
@@ -42,6 +49,8 @@ from .nnet.RNN import GRU
 from .nnet.schedulers import NoamScheduler
 from .nnet.transducer.transducer_joint import Transducer_joint
 from .processing.features import InputNormalization
+from .utils.data_utils import undo_padding
+from .utils.metric_stats import ErrorRateStats
 
 __all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain",
            "TRANSFORMER_LM", "build_transformer_lm",
@@ -82,6 +91,16 @@ CONFORMER_SMALL = {
     "lr_adam": 8e-4,
     "n_warmup_steps": 25000,
     "max_grad_norm": 5.0,
+    # conformer_small.yaml:83-92 (SpecAugment's arguments; None: off)
+    "augmentation": {
+        "time_warp": True, "time_warp_window": 5, "freq_mask": True,
+        "n_freq_mask": 2, "time_mask": True, "n_time_mask": 4,
+        "replace_with_zero": False, "freq_mask_width": (0, 30),
+        "time_mask_width": (0, 40),
+    },
+    # the validation and test search (conformer_small.yaml:59, :66)
+    "valid_beam_size": 10,
+    "ctc_weight_decode": 0.4,
 }
 
 # recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml:121-126
@@ -127,6 +146,15 @@ CONFORMER_TRANSDUCER = {
     "lr_adam": 8e-4,
     "n_warmup_steps": 25000,
     "max_grad_norm": 5.0,
+    # conformer_transducer.yaml:63-68 (SpecAugment's arguments; None: off)
+    "augmentation": {
+        "time_warp": False, "n_freq_mask": 2, "n_time_mask": 4,
+        "freq_mask_width": (0, 27), "time_mask_width": (0, 40),
+    },
+    # the test search (conformer_transducer.yaml:47-49)
+    "beam_size": 4,
+    "state_beam": 2.3,
+    "expand_beam": 2.3,
 }
 
 
@@ -315,7 +343,9 @@ class _ModelBrain(Brain):
     from ``DEFAULTS`` updated with ``config``), with the recipes' AdamW
     and the Noam schedule stepped after each optimizer step.  The first
     step runs at ``hparams["lr"]`` (1e-3 when not given), as in the JAX
-    ``Brain``."""
+    ``Brain``.  ``config["augmentation"]`` holds SpecAugment's arguments
+    (None: no augmentation); it acts on the normalized features in
+    ``Stage.TRAIN`` only, with draws from ``self.generator``."""
 
     MODEL, DEFAULTS, MODULES = None, None, ()
 
@@ -338,6 +368,8 @@ class _ModelBrain(Brain):
         )
         self.config = c
         self.model.dtype = self.dtype
+        aug = c.get("augmentation")
+        self.augment = None if aug is None else SpecAugment(**aug)
         self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
         self.epoch = 0
         self.use_kernels = True
@@ -353,15 +385,33 @@ class _ModelBrain(Brain):
         self.use_kernels = bool(flag)
         return self
 
+    def _augment(self, stage):
+        """The features' transform in ``stage``: SpecAugment with the
+        brain's generator in training, else None."""
+        if stage != Stage.TRAIN or self.augment is None:
+            return None
+        return lambda feats: self.augment(feats, self.generator)
+
+    def _score_hyps(self, hyps, batch):
+        """Append the real rows' hypotheses and reference tokens to
+        ``self.wer_metric``: an error rate over token ids (the tokenizers
+        are not ported)."""
+        real = int(batch["batch_mask"].sum())
+        targets = undo_padding(batch["tokens"].cpu().numpy(),
+                               batch["tokens_lens"].cpu().numpy())
+        self.wer_metric.append([str(i) for i in range(real)], hyps[:real],
+                               targets[:real])
+
 
 class ConformerASRBrain(_ModelBrain):
     """The LibriSpeech conformer recipe's training step on the modules of
     ``ConformerASR``.
 
     ``compute_forward``: Fbank -> ``InputNormalization`` (its statistics
-    updated in training, frozen after ``update_until_epoch``) -> cast to
-    the activation dtype -> front end (BatchNorm statistics updated in
-    training) -> ``TransformerASR.forward`` -> ``ctc_lin`` and
+    updated in training, frozen after ``update_until_epoch``) ->
+    SpecAugment (training only) -> cast to the activation dtype -> front
+    end (BatchNorm statistics updated in training) ->
+    ``TransformerASR.forward`` -> ``ctc_lin`` and
     ``seq_lin``, each with a float32 ``log_softmax``.
     ``compute_objectives``: ``ctc_weight`` x CTC (``batchmean``) +
     (1 - ``ctc_weight``) x label-smoothed KL (``batchmean``).  After each
@@ -372,7 +422,11 @@ class ConformerASRBrain(_ModelBrain):
 
     ``self.model`` is the ``ConformerASR`` that owns the modules, so
     ``self.modules.state_dict()`` loads into a ``ConformerASR`` for
-    serving.  A batch is a dict of ``sig`` (B, samples) and ``sig_lens``
+    serving.  After ``on_stage_start(Stage.VALID)`` or ``(Stage.TEST)``,
+    ``evaluate_batch`` also runs the recipe's search (``transcribe`` at
+    ``valid_beam_size``, CTC weight ``ctc_weight_decode``) and appends
+    its hypotheses to ``self.wer_metric``, an ``ErrorRateStats`` over
+    token ids.  A batch is a dict of ``sig`` (B, samples) and ``sig_lens``
     (B,) relative, ``tokens`` (B, U), ``tokens_bos``/``tokens_eos``
     (B, U+1) and the relative ``tokens_lens``/``tokens_eos_lens``.
     ``epoch`` (default 0) is the epoch the normalization sees.
@@ -408,11 +462,19 @@ class ConformerASRBrain(_ModelBrain):
     MODEL, DEFAULTS = ConformerASR, CONFORMER_SMALL
     MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
 
+    def on_stage_start(self, stage, epoch=None):
+        """A new ``ErrorRateStats`` for the validation and test stages."""
+        if stage != Stage.TRAIN:
+            self.wer_metric = ErrorRateStats()
+
     def compute_forward(self, batch, stage):
         """Returns the CTC and seq2seq log-probabilities, float32."""
         m = self.modules
         feats = m.normalize(self.model.fbank(batch["sig"]), batch["sig_lens"],
                             epoch=self.epoch)
+        augment = self._augment(stage)
+        if augment is not None:
+            feats = augment(feats)
         src = m.frontend(feats.to(self.dtype))
         enc, dec = m.transformer(src, batch["tokens_bos"],
                                  wav_len=batch["sig_lens"],
@@ -436,6 +498,11 @@ class ConformerASRBrain(_ModelBrain):
             length=batch["tokens_eos_lens"] * mask,
             label_smoothing=c["label_smoothing"], reduction="batchmean",
         )
+        if stage != Stage.TRAIN and hasattr(self, "wer_metric"):
+            hyps, _ = self.model.transcribe(
+                batch["sig"], batch["sig_lens"], beam_size=c["valid_beam_size"],
+                ctc_weight=c["ctc_weight_decode"])
+            self._score_hyps(hyps, batch)
         return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
 
 
@@ -446,6 +513,9 @@ class ConformerTransducer(torch.nn.Module):
     ---------
     config : dict with the keys of ``CONFORMER_TRANSDUCER``.
     device : None for the CUDA card (raises without one), or e.g. "cpu".
+    dtype : activation dtype of the features and the encoder (float32 or
+        bfloat16); the prediction network runs in float32, so the joint
+        does too.
     seed : seed of the random initial weights.
 
     ``forward(sig, sig_lens, tokens_blank, dtype, epoch)`` runs the
@@ -453,6 +523,10 @@ class ConformerTransducer(torch.nn.Module):
     ``dtype`` (the encoder states and ``enc_lin`` in bfloat16 under the
     recipe's bf16), the prediction network in float32, so the joint and
     ``out_lin`` (the step's largest product) run in float32, as in JAX.
+    ``transcribe`` encodes and runs a ``TransducerBeamSearcher`` over
+    ``pred_step`` and ``joint_step``, the recipe's
+    ``transducer_searcher``.  ``set_kernels(False)`` routes the kernel
+    calls (the encoder's depthwise conv, K1) to their plain versions.
 
     Example
     -------
@@ -465,14 +539,17 @@ class ConformerTransducer(torch.nn.Module):
     ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
     >>> logits.shape, logits.dtype, enc.shape
     (torch.Size([2, 7, 3, 12]), torch.float32, torch.Size([2, 7, 8]))
+    >>> hyps, scores = model.transcribe(torch.zeros(2, 4000), torch.ones(2))
+    >>> len(hyps), scores.shape
+    (2, (2,))
     """
 
-    def __init__(self, config, device=None, seed=0):
+    def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
         c = dict(config)
         self.config = c
         self.device = resolve_device(device)
-        self.dtype = torch.float32
+        self.dtype = dtype
         self.fbank, self.normalize, self.frontend = _front_end(c)
         self.transformer = _transformer(c)
         self.enc_lin = Linear(c["d_model"], c["joint_dim"])
@@ -491,18 +568,76 @@ class ConformerTransducer(torch.nn.Module):
         _set_kernels(self, flag)
         return self
 
-    def forward(self, sig, sig_lens, tokens_blank, dtype=None, epoch=0):
+    def forward(self, sig, sig_lens, tokens_blank, dtype=None, epoch=0,
+                augment=None):
         """sig (B, samples), sig_lens (B,) relative, tokens_blank (B, U+1)
         = [blank] + tokens -> ``(logits (B, T_enc, U+1, vocab) float32,
         enc (B, T_enc, joint_dim))``.  The normalization updates its
-        statistics in training mode (``epoch`` is the epoch it sees)."""
+        statistics in training mode (``epoch`` is the epoch it sees);
+        ``augment`` (the features -> the features, e.g. SpecAugment) runs
+        between the normalization and the cast to ``dtype``."""
         dtype = self.dtype if dtype is None else dtype
         feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
+        if augment is not None:
+            feats = augment(feats)
         src = self.frontend(feats.to(dtype))
         enc = self.enc_lin(self.transformer.encode(src, sig_lens))
         pred, _ = self.dec(self.emb(tokens_blank))
         joint = self.joint(enc, self.dec_lin(pred))  # bf16 + f32 -> f32
         return self.out_lin(joint).float(), enc
+
+    @torch.no_grad()
+    def encode(self, sig, sig_lens):
+        """sig (B, samples) float32, sig_lens (B,) relative -> the joint's
+        encoder side, ``enc_lin`` of the encoder states (B, T_enc,
+        joint_dim), in ``self.dtype``."""
+        sig = sig.to(self.device, torch.float32)
+        sig_lens = sig_lens.to(self.device, torch.float32)
+        feats = self.normalize(self.fbank(sig), sig_lens)
+        src = self.frontend(feats.to(self.dtype))
+        return self.enc_lin(self.transformer.encode(src, sig_lens))
+
+    def pred_step(self, tokens, state, n):
+        """One prediction-network step for n rows: tokens (n,) and the
+        GRU state (n, layers, H), batch-leading, or ``None`` and ``None``
+        for the start, whose input is the blank token's embedding and
+        which has no ``hx``.  Returns ``(dec_lin output (n, joint_dim)
+        float32, state (n, layers, H))``."""
+        if tokens is None:
+            blank = torch.full((n, 1), self.config["blank_index"],
+                               dtype=torch.long, device=self.device)
+            out, hx = self.dec(self.emb(blank))
+        else:
+            out, hx = self.dec(self.emb(tokens[:, None]),
+                               hx=state.transpose(0, 1))
+        return self.dec_lin(out[:, 0]), hx.transpose(0, 1)
+
+    def joint_step(self, enc, pred):
+        """``out_lin(tanh(enc + pred))``: the recipe's joint on the
+        encoder side and the prediction side (float32 when either is)."""
+        return self.out_lin(torch.tanh(enc + pred))
+
+    def make_searcher(self, **options):
+        """The recipe's ``TransducerBeamSearcher`` over this model:
+        ``beam_size``, ``state_beam`` and ``expand_beam`` from the config
+        (4, 2.3, 2.3) unless ``options`` give them (beam 1 is greedy);
+        the other ``options`` go to the searcher too (``nbest``,
+        ``lm_fn``, ``lm_weight``, ``max_expand_per_frame``)."""
+        c = self.config
+        kw = {k: c[k] for k in ("beam_size", "state_beam", "expand_beam")}
+        kw.update(options)
+        return TransducerBeamSearcher(self.pred_step, self.joint_step,
+                                      c["blank_index"], **kw)
+
+    @torch.no_grad()
+    def transcribe(self, sig, sig_lens, **search_options):
+        """Returns ``(hyps, scores)``: per utterance the best token list
+        and its normalised score (numpy), from the host lockstep beam
+        search (greedy at ``beam_size=1``).  ``search_options`` are
+        ``make_searcher``'s."""
+        enc = self.encode(sig, sig_lens)
+        searcher = self.make_searcher(**search_options)
+        return searcher(enc, sig_lens.to(self.device, torch.float32))
 
 
 class ConformerTransducerBrain(_ModelBrain):
@@ -510,13 +645,19 @@ class ConformerTransducerBrain(_ModelBrain):
     modules of ``ConformerTransducer``.
 
     ``compute_forward``: ``ConformerTransducer.forward`` (Fbank ->
-    ``InputNormalization``, updated in training -> cast to the activation
-    dtype -> front end -> 12 conformer layers -> ``enc_lin``; ``emb`` of
-    ``tokens_blank`` -> GRU -> ``dec_lin``; tanh joint -> ``out_lin``).
+    ``InputNormalization``, updated in training -> SpecAugment (training
+    only) -> cast to the activation dtype -> front end -> 12 conformer
+    layers -> ``enc_lin``; ``emb`` of ``tokens_blank`` -> GRU ->
+    ``dec_lin``; tanh joint -> ``out_lin``).
     ``compute_objectives``: ``transducer_loss`` (``mean``) with the
     lengths ``sig_lens * batch_mask`` and ``tokens_lens * batch_mask``,
     whose lattice runs in K8 (forward) and K9 (backward) on the card.
     After each optimizer step the Noam schedule sets the learning rate.
+    After ``on_stage_start(Stage.TEST)``, ``evaluate_batch`` also runs the
+    recipe's test search (``ConformerTransducer.make_searcher``: beam 4,
+    state_beam and expand_beam 2.3) on the batch's encoder side and
+    appends its hypotheses to ``self.wer_metric``, an ``ErrorRateStats``
+    over token ids.
 
     A batch is a dict of ``sig`` (B, samples) and ``sig_lens`` (B,)
     relative, ``tokens`` (B, U) (padding: the pad id 0), the relative
@@ -545,18 +686,28 @@ class ConformerTransducerBrain(_ModelBrain):
     MODULES = ("normalize", "frontend", "transformer", "enc_lin", "emb", "dec",
                "dec_lin", "out_lin")
 
+    def on_stage_start(self, stage, epoch=None):
+        """The test stage's ``ErrorRateStats`` and searcher."""
+        if stage == Stage.TEST:
+            self.wer_metric = ErrorRateStats()
+            self.searcher = self.model.make_searcher()
+
     def compute_forward(self, batch, stage):
         """Returns ``(logits float32, enc)``."""
         return self.model(batch["sig"], batch["sig_lens"],
                           batch["tokens_blank"], dtype=self.dtype,
-                          epoch=self.epoch)
+                          epoch=self.epoch, augment=self._augment(stage))
 
     def compute_objectives(self, predictions, batch, stage):
         """The RNN-T loss, ``mean`` over the batch."""
-        logits, _ = predictions
+        logits, enc = predictions
         mask = batch["batch_mask"]
-        return transducer_loss(
+        loss = transducer_loss(
             logits, batch["tokens"], batch["sig_lens"] * mask,
             batch["tokens_lens"] * mask,
             blank_index=self.config["blank_index"], reduction="mean",
             use_kernels=self.use_kernels)
+        if stage == Stage.TEST and hasattr(self, "wer_metric"):
+            hyps, _ = self.searcher(enc, batch["sig_lens"])
+            self._score_hyps(hyps, batch)
+        return loss

@@ -163,6 +163,10 @@ class Brain:
     def on_fit_batch_end(self, batch, outputs, loss, should_step):
         """Called after each training batch (e.g. to step a scheduler)."""
 
+    def on_stage_start(self, stage, epoch=None):
+        """Called at the start of each TRAIN/VALID/TEST stage (by the
+        caller: the port has no ``fit``/``evaluate`` loop yet)."""
+
     def init_optimizers(self):
         """Build the optimizer over every trainable parameter."""
         if self.opt_class is None:

@@ -50,7 +50,7 @@ CFG = dict(
     CONFORMER_SMALL, n_mels=40, frontend_channels=(8, 8), input_size=80,
     d_model=32, nhead=2, num_encoder_layers=2, num_decoder_layers=1,
     d_ffn=64, kernel_size=7, vocab_size=32, transformer_dropout=0.0,
-    lr_adam=1e-3, n_warmup_steps=4,
+    lr_adam=1e-3, n_warmup_steps=4, augmentation=None,
 )
 LR0 = 1e-3  # the first step's learning rate (hparams "lr"), then Noam
 

@@ -515,47 +515,96 @@ def test_ctc_log1p_unit_is_log1pf_bit_for_bit(gen):
     assert _log1p_unit_mismatches(torch.device("cuda")) == 0
 
 
+LAUNCH_CALLS = 3  # calls in a launch test's profiled window
+
+
+def _launch_window(kind):
+    """Run in a fresh process by ``_kernels_of``: build ``kind``'s inputs
+    at the training shape, call its wrapper once (the library loads,
+    first-call allocations), then profile ``LAUNCH_CALLS`` calls.  Returns
+    ``{"kernels": {device kernel: count}, "launches": the wrapper's
+    count over the window}``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if kind.startswith("ctc"):
+        B, T, C, U = 32, 251, 5000, 40
+        lp = torch.log_softmax(
+            torch.randn(B, T, C, device="cuda", generator=gen), -1)
+        tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
+        tlen = torch.tensor([T - (i % 8) * 4 for i in range(B)], device="cuda",
+                            dtype=torch.int32)
+        ulen = torch.tensor([U - (i % 5) for i in range(B)], device="cuda",
+                            dtype=torch.int32)
+        g = torch.randn(B, device="cuda", generator=gen)
+        args = (lp, tg, tlen, ulen, 0)
+        alpha, _, logz = ops.ctc_alpha(*args)
+        wrapper = getattr(ops, kind)
+        fn = {"ctc_alpha": lambda: ops.ctc_alpha(*args),
+              "ctc_beta_grad": lambda: ops.ctc_beta_grad(*args, alpha, logz, g),
+              }[kind]
+    else:
+        ot = ops.transducer
+        tables, _, _, tl, ul = _transducer_tables(gen, 12, 251, 64, True)
+        alpha, final = ot._alpha_kernel(*tables, tl, ul)
+        wrapper = getattr(ot, kind)
+        fn = {"transducer_alpha": lambda: ot._alpha_kernel(*tables, tl, ul),
+              "transducer_beta_grad": lambda: ot._beta_grad_kernel(
+                  *tables, alpha, tl, ul, final)}[kind]
+    fn()
+    torch.cuda.synchronize()
+    before = wrapper.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(LAUNCH_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {e.key: e.count for e in prof.key_averages()
+               if getattr(e, "self_device_time_total", 0) > 0}
+    return {"kernels": kernels, "launches": wrapper.launches - before}
+
+
+def _kernels_of(kind):
+    """``_launch_window(kind)`` in a new Python process.  The card's
+    profiler (torch 2.11.0+cu128) records windows with no kernel at all
+    once a process has profiled a few, so a launch count read in this
+    long test process would depend on the tests before it; a fresh
+    process profiles this window alone."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parents[1]
+    code = ("import json; from tests import test_torch_cuda as t; "
+            f"print(json.dumps(t._launch_window({kind!r})))")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(repo)] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _assert_one_kernel(kind, name):
+    """The window's device kernels: one name, ``name``; at most one
+    launch a call (the profiler may miss the first of a window), at
+    least one in all; and the wrapper counted every call."""
+    got = _kernels_of(kind)
+    kernels = got["kernels"]
+    assert got["launches"] == LAUNCH_CALLS, got
+    assert len(kernels) == 1, kernels
+    assert all(name in k for k in kernels), kernels
+    assert 1 <= sum(kernels.values()) <= LAUNCH_CALLS, kernels
+
+
 def test_ctc_wrappers_are_one_launch(gen):
     """At the training shape (B32 T251 C5000 U40; int64 targets, int32
     lengths, as ``ctc_loss`` passes them) each of K3 and K4 is one device
-    kernel a call: no casts or clamps around it.  Over three calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    B, T, C, U = 32, 251, 5000, 40
-    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
-    tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
-    tlen = torch.tensor([T - (i % 8) * 4 for i in range(B)], device="cuda",
-                        dtype=torch.int32)
-    ulen = torch.tensor([U - (i % 5) for i in range(B)], device="cuda",
-                        dtype=torch.int32)
-    g = torch.randn(B, device="cuda", generator=gen)
-    args = (lp, tg, tlen, ulen, 0)
-    alpha, loss, logz = ops.ctc_alpha(*args)  # loads the library
-    ops.ctc_beta_grad(*args, alpha, logz, g)
-    torch.cuda.synchronize()
-    calls = 3
-    for name, fn in (("ctc_alpha_warp_kernel", lambda: ops.ctc_alpha(*args)),
-                     ("ctc_beta_grad_warp_kernel",
-                      lambda: ops.ctc_beta_grad(*args, alpha, logz, g))):
-        wrapper = ops.ctc_alpha if name.startswith("ctc_alpha") else ops.ctc_beta_grad
-        # the profiler may miss the first launch of its window (the count
-        # is bounded, the names are exact), and after many windows in one
-        # process it has recorded none at all: such a window is profiled
-        # again, as chip_smoke.py's _device_profile does
-        for _ in range(3):
-            before = wrapper.launches
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            assert wrapper.launches == before + calls
-            kernels = {e.key: e.count for e in prof.key_averages()
-                       if getattr(e, "self_device_time_total", 0) > 0}
-            if kernels:
-                break
-        assert len(kernels) == 1, kernels
-        assert all(name in k for k in kernels), kernels
-        assert sum(kernels.values()) <= calls, kernels
+    kernel a call: no casts or clamps around it.  Over three calls, each
+    wrapper profiled in a process of its own."""
+    _assert_one_kernel("ctc_alpha", "ctc_alpha_warp_kernel")
+    _assert_one_kernel("ctc_beta_grad", "ctc_beta_grad_warp_kernel")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -869,33 +918,10 @@ def test_transducer_kernels_repeat_their_bits(gen, B, T, U):
 def test_transducer_kernels_are_one_launch(gen):
     """At the training shape (B12 T251 U64) each of K8 and K9 is one device
     kernel a call, the warp-chain kernels by exact name.  Over three
-    calls."""
-    from torch.profiler import ProfilerActivity, profile
-
-    tables, _, _, tl, ul = _transducer_tables(gen, 12, 251, 64, True)
-    ot = ops.transducer
-    alpha, final = ot._alpha_kernel(*tables, tl, ul)  # loads the library
-    ot._beta_grad_kernel(*tables, alpha, tl, ul, final)
-    torch.cuda.synchronize()
-    calls = 3
-    for name, fn in (
-            ("transducer_alpha_chain_kernel",
-             lambda: ot._alpha_kernel(*tables, tl, ul)),
-            ("transducer_beta_grad_chain_kernel",
-             lambda: ot._beta_grad_kernel(*tables, alpha, tl, ul, final))):
-        # a window in which the profiler recorded nothing is profiled again
-        for _ in range(3):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-            kernels = {e.key: e.count for e in prof.key_averages()
-                       if getattr(e, "self_device_time_total", 0) > 0}
-            if kernels:
-                break
-        assert len(kernels) == 1, kernels
-        assert all(name in k for k in kernels), kernels
-        assert sum(kernels.values()) <= calls, kernels
+    calls, each kernel profiled in a process of its own."""
+    _assert_one_kernel("transducer_alpha", "transducer_alpha_chain_kernel")
+    _assert_one_kernel("transducer_beta_grad",
+                       "transducer_beta_grad_chain_kernel")
 
 
 @pytest.mark.parametrize("normalize_by_T", [False, True])
@@ -1063,3 +1089,71 @@ def test_lm_fused_search_kernels_vs_plain(gen):
     assert hyps == hyps_p
     assert np.isfinite(scores).all()
     np.testing.assert_allclose(scores, scores_p, atol=1e-4, rtol=0)
+
+
+def test_transducer_search_kernels_vs_plain(gen):
+    """The conformer-transducer's serving at full width (12 layers,
+    d_model 144, vocab 1000, joint 320, GRU 256; random weights, the
+    blank bias raised +4 as a trained model's), B 3 x 4 s: the encoder's
+    K1 route and plain route agree, K1 runs once a layer; the recipe's
+    beam 4 gives the same hypotheses from both encoders' states, the
+    device beam the host beam's, and no frame is force-advanced."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.asr import CONFORMER_TRANSDUCER, ConformerTransducer
+
+    model = ConformerTransducer(CONFORMER_TRANSDUCER, seed=0)
+    with torch.no_grad():
+        model.out_lin.bias[CONFORMER_TRANSDUCER["blank_index"]] += 4.0
+    sig = 0.1 * torch.randn(3, 64000, device="cuda", generator=gen)
+    lens = torch.tensor([1.0, 0.9, 0.7], device="cuda")
+    ops.reset_launch_counters()
+    enc = model.encode(sig, lens)
+    assert ops.launch_counters()["depthwise_conv1d"] == 12
+    enc_p = model.set_kernels(False).encode(sig, lens)
+    model.set_kernels(True)
+    assert float((enc - enc_p).abs().max()) <= 1e-3
+    searcher = model.make_searcher()
+    hyps, scores = searcher(enc, lens)
+    assert searcher.forced_advance_count == 0
+    hyps_p, scores_p = model.make_searcher()(enc_p, lens)
+    assert hyps == hyps_p and sum(map(len, hyps)) > 0
+    np.testing.assert_allclose(scores, scores_p, atol=1e-4, rtol=0)
+    # the random model's beam emits ~3 tokens a frame (T_enc 101)
+    toks, tok_lens, dev_scores = searcher.transducer_beam_search_device(
+        enc, lens, max_symbols=512)
+    assert int(tok_lens.max()) < 512
+    assert [toks[b, :tok_lens[b]].tolist() for b in range(3)] == hyps
+    np.testing.assert_allclose(dev_scores.cpu().numpy(), scores, atol=1e-4,
+                               rtol=0)
+    greedy, _ = model.make_searcher(beam_size=1)(enc, lens)
+    assert len(greedy) == 3
+
+
+def test_spec_augment_on_a_cuda_generator(gen):
+    """SpecAugment draws on the card's generator with no host sync (the
+    sync debug mode raises on one), the same draws for the same seed, and
+    draws in their ranges."""
+    from speechbrain_tpu_torch.asr import CONFORMER_SMALL
+    from speechbrain_tpu_torch.lobes.augment import SpecAugment
+
+    aug = SpecAugment(**CONFORMER_SMALL["augmentation"])
+    x = torch.randn(8, 1000, 80, device="cuda", generator=gen)
+    outs = []
+    for seed in (3, 3, 4):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(aug(x, g))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(outs[0], outs[1]) and not torch.equal(outs[0], outs[2])
+    d = aug.draw((4096, 1000, 80), torch.Generator(device="cuda").manual_seed(0))
+    lens, pos = d["freq"]
+    assert lens.is_cuda and 0 <= int(lens.min()) and int(lens.max()) == 29
+    assert int(pos.min()) == 0 and int(pos.max()) == 49
+    lens, pos = d["time"]
+    assert int(lens.max()) == 39 and int(pos.max()) == 959
+    c, w = d["warp"]
+    assert 5 <= int(c) < 995 and abs(int(w - c)) <= 5

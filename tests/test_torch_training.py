@@ -30,7 +30,8 @@ from speechbrain_tpu_torch.processing.features import InputNormalization
 
 TOY = dict(CONFORMER_SMALL, frontend_channels=(4, 4), input_size=40,
            d_model=16, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
-           d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40)
+           d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,
+           augmentation=None)
 
 
 def _np(x):

@@ -382,6 +382,7 @@ CFG = dict(
     d_model=32, nhead=2, num_encoder_layers=2, d_ffn=64, kernel_size=7,
     vocab_size=32, dec_emb_dim=16, dec_neurons=24, joint_dim=20,
     transformer_dropout=0.0, lr_adam=1e-3, n_warmup_steps=4,
+    augmentation=None,
 )
 LR0 = 1e-3  # the first step's learning rate (hparams "lr"), then Noam
 
