@@ -6,6 +6,7 @@ NVIDIA card.
     python3 chip_smoke.py --only depthwise,relpos   # build + those checks
     python3 chip_smoke.py --only ctc                # K3/K4 records alone
     python3 chip_smoke.py --only transducer         # K8/K9 records alone
+    python3 chip_smoke.py --phase recipe            # build + that phase
 
 Phases, each printing one JSON line when it ends:
 
@@ -91,6 +92,28 @@ Phases, each printing one JSON line when it ends:
    the device beam's loop; the device beam must give the host beam's
    hypotheses, and the f32 beam through the plain versions the same
    hypotheses (scores within 1e-4).
+10. recipe -- ``recipes.librispeech_asr`` end to end at full width: 74
+   synthetic 16 kHz 16-bit WAV files of 4-14 s written to a temp dir
+   (64 train, 8 dev, 2 test; noise and tones, 20-30 words from a 2000-word
+   lexicon), the manifests, a unigram tokenizer trained at vocab 5000 by
+   the native library (``native/``, built into ``build/native/``; the
+   phase fails unless the native route trained it), then
+   ``ConformerASRBrain`` in bf16 with the recipe's settings (accumulation
+   2, 200 s batches in 10 buckets, 4 loader threads, staging depth 2,
+   dropout 0.1, SpecAugment; validation at beam 10, full CTC scoring at
+   0.4, no LM): ``fit`` for 2 epochs; a fresh Brain, loaders and counter
+   on the same folder run epoch 3 alone, with the recovered module and
+   optimizer state equal to the saved one bit for bit and the Noam step,
+   optimizer step and epoch carried over; ``evaluate(min_key="WER")`` on
+   the test set at beam 66.  It prints the tokenizer's seconds and route,
+   batches and steps an epoch, the batch shapes, train ms a batch and
+   utt/s, the staging queue's wait, the validation and test seconds and
+   utt/s, the WERs (finite, >= 0), checkpoint bytes, save and resume
+   ms, peak memory and the launches (K1, K2, K3, K4 and K7 each above
+   0).  Outside the counted run: K3/K4 against the plain recursions on a
+   recipe batch with a dummy row (length 0: loss 0, no gradient), and
+   two steps with staging depth 2 and two with 0 (dropout 0, no
+   SpecAugment) giving the same losses bit for bit.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -100,7 +123,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 9, each counted from 0 just before its
+(launch counts from phases 3 to 10, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -2197,12 +2220,310 @@ def phase_train_transducer():
     return runs
 
 
+# the synthetic LibriSpeech tree of the recipe phase (utterances a split)
+RECIPE_UTTERANCES = {"train-clean-100": 64, "dev-clean": 8, "test-clean": 2}
+# the kernels the recipe's path runs: K1/K2 and K3/K4 in every training
+# step, K7 in every step of the validation and test searches
+RECIPE_KERNELS = ("depthwise_conv1d", "depthwise_conv1d_dw", "ctc_alpha",
+                  "ctc_beta_grad", "beam_attend_step")
+
+
+def _snapshot(brain):
+    """Copies of the Brain's module and optimizer state and counters."""
+    import torch
+
+    def clone(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().clone()
+        if isinstance(x, dict):
+            return {k: clone(v) for k, v in x.items()}
+        return x
+
+    return {"modules": clone(brain.modules.state_dict()),
+            "optimizer": clone(brain.optimizer.state_dict()["state"]),
+            "optimizer_step": brain.optimizer_step, "lr": brain.lr,
+            "noam_n_steps": brain.noam.n_steps}
+
+
+def _same_state(a, b):
+    """Bit-for-bit equality of two ``_snapshot``s."""
+    import torch
+
+    assert a["modules"].keys() == b["modules"].keys()
+    for k, v in a["modules"].items():
+        assert torch.equal(v, b["modules"][k]), f"module state {k}"
+    assert a["optimizer"].keys() == b["optimizer"].keys()
+    for i, st in a["optimizer"].items():
+        for k, v in st.items():
+            assert torch.equal(v.cpu(), b["optimizer"][i][k].cpu()), (i, k)
+    for k in ("optimizer_step", "lr", "noam_n_steps"):
+        assert a[k] == b[k], (k, a[k], b[k])
+    return len(a["modules"]) + sum(map(len, a["optimizer"].values()))
+
+
+def _instrument(brain, log):
+    """Wrap the Brain's steps, stages and checkpoint saves to record, in
+    ``log``: each training batch's signal shape and batch mask, the
+    batches and optimizer steps of each epoch, the seconds of each stage
+    (the card synchronised at its end), and each save's milliseconds."""
+    import torch
+
+    fit_batch, fit_train = brain.fit_batch, brain._fit_train
+    evaluate_stage = brain._evaluate_stage
+    save = brain.checkpointer.save_and_keep_only
+
+    def on_fit_batch(batch):
+        log["shapes"].add(tuple(batch["sig"].shape))
+        log["masks"].append(batch["batch_mask"])
+        log["batches"][-1] += 1
+        return fit_batch(batch)
+
+    def on_fit_train(train_set, epoch, progressbar):
+        log["batches"].append(0)
+        log["epochs"].append(epoch)
+        steps0, wait0 = brain.optimizer_step, brain.staging_wait_seconds
+        out, seconds = _timed(lambda: fit_train(train_set, epoch, progressbar))
+        log["train_s"].append(seconds)
+        log["steps"].append(brain.optimizer_step - steps0)
+        log["staging_wait_s"].append(brain.staging_wait_seconds - wait0)
+        return out
+
+    def on_evaluate_stage(dataset, stage, epoch):
+        out, seconds = _timed(lambda: evaluate_stage(dataset, stage, epoch))
+        log[f"{stage.name.lower()}_s"].append(seconds)
+        return out
+
+    def on_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        save(*args, **kwargs)
+        log["save_ms"].append(1e3 * (time.perf_counter() - t0))
+
+    brain.fit_batch, brain._fit_train = on_fit_batch, on_fit_train
+    brain._evaluate_stage = on_evaluate_stage
+    brain.checkpointer.save_and_keep_only = on_save
+    for key in ("masks", "batches", "epochs", "train_s", "steps",
+                "staging_wait_s", "valid_s", "test_s", "save_ms"):
+        log.setdefault(key, [])
+    log.setdefault("shapes", set())
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _recipe_ctc_dummy_rows(brain, parts):
+    """K3/K4 on a recipe batch with a dummy row (3 utterances collated by
+    the recipe's policy: the batch dim is padded to 4) against the plain
+    recursions: per-sequence losses and gradients; the dummy row costs 0
+    and gets no gradient on both routes."""
+    import torch
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.nnet.losses import ctc_loss
+
+    loader = parts["train_loader"]
+    batch = brain.prepare_batch(
+        loader.collate_fn([loader.dataset[i] for i in range(3)]))
+    mask = batch["batch_mask"]
+    assert mask.tolist() == [1.0, 1.0, 1.0, 0.0], mask
+    with torch.no_grad():
+        brain.modules.eval()
+        ctc_logp, _ = brain.compute_forward(batch, Stage.VALID)
+    routes = {}
+    for use_kernels in (True, False):
+        lp = ctc_logp.detach().clone().requires_grad_()
+        per = ctc_loss(lp, batch["tokens"], batch["sig_lens"] * mask,
+                       batch["tokens_lens"] * mask, blank_index=0,
+                       reduction="none", use_kernels=use_kernels)
+        (grad,) = torch.autograd.grad(per.sum(), lp)
+        routes[use_kernels] = (per.detach(), grad)
+    (loss_k, grad_k), (loss_p, grad_p) = routes[True], routes[False]
+    torch.testing.assert_close(loss_k, loss_p, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(grad_k, grad_p, atol=1e-5, rtol=1e-4)
+    assert float(loss_k[3]) == 0.0 and bool((grad_k[3] == 0).all())
+    return {"shape": list(ctc_logp.shape), "loss_kernel": loss_k.tolist(),
+            "loss_max_abs_err": _err(loss_k, loss_p),
+            "grad_max_abs_err": _err(grad_k, grad_p),
+            "loss_tol": {"atol": 1e-4, "rtol": 1e-5},
+            "grad_tol": {"atol": 1e-5, "rtol": 1e-4}}
+
+
+def _recipe_staging_check(data, tmp, overrides):
+    """Staging is only a schedule: with dropout 0 and no SpecAugment, two
+    training steps with ``staging_depth`` 2 and two with 0 (fresh Brains
+    from the same seed, the same loader order) give the same losses bit
+    for bit."""
+    from speechbrain_tpu_torch.recipes import librispeech_asr as recipe
+
+    losses = {}
+    for depth in (2, 0):
+        parts = recipe.build(
+            data, f"{tmp}/staging{depth}",
+            dict(overrides, number_of_epochs=1, transformer_dropout=0.0,
+                 augmentation=None),
+            {"staging_depth": depth, "noprogressbar": True, "debug": True,
+             "debug_batches": 2, "debug_epochs": 1, "loss_sync_interval": 1})
+        brain, got = parts["brain"], []
+        end = brain.on_fit_batch_end
+        brain.on_fit_batch_end = lambda b, o, l, s: (got.append(l),
+                                                     end(b, o, l, s))
+        brain.fit(parts["epoch_counter"], parts["train_loader"])
+        losses[depth] = got
+        del parts, brain
+    assert len(losses[2]) == 2 and losses[2] == losses[0], losses
+    return {"staging_depth_2": losses[2], "staging_depth_0": losses[0]}
+
+
+def phase_recipe():
+    """The LibriSpeech conformer recipe end to end at full width
+    (``recipes.librispeech_asr``: conformer_small, bf16, accumulation 2,
+    dynamic batches of 200 s in 10 buckets, 4 loader threads, staging
+    depth 2, dropout 0.1 and SpecAugment; validation at beam 10 with full
+    CTC scoring at 0.4, no LM) from 16-bit WAV files on disk.  The heads
+    keep their random weights (no ``phase_serve`` biases): the model
+    never emits eos, so each search runs its full T_enc steps."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_recipe_")
+    try:
+        return _recipe_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recipe_run(tmp):
+    import os
+
+    import torch
+
+    from speechbrain_tpu_torch import native, ops
+    from speechbrain_tpu_torch.recipes import librispeech_asr as recipe
+    from speechbrain_tpu_torch.tokenizers.SentencePiece import SentencePiece
+
+    # the native library (tokenizer, FLAC), built into build/native/
+    lib_path, native_s = _timed(native.build)
+    assert lib_path.parent == native.BUILD_DIR and native.get_lib() is not None
+    data, out = f"{tmp}/LibriSpeech", f"{tmp}/out"
+    _, write_s = _timed(lambda: recipe.write_synthetic_librispeech(
+        data, RECIPE_UTTERANCES, seed=SEED))
+    splits = {"train_splits": ["train-clean-100"],
+              "test_splits": ["test-clean"]}
+    save = f"{out}/save"
+    recipe.prepare_librispeech(data, save, tr_splits=splits["train_splits"],
+                               te_splits=splits["test_splits"],
+                               merge_lst=splits["train_splits"],
+                               merge_name="train.json")
+    vocab = recipe.HPARAMS["vocab_size"]
+    tok, tok_s = _timed(lambda: SentencePiece(
+        model_dir=save, vocab_size=vocab, annotation_train=f"{save}/train.json",
+        annotation_read="words", model_type="unigram",
+        annotation_format="json"))
+    # trained by the native library, and its encoder is the native one
+    assert tok.sp.train_route == "native", tok.sp.train_route
+    assert tok.sp._native_encoder() is not None
+    pieces = tok.sp.get_piece_size()
+    assert 0 < pieces <= vocab and len(set(tok.sp.pieces)) == pieces
+
+    # 1. fit, 2 epochs (the tokenizer and manifests above are loaded)
+    opts = {"staging_depth": 2, "noprogressbar": True}
+    ops.reset_launch_counters()
+    parts = recipe.build(data, out, dict(splits, number_of_epochs=2), opts)
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    valid_wer_2 = brain.stage_stats["VALID"]["WER"]
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    assert brain.config["vocab_size"] == vocab and brain.dtype == torch.bfloat16
+
+    # 2. a fresh Brain, loaders and counter on the same folder: epoch 3
+    parts2 = recipe.build(data, out, dict(splits, number_of_epochs=3), opts)
+    brain2, log2 = parts2["brain"], {}
+    _instrument(brain2, log2)
+    recovered = {}
+    fit_start = brain2.on_fit_start
+
+    def on_fit_start():
+        _, recovered["seconds"] = _timed(fit_start)
+        recovered["state"] = _snapshot(brain2)
+        recovered["epoch"] = parts2["epoch_counter"].current
+
+    brain2.on_fit_start = on_fit_start
+    brain2.fit(parts2["epoch_counter"], parts2["train_loader"],
+               parts2["valid_loader"])
+    assert log2["epochs"] == [3], log2["epochs"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    valid_wer_3 = brain2.stage_stats["VALID"]["WER"]
+
+    # 3. the test set at the recipe's test beam, from the best checkpoint
+    brain2.config["valid_beam_size"] = parts2["hparams"]["test_beam_size"]
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="WER"))
+    counts = ops.launch_counters()  # the main path's launches, read here
+    test_wer = brain2.stage_stats["TEST"]["WER"]
+    best = min(c.meta["WER"] for c in brain2.checkpointer.list_checkpoints())
+    assert brain2._recovered_ckpt.meta["WER"] == best
+    for wer in (valid_wer_2, valid_wer_3, test_wer):
+        assert np.isfinite(wer) and wer >= 0, wer
+    assert np.isfinite(test_loss)
+    assert all(counts[k] > 0 for k in RECIPE_KERNELS), counts
+    peak = max(peak_fit, torch.cuda.max_memory_allocated())
+
+    # checks outside the counted run
+    ctc_check = _recipe_ctc_dummy_rows(brain2, parts2)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    staging = _recipe_staging_check(data, tmp, splits)
+    torch.cuda.empty_cache()
+
+    steps1, batches1 = log["steps"][0], log["batches"][0]
+    train_s = sum(log["train_s"])
+    real = sum(int(m.sum()) for m in log["masks"])
+    n_valid = RECIPE_UTTERANCES["dev-clean"]
+    run = {
+        "phase": "recipe", "utterances": RECIPE_UTTERANCES,
+        "train_audio_s": sum(d["duration"] for d in json.load(
+            open(f"{save}/train.json")).values()),
+        "native_library": {"path": os.path.relpath(lib_path), "route": "native",
+                           "build_s": native_s},
+        "write_wavs_s": write_s,
+        "tokenizer": {"route": tok.sp.train_route, "train_s": tok_s,
+                      "vocab_size": vocab, "pieces": pieces},
+        "precision": "bf16", "grad_accumulation_factor": 2,
+        "batches_per_epoch": batches1, "steps_per_epoch": steps1,
+        "batch_shapes": sorted(log["shapes"]),
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_ms_per_step": 1e3 * train_s / sum(log["steps"]),
+        "train_utt_per_s": real / train_s,
+        "staging_wait_s_per_batch": sum(log["staging_wait_s"])
+        / sum(log["batches"]),
+        "valid_s": log["valid_s"] + log2["valid_s"],
+        "valid_utt_per_s": n_valid / np.mean(log["valid_s"] + log2["valid_s"]),
+        "test_s": test_s,
+        "test_utt_per_s": RECIPE_UTTERANCES["test-clean"] / test_s,
+        "fit_2_epochs_s": fit_s,
+        "valid_wer": [valid_wer_2, valid_wer_3], "test_wer": test_wer,
+        "test_loss": test_loss,
+        "checkpoint_bytes": ckpt_bytes, "save_ms": log["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal,
+        "peak_mem_bytes": peak, "launches": counts,
+        "ctc_dummy_rows_kernel_vs_plain": ctc_check,
+        "staging_only_a_schedule": staging,
+    }
+    emit(run)
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
-    train_long, train_transducer, serve_transducer), each counted from 0
-    just before its run."""
+    train_long, train_transducer, serve_transducer, recipe), each counted
+    from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -2269,6 +2590,11 @@ def main():
         # a subset of the kernel checks, and nothing else
         phase_kernels(set(sys.argv[2].split(",")))
         return 0
+    if len(sys.argv) > 2 and sys.argv[1] == "--phase":
+        # one or more of the path phases, and nothing else
+        for name in sys.argv[2].split(","):
+            globals()[f"phase_{name}"]()
+        return 0
     seconds = {}
 
     def timed(name, phase):
@@ -2285,10 +2611,11 @@ def main():
     train_long = timed("train_long", phase_train_long)
     transducer = timed("train_transducer", phase_train_transducer)
     serve_transducer = timed("serve_transducer", phase_serve_transducer)
+    recipe = timed("recipe", phase_recipe)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
-                 *serve_transducer.values()]
+                 *serve_transducer.values(), recipe]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,9 +10,14 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``;
 nothing falls back to the CPU quietly (see ``device.py``).
 
 The port covers the conformer joint CTC/attention ASR model: serving
-(``asr.ConformerASR``) and the training step (``asr.ConformerASRBrain``
-on ``core.Brain``); and the conformer-transducer's training step
-(``asr.ConformerTransducerBrain``, the RNN-T loss in ``ops.transducer``).
+(``asr.ConformerASR``), training (``asr.ConformerASRBrain`` on
+``core.Brain``, with ``fit``/``evaluate``, checkpoints and resume) and
+the LibriSpeech recipe end to end (``recipes.librispeech_asr``: audio
+files on disk through ``dataio``, the ``tokenizers.SentencePiece``
+tokenizer, whose trainer and encoder and the FLAC decoder are native
+C++ host code in ``native/``); and the conformer-transducer's training
+step and decoding (``asr.ConformerTransducerBrain``, the RNN-T loss in
+``ops.transducer``).
 """
 
 __all__ = ["asr", "bridge", "core", "device"]

@@ -25,8 +25,11 @@ expand_beam 2.3; also greedy and the fixed-shape device beam);
 ``ConformerTransducerBrain`` trains it with the recipe's step
 (``train.py:27-100``, SpecAugment included) on the RNN-T loss, whose
 lattice runs in the kernels K8/K9 on the card, and scores the test
-search's error rate.  Until the tokenizers are ported, the error rates
-are over token ids.
+search's error rate.  With a tokenizer (``tokenizers.SentencePiece``)
+the error rates are over the words it decodes, as the recipes score
+them; without one, over token ids.  ``recipes/librispeech_asr.py`` runs
+the conformer recipe end to end (data, tokenizer, ``Brain.fit`` with
+checkpoints, ``evaluate``).
 """
 
 import math
@@ -345,12 +348,17 @@ class _ModelBrain(Brain):
     step runs at ``hparams["lr"]`` (1e-3 when not given), as in the JAX
     ``Brain``.  ``config["augmentation"]`` holds SpecAugment's arguments
     (None: no augmentation); it acts on the normalized features in
-    ``Stage.TRAIN`` only, with draws from ``self.generator``."""
+    ``Stage.TRAIN`` only, with draws from ``self.generator``.  With a
+    ``checkpointer``, the Noam schedule is registered with it as
+    ``"noam_annealing"`` (as the recipes register it).  ``tokenizer``
+    (optional) decodes the hypotheses and references to words for the
+    error rate."""
 
     MODEL, DEFAULTS, MODULES = None, None, ()
 
     def __init__(self, config, opt_class=None, device=None, seed=0,
-                 run_opts=None, hparams=None):
+                 run_opts=None, hparams=None, checkpointer=None,
+                 tokenizer=None):
         c = dict(self.DEFAULTS, **config)
         run_opts = dict(run_opts or {})
         run_opts.setdefault("device", device)
@@ -365,13 +373,19 @@ class _ModelBrain(Brain):
         super().__init__(
             modules={name: getattr(self.model, name) for name in self.MODULES},
             opt_class=opt_class, hparams=hparams, run_opts=run_opts,
+            checkpointer=checkpointer,
         )
         self.config = c
+        self.tokenizer = tokenizer
         self.model.dtype = self.dtype
         aug = c.get("augmentation")
         self.augment = None if aug is None else SpecAugment(**aug)
         self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
+        if (checkpointer is not None
+                and "noam_annealing" not in checkpointer.recoverables):
+            checkpointer.add_recoverable("noam_annealing", self.noam)
         self.epoch = 0
+        self.stage_stats = {}
         self.use_kernels = True
 
     def on_fit_batch_end(self, batch, outputs, loss, should_step):
@@ -393,14 +407,21 @@ class _ModelBrain(Brain):
         return lambda feats: self.augment(feats, self.generator)
 
     def _score_hyps(self, hyps, batch):
-        """Append the real rows' hypotheses and reference tokens to
-        ``self.wer_metric``: an error rate over token ids (the tokenizers
-        are not ported)."""
+        """Append the real rows' hypotheses and references to
+        ``self.wer_metric``: as words decoded by ``self.tokenizer``
+        (``recipes/LibriSpeech/ASR/transformer/train.py:91-104``), or as
+        token ids without one."""
         real = int(batch["batch_mask"].sum())
-        targets = undo_padding(batch["tokens"].cpu().numpy(),
-                               batch["tokens_lens"].cpu().numpy())
-        self.wer_metric.append([str(i) for i in range(real)], hyps[:real],
-                               targets[:real])
+        tokens = batch["tokens"][:real].cpu().numpy()
+        lens = batch["tokens_lens"][:real].cpu().numpy()
+        ids = [str(i) for i in range(real)]
+        if self.tokenizer is None:
+            self.wer_metric.append(ids, hyps[:real], undo_padding(tokens, lens))
+            return
+        predicted = [self.tokenizer([h], task="decode_from_list")[0]
+                     for h in hyps[:real]]
+        targets = self.tokenizer(tokens.tolist(), lens, task="decode")
+        self.wer_metric.append(ids, predicted, targets)
 
 
 class ConformerASRBrain(_ModelBrain):
@@ -426,10 +447,21 @@ class ConformerASRBrain(_ModelBrain):
     ``evaluate_batch`` also runs the recipe's search (``transcribe`` at
     ``valid_beam_size``, CTC weight ``ctc_weight_decode``) and appends
     its hypotheses to ``self.wer_metric``, an ``ErrorRateStats`` over
-    token ids.  A batch is a dict of ``sig`` (B, samples) and ``sig_lens``
-    (B,) relative, ``tokens`` (B, U), ``tokens_bos``/``tokens_eos``
-    (B, U+1) and the relative ``tokens_lens``/``tokens_eos_lens``.
-    ``epoch`` (default 0) is the epoch the normalization sees.
+    words (with a tokenizer) or token ids.  A batch is a dict (or a
+    ``PaddedBatch``) of ``sig`` (B, samples) and ``sig_lens`` (B,)
+    relative, ``tokens`` (B, U), ``tokens_bos``/``tokens_eos`` (B, U+1),
+    the relative ``tokens_lens``/``tokens_eos_lens`` and, where it has
+    dummy rows, ``batch_mask``.  ``epoch`` is the epoch the
+    normalization sees: the epoch counter's, which ``fit`` passes to
+    ``on_stage_start`` (0 before any).
+
+    ``on_stage_end`` does what the recipe's does (``train.py:204-223``):
+    at VALID it writes the logger's line (``hparams["train_logger"]``,
+    a ``FileTrainLogger``, when given) and, with a checkpointer, saves
+    one with ``meta={"WER": wer}`` and keeps the best by WER; at TEST it
+    writes the test line with the epoch loaded
+    (``hparams["epoch_counter"]``).  The last stats of each stage are
+    in ``self.stage_stats``.
 
     Arguments
     ---------
@@ -463,9 +495,37 @@ class ConformerASRBrain(_ModelBrain):
     MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
 
     def on_stage_start(self, stage, epoch=None):
-        """A new ``ErrorRateStats`` for the validation and test stages."""
+        """The normalization's epoch; a new ``ErrorRateStats`` for the
+        validation and test stages."""
+        if epoch is not None:
+            self.epoch = epoch
         if stage != Stage.TRAIN:
             self.wer_metric = ErrorRateStats()
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        """The recipe's logging and keep-best checkpoint (see above)."""
+        if stage == Stage.TRAIN:
+            return
+        wer = self.wer_metric.summarize("error_rate")
+        stats = {"loss": stage_loss, "WER": wer}
+        self.stage_stats[stage.name] = stats
+        train_logger = getattr(self.hparams, "train_logger", None)
+        if stage == Stage.VALID:
+            if train_logger is not None:
+                train_logger.log_stats(
+                    {"epoch": epoch, "lr": self.lr},
+                    train_stats={"loss": self.avg_train_loss},
+                    valid_stats=stats,
+                )
+            if self.checkpointer is not None:
+                self.checkpointer.save_and_keep_only(
+                    meta={"WER": wer}, min_keys=["WER"])
+        elif train_logger is not None:
+            counter = getattr(self.hparams, "epoch_counter", None)
+            train_logger.log_stats(
+                {"Epoch loaded": None if counter is None else counter.current},
+                test_stats=stats,
+            )
 
     def compute_forward(self, batch, stage):
         """Returns the CTC and seq2seq log-probabilities, float32."""
@@ -657,7 +717,7 @@ class ConformerTransducerBrain(_ModelBrain):
     recipe's test search (``ConformerTransducer.make_searcher``: beam 4,
     state_beam and expand_beam 2.3) on the batch's encoder side and
     appends its hypotheses to ``self.wer_metric``, an ``ErrorRateStats``
-    over token ids.
+    over words (with a tokenizer) or token ids.
 
     A batch is a dict of ``sig`` (B, samples) and ``sig_lens`` (B,)
     relative, ``tokens`` (B, U) (padding: the pad id 0), the relative

@@ -24,6 +24,14 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``encoder`` (each layer's attention ``MultiheadAttention_0`` or
   ``RelPosMHAXL_0`` -> ``self_attn``, ``LayerNorm_0``/``_1`` ->
   ``norm1``/``norm2``, ``PositionalwiseFeedForward_0`` -> ``ffn``).
+
+The optimizer's state: optax ``adamw``'s ``mu``, ``nu`` and ``count``
+are torch ``AdamW``'s ``exp_avg``, ``exp_avg_sq`` and ``step``
+(``adamw_state_to_torch`` and back, ``adamw_state_from_torch``).  The
+moments have the parameters' tree, so the converters above put them in
+the port's layout (each layout change is a permutation, which commutes
+with Adam's elementwise update); the functions here key them by
+parameter order, as ``torch.optim`` does.
 """
 
 import numpy as np
@@ -51,6 +59,8 @@ __all__ = [
     "encoder_layer",
     "transformer_lm_state_dict",
     "to_jax_transformer_lm",
+    "adamw_state_to_torch",
+    "adamw_state_from_torch",
 ]
 
 
@@ -500,3 +510,30 @@ def to_jax_conformer_transducer(state_dict):
         "dec": to_jax_gru(state_dict, "dec."),
         "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
     }
+
+
+def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):
+    """Load Adam moments into ``optimizer`` (a torch ``AdamW`` over one
+    parameter group): ``names`` lists the parameters' state_dict names in
+    the optimizer's order; ``exp_avg``/``exp_avg_sq`` map those names to
+    arrays in the port's layout (optax ``mu``/``nu`` through this
+    module's converters); ``step`` is optax's ``count``."""
+    sd = optimizer.state_dict()
+    sd["state"] = {
+        i: {"step": torch.tensor(float(step)),
+            "exp_avg": _t(exp_avg[name]).clone(),
+            "exp_avg_sq": _t(exp_avg_sq[name]).clone()}
+        for i, name in enumerate(names)
+    }
+    optimizer.load_state_dict(sd)
+
+
+def adamw_state_from_torch(optimizer, names):
+    """The inverse of ``adamw_state_to_torch``: ``(exp_avg, exp_avg_sq,
+    step)``, the moments as dicts of float32 numpy arrays keyed by
+    ``names`` in the port's layout, and the step as an int."""
+    state = optimizer.state_dict()["state"]
+    exp_avg = {name: _a(state[i]["exp_avg"]) for i, name in enumerate(names)}
+    exp_avg_sq = {name: _a(state[i]["exp_avg_sq"])
+                  for i, name in enumerate(names)}
+    return exp_avg, exp_avg_sq, int(state[0]["step"])

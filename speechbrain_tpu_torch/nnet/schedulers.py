@@ -1,16 +1,44 @@
-"""Learning-rate schedulers.
+"""Learning-rate schedulers (host-side, checkpointable).
 
-Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NoamScheduler``).
+Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NoamScheduler``
+with ``_save``/``_load`` through copies of ``_save_attrs`` and
+``_load_attrs``).  The NewBob, linear, step and cyclic schedulers are
+not ported.
 """
+
+import json
+
+from ..utils.checkpoints import (
+    mark_as_loader,
+    mark_as_saver,
+    register_checkpoint_hooks,
+)
 
 __all__ = ["NoamScheduler"]
 
 
+def _save_attrs(obj, path, attrs):
+    with open(path, "w") as f:
+        json.dump({a: getattr(obj, a) for a in attrs}, f)
+
+
+def _load_attrs(obj, path, attrs):
+    with open(path) as f:
+        data = json.load(f)
+    for a in attrs:
+        if a in data:
+            setattr(obj, a, data[a])
+
+
+@register_checkpoint_hooks
 class NoamScheduler:
-    """``lr_initial * n_warmup^0.5 * min(step^-0.5, step * n_warmup^-1.5)``,
-    stepped once per optimizer step (the transformer recipes' schedule).
+    """``lr_initial * normalize * min(step^-0.5, step * n_warmup^-1.5)``,
+    stepped once per optimizer step (the transformer recipes' schedule);
+    ``normalize`` is ``n_warmup^0.5``, or ``model_size^-0.5`` when
+    ``model_size`` is given.
 
     Each call advances the step and returns ``(previous lr, new lr)``.
+    A checkpoint holds ``current_lr`` and ``n_steps``.
 
     Example
     -------
@@ -21,14 +49,16 @@ class NoamScheduler:
     True
     """
 
-    def __init__(self, lr_initial, n_warmup_steps):
+    def __init__(self, lr_initial, n_warmup_steps, model_size=None):
         self.lr_initial = lr_initial
         self.n_warmup_steps = n_warmup_steps
         self.current_lr = lr_initial
         self.n_steps = 0
         self.normalize = n_warmup_steps ** 0.5
+        if model_size is not None:
+            self.normalize = model_size ** (-0.5)
 
-    def __call__(self):
+    def __call__(self, opt_or_none=None):
         self.n_steps += 1
         current_lr = self.current_lr
         lr = self.lr_initial * self._get_lr_scale()
@@ -40,3 +70,11 @@ class NoamScheduler:
         return self.normalize * min(
             n_steps ** (-0.5), n_steps * n_warmup_steps ** (-1.5)
         )
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["current_lr", "n_steps"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=True):
+        _load_attrs(self, path, ["current_lr", "n_steps"])

@@ -6,7 +6,9 @@ states ``blank, y1, blank, ..., yU, blank`` (S = 2U+1), the skip rule
 (a label state may be entered from two states back when its label
 differs from that state's), the fill -1e30 and the ``logaddexp`` form
 ``max + log1p(exp(min - max))`` of the JAX kernel, the loss
-``-logsumexp`` of the two end states at t = T_b - 1, and the gradient
+``-logsumexp`` of the two end states at t = T_b - 1 (with T_b = 0, a
+batch's dummy row: 0 when U_b = 0, as ``optax.ctc_loss`` gives, the
+JAX package's CTC off the TPU), and the gradient
 ``d loss / d log_probs = -exp(alpha + beta - logZ)`` summed per class,
 zero from t = T_b on.
 
@@ -110,7 +112,9 @@ def ctc_alpha_plain(log_probs, targets, input_lengths, target_lengths,
     a1 = last.gather(1, (sb - 1)[:, None])[:, 0]
     a2 = last.gather(1, (sb - 2).clamp(min=0)[:, None])[:, 0]
     a2 = torch.where(sb >= 2, a2, torch.full_like(a2, NEG))
-    logz = _lae(a1, a2)
+    # no frame (a batch's dummy row): only the empty path, when ub = 0
+    empty = torch.where(sb == 1, 0.0, NEG).to(a1.dtype)
+    logz = torch.where(tb == 0, empty, _lae(a1, a2))
     return alpha, -logz, logz
 
 

@@ -1157,3 +1157,126 @@ def test_spec_augment_on_a_cuda_generator(gen):
     assert int(lens.max()) == 39 and int(pos.max()) == 959
     c, w = d["warp"]
     assert 5 <= int(c) < 995 and abs(int(w - c)) <= 5
+
+
+def test_ctc_kernels_dummy_rows(gen):
+    """A batch's dummy rows (T_b = 0, U_b = 0; ``batch_mask`` 0) cost 0
+    in K3 as in the plain recursion (the empty path), T_b = 0 with
+    U_b > 0 is infeasible, and K4 gives them no gradient."""
+    B, T, C, U = 4, 40, 30, 6
+    lp = torch.log_softmax(torch.randn(B, T, C, device="cuda", generator=gen), -1)
+    tg = torch.randint(1, C, (B, U), device="cuda", generator=gen)
+    tlen = torch.tensor([40, 25, 0, 0], device="cuda")
+    ulen = torch.tensor([6, 3, 0, 2], device="cuda")
+    args = (lp, tg, tlen, ulen, 0)
+    alpha, loss, logz = ops.ctc_alpha(*args)
+    alpha_p, loss_p, logz_p = ops.ctc_alpha_plain(*args)
+    torch.testing.assert_close(loss, loss_p, atol=1e-4, rtol=1e-5)
+    assert float(loss[2]) == 0.0 and float(loss[3]) >= 1e29
+    g = torch.ones(B, device="cuda")
+    dlp = ops.ctc_beta_grad(*args, alpha, logz, g)
+    torch.testing.assert_close(
+        dlp, ops.ctc_beta_grad_plain(*args, alpha_p, logz_p, g),
+        atol=1e-5, rtol=1e-4)
+    assert bool((dlp[2:] == 0).all())
+
+
+class _Stack(torch.nn.Module):
+    """A few wide matmuls, so a step takes long enough that a batch
+    staged on a side stream would be read early if the streams were not
+    ordered."""
+
+    def __init__(self):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(
+            torch.nn.Linear(256, 256) for _ in range(4))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = torch.tanh(layer(x))
+        return x
+
+
+def _cuda_brain(ckpt_dir=None, device="cuda", **run_opts):
+    from speechbrain_tpu_torch.core import Brain
+    from speechbrain_tpu_torch.utils.checkpoints import Checkpointer
+
+    class Fit(Brain):
+        def compute_forward(self, batch, stage):
+            return self.modules.net(batch["x"])
+
+        def compute_objectives(self, pred, batch, stage):
+            return ((pred - batch["y"]) ** 2).mean()
+
+    torch.manual_seed(0)
+    return Fit({"net": _Stack()},
+               lambda p: torch.optim.AdamW(p, lr=1e-3), {"lr": 1e-3},
+               dict({"device": device, "loss_sync_interval": 1,
+                     "noprogressbar": True}, **run_opts),
+               checkpointer=None if ckpt_dir is None
+               else Checkpointer(ckpt_dir))
+
+
+def _cuda_loader(n_batches=3):
+    import numpy as np
+
+    from speechbrain_tpu_torch.dataio.dataloader import SaveableDataLoader
+
+    rng = np.random.default_rng(0)
+    batches = [{"x": rng.standard_normal((16, 2048, 256)).astype(np.float32),
+                "y": rng.standard_normal((16, 2048, 256)).astype(np.float32)}
+               for _ in range(n_batches)]
+    return SaveableDataLoader(batches, batch_size=1,
+                              collate_fn=lambda exs: exs[0])
+
+
+def test_staged_fit_on_cuda_matches_sync(gen):
+    """Staging on the card (pinned copies on a side stream, the consumer
+    waiting on an event, ``record_stream``) changes only the schedule:
+    over 3 steps the same losses and parameters, bit for bit."""
+    from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
+
+    runs = []
+    for depth in (0, 2):
+        brain = _cuda_brain(staging_depth=depth)
+        losses = []
+        end = brain.on_fit_batch_end
+        brain.on_fit_batch_end = lambda b, o, l, s: (losses.append(l),
+                                                     end(b, o, l, s))
+        brain.fit(EpochCounter(1), _cuda_loader())
+        runs.append((losses, brain.modules.state_dict()))
+    (sync, sd0), (staged, sd1) = runs
+    assert len(sync) == 3 and sync == staged
+    for k, v in sd0.items():
+        assert torch.equal(v, sd1[k]), k
+
+
+def test_checkpoint_saved_on_card_loads_on_cpu_and_back(gen, tmp_path):
+    """A checkpoint saved on the card recovers on the CPU (modules and
+    AdamW state equal, on the CPU), and one saved there recovers on the
+    card again."""
+    from speechbrain_tpu_torch.utils.checkpoints import Checkpointer
+    from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
+
+    card = _cuda_brain(tmp_path / "a")
+    card.fit(EpochCounter(1), _cuda_loader(2))
+    card.checkpointer.save_checkpoint()
+    cpu = _cuda_brain(tmp_path / "a", device="cpu")
+    cpu.checkpointer.recover_if_possible()
+    for k, v in card.modules.state_dict().items():
+        got = cpu.modules.state_dict()[k]
+        assert got.device.type == "cpu" and torch.equal(got, v.cpu()), k
+    from speechbrain_tpu_torch.core import _TrainStateRecoverable
+
+    Checkpointer(tmp_path / "b", {
+        "brain": cpu, "train_state": _TrainStateRecoverable(cpu),
+    }).save_checkpoint()
+    back = _cuda_brain(tmp_path / "b")
+    back.checkpointer.recover_if_possible()
+    s_card, s_back = card.optimizer.state_dict(), back.optimizer.state_dict()
+    for i, st in s_card["state"].items():
+        for k, v in st.items():
+            assert torch.equal(s_back["state"][i][k].cpu(), v.cpu()), (i, k)
+    for k, v in card.modules.state_dict().items():
+        got = back.modules.state_dict()[k]
+        assert got.is_cuda and torch.equal(got, v), k
