@@ -7,6 +7,7 @@ NVIDIA card.
     python3 chip_smoke.py --only ctc                # K3/K4 records alone
     python3 chip_smoke.py --only transducer         # K8/K9 records alone
     python3 chip_smoke.py --phase recipe            # build + that phase
+    python3 chip_smoke.py --phase train_crdnn_transducer,recipe_transducer
 
 Phases, each printing one JSON line when it ends:
 
@@ -115,6 +116,36 @@ Phases, each printing one JSON line when it ends:
    two steps with staging depth 2 and two with 0 (dropout 0, no
    SpecAugment) giving the same losses bit for bit.
 
+11. train_crdnn_transducer -- ``CRDNNTransducerBrain(CRDNN_TRANSDUCER)``
+   (the transducer recipe's ``train.yaml`` at full width: CNN 64/128,
+   a bidirectional LiGRU of 4 x 512, DNN 2 x 512; dropout 0.15) takes 4
+   AdamW steps on B = 12 synthetic 10 s utterances (T_enc 1001: no time
+   pooling) with up to 40 tokens padded to 64, in bf16 then f32:
+   ms/step, utt/s, peak memory, the busy share of one profiled step,
+   launches per step (RNN-T alpha 1 and beta 1, no depthwise conv), the
+   LiGRU's PyTorch calls, device kernels and ms for one forward and
+   backward at the step's shape (its recurrence is a PyTorch loop over
+   the frames, no kernel of its own), finite losses that fall; then one
+   f32 step's loss and gradients through the kernels against the plain
+   versions (dropout 0): K8/K9 at B12 x T1001 x U+1 65, which the
+   kernels phase also checks alone (role "crdnn").
+12. recipe_transducer -- ``recipes.librispeech_transducer`` end to end at
+   full width in bf16 with both hparams files, on 38 synthetic WAV files
+   of 4-10 s (32 train, 4 dev, 2 test): the BPE tokenizer at vocab 1000
+   by the native library, the recipe's dynamic batches (120 s, 8
+   buckets), tokens_blank and token buckets, 4 loader threads, staging
+   depth 2, the yamls' dropout and SpecAugment, the random models' blank
+   logit biased +4 (so the beam takes a few rounds a frame).
+   ``conformer_transducer.yaml``: 2 epochs, epoch 3 in a fresh Brain
+   with the recovered state equal bit for bit, then
+   ``evaluate(min_key="loss")`` at beam 4 on the 2 test utterances;
+   ``train.yaml`` (the CRDNN): 1 epoch, then the same test.  Each prints
+   the tokenizer's route and pieces, batches and shapes, train ms a
+   batch and utt/s, validation seconds and losses (no search runs
+   there), test seconds, utt/s and WER (finite, >= 0), checkpoint bytes,
+   save and resume ms, peak memory and the launches (K1, K2, K8, K9 above
+   0 for the conformer; K8, K9 above 0 and K1 0 for the CRDNN).
+
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
 generator; its device ms is the "spec_augment" range of the profiled
@@ -123,7 +154,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 10, each counted from 0 just before its
+(launch counts from phases 3 to 12, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -1062,7 +1093,7 @@ def _transducer_inputs(B, T, U, V, seed):
     return logits, targets, tlen, ulen
 
 
-def _check_transducer(U, role=None):
+def _check_transducer(U, role=None, T=251):
     """K8 (alpha + final) and K9 (beta + occupancy gradients) at the
     training shape (B 12, T 251, U 64: the recipe's token bucket, V 1000)
     or the wide one (U 256, the top bucket) against their plain versions,
@@ -1077,7 +1108,7 @@ def _check_transducer(U, role=None):
     from speechbrain_tpu_torch import ops
     from speechbrain_tpu_torch.ops import transducer as ot
 
-    B, T, V = 12, 251, 1000
+    B, V = 12, 1000
     logits, targets, tlen, ulen = _transducer_inputs(B, T, U, V, SEED + U)
     with torch.no_grad():
         tables = ot.transducer_tables(torch.log_softmax(logits, -1), targets,
@@ -1364,6 +1395,8 @@ def phase_kernels(only=None):
         records.extend(_check_ctc())
     if want("transducer"):
         records.extend(_check_transducer(64))
+        # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
+        records.extend(_check_transducer(64, role="crdnn", T=1001))
         records.extend(_check_transducer(256, role="wide"))
         records.extend(_check_lattice_wide())
     for r in records:
@@ -2264,8 +2297,9 @@ def _same_state(a, b):
 def _instrument(brain, log):
     """Wrap the Brain's steps, stages and checkpoint saves to record, in
     ``log``: each training batch's signal shape and batch mask, the
-    batches and optimizer steps of each epoch, the seconds of each stage
-    (the card synchronised at its end), and each save's milliseconds."""
+    batches and optimizer steps of each epoch, the seconds and the loss
+    of each stage (the card synchronised at its end), and each save's
+    milliseconds."""
     import torch
 
     fit_batch, fit_train = brain.fit_batch, brain._fit_train
@@ -2291,6 +2325,7 @@ def _instrument(brain, log):
     def on_evaluate_stage(dataset, stage, epoch):
         out, seconds = _timed(lambda: evaluate_stage(dataset, stage, epoch))
         log[f"{stage.name.lower()}_s"].append(seconds)
+        log[f"{stage.name.lower()}_loss"].append(out)
         return out
 
     def on_save(*args, **kwargs):
@@ -2302,7 +2337,8 @@ def _instrument(brain, log):
     brain._evaluate_stage = on_evaluate_stage
     brain.checkpointer.save_and_keep_only = on_save
     for key in ("masks", "batches", "epochs", "train_s", "steps",
-                "staging_wait_s", "valid_s", "test_s", "save_ms"):
+                "staging_wait_s", "valid_s", "test_s", "valid_loss",
+                "test_loss", "save_ms"):
         log.setdefault(key, [])
     log.setdefault("shapes", set())
     torch.cuda.reset_peak_memory_stats()
@@ -2518,12 +2554,291 @@ def _recipe_run(tmp):
     return run
 
 
+# kernel launches of one CRDNN-transducer training step: the RNN-T
+# lattice only (the CRDNN has no depthwise conv)
+CRDNN_LAUNCHES = dict(TRAIN_LAUNCHES, depthwise_conv1d=0, depthwise_conv1d_dw=0,
+                      ctc_alpha=0, ctc_beta_grad=0, transducer_alpha=1,
+                      transducer_beta_grad=1)
+
+
+def _crdnn_brain(precision, dropout):
+    """``CRDNNTransducerBrain(CRDNN_TRANSDUCER)`` at full width (the
+    transducer recipe's ``train.yaml``: CNN 64/128, LiGRU 4 x 512
+    bidirectional, DNN 2 x 512, joint 320, vocab 1000) with the recipe's
+    AdamW, clip 5 and Noam, the first step at 8e-4."""
+    from speechbrain_tpu_torch.asr import CRDNN_TRANSDUCER, CRDNNTransducerBrain
+
+    cfg = dict(CRDNN_TRANSDUCER, dropout=dropout)
+    return CRDNNTransducerBrain(
+        cfg, seed=SEED, hparams={"lr": cfg["lr_adam"]},
+        run_opts={"precision": precision, "loss_sync_interval": 10})
+
+
+def _ligru_calls(rnn, x):
+    """One forward and backward of the LiGRU ``rnn`` in training mode on
+    ``x`` (the CRDNN's LiGRU input of a step): its PyTorch calls (the aten
+    ops dispatched, counted by a ``TorchDispatchMode``, which the autograd
+    engine's threads inherit: the backward's included), its device
+    kernels (the profiler, the card's events only) and card ms.  The
+    running statistics are put back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        calls = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.calls += 1
+            return func(*args, **(kwargs or {}))
+
+    saved = {k: v.clone() for k, v in rnn.named_buffers()}
+
+    def step():
+        y, _ = rnn(x)
+        (gx,) = torch.autograd.grad(y.float().sum(), x)
+        return gx
+
+    step()  # warm-up
+    ms = _time_ms(step, iters=2, warmup=0)
+    with Count():
+        step()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False))
+    with torch.no_grad():
+        for k, v in rnn.named_buffers():
+            v.copy_(saved[k])
+    T = x.shape[1]
+    return {"input_shape": list(x.shape), "dtype": str(x.dtype),
+            "layers": rnn.num_layers, "frames": T, "fwd_bwd_ms": ms,
+            "pytorch_calls": Count.calls, "device_kernels": kernels,
+            "pytorch_calls_per_frame_layer": Count.calls / (T * rnn.num_layers),
+            "device_kernels_per_frame_layer": kernels / (T * rnn.num_layers)}
+
+
+def phase_train_crdnn_transducer():
+    """The transducer recipe's ``train.yaml`` training step at full width:
+    ``CRDNNTransducerBrain`` on B = 12 synthetic 10 s utterances (T_enc
+    1001: the CRDNN pools no time), tokens padded to 64, dropout 0.15,
+    SpecAugment, 4 AdamW steps in bf16 then f32: ms/step, utt/s, peak
+    memory, the busy share of one profiled step (the card's events
+    only), the launches a step (RNN-T alpha 1 and beta 1), the LiGRU's
+    PyTorch calls, device kernels and ms for one forward and backward at
+    the step's shape, and finite losses that fall; then one f32 step
+    (dropout 0) through the kernels against the plain versions: the loss
+    and every gradient (K8/K9 at B12 x T1001 x U+1 65)."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    B, samples, U, steps = 12, 160000, 64, 4
+    host_batch = _transducer_batch(B, samples, U, SEED + 3)
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        brain = _crdnn_brain(precision, 0.15)
+        batch = brain.prepare_batch(host_batch)
+        brain.step = 1
+        first = float(brain.fit_batch(batch))  # warm-up, untimed
+        ops.reset_launch_counters()
+        ms, losses, peak = _run_steps(brain, batch, steps - 1)
+        counts = ops.launch_counters()
+        per_step = _per_step(counts, steps - 1)
+        assert per_step == CRDNN_LAUNCHES, per_step
+        assert all(np.isfinite([first] + losses)), losses
+        assert losses[-1] < first, f"loss did not fall: {first} -> {losses[-1]}"
+
+        def one_step():
+            brain.step += 1
+            brain.fit_batch(batch)
+            return 1
+
+        rnn = brain.model.enc.rnn
+        x = torch.randn(B, 1001, rnn.layers[0].wx.in_features, device="cuda",
+                        dtype=brain.dtype, requires_grad=True)
+        brain.modules.train()
+        run = {"phase": "train_crdnn_transducer", "precision": precision,
+               "batch": B, "seconds_audio": samples / 16000, "T_enc": 1001,
+               "tokens_padded": U, "tokens": host_batch["tokens_lens"].tolist(),
+               "dropout": 0.15, "steps": steps,
+               "spec_augment": brain.config["augmentation"],
+               "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+               "peak_mem_bytes": peak, "launches": counts,
+               "launches_per_step": per_step,
+               "loss_first": first, "loss_last": losses[-1],
+               "profile": _profile(one_step, cpu=False),
+               "ligru": _ligru_calls(rnn, x)}
+        emit(run)
+        runs[precision] = run
+        del brain, batch, x
+        torch.cuda.empty_cache()
+    brain = _crdnn_brain("fp32", 0.0)
+    batch = brain.prepare_batch(host_batch)
+    # f32 throughout; the routes differ in the lattice's exp/log only
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    run = {"phase": "train_crdnn_transducer_check", "kernel_vs_plain": cmp,
+           "lattice": [B, 1001, U + 1]}
+    emit(run)
+    runs["check"] = run
+    del brain, batch
+    torch.cuda.empty_cache()
+    return runs
+
+
+# the synthetic LibriSpeech tree of the transducer recipe phase
+RECIPE_T_UTTERANCES = {"train-clean-100": 32, "dev-clean": 4, "test-clean": 2}
+RECIPE_T_SECONDS = (4.0, 10.0)
+RECIPE_T_KERNELS = {"conformer": ("depthwise_conv1d", "depthwise_conv1d_dw",
+                                  "transducer_alpha", "transducer_beta_grad"),
+                    "crdnn": ("transducer_alpha", "transducer_beta_grad")}
+
+
+def phase_recipe_transducer():
+    """The LibriSpeech transducer recipe end to end
+    (``recipes.librispeech_transducer``) with both hparams files, at full
+    width in bf16, from 16-bit WAV files on disk (32 train, 4 dev and 2
+    test utterances of 4-10 s): the BPE tokenizer at vocab 1000 by the
+    native library, dynamic batches of 120 s in 8 buckets, 4 loader
+    threads, staging depth 2, the yamls' dropout and SpecAugment, the
+    random models' blank logit biased +4.  ``conformer_transducer.yaml``:
+    ``fit`` for 2 epochs; a fresh Brain, loaders and counter on the same
+    folder run epoch 3 alone, with the recovered state equal to the
+    saved one bit for bit; ``evaluate(min_key="loss")`` at beam 4.
+    ``train.yaml`` (the CRDNN): ``fit`` for 1 epoch, then the same test
+    search."""
+    import shutil
+    import tempfile
+
+    from speechbrain_tpu_torch.recipes import librispeech_transducer as recipe
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_transducer_")
+    try:
+        data = f"{tmp}/LibriSpeech"
+        _, write_s = _timed(lambda: recipe.write_synthetic_librispeech(
+            data, RECIPE_T_UTTERANCES, seconds=RECIPE_T_SECONDS, seed=SEED))
+        return {name: _recipe_transducer_fit(data, f"{tmp}/{name}", name,
+                                             hparams, epochs, write_s)
+                for name, hparams, epochs in (
+                    ("conformer", recipe.HPARAMS, 2),
+                    ("crdnn", recipe.HPARAMS_CRDNN, 1))}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _recipe_transducer_fit(data, out, name, hparams, epochs, write_s):
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import librispeech_transducer as recipe
+
+    opts = {"staging_depth": 2, "noprogressbar": True}
+    # the main path: build (manifests, tokenizer), fit, resume, test
+    ops.reset_launch_counters()
+    parts, build_s = _timed(lambda: recipe.build(
+        data, out, {"number_of_epochs": epochs}, opts, hparams=hparams))
+    brain, log = parts["brain"], {}
+    tok = brain.tokenizer
+    assert tok.sp.train_route == "native", tok.sp.train_route
+    pieces = tok.sp.get_piece_size()
+    assert 0 < pieces <= hparams["vocab_size"], pieces
+    assert brain.dtype == torch.bfloat16
+    with torch.no_grad():
+        # the random model's blank logit +4, as in serve_transducer: the
+        # recipe's beam 4 then takes ~4 rounds a frame
+        brain.model.out_lin.bias[hparams["blank_index"]] += TRANSDUCER_BLANK_BIAS
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    resume, log2 = None, {}
+    test_brain, test_parts = brain, parts
+    if name == "conformer":
+        # a fresh Brain, loaders and counter on the same folder: epoch 3
+        parts2 = recipe.build(data, out, {"number_of_epochs": epochs + 1},
+                              opts, hparams=hparams)
+        brain2 = parts2["brain"]
+        _instrument(brain2, log2)
+        recovered = {}
+        fit_start = brain2.on_fit_start
+
+        def on_fit_start():
+            _, recovered["seconds"] = _timed(fit_start)
+            recovered["state"] = _snapshot(brain2)
+            recovered["epoch"] = parts2["epoch_counter"].current
+
+        brain2.on_fit_start = on_fit_start
+        brain2.fit(parts2["epoch_counter"], parts2["train_loader"],
+                   parts2["valid_loader"])
+        assert log2["epochs"] == [epochs + 1], log2["epochs"]
+        assert recovered["epoch"] == epochs
+        resume = {"resume_ms": 1e3 * recovered["seconds"],
+                  "resume_equal_tensors": _same_state(saved,
+                                                      recovered["state"])}
+        test_brain, test_parts = brain2, parts2
+    test_loss, test_s = _timed(lambda: test_brain.evaluate(
+        test_parts["test_loader"], min_key="loss"))
+    counts = ops.launch_counters()  # the main path's launches, read here
+    test_wer = test_brain.stage_stats["TEST"]["WER"]
+    best = min(c.meta["loss"] for c in test_brain.checkpointer.list_checkpoints())
+    assert test_brain._recovered_ckpt.meta["loss"] == best
+    valid_losses = [float(x) for x in log["valid_loss"] + log2.get("valid_loss", [])]
+    assert np.isfinite(test_wer) and test_wer >= 0, test_wer
+    assert np.isfinite(test_loss) and all(np.isfinite(valid_losses))
+    assert all(counts[k] > 0 for k in RECIPE_T_KERNELS[name]), counts
+    if name == "crdnn":
+        assert counts["depthwise_conv1d"] == 0, counts
+    train_s = sum(log["train_s"])
+    real = sum(int(m.sum()) for m in log["masks"])
+    save = parts["hparams"]["save_folder"]
+    run = {
+        "phase": "recipe_transducer", "hparams": name,
+        "utterances": RECIPE_T_UTTERANCES, "seconds": RECIPE_T_SECONDS,
+        "train_audio_s": sum(d["duration"] for d in json.load(
+            open(f"{save}/train-clean-100.json")).values()),
+        "write_wavs_s": write_s, "build_s": build_s,
+        "tokenizer": {"route": tok.sp.train_route, "type": "bpe",
+                      "vocab_size": hparams["vocab_size"], "pieces": pieces},
+        "precision": "bf16", "epochs": log["epochs"] + log2.get("epochs", []),
+        "blank_bias": TRANSDUCER_BLANK_BIAS,
+        "batches_per_epoch": log["batches"][0], "steps_per_epoch": log["steps"][0],
+        "batch_shapes": sorted(log["shapes"]),
+        "train_s_per_epoch": log["train_s"] + log2.get("train_s", []),
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_utt_per_s": real / train_s,
+        "staging_wait_s_per_batch": sum(log["staging_wait_s"])
+        / sum(log["batches"]),
+        "valid_s": log["valid_s"] + log2.get("valid_s", []),
+        "valid_loss": valid_losses,
+        "test_s": test_s,
+        "test_utt_per_s": RECIPE_T_UTTERANCES["test-clean"] / test_s,
+        "test_loss": test_loss, "test_wer": test_wer,
+        "forced_advance_count": test_brain.searcher.forced_advance_count,
+        "fit_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2.get("save_ms", []),
+        "peak_mem_bytes": max(peak_fit, torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    if resume is not None:
+        run.update(resume)
+    emit(run)
+    del brain, parts, test_brain, test_parts
+    torch.cuda.empty_cache()
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
-    train_long, train_transducer, serve_transducer, recipe), each counted
-    from 0 just before its run."""
+    train_long, train_transducer, serve_transducer, recipe,
+    train_crdnn_transducer, recipe_transducer), each counted from 0 just
+    before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -2612,10 +2927,13 @@ def main():
     transducer = timed("train_transducer", phase_train_transducer)
     serve_transducer = timed("serve_transducer", phase_serve_transducer)
     recipe = timed("recipe", phase_recipe)
+    crdnn = timed("train_crdnn_transducer", phase_train_crdnn_transducer)
+    recipe_transducer = timed("recipe_transducer", phase_recipe_transducer)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
-                 *serve_transducer.values(), recipe]
+                 *serve_transducer.values(), recipe, crdnn["bf16"],
+                 crdnn["fp32"], *recipe_transducer.values()]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -30,6 +30,14 @@ the error rates are over the words it decodes, as the recipes score
 them; without one, over token ids.  ``recipes/librispeech_asr.py`` runs
 the conformer recipe end to end (data, tokenizer, ``Brain.fit`` with
 checkpoints, ``evaluate``).
+
+``CRDNNTransducer`` and ``CRDNNTransducerBrain`` are the same transducer
+with the transducer recipe's other encoder (``hparams/train.yaml``: a
+``CRDNN`` with a bidirectional LiGRU, ``CRDNN_TRANSDUCER``); as in the
+recipe (``train.py:42-52``) the encoder is the one difference, so both
+models share ``_Transducer`` and both Brains ``_TransducerBrain``.
+``recipes/librispeech_transducer.py`` runs that recipe end to end with
+either hparams file.
 """
 
 import math
@@ -43,11 +51,13 @@ from .device import resolve_device
 from .lobes.augment import SpecAugment
 from .lobes.features import Fbank
 from .lobes.models.convolution import ConvolutionFrontEnd
+from .lobes.models.CRDNN import CRDNN
 from .lobes.models.transformer.TransformerASR import TransformerASR
 from .lobes.models.transformer.TransformerLM import TransformerLM
 from .nnet.embedding import Embedding
 from .nnet.linear import Linear
 from .nnet.losses import ctc_loss, kldiv_loss, transducer_loss
+from .nnet.normalization import LayerNorm
 from .nnet.RNN import GRU
 from .nnet.schedulers import NoamScheduler
 from .nnet.transducer.transducer_joint import Transducer_joint
@@ -58,7 +68,8 @@ from .utils.metric_stats import ErrorRateStats
 __all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain",
            "TRANSFORMER_LM", "build_transformer_lm",
            "CONFORMER_TRANSDUCER", "ConformerTransducer",
-           "ConformerTransducerBrain"]
+           "ConformerTransducerBrain", "CRDNN_TRANSDUCER", "CRDNNTransducer",
+           "CRDNNTransducerBrain"]
 
 # recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml
 CONFORMER_SMALL = {
@@ -160,20 +171,61 @@ CONFORMER_TRANSDUCER = {
     "expand_beam": 2.3,
 }
 
+# recipes/LibriSpeech/ASR/transducer/hparams/train.yaml (the CRDNN encoder
+# with rnn_class ligru; the transducer head and training values as above)
+CRDNN_TRANSDUCER = {
+    "sample_rate": 16000,
+    "n_fft": 400,
+    "n_mels": 80,
+    "win_length": 25,
+    "hop_length": 10,
+    "cnn_blocks": 2,
+    "cnn_channels": (64, 128),
+    "inter_layer_pooling_size": (2, 2),
+    "rnn_layers": 4,
+    "rnn_neurons": 512,
+    "rnn_bidirectional": True,
+    "dnn_blocks": 2,
+    "dnn_neurons": 512,
+    "dropout": 0.15,
+    "vocab_size": 1000,
+    "blank_index": 0,
+    "dec_emb_dim": 128,
+    "dec_neurons": 256,
+    "joint_dim": 320,
+    # training
+    "update_until_epoch": 4,
+    "lr_adam": 8e-4,
+    "n_warmup_steps": 25000,
+    "max_grad_norm": 5.0,
+    # train.yaml:65-70 (SpecAugment's arguments; None: off)
+    "augmentation": {
+        "time_warp": False, "n_freq_mask": 2, "n_time_mask": 4,
+        "freq_mask_width": (0, 27), "time_mask_width": (0, 40),
+    },
+    # the test search (train.yaml:49-51)
+    "beam_size": 4,
+    "state_beam": 2.3,
+    "expand_beam": 2.3,
+}
 
-def _front_end(c):
-    """Fbank, global input normalization and the conv front end of a
-    config dict."""
+
+def _features(c):
+    """Fbank and the global input normalization of a config dict."""
     fbank = Fbank(sample_rate=c["sample_rate"], n_fft=c["n_fft"],
                   n_mels=c["n_mels"], win_length=c["win_length"],
                   hop_length=c["hop_length"])
     normalize = InputNormalization(
         c["n_mels"], update_until_epoch=c.get("update_until_epoch", 3))
-    frontend = ConvolutionFrontEnd(
+    return fbank, normalize
+
+
+def _conv_front_end(c):
+    """The conv front end of a config dict."""
+    return ConvolutionFrontEnd(
         num_blocks=c["frontend_blocks"], out_channels=c["frontend_channels"],
         kernel_sizes=c["frontend_kernel_sizes"],
         strides=c["frontend_strides"])
-    return fbank, normalize, frontend
 
 
 def _transformer(c):
@@ -190,12 +242,18 @@ def _transformer(c):
 
 def _random_init(module, gen):
     """Lecun-normal weights (std 1/sqrt(fan_in)) from one generator;
-    every bias zero, norms' scales one, ``pos_bias_u``/``v`` zero (as
-    the JAX modules initialise them).  Nothing is left to the global
-    RNG, so a seed gives the same weights in every process."""
+    every bias zero, norms' scales one (the CRDNN's LayerNorms have (F, C)
+    scales), ``pos_bias_u``/``v`` zero (as the JAX modules initialise
+    them).  Nothing is left to the global RNG, so a seed gives the same
+    weights in every process."""
+    norms = {id(p) for m in module.modules() if isinstance(m, LayerNorm)
+             for p in m.parameters()}
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
+            if id(p) in norms:
+                p.fill_(1.0 if leaf == "weight" else 0.0)
+                continue
             if leaf == "depthwise_kernel":
                 fan_in = p.shape[0]
             elif leaf.startswith("weight") and p.dim() >= 2:
@@ -265,7 +323,8 @@ class ConformerASR(torch.nn.Module):
         self.config = c
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.fbank, self.normalize, self.frontend = _front_end(c)
+        self.fbank, self.normalize = _features(c)
+        self.frontend = _conv_front_end(c)
         self.transformer = _transformer(c)
         self.ctc_lin = Linear(c["d_model"], c["vocab_size"])
         self.seq_lin = Linear(c["d_model"], c["vocab_size"])
@@ -566,17 +625,13 @@ class ConformerASRBrain(_ModelBrain):
         return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
 
 
-class ConformerTransducer(torch.nn.Module):
-    """Conformer-transducer (RNN-T) built from a dict of dims.
-
-    Arguments
-    ---------
-    config : dict with the keys of ``CONFORMER_TRANSDUCER``.
-    device : None for the CUDA card (raises without one), or e.g. "cpu".
-    dtype : activation dtype of the features and the encoder (float32 or
-        bfloat16); the prediction network runs in float32, so the joint
-        does too.
-    seed : seed of the random initial weights.
+class _Transducer(torch.nn.Module):
+    """The transducer of ``recipes/LibriSpeech/ASR/transducer/train.py``
+    around an encoder that a subclass builds (``_build_encoder``, which
+    returns the encoder's output width) and runs (``_encode``): Fbank ->
+    global input normalization -> the encoder -> ``enc_lin``; the
+    prediction network (``emb`` -> one-layer ``GRU`` -> ``dec_lin``); the
+    sum joiner with tanh and ``out_lin``.
 
     ``forward(sig, sig_lens, tokens_blank, dtype, epoch)`` runs the
     recipe's ``compute_forward``: the features and the encoder in
@@ -586,23 +641,8 @@ class ConformerTransducer(torch.nn.Module):
     ``transcribe`` encodes and runs a ``TransducerBeamSearcher`` over
     ``pred_step`` and ``joint_step``, the recipe's
     ``transducer_searcher``.  ``set_kernels(False)`` routes the kernel
-    calls (the encoder's depthwise conv, K1) to their plain versions.
-
-    Example
-    -------
-    >>> cfg = dict(CONFORMER_TRANSDUCER, frontend_channels=(4, 4),
-    ...     input_size=40, d_model=16, nhead=2, num_encoder_layers=1,
-    ...     d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,
-    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
-    >>> model = ConformerTransducer(cfg, device="cpu")
-    >>> logits, enc = model(torch.zeros(2, 4000), torch.ones(2),
-    ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
-    >>> logits.shape, logits.dtype, enc.shape
-    (torch.Size([2, 7, 3, 12]), torch.float32, torch.Size([2, 7, 8]))
-    >>> hyps, scores = model.transcribe(torch.zeros(2, 4000), torch.ones(2))
-    >>> len(hyps), scores.shape
-    (2, (2,))
-    """
+    calls of the model (the conformer's depthwise conv, K1) to their
+    plain versions."""
 
     def __init__(self, config, device=None, dtype=torch.float32, seed=0):
         super().__init__()
@@ -610,9 +650,9 @@ class ConformerTransducer(torch.nn.Module):
         self.config = c
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.fbank, self.normalize, self.frontend = _front_end(c)
-        self.transformer = _transformer(c)
-        self.enc_lin = Linear(c["d_model"], c["joint_dim"])
+        self.fbank, self.normalize = _features(c)
+        width = self._build_encoder(c)
+        self.enc_lin = Linear(width, c["joint_dim"])
         self.emb = Embedding(c["vocab_size"], c["dec_emb_dim"])
         self.dec = GRU(c["dec_emb_dim"], c["dec_neurons"], num_layers=1)
         self.dec_lin = Linear(c["dec_neurons"], c["joint_dim"])
@@ -621,6 +661,13 @@ class ConformerTransducer(torch.nn.Module):
         _random_init(self, torch.Generator().manual_seed(seed))
         self.to(self.device)
         self.eval()
+
+    def _build_encoder(self, c):
+        raise NotImplementedError
+
+    def _encode(self, feats, sig_lens):
+        """Normalized features in the activation dtype -> encoder states."""
+        raise NotImplementedError
 
     def set_kernels(self, flag=True):
         """Route kernel calls to the CUDA kernels (True) or to their
@@ -640,8 +687,7 @@ class ConformerTransducer(torch.nn.Module):
         feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
         if augment is not None:
             feats = augment(feats)
-        src = self.frontend(feats.to(dtype))
-        enc = self.enc_lin(self.transformer.encode(src, sig_lens))
+        enc = self.enc_lin(self._encode(feats.to(dtype), sig_lens))
         pred, _ = self.dec(self.emb(tokens_blank))
         joint = self.joint(enc, self.dec_lin(pred))  # bf16 + f32 -> f32
         return self.out_lin(joint).float(), enc
@@ -654,8 +700,7 @@ class ConformerTransducer(torch.nn.Module):
         sig = sig.to(self.device, torch.float32)
         sig_lens = sig_lens.to(self.device, torch.float32)
         feats = self.normalize(self.fbank(sig), sig_lens)
-        src = self.frontend(feats.to(self.dtype))
-        return self.enc_lin(self.transformer.encode(src, sig_lens))
+        return self.enc_lin(self._encode(feats.to(self.dtype), sig_lens))
 
     def pred_step(self, tokens, state, n):
         """One prediction-network step for n rows: tokens (n,) and the
@@ -700,30 +745,184 @@ class ConformerTransducer(torch.nn.Module):
         return searcher(enc, sig_lens.to(self.device, torch.float32))
 
 
-class ConformerTransducerBrain(_ModelBrain):
-    """The LibriSpeech conformer-transducer recipe's training step on the
-    modules of ``ConformerTransducer``.
+class ConformerTransducer(_Transducer):
+    """Conformer-transducer (RNN-T) built from a dict of dims: the conv
+    front end and the conformer encoder (no decoder) of the
+    ``_Transducer`` (``conformer_transducer.yaml``).
 
-    ``compute_forward``: ``ConformerTransducer.forward`` (Fbank ->
-    ``InputNormalization``, updated in training -> SpecAugment (training
-    only) -> cast to the activation dtype -> front end -> 12 conformer
-    layers -> ``enc_lin``; ``emb`` of ``tokens_blank`` -> GRU ->
-    ``dec_lin``; tanh joint -> ``out_lin``).
+    Arguments
+    ---------
+    config : dict with the keys of ``CONFORMER_TRANSDUCER``.
+    device : None for the CUDA card (raises without one), or e.g. "cpu".
+    dtype : activation dtype of the features and the encoder (float32 or
+        bfloat16); the prediction network runs in float32, so the joint
+        does too.
+    seed : seed of the random initial weights.
+
+    Example
+    -------
+    >>> cfg = dict(CONFORMER_TRANSDUCER, frontend_channels=(4, 4),
+    ...     input_size=40, d_model=16, nhead=2, num_encoder_layers=1,
+    ...     d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> model = ConformerTransducer(cfg, device="cpu")
+    >>> logits, enc = model(torch.zeros(2, 4000), torch.ones(2),
+    ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
+    >>> logits.shape, logits.dtype, enc.shape
+    (torch.Size([2, 7, 3, 12]), torch.float32, torch.Size([2, 7, 8]))
+    >>> hyps, scores = model.transcribe(torch.zeros(2, 4000), torch.ones(2))
+    >>> len(hyps), scores.shape
+    (2, (2,))
+    """
+
+    def _build_encoder(self, c):
+        self.frontend = _conv_front_end(c)
+        self.transformer = _transformer(c)
+        return c["d_model"]
+
+    def _encode(self, feats, sig_lens):
+        return self.transformer.encode(self.frontend(feats), sig_lens)
+
+
+class CRDNNTransducer(_Transducer):
+    """CRDNN-transducer (RNN-T) built from a dict of dims: the
+    ``_Transducer`` with the ``CRDNN`` encoder of the transducer recipe's
+    ``hparams/train.yaml`` (2 CNN blocks of 64 and 128 channels pooling
+    the frequencies 80 -> 20, a bidirectional LiGRU of 4 x 512, 2 DNN
+    blocks of 512; no time pooling, so T_enc is the feature frames).
+    Arguments as for ``ConformerTransducer``, with the keys of
+    ``CRDNN_TRANSDUCER``; ``dropout`` acts in training mode only.
+
+    Example
+    -------
+    >>> cfg = dict(CRDNN_TRANSDUCER, n_mels=16, cnn_channels=(4, 4),
+    ...     rnn_layers=1, rnn_neurons=8, dnn_neurons=8, vocab_size=12,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> model = CRDNNTransducer(cfg, device="cpu")
+    >>> logits, enc = model(torch.zeros(2, 4000), torch.ones(2),
+    ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
+    >>> logits.shape, enc.shape
+    (torch.Size([2, 26, 3, 12]), torch.Size([2, 26, 8]))
+    >>> hyps, scores = model.transcribe(torch.zeros(2, 4000), torch.ones(2),
+    ...     beam_size=1)
+    >>> len(hyps), scores.shape
+    (2, (2,))
+    """
+
+    def _build_encoder(self, c):
+        self.enc = CRDNN(
+            input_size=c["n_mels"], cnn_blocks=c["cnn_blocks"],
+            cnn_channels=c["cnn_channels"],
+            inter_layer_pooling_size=c["inter_layer_pooling_size"],
+            rnn_class="ligru", rnn_layers=c["rnn_layers"],
+            rnn_neurons=c["rnn_neurons"],
+            rnn_bidirectional=c["rnn_bidirectional"],
+            dnn_blocks=c["dnn_blocks"], dnn_neurons=c["dnn_neurons"],
+            dropout=c["dropout"])
+        return self.enc.output_size
+
+    def _encode(self, feats, sig_lens):
+        return self.enc(feats, lengths=sig_lens)
+
+
+class _TransducerBrain(_ModelBrain):
+    """The LibriSpeech transducer recipe's ``Transducer`` Brain
+    (``recipes/LibriSpeech/ASR/transducer/train.py:27-164``) on the
+    modules of a ``_Transducer``.
+
+    ``compute_forward``: the model's ``forward`` (Fbank ->
+    ``InputNormalization``, updated in training until
+    ``update_until_epoch`` -> SpecAugment (training only) -> cast to the
+    activation dtype -> the encoder -> ``enc_lin``; ``emb`` of
+    ``tokens_blank`` -> GRU -> ``dec_lin``; tanh joint -> ``out_lin``).
     ``compute_objectives``: ``transducer_loss`` (``mean``) with the
     lengths ``sig_lens * batch_mask`` and ``tokens_lens * batch_mask``,
     whose lattice runs in K8 (forward) and K9 (backward) on the card.
-    After each optimizer step the Noam schedule sets the learning rate.
-    After ``on_stage_start(Stage.TEST)``, ``evaluate_batch`` also runs the
-    recipe's test search (``ConformerTransducer.make_searcher``: beam 4,
+    After each optimizer step the Noam schedule sets the learning rate
+    (``on_fit_batch_end``, l.98-100).  The validation stage computes the
+    loss only; after ``on_stage_start(Stage.TEST)``, ``evaluate_batch``
+    also runs the recipe's test search (``make_searcher``: beam 4,
     state_beam and expand_beam 2.3) on the batch's encoder side and
     appends its hypotheses to ``self.wer_metric``, an ``ErrorRateStats``
     over words (with a tokenizer) or token ids.
 
+    ``on_stage_end`` does what the recipe's does (l.147-164): at VALID it
+    writes the logger's line (``{"epoch", "lr"}``, the train and valid
+    loss; ``hparams["train_logger"]`` when given) and, with a
+    checkpointer, saves one with ``meta={"loss": loss}`` and keeps the
+    best by loss; at TEST it writes the test line (``{"Epoch loaded"}``
+    from ``hparams["epoch_counter"]``, the loss and the WER).  The last
+    stats of each stage are in ``self.stage_stats``.  ``epoch`` (what the
+    normalization sees) is the one ``fit`` passes to ``on_stage_start``,
+    the epoch counter's, as the recipe passes ``epoch_counter.current``.
+
     A batch is a dict of ``sig`` (B, samples) and ``sig_lens`` (B,)
     relative, ``tokens`` (B, U) (padding: the pad id 0), the relative
     ``tokens_lens`` and ``tokens_blank`` (B, U+1) = [blank] + tokens.
-    Arguments as for ``ConformerASRBrain``, with the keys of
-    ``CONFORMER_TRANSDUCER``.
+    Arguments as for ``ConformerASRBrain``.
+    """
+
+    def on_stage_start(self, stage, epoch=None):
+        """The normalization's epoch; the test stage's ``ErrorRateStats``
+        and searcher."""
+        if epoch is not None:
+            self.epoch = epoch
+        if stage == Stage.TEST:
+            self.wer_metric = ErrorRateStats()
+            self.searcher = self.model.make_searcher()
+
+    def on_stage_end(self, stage, stage_loss, epoch=None):
+        """The recipe's logging and keep-best-by-loss checkpoint."""
+        if stage == Stage.TRAIN:
+            return
+        stats = {"loss": stage_loss}
+        if stage == Stage.TEST and hasattr(self, "wer_metric"):
+            stats["WER"] = self.wer_metric.summarize("error_rate")
+        self.stage_stats[stage.name] = stats
+        train_logger = getattr(self.hparams, "train_logger", None)
+        if stage == Stage.VALID:
+            if train_logger is not None:
+                train_logger.log_stats(
+                    {"epoch": epoch, "lr": self.lr},
+                    train_stats={"loss": self.avg_train_loss},
+                    valid_stats=stats,
+                )
+            if self.checkpointer is not None:
+                self.checkpointer.save_and_keep_only(
+                    meta={"loss": stage_loss}, min_keys=["loss"])
+        elif train_logger is not None:
+            counter = getattr(self.hparams, "epoch_counter", None)
+            train_logger.log_stats(
+                {"Epoch loaded": None if counter is None else counter.current},
+                test_stats=stats,
+            )
+
+    def compute_forward(self, batch, stage):
+        """Returns ``(logits float32, enc)``."""
+        return self.model(batch["sig"], batch["sig_lens"],
+                          batch["tokens_blank"], dtype=self.dtype,
+                          epoch=self.epoch, augment=self._augment(stage))
+
+    def compute_objectives(self, predictions, batch, stage):
+        """The RNN-T loss, ``mean`` over the batch."""
+        logits, enc = predictions
+        mask = batch["batch_mask"]
+        loss = transducer_loss(
+            logits, batch["tokens"], batch["sig_lens"] * mask,
+            batch["tokens_lens"] * mask,
+            blank_index=self.config["blank_index"], reduction="mean",
+            use_kernels=self.use_kernels)
+        if stage == Stage.TEST and hasattr(self, "wer_metric"):
+            hyps, _ = self.searcher(enc, batch["sig_lens"])
+            self._score_hyps(hyps, batch)
+        return loss
+
+
+class ConformerTransducerBrain(_TransducerBrain):
+    """The transducer recipe's ``Transducer`` Brain
+    (``_TransducerBrain``) on the modules of ``ConformerTransducer``
+    (``conformer_transducer.yaml``: 12 conformer layers).  Arguments as
+    for ``ConformerASRBrain``, with the keys of ``CONFORMER_TRANSDUCER``.
 
     Example
     -------
@@ -746,28 +945,30 @@ class ConformerTransducerBrain(_ModelBrain):
     MODULES = ("normalize", "frontend", "transformer", "enc_lin", "emb", "dec",
                "dec_lin", "out_lin")
 
-    def on_stage_start(self, stage, epoch=None):
-        """The test stage's ``ErrorRateStats`` and searcher."""
-        if stage == Stage.TEST:
-            self.wer_metric = ErrorRateStats()
-            self.searcher = self.model.make_searcher()
 
-    def compute_forward(self, batch, stage):
-        """Returns ``(logits float32, enc)``."""
-        return self.model(batch["sig"], batch["sig_lens"],
-                          batch["tokens_blank"], dtype=self.dtype,
-                          epoch=self.epoch, augment=self._augment(stage))
+class CRDNNTransducerBrain(_TransducerBrain):
+    """The transducer recipe's ``Transducer`` Brain
+    (``_TransducerBrain``) on the modules of ``CRDNNTransducer``
+    (``hparams/train.yaml``).  Arguments as for ``ConformerASRBrain``,
+    with the keys of ``CRDNN_TRANSDUCER``.
 
-    def compute_objectives(self, predictions, batch, stage):
-        """The RNN-T loss, ``mean`` over the batch."""
-        logits, enc = predictions
-        mask = batch["batch_mask"]
-        loss = transducer_loss(
-            logits, batch["tokens"], batch["sig_lens"] * mask,
-            batch["tokens_lens"] * mask,
-            blank_index=self.config["blank_index"], reduction="mean",
-            use_kernels=self.use_kernels)
-        if stage == Stage.TEST and hasattr(self, "wer_metric"):
-            hyps, _ = self.searcher(enc, batch["sig_lens"])
-            self._score_hyps(hyps, batch)
-        return loss
+    Example
+    -------
+    >>> import numpy as np
+    >>> cfg = dict(CRDNN_TRANSDUCER, n_mels=16, cnn_channels=(4, 4),
+    ...     rnn_layers=1, rnn_neurons=8, dnn_neurons=8, vocab_size=12,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> brain = CRDNNTransducerBrain(cfg, device="cpu")
+    >>> batch = {"sig": np.zeros((2, 4000), np.float32),
+    ...     "sig_lens": np.ones(2, np.float32),
+    ...     "tokens": np.array([[3, 4], [5, 0]]),
+    ...     "tokens_lens": np.array([1.0, 0.5], np.float32),
+    ...     "tokens_blank": np.array([[0, 3, 4], [0, 5, 0]])}
+    >>> brain.step += 1
+    >>> bool(torch.isfinite(brain.fit_batch(batch)))
+    True
+    """
+
+    MODEL, DEFAULTS = CRDNNTransducer, CRDNN_TRANSDUCER
+    MODULES = ("normalize", "enc", "enc_lin", "emb", "dec", "dec_lin",
+               "out_lin")

@@ -18,6 +18,13 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``l{i}_u (H, 3H)`` -> ``weight_hh``, ``l{i}_u_bias`` -> ``bias_hh``
   (``_bwd`` -> the ``_reverse`` direction), gates r, z, n in both;
 - ``Embed_0.embedding`` -> ``weight`` (nothing in one-hot mode);
+- LiGRU ``l{i}_wx`` Dense ``(in, 2H)`` (no bias) -> ``layers.{i}.wx.weight``,
+  ``l{i}_bn`` BatchNorm (and its ``batch_stats``) -> ``layers.{i}.bn``,
+  ``l{i}_u (H, 2H)`` -> ``layers.{i}.weight_hh (2H, H)``;
+- CRDNN ``cnn_{i}`` (``Conv2d_{j}`` and ``LayerNorm_{j}``, scale and bias
+  of shape (F, C)) -> ``cnn.{i}.convs.{j}``/``cnn.{i}.norms.{j}``, ``rnn`` ->
+  the LiGRU, ``dnn_{i}`` (``Dense_0``, ``BatchNorm1d_0``) ->
+  ``dnn.{i}.linear``/``dnn.{i}.norm``;
 - ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
   optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
@@ -56,6 +63,12 @@ __all__ = [
     "conformer_transducer_state_dict",
     "to_jax_gru",
     "to_jax_conformer_transducer",
+    "ligru_state_dict",
+    "to_jax_ligru",
+    "crdnn_state_dict",
+    "to_jax_crdnn",
+    "crdnn_transducer_state_dict",
+    "to_jax_crdnn_transducer",
     "encoder_layer",
     "transformer_lm_state_dict",
     "to_jax_transformer_lm",
@@ -294,6 +307,69 @@ def conformer_transducer_state_dict(frontend_vars, transformer_params,
     }
 
 
+def _batch_norm(p, stats):
+    """Flax BatchNorm {scale, bias} and its batch_stats {mean, var} ->
+    the port's ``BatchNorm1d`` state_dict."""
+    return {"weight": _t(p["scale"]), "bias": _t(p["bias"]),
+            "running_mean": _t(stats["mean"]),
+            "running_var": _t(stats["var"])}
+
+
+def ligru_state_dict(params, batch_stats):
+    """JAX LiGRU params and batch_stats -> the port's ``LiGRU``
+    state_dict."""
+    sd = {}
+    layers = sorted({int(k[1:].split("_")[0]) for k in params})
+    for i in layers:
+        sd[f"layers.{i}.wx.weight"] = _t(params[f"l{i}_wx"]["kernel"]).T.contiguous()
+        sd.update(_prefixed(f"layers.{i}.bn", _batch_norm(
+            params[f"l{i}_bn"], batch_stats[f"l{i}_bn"])))
+        sd[f"layers.{i}.weight_hh"] = _t(params[f"l{i}_u"]).T.contiguous()
+    return sd
+
+
+def crdnn_state_dict(params, batch_stats):
+    """JAX ``CRDNN`` params and batch_stats -> the port's ``CRDNN``
+    state_dict."""
+    sd = {}
+    for i, block in enumerate(_numbered(params, "cnn_")):
+        for j, conv in enumerate(_numbered(block, "Conv2d_")):
+            kern = np.asarray(conv["Conv_0"]["kernel"])  # (kh, kw, in, out)
+            sd[f"cnn.{i}.convs.{j}.weight"] = _t(
+                kern.transpose(3, 2, 0, 1)).contiguous()
+            sd[f"cnn.{i}.convs.{j}.bias"] = _t(conv["Conv_0"]["bias"])
+        for j, norm in enumerate(_numbered(block, "LayerNorm_")):
+            sd.update(_prefixed(f"cnn.{i}.norms.{j}",
+                                layer_norm(norm["LayerNorm_0"])))
+    sd.update(_prefixed("rnn", ligru_state_dict(params["rnn"],
+                                                batch_stats["rnn"])))
+    for i, block in enumerate(_numbered(params, "dnn_")):
+        sd.update(_prefixed(f"dnn.{i}.linear", dense(block["Dense_0"])))
+        sd.update(_prefixed(f"dnn.{i}.norm", _batch_norm(
+            block["BatchNorm1d_0"]["BatchNorm_0"],
+            batch_stats[f"dnn_{i}"]["BatchNorm1d_0"]["BatchNorm_0"])))
+    return sd
+
+
+def crdnn_transducer_state_dict(enc_vars, enc_lin, emb, dec, dec_lin,
+                                out_lin, norm_state):
+    """Everything ``asr.CRDNNTransducer`` holds, from the JAX pieces: the
+    ``CRDNN`` encoder's variables ``{"params", "batch_stats"}``, the
+    ``enc_lin``/``dec_lin``/``out_lin`` Linear params, the ``emb``
+    Embedding and ``dec`` GRU params and the global input-normalization
+    state."""
+    return {
+        **_prefixed("normalize", input_norm_state_dict(norm_state)),
+        **_prefixed("enc", crdnn_state_dict(enc_vars["params"],
+                                            enc_vars["batch_stats"])),
+        **_prefixed("enc_lin", _head(enc_lin)),
+        **_prefixed("emb", embedding(emb)),
+        **_prefixed("dec", gru(dec)),
+        **_prefixed("dec_lin", _head(dec_lin)),
+        **_prefixed("out_lin", _head(out_lin)),
+    }
+
+
 # ------------------------------------------------------------------
 # port state_dict -> JAX layout (the inverse of the functions above)
 
@@ -504,6 +580,67 @@ def to_jax_conformer_transducer(state_dict):
     return {
         "frontend": to_jax_frontend(state_dict, "frontend."),
         "transformer": to_jax_transformer_asr(state_dict, "transformer."),
+        **{name: {"Dense_0": _dense_to_jax(s.sub(name))}
+           for name in ("enc_lin", "dec_lin", "out_lin")},
+        "emb": emb,
+        "dec": to_jax_gru(state_dict, "dec."),
+        "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
+    }
+
+
+def _bn_to_jax(s):
+    return ({"scale": _a(s["weight"]), "bias": _a(s["bias"])},
+            {"mean": _a(s["running_mean"]), "var": _a(s["running_var"])})
+
+
+def to_jax_ligru(state_dict, prefix=""):
+    """The port's ``LiGRU`` state_dict -> JAX ``(params, batch_stats)``."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    for i in range(s.count("layers")):
+        layer = s.sub(f"layers.{i}")
+        params[f"l{i}_wx"] = {"kernel": _a(layer["wx.weight"]).T.copy()}
+        params[f"l{i}_bn"], stats[f"l{i}_bn"] = _bn_to_jax(layer.sub("bn"))
+        params[f"l{i}_u"] = _a(layer["weight_hh"]).T.copy()
+    return params, stats
+
+
+def to_jax_crdnn(state_dict, prefix=""):
+    """The port's ``CRDNN`` state_dict -> JAX ``{"params",
+    "batch_stats"}``."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    for i in range(s.count("cnn")):
+        block = s.sub(f"cnn.{i}")
+        p = {}
+        for j in range(block.count("convs")):
+            c = block.sub(f"convs.{j}")
+            p[f"Conv2d_{j}"] = {"Conv_0": {
+                "kernel": _a(c["weight"]).transpose(2, 3, 1, 0).copy(),
+                "bias": _a(c["bias"])}}
+        for j in range(block.count("norms")):
+            p[f"LayerNorm_{j}"] = {"LayerNorm_0": _ln_to_jax(
+                block.sub(f"norms.{j}"))}
+        params[f"cnn_{i}"] = p
+    params["rnn"], stats["rnn"] = to_jax_ligru(state_dict, prefix + "rnn.")
+    for i in range(s.count("dnn")):
+        block = s.sub(f"dnn.{i}")
+        bn, st = _bn_to_jax(block.sub("norm"))
+        params[f"dnn_{i}"] = {"Dense_0": _dense_to_jax(block.sub("linear")),
+                              "BatchNorm1d_0": {"BatchNorm_0": bn}}
+        stats[f"dnn_{i}"] = {"BatchNorm1d_0": {"BatchNorm_0": st}}
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_crdnn_transducer(state_dict):
+    """``asr.CRDNNTransducer`` (or ``CRDNNTransducerBrain.modules``)
+    state_dict -> the JAX pieces ``crdnn_transducer_state_dict`` takes:
+    ``{"enc", "enc_lin", "emb", "dec", "dec_lin", "out_lin", "norm"}``."""
+    s = _Sub(state_dict)
+    emb = ({"Embed_0": {"embedding": _a(s["emb.weight"])}}
+           if "emb.weight" in s else {})
+    return {
+        "enc": to_jax_crdnn(state_dict, "enc."),
         **{name: {"Dense_0": _dense_to_jax(s.sub(name))}
            for name in ("enc_lin", "dec_lin", "out_lin")},
         "emb": emb,

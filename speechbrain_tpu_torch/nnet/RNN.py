@@ -1,4 +1,4 @@
-"""Recurrent layers: the gated recurrent unit.
+"""Recurrent layers: the gated recurrent unit and the light GRU.
 
 Counterpart of ``speechbrain_tpu/nnet/RNN.py`` (``GRU`` and the
 multi-layer / bidirectional plumbing of ``_RecurrentBase``).  The JAX
@@ -15,14 +15,23 @@ Flax ``l{i}_wx`` Dense (in, 3H) + bias, ``l{i}_u`` (H, 3H) and
 ``l{i}_u_bias`` onto ``weight_ih``/``bias_ih``, ``weight_hh`` and
 ``bias_hh``).  Dropout between layers is the port's ``Dropout``, whose
 mask comes from the trainer's generator (``nn.GRU(dropout=...)`` would
-draw from the global RNG).  LSTM, LiGRU and QuasiRNN are not ported.
+draw from the global RNG).
+
+``LiGRU`` is the light GRU of the CRDNN encoder (JAX ``LiGRU``, also a
+``lax.scan``): the input projection of every step is one GEMM followed
+by a BatchNorm, and the recurrence is a PyTorch loop over time inside an
+autograd ``Function`` whose backward is the loop run backwards (one
+``addmm`` a step each way), so autograd records two nodes a layer, not
+several per step.  LSTM and QuasiRNN are not ported.
 """
 
 import torch
 
 from .dropout import Dropout
+from .linear import Linear
+from .normalization import BatchNorm1d
 
-__all__ = ["GRU"]
+__all__ = ["GRU", "LiGRU"]
 
 
 class GRU(torch.nn.Module):
@@ -78,3 +87,151 @@ class GRU(torch.nn.Module):
             if i != self.num_layers - 1:
                 y = self.drop(y)
         return y.to(dtype), torch.cat(states, 0).to(dtype)
+
+
+class _LiGRURecurrence(torch.autograd.Function):
+    """The LiGRU recurrence over time-major inputs.
+
+    forward(wx (T, N, 2H), u (2H, H), h0 (N, H), mask (N, H)) ->
+    h (T, N, H), with, per step,
+
+        at, zt = chunk(wx_t + h_{t-1} u^T)
+        h_t = sigmoid(zt) h_{t-1} + (1 - sigmoid(zt)) relu(at) mask
+
+    The forward keeps the gates' pre-activations and the sigmoids; the
+    backward walks the steps in reverse (the carried dh times z plus one
+    ``addmm`` with u a step), then forms du in one GEMM over all steps.
+    """
+
+    @staticmethod
+    def forward(ctx, wx, u, h0, mask):
+        T, N, H2 = wx.shape
+        H = H2 // 2
+        gates = torch.empty_like(wx)
+        z = wx.new_empty(T, N, H)
+        cand = wx.new_empty(T, N, H)
+        out = wx.new_empty(T, N, H)
+        ut = u.t()
+        h = h0
+        for t in range(T):
+            g = torch.addmm(wx[t], h, ut, out=gates[t])
+            zt = torch.sigmoid(g[:, H:], out=z[t])
+            c = torch.mul(torch.relu(g[:, :H]), mask, out=cand[t])
+            # h = z h + (1 - z) c = c + z (h - c)
+            h = torch.addcmul(c, zt, h - c, out=out[t])
+        ctx.save_for_backward(u, h0, mask, gates, z, cand, out)
+        return out
+
+    @staticmethod
+    @torch.profiler.record_function("ligru_backward")
+    def backward(ctx, dout):
+        u, h0, mask, gates, z, cand, out = ctx.saved_tensors
+        T, N, H = out.shape
+        dgates = torch.empty_like(gates)
+        dh = torch.zeros_like(h0)
+        for t in range(T - 1, -1, -1):
+            h_prev = out[t - 1] if t > 0 else h0
+            dh = dh + dout[t]
+            zt = z[t]
+            # dz_pre = dh (h_prev - c) z (1 - z); da = dh (1 - z) mask [a > 0]
+            one_minus = 1.0 - zt
+            torch.mul(dh * (h_prev - cand[t]), zt * one_minus,
+                      out=dgates[t, :, H:])
+            torch.mul(dh * one_minus, mask * (gates[t, :, :H] > 0),
+                      out=dgates[t, :, :H])
+            dh = torch.addmm(dh * zt, dgates[t], u)
+        h_prevs = torch.cat([h0[None], out[:-1]], 0)
+        du = dgates.reshape(T * N, 2 * H).t() @ h_prevs.reshape(T * N, H)
+        return dgates, du, dh, None
+
+
+class LiGRU(torch.nn.Module):
+    """Light GRU (JAX ``LiGRU``, reference ``RNN.py:1125``), multi-layer,
+    optionally bidirectional, over (B, T, C) (a 4-d input is flattened to
+    (B, T, C1 * C2)).  Per layer::
+
+        w = BN(x W)                       (all steps in one GEMM, no bias)
+        at, zt = chunk(w_t + h u^T)
+        h = sigmoid(zt) h + (1 - sigmoid(zt)) relu(at) drop_mask
+
+    The BatchNorm runs over the (N * T, 2H) rows with Flax's momentum 0.95
+    (``running = 0.95 running + 0.05 batch``: ``BatchNorm1d(momentum=
+    0.05)``) and biased statistics in float32.  Bidirectional is the
+    reference's flip-on-batch trick with shared weights: the layer's input
+    is ``[x; flip_T(x)]``, 2B rows through one cell (padded frames are
+    flipped too), and the second half's outputs are flipped back and
+    concatenated on the features.  ``drop_mask`` is one (N, H) keep mask
+    a sequence, scaled by 1 / (1 - dropout), shared over time and drawn
+    from ``self.drop.generator`` in training; there is no dropout between
+    layers.  ``h0`` is zero unless ``hx`` is given.  The recurrence runs
+    in the input's dtype (bfloat16 under the recipes' bf16, as the JAX
+    scan runs), unlike the port's ``GRU``.
+
+    ``forward(x, hx=None)`` returns ``(y, h)``: y (B, T, H * D) and the
+    last states h (num_layers * D, B, H) in torch's layout, which ``hx``
+    also takes.  Parameters per layer ``i``: ``layers.{i}.wx.weight``
+    (2H, in), ``layers.{i}.bn.*`` and ``layers.{i}.weight_hh`` (2H, H)
+    (JAX ``l{i}_wx``, ``l{i}_bn``, ``l{i}_u`` (H, 2H) transposed).  The
+    JAX module's other nonlinearities and normalizations are not ported:
+    the CRDNN runs the defaults, relu and the BatchNorm.
+
+    Example
+    -------
+    >>> net = LiGRU(4, 8, num_layers=2, bidirectional=True)
+    >>> y, h = net(torch.ones(2, 5, 4))
+    >>> y.shape, h.shape
+    (torch.Size([2, 5, 16]), torch.Size([4, 2, 8]))
+    """
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 bidirectional=False, dropout=0.0):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.directions = 2 if bidirectional else 1
+        H = hidden_size
+        self.layers = torch.nn.ModuleList()
+        for i in range(num_layers):
+            layer = torch.nn.Module()
+            layer.wx = Linear(input_size if i == 0 else H * self.directions,
+                              2 * H, bias=False)
+            layer.bn = BatchNorm1d(2 * H, momentum=0.05)
+            layer.weight_hh = torch.nn.Parameter(torch.empty(2 * H, H))
+            torch.nn.init.orthogonal_(layer.weight_hh)
+            self.layers.append(layer)
+        self.drop = Dropout(dropout)
+
+    def _layer(self, layer, x, h0):
+        B, T, _ = x.shape
+        H = self.hidden_size
+        if self.directions == 2:
+            x = torch.cat([x, x.flip(1)], 0)
+        N = x.shape[0]
+        wx = layer.bn(layer.wx(x).reshape(N * T, 2 * H)).reshape(N, T, 2 * H)
+        ones = torch.ones(N, H, dtype=x.dtype, device=x.device)
+        mask = self.drop(ones)
+        if h0 is None:
+            h0 = torch.zeros(N, H, dtype=x.dtype, device=x.device)
+        ys = _LiGRURecurrence.apply(
+            wx.transpose(0, 1).contiguous(), layer.weight_hh.to(x.dtype),
+            h0.to(x.dtype), mask).transpose(0, 1)
+        if self.directions == 2:
+            return (torch.cat([ys[:B], ys[B:].flip(1)], -1),
+                    [ys[:B, -1], ys[B:, -1]])
+        return ys, [ys[:, -1]]
+
+    @torch.profiler.record_function("ligru")
+    def forward(self, x, hx=None):
+        """x: (B, T, C) or (B, T, C1, C2); hx: (num_layers * D, B, H).
+        Runs in a ``record_function`` range "ligru" (the backward of its
+        recurrences in "ligru_backward")."""
+        if x.dim() == 4:
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+        D = self.directions
+        states = []
+        for i, layer in enumerate(self.layers):
+            h0 = None if hx is None else hx[i * D:(i + 1) * D].reshape(
+                -1, self.hidden_size)
+            x, last = self._layer(layer, x, h0)
+            states.extend(last)
+        return x, torch.stack(states)

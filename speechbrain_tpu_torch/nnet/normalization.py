@@ -1,13 +1,15 @@
 """Normalization layers, channels-last.
 
-Counterpart of ``speechbrain_tpu/nnet/normalization.py`` (``BatchNorm1d``,
-a ``flax.linen.BatchNorm`` with momentum 0.1 on the running statistics).
+Counterpart of ``speechbrain_tpu/nnet/normalization.py``: ``BatchNorm1d``
+(a ``flax.linen.BatchNorm`` with momentum 0.1 on the running statistics)
+and ``LayerNorm`` (a ``flax.linen.LayerNorm`` over every axis after
+(batch, time)).
 """
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["BatchNorm1d"]
+__all__ = ["BatchNorm1d", "LayerNorm"]
 
 
 class BatchNorm1d(torch.nn.Module):
@@ -62,5 +64,42 @@ class BatchNorm1d(torch.nn.Module):
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
             self.running_var.mul_(1.0 - m).add_(m * var.detach())
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+class LayerNorm(torch.nn.Module):
+    """LayerNorm over every axis after (batch, time), as the JAX module
+    normalizes (the reference's ``normalized_shape = input_shape[2:]``):
+    a (B, T, F, C) input is normalized jointly over (F, C), with affine
+    parameters of shape (F, C); a 2-d input over its last axis.
+
+    ``shape`` is the normalized shape, e.g. ``(F, C)``.  The statistics
+    are computed in float32 as Flax computes them (mean of x and of x^2,
+    var = max(0, E[x^2] - E[x]^2)), and the result is cast back to the
+    input's dtype (Flax's ``dtype=x.dtype``).  eps is 1e-5.
+
+    Example
+    -------
+    >>> ln = LayerNorm((3, 2))
+    >>> with torch.no_grad():
+    ...     y = ln(torch.arange(24.0).reshape(2, 2, 3, 2))
+    >>> y.shape, round(float(y[0, 0].mean()), 6), round(float(y[0, 0].std(unbiased=False)), 4)
+    (torch.Size([2, 2, 3, 2]), 0.0, 1.0)
+    """
+
+    def __init__(self, shape, eps=1e-5):
+        super().__init__()
+        self.shape = (shape,) if isinstance(shape, int) else tuple(shape)
+        self.eps = eps
+        self.weight = torch.nn.Parameter(torch.ones(self.shape))
+        self.bias = torch.nn.Parameter(torch.zeros(self.shape))
+
+    def forward(self, x):
+        """x: (B, T, *shape), or (B, *shape) for a 1-d ``shape``."""
+        xf = x.float()
+        axes = tuple(range(x.dim() - len(self.shape), x.dim()))
+        mean = xf.mean(axes, keepdim=True)
+        var = ((xf * xf).mean(axes, keepdim=True) - mean * mean).clamp(min=0.0)
         mul = torch.rsqrt(var + self.eps) * self.weight.float()
         return ((xf - mean) * mul + self.bias.float()).to(x.dtype)

@@ -865,12 +865,13 @@ _CHAIN_WIDTHS = [(4, T, U) for T in (251, 1)
                  for U in (0, 31, 32, 63, 64, 95, 96, 127, 128, 159, 160, 256)]
 
 
-@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (2, 37, 256), (3, 1, 5),
-                                   (2, 9, 1023), (2, 9, 1099), (1, 5, 5000),
-                                   (1, 3, 16999)] + _CHAIN_WIDTHS)
+@pytest.mark.parametrize("B,T,U", [(12, 251, 64), (12, 1001, 64), (2, 37, 256),
+                                   (3, 1, 5), (2, 9, 1023), (2, 9, 1099),
+                                   (1, 5, 5000), (1, 3, 16999)] + _CHAIN_WIDTHS)
 def test_transducer_kernels(gen, B, T, U):
     """K8 (alpha, final) and K9 (dblank, demit) against their plain
-    versions, float32, at the training shape (B 12, T 251, U 64), T = 1,
+    versions, float32, at the training shapes (B 12, T 251, U 64; the
+    CRDNN-transducer's T 1001), T = 1,
     the warp-chain path's edges (U+1 = 1, 32, 33, ..., 129, 160 at T 251
     and T 1) and the block path: U+1 = 161 and 257 (several warps),
     1024 (one column a thread), and lattices wider than a block has
@@ -1280,3 +1281,74 @@ def test_checkpoint_saved_on_card_loads_on_cpu_and_back(gen, tmp_path):
     for k, v in card.modules.state_dict().items():
         got = back.modules.state_dict()[k]
         assert got.is_cuda and torch.equal(got, v), k
+
+
+def test_ligru_on_the_card_matches_the_cpu(gen):
+    """The LiGRU (2 layers, bidirectional, training mode, float32, TF32
+    off) on the card against the same module on the CPU: outputs, last
+    states, the input's and every parameter's gradient, and the running
+    statistics after the step, within 1e-5 of each tensor's largest
+    entry; its recurrence runs the same PyTorch loop on both."""
+    from speechbrain_tpu_torch.nnet.RNN import LiGRU
+
+    torch.manual_seed(0)
+    cpu = LiGRU(24, 32, num_layers=2, bidirectional=True).train()
+    card = LiGRU(24, 32, num_layers=2, bidirectional=True).cuda().train()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 50, 24)
+    hx = torch.randn(4, 3, 32)
+    outs = []
+    for net, dev in ((cpu, "cpu"), (card, "cuda")):
+        xi = x.to(dev).detach().requires_grad_()
+        y, h = net(xi, hx=hx.to(dev))
+        ((y * y).sum() + (h ** 3).sum()).backward()
+        outs.append([y, h, xi.grad] + [p.grad for p in net.parameters()]
+                    + list(net.buffers()))
+    for a, b in zip(*outs):
+        b = b.detach().cpu()
+        scale = max(float(a.detach().abs().max()), 1e-6)
+        assert float((a.detach() - b).abs().max()) <= 1e-5 * scale
+
+
+def test_crdnn_transducer_step_kernels_vs_plain(gen):
+    """A ``CRDNNTransducerBrain`` training step at full width (train.yaml:
+    CNN 64/128, LiGRU 4 x 512, DNN 2 x 512, vocab 1000; dropout 0, no
+    SpecAugment), B 2 x 3 s: the loss and every gradient through K8/K9
+    against the plain lattice, from the same weights; K8 and K9 launch
+    once each on the kernel route and not on the plain one."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.asr import CRDNN_TRANSDUCER, CRDNNTransducerBrain
+    from speechbrain_tpu_torch.core import Stage
+
+    cfg = dict(CRDNN_TRANSDUCER, dropout=0.0, augmentation=None)
+    brain = CRDNNTransducerBrain(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, 1000, (2, 16))
+    tokens[1, 12:] = 0
+    batch = brain.prepare_batch({
+        "sig": rng.standard_normal((2, 48000)).astype(np.float32),
+        "sig_lens": np.array([1.0, 0.8], np.float32), "tokens": tokens,
+        "tokens_lens": np.array([1.0, 0.75], np.float32),
+        "tokens_blank": np.concatenate([np.zeros((2, 1), np.int64), tokens],
+                                       1)})
+    names, params = zip(*brain.modules.named_parameters())
+    routes = []
+    for flag in (True, False):
+        saved = {k: v.clone() for k, v in brain.modules.named_buffers()}
+        brain.set_kernels(flag).modules.train()
+        ops.reset_launch_counters()
+        loss = brain._loss(batch, Stage.TRAIN)
+        grads = torch.autograd.grad(loss, params)
+        counts = ops.launch_counters()
+        assert (counts["transducer_alpha"], counts["transducer_beta_grad"]) == (
+            (1, 1) if flag else (0, 0))
+        with torch.no_grad():
+            for k, v in brain.modules.named_buffers():
+                v.copy_(saved[k])
+        routes.append((float(loss), grads))
+    (lk, gk), (lp, gp) = routes
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    G = max(float(g.abs().max()) for g in gp)
+    for n, a, b in zip(names, gk, gp):
+        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-3 * G), n
