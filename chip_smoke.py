@@ -8,6 +8,7 @@ NVIDIA card.
     python3 chip_smoke.py --only transducer         # K8/K9 records alone
     python3 chip_smoke.py --phase recipe            # build + that phase
     python3 chip_smoke.py --phase train_crdnn_transducer,recipe_transducer
+    python3 chip_smoke.py --phase recipe_timit,recipe_gsc
 
 Phases, each printing one JSON line when it ends:
 
@@ -146,6 +147,36 @@ Phases, each printing one JSON line when it ends:
    save and resume ms, peak memory and the launches (K1, K2, K8, K9 above
    0 for the conformer; K8, K9 above 0 and K1 0 for the CRDNN).
 
+13. recipe_timit -- ``recipes.timit_ctc`` (the TIMIT CRDNN + CTC recipe,
+   ``BASELINE.json`` config 2) at full width in f32: the CRDNN-CTC step
+   (120 features: 40 mels with deltas; CNN 128/256, LiGRU 4 x 512
+   bidirectional, DNN 2 x 512, 40 outputs, dropout 0.15) takes 4
+   Adadelta steps at lr 1.0 on B = 8 x 3 s (T 301) with 20-40 phones a
+   row: ms/step, utt/s, peak memory, the busy share of a profiled step,
+   launches per step (CTC alpha 1 and beta 1, nothing else), the LiGRU's
+   PyTorch calls and device kernels; one step's loss and gradients
+   through K3/K4 against the plain recursions, with a dummy row; then
+   the recipe end to end on a synthetic TIMIT tree (SPHERE files of
+   1.5-6 s with phones from all 61, an SA sentence a speaker; 32 train,
+   8 dev, 8 test): 40 labels with the blank, 2 epochs, epoch 3 in a
+   fresh Brain with the modules, Adadelta accumulators, NewBob state, lr
+   and epoch recovered bit for bit, ``evaluate(min_key="PER")``: batches,
+   train ms a batch and utt/s, validation and test seconds, PERs (finite,
+   >= 0), lr per epoch, checkpoint bytes, save and resume ms, peak
+   memory and the launches (K3, K4 above 0, every other 0).
+14. recipe_gsc -- ``recipes.gsc_xvector`` (Google Speech Commands
+   x-vector, config 1) at full width in f32: the step (Xvector TDNN 512
+   x 4 + 1500, lin 512; Classifier of 12; ``TimeDomainSpecAugment`` on)
+   takes 4 Adam steps at 1e-3 on B = 32 x 1 s: ms/step, utt/s, peak
+   memory, busy share, launches (none) and the device ms of the
+   "time_domain_augment" range, which runs once more under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then the recipe on a synthetic tree
+   (10 commands and 2 unknown words, clips of 0.6-1.0 s; 96 train, 32
+   valid, 32 test): 2 epochs, epoch 3 resumed bit for bit,
+   ``evaluate(max_key="acc")``: batches, train ms a batch, validation
+   and test seconds, accuracies (in [0, 1]), checkpoint bytes, save and
+   resume ms, peak memory.
+
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
 generator; its device ms is the "spec_augment" range of the profiled
@@ -154,7 +185,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 12, each counted from 0 just before its
+(launch counts from phases 3 to 14, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -625,21 +656,21 @@ def _kernel_profile(fn):
     return {"device_ms_by_kernel": by_kernel, "device_kernels_per_call": kernels}
 
 
-def _check_ctc():
+def _check_ctc(B=32, T=251, C=5000, U=40, role=None):
     """K3 (alpha + loss) and K4 (beta + gradient) at the training shape
-    against their plain recursions, float32 only (the log-probs are f32
-    in the JAX package too); two calls give the same bits.  Each timed
-    as a call (card ms, device ms, host us, beside ``F.ctc_loss``) with
-    its device kernels by name; at B1 U0 (one lattice state) as the
-    floor of the frame chain (``chain_floor_ms``); and beside
-    ``chain_term_ms``, 251 steps of ``_chain_step_ms``."""
+    (or, with a ``role``, at (B, T, C, U): "timit" is the TIMIT recipe's
+    step, 40 classes) against their plain recursions, float32 only (the
+    log-probs are f32 in the JAX package too); two calls give the same
+    bits.  Each timed as a call (card ms, device ms, host us, beside
+    ``F.ctc_loss``) with its device kernels by name; at B1 U0 (one
+    lattice state) as the floor of the frame chain (``chain_floor_ms``);
+    and beside ``chain_term_ms``, T steps of ``_chain_step_ms``."""
     import torch
     import torch.nn.functional as F
 
     from speechbrain_tpu_torch.ops import (
         ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
 
-    B, T, C, U = 32, 251, 5000, 40
     logits, lp, targets, tlen, ulen = _ctc_inputs(B, T, C, U)
     args = (lp, targets, tlen, ulen, 0)
     alpha, loss, logz = ctc_alpha(*args)
@@ -722,6 +753,8 @@ def _check_ctc():
               "same_bits_twice": True, "log1p_mismatches": log1p_bad,
               "chain_term_ms": chain_term,
               "chain_floor_shape": [1, T, C, 0]}
+    if role is not None:
+        common["role"] = role
     rows = [
         {"name": "ctc_alpha", **common, "max_abs_err": max(loss_err, alpha_err),
          "tol": tol_loss, **_call_times(k3, lib_fwd), **_kernel_profile(k3),
@@ -1393,6 +1426,7 @@ def phase_kernels(only=None):
             records.append(_check_beam_cache(dtype_name, pos=57, role="pos57"))
     if want("ctc"):
         records.extend(_check_ctc())
+        records.extend(_check_ctc(8, 301, 40, 40, role="timit"))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -2272,10 +2306,16 @@ def _snapshot(brain):
             return {k: clone(v) for k, v in x.items()}
         return x
 
-    return {"modules": clone(brain.modules.state_dict()),
+    snap = {"modules": clone(brain.modules.state_dict()),
             "optimizer": clone(brain.optimizer.state_dict()["state"]),
-            "optimizer_step": brain.optimizer_step, "lr": brain.lr,
-            "noam_n_steps": brain.noam.n_steps}
+            "optimizer_step": brain.optimizer_step, "lr": brain.lr}
+    if hasattr(brain, "noam"):
+        snap["noam_n_steps"] = brain.noam.n_steps
+    if hasattr(brain, "lr_annealing"):  # NewBob
+        s = brain.lr_annealing
+        snap["newbob"] = (s.hyperparam_value, list(s.metric_values),
+                          s.current_patient)
+    return snap
 
 
 def _same_state(a, b):
@@ -2289,7 +2329,8 @@ def _same_state(a, b):
     for i, st in a["optimizer"].items():
         for k, v in st.items():
             assert torch.equal(v.cpu(), b["optimizer"][i][k].cpu()), (i, k)
-    for k in ("optimizer_step", "lr", "noam_n_steps"):
+    assert a.keys() == b.keys()
+    for k in a.keys() - {"modules", "optimizer"}:
         assert a[k] == b[k], (k, a[k], b[k])
     return len(a["modules"]) + sum(map(len, a["optimizer"].values()))
 
@@ -2342,6 +2383,29 @@ def _instrument(brain, log):
         log.setdefault(key, [])
     log.setdefault("shapes", set())
     torch.cuda.reset_peak_memory_stats()
+
+
+def _resume_in_fresh_brain(build, epochs):
+    """A fresh Brain, loaders and counter from ``build(epochs + 1)`` (on a
+    folder that holds ``epochs`` epochs' checkpoints) run epoch ``epochs +
+    1`` alone; returns ``(parts, log, recovered)``: ``build``'s dict, the
+    ``_instrument`` log, and ``{"state": the recovered ``_snapshot``,
+    "epoch": the epoch counter after recovery, "seconds": the recovery's}``."""
+    parts = build(epochs + 1)
+    brain, log, recovered = parts["brain"], {}, {}
+    _instrument(brain, log)
+    fit_start = brain.on_fit_start
+
+    def on_fit_start():
+        _, recovered["seconds"] = _timed(fit_start)
+        recovered["state"] = _snapshot(brain)
+        recovered["epoch"] = parts["epoch_counter"].current
+
+    brain.on_fit_start = on_fit_start
+    brain.fit(parts["epoch_counter"], parts["train_loader"],
+              parts["valid_loader"])
+    assert log["epochs"] == [epochs + 1], log["epochs"]
+    return parts, log, recovered
 
 
 def _recipe_ctc_dummy_rows(brain, parts):
@@ -2474,21 +2538,10 @@ def _recipe_run(tmp):
     assert brain.config["vocab_size"] == vocab and brain.dtype == torch.bfloat16
 
     # 2. a fresh Brain, loaders and counter on the same folder: epoch 3
-    parts2 = recipe.build(data, out, dict(splits, number_of_epochs=3), opts)
-    brain2, log2 = parts2["brain"], {}
-    _instrument(brain2, log2)
-    recovered = {}
-    fit_start = brain2.on_fit_start
-
-    def on_fit_start():
-        _, recovered["seconds"] = _timed(fit_start)
-        recovered["state"] = _snapshot(brain2)
-        recovered["epoch"] = parts2["epoch_counter"].current
-
-    brain2.on_fit_start = on_fit_start
-    brain2.fit(parts2["epoch_counter"], parts2["train_loader"],
-               parts2["valid_loader"])
-    assert log2["epochs"] == [3], log2["epochs"]
+    parts2, log2, recovered = _resume_in_fresh_brain(
+        lambda epochs: recipe.build(
+            data, out, dict(splits, number_of_epochs=epochs), opts), 2)
+    brain2 = parts2["brain"]
     assert recovered["epoch"] == 2
     n_equal = _same_state(saved, recovered["state"])
     valid_wer_3 = brain2.stage_stats["VALID"]["WER"]
@@ -2760,22 +2813,10 @@ def _recipe_transducer_fit(data, out, name, hparams, epochs, write_s):
     test_brain, test_parts = brain, parts
     if name == "conformer":
         # a fresh Brain, loaders and counter on the same folder: epoch 3
-        parts2 = recipe.build(data, out, {"number_of_epochs": epochs + 1},
-                              opts, hparams=hparams)
+        parts2, log2, recovered = _resume_in_fresh_brain(
+            lambda e: recipe.build(data, out, {"number_of_epochs": e}, opts,
+                                   hparams=hparams), epochs)
         brain2 = parts2["brain"]
-        _instrument(brain2, log2)
-        recovered = {}
-        fit_start = brain2.on_fit_start
-
-        def on_fit_start():
-            _, recovered["seconds"] = _timed(fit_start)
-            recovered["state"] = _snapshot(brain2)
-            recovered["epoch"] = parts2["epoch_counter"].current
-
-        brain2.on_fit_start = on_fit_start
-        brain2.fit(parts2["epoch_counter"], parts2["train_loader"],
-                   parts2["valid_loader"])
-        assert log2["epochs"] == [epochs + 1], log2["epochs"]
         assert recovered["epoch"] == epochs
         resume = {"resume_ms": 1e3 * recovered["seconds"],
                   "resume_equal_tensors": _same_state(saved,
@@ -2832,13 +2873,361 @@ def _recipe_transducer_fit(data, out, name, hparams, epochs, write_s):
     return run
 
 
+# kernel launches of one TIMIT CRDNN-CTC step: the CTC lattice only
+TIMIT_LAUNCHES = dict(TRAIN_LAUNCHES, depthwise_conv1d=0, depthwise_conv1d_dw=0)
+
+
+def _timit_batch(B, samples, U, seed):
+    """B synthetic utterances of white noise (every length full) with up
+    to ``U`` phone ids in 1..39 each (at least U / 2), padded to U."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(U // 2, U + 1, B)
+    phn = rng.integers(1, 40, (B, U))
+    phn[np.arange(U)[None, :] >= n[:, None]] = 0
+    return {"sig": rng.normal(size=(B, samples)).astype(np.float32),
+            "sig_lens": np.ones(B, np.float32), "phn_encoded": phn,
+            "phn_encoded_lens": (n / U).astype(np.float32)}
+
+
+def _timit_brain(dropout):
+    """``timit_ctc.CTCBrain`` at the yaml's widths (120 features, CNN
+    128/256, LiGRU 4 x 512 bidirectional, DNN 2 x 512, 40 outputs) with
+    its Adadelta (rho 0.95, eps 1e-8) at lr 1.0 after the clip to 5."""
+    from speechbrain_tpu_torch.recipes.timit_ctc import CTCBrain
+
+    return CTCBrain({"dropout": dropout},
+                    run_opts={"seed": SEED, "loss_sync_interval": 10})
+
+
+def phase_recipe_timit():
+    """The TIMIT CRDNN + CTC recipe (``recipes.timit_ctc``, config 2 of
+    ``BASELINE.json``) at full width in f32.  First its training step:
+    ``CTCBrain`` takes 4 Adadelta steps at lr 1.0 on B = 8 synthetic 3 s
+    utterances (T 301: no time pooling) with 20-40 phones each (dropout
+    0.15): ms/step, utt/s, peak memory, the busy share of one profiled
+    step, the launches a step (CTC alpha 1 and beta 1, nothing else) and
+    the LiGRU's PyTorch calls and device kernels for one forward and
+    backward; then one step (dropout 0) through K3/K4 against the plain
+    recursions, with a dummy row (batch mask 0: no frame, no label).
+    Then the recipe end to end on a synthetic TIMIT tree (SPHERE files of
+    1.5-6 s, 32 train, 8 dev, 8 test utterances, phones from all 61 and
+    an SA sentence a speaker, which must be skipped): 2 epochs; a fresh
+    Brain, loaders and counter on the same folder run epoch 3 alone, with
+    the recovered modules, Adadelta accumulators, NewBob state, lr and
+    epoch equal to the saved ones bit for bit; ``evaluate(min_key=
+    "PER")``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    B, samples, U, steps = 8, 48000, 40, 4
+    host_batch = _timit_batch(B, samples, U, SEED + 5)
+    brain = _timit_brain(0.15)
+    assert brain.modules.normalize.mean.shape == (120,)
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    batch = brain.prepare_batch(host_batch)
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps - 1)
+    counts = ops.launch_counters()
+    per_step = _per_step(counts, steps - 1)
+    assert per_step == TIMIT_LAUNCHES, per_step
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    rnn = brain.modules.model.rnn
+    x = torch.randn(B, 301, rnn.layers[0].wx.in_features, device="cuda",
+                    requires_grad=True)
+    brain.modules.train()
+    step_run = {"phase": "recipe_timit_step", "precision": "fp32", "batch": B,
+                "seconds_audio": samples / 16000, "T_enc": 301,
+                "phones": (host_batch["phn_encoded_lens"] * U).round().tolist(),
+                "parameters": n_params, "dropout": 0.15, "steps": steps,
+                "lr": brain.lr, "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+                "peak_mem_bytes": peak, "launches": counts,
+                "launches_per_step": per_step, "loss_first": first,
+                "loss_last": losses[-1],
+                "profile": _profile(one_step, cpu=False),
+                "ligru": _ligru_calls(rnn, x)}
+    emit(step_run)
+    del brain, batch, x
+    torch.cuda.empty_cache()
+    brain = _timit_brain(0.0)
+    host_batch["batch_mask"] = np.ones(B, np.float32)
+    host_batch["batch_mask"][-1] = 0.0  # a dummy row: no frame, no label
+    batch = brain.prepare_batch(host_batch)
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    check = {"phase": "recipe_timit_check", "kernel_vs_plain": cmp,
+             "lattice": [B, 301, 2 * U + 1], "dummy_rows": 1}
+    emit(check)
+    del brain, batch
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_timit_")
+    try:
+        recipe_run = _recipe_timit_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"step": step_run, "check": check, "recipe": recipe_run}
+
+
+RECIPE_TIMIT_UTTERANCES = {"train": 32, "dev": 8, "test": 8}
+RECIPE_TIMIT_SECONDS = (1.5, 6.0)
+
+
+def _recipe_timit_run(tmp):
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import timit_ctc as recipe
+
+    data, out = f"{tmp}/TIMIT", f"{tmp}/out"
+    _, write_s = _timed(lambda: recipe.write_synthetic_timit(
+        data, RECIPE_TIMIT_UTTERANCES, seconds=RECIPE_TIMIT_SECONDS,
+        seed=SEED))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+
+    def build(epochs):
+        return recipe.build(data, out, {"number_of_epochs": epochs}, opts)
+
+    # the main path: build (manifests, labels), fit, resume, test
+    ops.reset_launch_counters()
+    parts, build_s = _timed(lambda: build(2))
+    brain, log = parts["brain"], {}
+    n_labels = len(parts["label_encoder"])
+    assert n_labels == recipe.HPARAMS["output_neurons"] == 40, n_labels
+    manifests = {s: json.load(open(parts["hparams"][f"{s}_json"]))
+                 for s in ("train", "valid", "test")}
+    assert [len(m) for m in manifests.values()] == [
+        RECIPE_TIMIT_UTTERANCES[s] for s in ("train", "dev", "test")]
+    assert not any(k.endswith("_sa1") for m in manifests.values() for k in m)
+    _instrument(brain, log)
+    lrs = []  # the rate NewBob sets at each validation
+    stage_end = brain.on_stage_end
+
+    def on_stage_end(stage, stage_loss, epoch=None):
+        stage_end(stage, stage_loss, epoch)
+        if stage.name == "VALID":
+            lrs.append(brain.lr)
+
+    brain.on_stage_end = on_stage_end
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    valid_per = [brain.stage_stats["VALID"]["PER"]]
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    valid_per.append(brain2.stage_stats["VALID"]["PER"])
+    lrs.append(brain2.lr)
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="PER"))
+    counts = ops.launch_counters()  # the main path's launches, read here
+    test_per = brain2.stage_stats["TEST"]["PER"]
+    best = min(c.meta["PER"] for c in brain2.checkpointer.list_checkpoints())
+    assert brain2._recovered_ckpt.meta["PER"] == best
+    for per in valid_per + [test_per]:
+        assert np.isfinite(per) and per >= 0, per
+    assert np.isfinite(test_loss)
+    assert counts["ctc_alpha"] > 0 and counts["ctc_beta_grad"] > 0, counts
+    assert all(v == 0 for k, v in counts.items()
+               if k not in ("ctc_alpha", "ctc_beta_grad")), counts
+    train_s = sum(log["train_s"])
+    run = {
+        "phase": "recipe_timit", "utterances": RECIPE_TIMIT_UTTERANCES,
+        "seconds": RECIPE_TIMIT_SECONDS,
+        "train_audio_s": sum(d["duration"]
+                             for d in manifests["train"].values()),
+        "write_sphere_s": write_s, "build_s": build_s, "labels": n_labels,
+        "precision": "fp32", "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "batch_shapes": sorted(log["shapes"]),
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_utt_per_s": RECIPE_TIMIT_UTTERANCES["train"]
+        * len(log["batches"]) / train_s,
+        "valid_s": log["valid_s"] + log2["valid_s"], "valid_per": valid_per,
+        "lr_per_epoch": lrs, "test_s": test_s, "test_per": test_per,
+        "test_loss": test_loss, "fit_2_epochs_s": fit_s,
+        "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal,
+        "peak_mem_bytes": max(peak_fit, torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
+# no TPU kernel runs in the x-vector recipe
+GSC_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+
+
+def _gsc_batch(B, samples, seed):
+    rng = np.random.default_rng(seed)
+    return {"sig": rng.normal(size=(B, samples)).astype(np.float32),
+            "sig_lens": rng.uniform(0.6, 1.0, B).astype(np.float32),
+            "command_id": rng.integers(0, 11, B)}
+
+
+def phase_recipe_gsc():
+    """The Google Speech Commands x-vector recipe
+    (``recipes.gsc_xvector``, config 1 of ``BASELINE.json``) at full
+    width in f32.  First its training step: ``SpeakerBrain`` (Xvector:
+    TDNN 512 x 4 + 1500, lin 512; Classifier of 12) takes 4 Adam steps at
+    1e-3 on B = 32 synthetic 1 s clips with ``TimeDomainSpecAugment``
+    (speeds 95/100/105, frequency and chunk drops): ms/step, utt/s, peak
+    memory, the busy share of one profiled step, the launches (none) and
+    the device ms of the "time_domain_augment" range.  Then the recipe
+    end to end on a synthetic tree (the 10 commands and 2 unknown words,
+    clips of 0.6-1.0 s; 96 train, 32 valid, 32 test): 2 epochs, epoch 3
+    in a fresh Brain with the recovered state equal bit for bit, then
+    ``evaluate(max_key="acc")``."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes.gsc_xvector import SpeakerBrain
+
+    B, samples, steps = 32, 16000, 4
+    host_batch = _gsc_batch(B, samples, SEED + 7)
+    brain = SpeakerBrain(run_opts={"seed": SEED, "loss_sync_interval": 10})
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    batch = brain.prepare_batch(host_batch)
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps - 1)
+    counts = ops.launch_counters()
+    assert _per_step(counts, steps - 1) == GSC_LAUNCHES, counts
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    # the augmentation makes no synchronising call: the sync debug mode
+    # raises on one
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        brain.augment(batch["sig"], batch["sig_lens"], brain.generator)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    step_run = {"phase": "recipe_gsc_step", "precision": "fp32", "batch": B,
+                "seconds_audio": samples / 16000, "parameters": n_params,
+                "augmentation": brain.hparams.augmentation, "steps": steps,
+                "augment_sync_free": True,
+                "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+                "peak_mem_bytes": peak, "launches": counts,
+                "loss_first": first, "loss_last": losses[-1],
+                "profile": _profile(one_step,
+                                    ranges=("time_domain_augment",))}
+    emit(step_run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gsc_")
+    try:
+        recipe_run = _recipe_gsc_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"step": step_run, "recipe": recipe_run}
+
+
+RECIPE_GSC_CLIPS = {"train": 96, "valid": 32, "test": 32}
+
+
+def _recipe_gsc_run(tmp):
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import gsc_xvector as recipe
+
+    data, out = f"{tmp}/GSC", f"{tmp}/out"
+    _, write_s = _timed(lambda: recipe.write_synthetic_gsc(
+        data, RECIPE_GSC_CLIPS, seed=SEED))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+
+    def build(epochs):
+        return recipe.build(data, out, {"number_of_epochs": epochs}, opts)
+
+    ops.reset_launch_counters()
+    parts = build(2)
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    valid_acc = [brain.stage_stats["VALID"]["acc"]]
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    valid_acc.append(brain2.stage_stats["VALID"]["acc"])
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], max_key="acc"))
+    counts = ops.launch_counters()
+    test_acc = brain2.stage_stats["TEST"]["acc"]
+    best = max(c.meta["acc"] for c in brain2.checkpointer.list_checkpoints())
+    assert brain2._recovered_ckpt.meta["acc"] == best
+    for acc in valid_acc + [test_acc]:
+        assert 0.0 <= acc <= 1.0, acc
+    assert np.isfinite(test_loss)
+    assert all(v == 0 for v in counts.values()), counts
+    train_s = sum(log["train_s"])
+    run = {
+        "phase": "recipe_gsc", "clips": RECIPE_GSC_CLIPS, "write_wavs_s": write_s,
+        "precision": "fp32", "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "batch_shapes": sorted(log["shapes"]),
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_utt_per_s": RECIPE_GSC_CLIPS["train"] * len(log["batches"])
+        / train_s,
+        "valid_s": log["valid_s"] + log2["valid_s"], "valid_acc": valid_acc,
+        "test_s": test_s, "test_acc": test_acc, "test_loss": test_loss,
+        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal,
+        "peak_mem_bytes": max(peak_fit, torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
     train_long, train_transducer, serve_transducer, recipe,
-    train_crdnn_transducer, recipe_transducer), each counted from 0 just
-    before its run."""
+    train_crdnn_transducer, recipe_transducer, and the steps and recipes
+    of recipe_timit and recipe_gsc), each counted from 0 just before its
+    run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -2929,11 +3318,14 @@ def main():
     recipe = timed("recipe", phase_recipe)
     crdnn = timed("train_crdnn_transducer", phase_train_crdnn_transducer)
     recipe_transducer = timed("recipe_transducer", phase_recipe_transducer)
+    timit = timed("recipe_timit", phase_recipe_timit)
+    gsc = timed("recipe_gsc", phase_recipe_gsc)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
                  *serve_transducer.values(), recipe, crdnn["bf16"],
-                 crdnn["fp32"], *recipe_transducer.values()]
+                 crdnn["fp32"], *recipe_transducer.values(), timit["step"],
+                 timit["recipe"], gsc["step"], gsc["recipe"]]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -241,10 +241,14 @@ def _transformer(c):
 
 
 def _random_init(module, gen):
-    """Lecun-normal weights (std 1/sqrt(fan_in)) from one generator;
-    every bias zero, norms' scales one (the CRDNN's LayerNorms have (F, C)
-    scales), ``pos_bias_u``/``v`` zero (as the JAX modules initialise
-    them).  Nothing is left to the global RNG, so a seed gives the same
+    """Lecun-normal weights (std 1/sqrt(fan_in); the depthwise taps and a
+    cosine classifier's centroids are (in, out)) from one generator, but
+    orthogonal recurrent weights for the LiGRU (``weight_hh``, as the JAX
+    module initialises them: a Gaussian (2H, H) matrix's largest singular
+    values exceed 1 and its relu recurrence can blow up over hundreds of
+    frames at narrow widths); every bias zero, norms' scales one (the
+    CRDNN's LayerNorms have (F, C) scales), ``pos_bias_u``/``v`` zero (as
+    the JAX modules initialise them).  Nothing is left to the global RNG, so a seed gives the same
     weights in every process."""
     norms = {id(p) for m in module.modules() if isinstance(m, LayerNorm)
              for p in m.parameters()}
@@ -254,7 +258,10 @@ def _random_init(module, gen):
             if id(p) in norms:
                 p.fill_(1.0 if leaf == "weight" else 0.0)
                 continue
-            if leaf == "depthwise_kernel":
+            if leaf == "weight_hh":
+                torch.nn.init.orthogonal_(p, generator=gen)
+                continue
+            if leaf in ("depthwise_kernel", "centroids"):
                 fan_in = p.shape[0]
             elif leaf.startswith("weight") and p.dim() >= 2:
                 fan_in = p[0].numel()

@@ -25,6 +25,13 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   of shape (F, C)) -> ``cnn.{i}.convs.{j}``/``cnn.{i}.norms.{j}``, ``rnn`` ->
   the LiGRU, ``dnn_{i}`` (``Dense_0``, ``BatchNorm1d_0``) ->
   ``dnn.{i}.linear``/``dnn.{i}.norm``;
+- Conv1d ``kernel`` (k, in / groups, out) -> ``weight`` (out, in / groups,
+  k);
+- ``Xvector``: ``Conv1d_{i}``/``BatchNorm1d_{i}`` -> ``blocks.{i}.conv``/
+  ``blocks.{i}.norm``, ``Dense_0`` -> ``lin``; ``Classifier``:
+  ``Dense_{i}``/``BatchNorm1d_{i}`` of its ``lin_blocks`` ->
+  ``blocks.{i}.linear``/``blocks.{i}.norm``, then ``Dense_{lin_blocks}``
+  -> ``out``, or ``centroids`` as it is;
 - ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
   optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
@@ -69,6 +76,11 @@ __all__ = [
     "to_jax_crdnn",
     "crdnn_transducer_state_dict",
     "to_jax_crdnn_transducer",
+    "conv1d",
+    "xvector_state_dict",
+    "classifier_state_dict",
+    "to_jax_xvector",
+    "to_jax_classifier",
     "encoder_layer",
     "transformer_lm_state_dict",
     "to_jax_transformer_lm",
@@ -370,6 +382,50 @@ def crdnn_transducer_state_dict(enc_vars, enc_lin, emb, dec, dec_lin,
     }
 
 
+def conv1d(p):
+    """Flax Conv {kernel (k, in / groups, out), bias} -> ``Conv1d``
+    {weight (out, in / groups, k), bias}."""
+    sd = {"weight": _t(np.asarray(p["kernel"]).transpose(2, 1, 0)).contiguous()}
+    if "bias" in p:
+        sd["bias"] = _t(p["bias"])
+    return sd
+
+
+def _inner_bn(params, stats, name):
+    return _batch_norm(params[name]["BatchNorm_0"], stats[name]["BatchNorm_0"])
+
+
+def xvector_state_dict(variables):
+    """JAX ``Xvector`` variables ``{"params", "batch_stats"}`` -> the
+    port's ``Xvector`` state_dict."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd = {}
+    for i, conv in enumerate(_numbered(p, "Conv1d_")):
+        sd.update(_prefixed(f"blocks.{i}.conv", conv1d(conv["Conv_0"])))
+        sd.update(_prefixed(f"blocks.{i}.norm",
+                            _inner_bn(p, st, f"BatchNorm1d_{i}")))
+    sd.update(_prefixed("lin", dense(p["Dense_0"])))
+    return sd
+
+
+def classifier_state_dict(variables):
+    """JAX ``Classifier`` variables ``{"params", "batch_stats"}`` -> the
+    port's ``Classifier`` state_dict."""
+    p, st = variables["params"], variables["batch_stats"]
+    denses = _numbered(p, "Dense_")
+    n_blocks = len(_numbered(p, "BatchNorm1d_"))
+    sd = {}
+    for i in range(n_blocks):
+        sd.update(_prefixed(f"blocks.{i}.linear", dense(denses[i])))
+        sd.update(_prefixed(f"blocks.{i}.norm",
+                            _inner_bn(p, st, f"BatchNorm1d_{i}")))
+    if "centroids" in p:
+        sd["centroids"] = _t(p["centroids"])
+    else:
+        sd.update(_prefixed("out", dense(denses[n_blocks])))
+    return sd
+
+
 # ------------------------------------------------------------------
 # port state_dict -> JAX layout (the inverse of the functions above)
 
@@ -647,6 +703,46 @@ def to_jax_crdnn_transducer(state_dict):
         "dec": to_jax_gru(state_dict, "dec."),
         "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
     }
+
+
+def _bn_pair_to_jax(s):
+    p, st = _bn_to_jax(s)
+    return {"BatchNorm_0": p}, {"BatchNorm_0": st}
+
+
+def to_jax_xvector(state_dict, prefix=""):
+    """The port's ``Xvector`` state_dict -> JAX ``{"params",
+    "batch_stats"}``."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    for i in range(s.count("blocks")):
+        block = s.sub(f"blocks.{i}")
+        conv = {"kernel": _a(block["conv.weight"]).transpose(2, 1, 0).copy()}
+        if "conv.bias" in block:
+            conv["bias"] = _a(block["conv.bias"])
+        params[f"Conv1d_{i}"] = {"Conv_0": conv}
+        params[f"BatchNorm1d_{i}"], stats[f"BatchNorm1d_{i}"] = (
+            _bn_pair_to_jax(block.sub("norm")))
+    params["Dense_0"] = _dense_to_jax(s.sub("lin"))
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_classifier(state_dict, prefix=""):
+    """The port's ``Classifier`` state_dict -> JAX ``{"params",
+    "batch_stats"}``."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    n_blocks = s.count("blocks")
+    for i in range(n_blocks):
+        block = s.sub(f"blocks.{i}")
+        params[f"Dense_{i}"] = _dense_to_jax(block.sub("linear"))
+        params[f"BatchNorm1d_{i}"], stats[f"BatchNorm1d_{i}"] = (
+            _bn_pair_to_jax(block.sub("norm")))
+    if "centroids" in s:
+        params["centroids"] = _a(s["centroids"])
+    else:
+        params[f"Dense_{n_blocks}"] = _dense_to_jax(s.sub("out"))
+    return {"params": params, "batch_stats": stats}
 
 
 def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):

@@ -102,10 +102,12 @@ class Brain:
         same-shape batches) and ``noprogressbar``.
     checkpointer : ``utils.checkpoints.Checkpointer``, optional
         The Brain registers its counters as ``"brain"`` and its train
-        state (the modules' and the optimizer's ``state_dict``) as
-        ``"train_state"``; ``fit`` adds the train loader and the epoch
-        counter.  The random generator is not checkpointed (nor is the
-        JAX package's key).
+        state (the modules' and the optimizer's ``state_dict`` and the
+        random generator's state) as ``"train_state"``; ``fit`` adds the
+        train loader and the epoch counter.  A run resumed on the same
+        device type so draws the dropout masks and augmentations that the
+        uninterrupted run would have drawn (the JAX package restarts its
+        key from the seed).
 
     Training steps: ``fit`` (or a caller driving ``fit_batch`` itself)
     advances ``self.step`` before each ``fit_batch``; the optimizer
@@ -639,10 +641,15 @@ class Brain:
 
 @register_checkpoint_hooks
 class _TrainStateRecoverable:
-    """Checkpoints the Brain's train state: the modules' ``state_dict``
-    and the optimizer's, in one ``torch.save`` file, read back with
-    ``weights_only=True`` onto the Brain's device.  The optimizer's
-    state is keyed by parameter order, which the ``ModuleDict`` fixes."""
+    """Checkpoints the Brain's train state: the modules' ``state_dict``,
+    the optimizer's and the generator's state, in one ``torch.save``
+    file, read back with ``weights_only=True`` onto the Brain's device.
+    The generator's state is kept with its device type and restored only
+    into a generator of that type (a CUDA generator's Philox state and a
+    CPU generator's mt19937 state do not convert): a checkpoint moved
+    between the card and the CPU, or one without the generator's state,
+    leaves the generator as it is.  The optimizer's state is keyed by
+    parameter order, which the ``ModuleDict`` fixes."""
 
     def __init__(self, brain):
         self.brain = brain
@@ -653,6 +660,8 @@ class _TrainStateRecoverable:
         torch.save({
             "modules": self.brain.modules.state_dict(),
             "optimizer": None if opt is None else opt.state_dict(),
+            "generator": {"device": self.brain.generator.device.type,
+                          "state": self.brain.generator.get_state()},
         }, path)
 
     @mark_as_loader
@@ -662,3 +671,7 @@ class _TrainStateRecoverable:
         self.brain.modules.load_state_dict(state["modules"])
         if state["optimizer"] is not None and self.brain.optimizer is not None:
             self.brain.optimizer.load_state_dict(state["optimizer"])
+        saved = state.get("generator")
+        if saved is not None and (
+                saved["device"] == self.brain.generator.device.type):
+            self.brain.generator.set_state(saved["state"].cpu())

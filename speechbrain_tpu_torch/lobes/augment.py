@@ -1,18 +1,23 @@
-"""SpecAugment on (B, T, F) features.
+"""SpecAugment on (B, T, F) features, and TimeDomainSpecAugment on
+waveforms.
 
-Counterpart of ``speechbrain_tpu/lobes/augment.py`` (``SpecAugment``):
+Counterpart of ``speechbrain_tpu/lobes/augment.py`` (``SpecAugment``,
+``TimeDomainSpecAugment``).  ``SpecAugment``:
 the same time warp (a piecewise-linear remap with linear interpolation,
 not upstream's bicubic resize), frequency masks and time masks, in that
 order, from three independent draws.  The draws come from a
 ``torch.Generator`` on the features' device (the trainer's), with no
 host sync; they cannot be JAX's bits, so a caller may pass the draws
 (``draw`` makes them) to hold the arithmetic to JAX's with them fixed.
-``TimeDomainSpecAugment`` and ``EnvCorrupt`` are not ported.
+``TimeDomainSpecAugment`` draws and takes its draws the same way.
+``EnvCorrupt`` is not ported.
 """
 
 import torch
 
-__all__ = ["SpecAugment"]
+from ..processing.speech_augmentation import DropChunk, DropFreq, SpeedPerturb
+
+__all__ = ["SpecAugment", "TimeDomainSpecAugment"]
 
 
 class SpecAugment:
@@ -123,3 +128,66 @@ class SpecAugment:
         if axis == 1:
             return torch.where(mask[:, :, None], fill, x)
         return torch.where(mask[:, None, :], fill, x)
+
+
+class TimeDomainSpecAugment(torch.nn.Module):
+    """Speed perturbation -> frequency drop -> chunk drop on raw
+    waveforms (``processing.speech_augmentation``'s ``SpeedPerturb``,
+    ``DropFreq`` and ``DropChunk``, with the JAX class's arguments and
+    defaults); returns ``(waveforms, lengths)``, the lengths as the
+    speed change leaves them (``min(lengths * t_new / T, 1)``, not the
+    JAX package's ``lengths * 100 / speed``: see
+    ``processing/speech_augmentation.py``).
+
+    Its draws come from ``generator`` (the trainer's, on the waveforms'
+    device) with no host sync, or are given as ``draws`` (``draw`` makes
+    them).  A call runs in a ``record_function`` range named
+    "time_domain_augment".
+
+    Example
+    -------
+    >>> aug = TimeDomainSpecAugment(sample_rate=16000)
+    >>> wav, lens = aug(torch.ones(2, 8000), torch.ones(2), torch.Generator())
+    >>> wav.shape, lens.shape
+    (torch.Size([2, 8000]), torch.Size([2]))
+    """
+
+    def __init__(self, perturb_prob=1.0, drop_freq_prob=1.0,
+                 drop_chunk_prob=1.0, speeds=[95, 100, 105], sample_rate=16000,
+                 drop_freq_count_low=0, drop_freq_count_high=3,
+                 drop_chunk_count_low=0, drop_chunk_count_high=5,
+                 drop_chunk_length_low=1000, drop_chunk_length_high=2000,
+                 drop_chunk_noise_factor=0):
+        super().__init__()
+        self.speed_perturb = SpeedPerturb(
+            perturb_prob=perturb_prob, orig_freq=sample_rate, speeds=speeds)
+        self.drop_freq = DropFreq(
+            drop_prob=drop_freq_prob, drop_count_low=drop_freq_count_low,
+            drop_count_high=drop_freq_count_high)
+        self.drop_chunk = DropChunk(
+            drop_prob=drop_chunk_prob, drop_count_low=drop_chunk_count_low,
+            drop_count_high=drop_chunk_count_high,
+            drop_length_low=drop_chunk_length_low,
+            drop_length_high=drop_chunk_length_high,
+            noise_factor=drop_chunk_noise_factor)
+
+    def draw(self, shape, generator=None, device=None):
+        """The random values of one call on (B, T) waveforms: ``{"speed",
+        "freq", "chunk"}``, each the ``draw`` of its augmentor."""
+        if device is None and generator is not None:
+            device = generator.device
+        return {"speed": self.speed_perturb.draw(generator, device),
+                "freq": self.drop_freq.draw(generator, device),
+                "chunk": self.drop_chunk.draw(shape, generator, device)}
+
+    def forward(self, waveforms, lengths, generator=None, draws=None):
+        """waveforms (B, T) float, lengths (B,) relative."""
+        with torch.profiler.record_function("time_domain_augment"):
+            if draws is None:
+                draws = self.draw(waveforms.shape, generator, waveforms.device)
+            waveforms, lengths = self.speed_perturb(waveforms, lengths,
+                                                    draws=draws["speed"])
+            waveforms = self.drop_freq(waveforms, draws=draws["freq"])
+            waveforms = self.drop_chunk(waveforms, lengths,
+                                        draws=draws["chunk"])
+            return waveforms, lengths

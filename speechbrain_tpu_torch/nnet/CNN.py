@@ -1,16 +1,19 @@
-"""2-d convolution over (batch, time, feature[, channels]) with the JAX
-package's "same" padding semantics (the only padding the front end uses).
+"""Convolutions, channels-last, with the JAX package's padding semantics.
 
-Counterpart of ``speechbrain_tpu/nnet/CNN.py`` (``Conv2d``,
-``_pad2d_same``, ``get_padding_elem``).  Input and output keep the JAX
-layout (B, T, F, C); the convolution runs as ``F.conv2d`` over
-(B, C, T, F), with the kernel's first spatial axis on time.
+Counterpart of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d`` over (batch,
+time, channels) with its ``_pad_1d`` ("same", reflect by default;
+"causal"; "valid"), and ``Conv2d`` over (batch, time, feature[,
+channels]) with "same" padding (``_pad2d_same``, the only padding the
+front end uses), and ``get_padding_elem``.  Inputs and outputs keep the
+JAX layout; the convolutions run as ``F.conv1d`` over (B, C, T) and
+``F.conv2d`` over (B, C, T, F), with the 2-d kernel's first spatial axis
+on time.
 """
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Conv2d", "get_padding_elem"]
+__all__ = ["Conv1d", "Conv2d", "get_padding_elem"]
 
 
 def get_padding_elem(L_in, stride, kernel_size, dilation):
@@ -26,6 +29,66 @@ def get_padding_elem(L_in, stride, kernel_size, dilation):
         return [kernel_size // 2, kernel_size // 2]
     L_out = (L_in - dilation * (kernel_size - 1) - 1) // stride + 1
     return [(L_in - L_out) // 2, (L_in - L_out) // 2]
+
+
+def _pad_1d(x, kernel_size, dilation, stride, padding, padding_mode="reflect"):
+    """x: (B, C, T), padded along T as the JAX ``_pad_1d`` pads: "same"
+    symmetrically by ``get_padding_elem``, in reflect mode or (any other
+    mode) with zeros; "causal" with (k - 1) d zeros on the left; "valid"
+    not at all."""
+    if padding == "same":
+        left, right = get_padding_elem(x.shape[-1], stride, kernel_size,
+                                       dilation)
+        mode = "reflect" if padding_mode == "reflect" else "constant"
+        return F.pad(x, (left, right), mode=mode)
+    if padding == "causal":
+        return F.pad(x, ((kernel_size - 1) * dilation, 0))
+    if padding == "valid":
+        return x
+    raise ValueError(f"Unknown padding {padding}")
+
+
+class Conv1d(torch.nn.Module):
+    """1-d convolution over (B, T, in_channels) -> (B, T', out_channels)
+    (a (B, T) input is one channel), padded by ``_pad_1d``, then a VALID
+    convolution with ``stride``, ``dilation`` and ``groups``; it runs in
+    the input's dtype.  ``weight`` is (out, in / groups, k): the JAX
+    kernel (k, in / groups, out) through ``bridge.conv1d``.
+
+    Example
+    -------
+    >>> conv = Conv1d(16, 8, kernel_size=3)
+    >>> conv(torch.ones(2, 40, 16)).shape
+    torch.Size([2, 40, 8])
+    >>> Conv1d(16, 8, kernel_size=3, padding="valid")(torch.ones(2, 40, 16)).shape
+    torch.Size([2, 38, 8])
+    """
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 dilation=1, padding="same", groups=1, bias=True,
+                 padding_mode="reflect"):
+        super().__init__()
+        if padding not in ("same", "causal", "valid"):
+            raise ValueError(f"Unknown padding {padding}")
+        self.kernel_size, self.stride = kernel_size, stride
+        self.dilation, self.groups = dilation, groups
+        self.padding, self.padding_mode = padding, padding_mode
+        self.weight = torch.nn.Parameter(
+            torch.empty(out_channels, in_channels // groups, kernel_size))
+        self.bias = (torch.nn.Parameter(torch.zeros(out_channels)) if bias
+                     else None)
+        torch.nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x):
+        """x: (B, T, in_channels) or (B, T)."""
+        if x.dim() == 2:
+            x = x[..., None]
+        x = _pad_1d(x.transpose(1, 2), self.kernel_size, self.dilation,
+                    self.stride, self.padding, self.padding_mode)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv1d(x, self.weight.to(x.dtype), bias, stride=self.stride,
+                     dilation=self.dilation, groups=self.groups)
+        return y.transpose(1, 2)
 
 
 def _pad2d_same(x, kh, kw, sh, sw):

@@ -1,9 +1,10 @@
 """Sequence losses with the masked relative-length convention.
 
 Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
-``ctc_loss``, ``nll_loss``, ``kldiv_loss``): lengths are RELATIVE
-(batch,), padded positions are masked before the reduction, and the
-reductions keep the reference's definitions, quirks included.
+``ctc_loss``, ``nll_loss``, ``kldiv_loss``, ``classification_error``):
+lengths are RELATIVE (batch,), padded positions are masked before the
+reduction, and the reductions keep the reference's definitions, quirks
+included.
 ``ctc_loss`` runs on ``ops.ctc.ctc_loss_per_seq`` (the CTC kernels on
 CUDA tensors), or on its plain recursions with ``use_kernels=False``;
 ``transducer_loss`` on ``nnet.loss.transducer_loss.TransducerLoss`` (the
@@ -18,7 +19,7 @@ from ..ops.ctc import ctc_loss_per_seq, ctc_loss_per_seq_plain
 from .loss.transducer_loss import TransducerLoss
 
 __all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
-           "kldiv_loss"]
+           "kldiv_loss", "classification_error"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -208,3 +209,26 @@ def kldiv_loss(log_probabilities, targets, length=None, label_smoothing=0.0,
     if reduction == "batch":
         return per.reshape(B, -1).sum(1) / length
     return per
+
+
+def classification_error(probabilities, targets, length=None,
+                         reduction="mean"):
+    """The share of positions whose argmax is not the target, masked by
+    ``length`` and reduced as ``compute_masked_loss`` reduces; (B, C)
+    inputs are one position a row.
+
+    Example
+    -------
+    >>> p = torch.tensor([[0.9, 0.1], [0.2, 0.8], [0.6, 0.4]])
+    >>> float(classification_error(p, torch.tensor([0, 0, 0])))
+    0.3333333432674408
+    """
+    if probabilities.dim() == 2:
+        probabilities = probabilities[:, None, :]
+        targets = targets.reshape(targets.shape[0], 1)
+
+    def fn(pred, tgt):
+        return (pred.argmax(-1) != tgt).to(torch.float32)
+
+    return compute_masked_loss(fn, probabilities, targets, length,
+                               reduction=reduction)

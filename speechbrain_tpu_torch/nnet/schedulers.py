@@ -1,9 +1,9 @@
 """Learning-rate schedulers (host-side, checkpointable).
 
-Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NoamScheduler``
-with ``_save``/``_load`` through copies of ``_save_attrs`` and
-``_load_attrs``).  The NewBob, linear, step and cyclic schedulers are
-not ported.
+Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NewBobScheduler``
+and ``NoamScheduler``, each with ``_save``/``_load`` through copies of
+``_save_attrs`` and ``_load_attrs``).  The linear, step and cyclic
+schedulers are not ported.
 """
 
 import json
@@ -14,7 +14,7 @@ from ..utils.checkpoints import (
     register_checkpoint_hooks,
 )
 
-__all__ = ["NoamScheduler"]
+__all__ = ["NewBobScheduler", "NoamScheduler"]
 
 
 def _save_attrs(obj, path, attrs):
@@ -28,6 +28,63 @@ def _load_attrs(obj, path, attrs):
     for a in attrs:
         if a in data:
             setattr(obj, a, data[a])
+
+
+@register_checkpoint_hooks
+class NewBobScheduler:
+    """Metric-driven annealing, called once an epoch with the validation
+    metric (lower is better): when the relative improvement over the
+    previous call's metric is below ``improvement_threshold`` and
+    ``patient`` calls have already waited, the value is multiplied by
+    ``annealing_factor``.  Returns ``(old value, new value)``.  A
+    checkpoint holds ``hyperparam_value``, ``metric_values`` and
+    ``current_patient``.
+
+    Example
+    -------
+    >>> scheduler = NewBobScheduler(initial_value=1.0)
+    >>> scheduler(0.5)
+    (1.0, 1.0)
+    >>> scheduler(0.5)
+    (1.0, 0.5)
+    """
+
+    def __init__(self, initial_value, annealing_factor=0.5,
+                 improvement_threshold=0.0025, patient=0):
+        self.hyperparam_value = initial_value
+        self.annealing_factor = annealing_factor
+        self.improvement_threshold = improvement_threshold
+        self.patient = patient
+        self.metric_values = []
+        self.current_patient = self.patient
+
+    def __call__(self, metric_value):
+        old_value = new_value = self.hyperparam_value
+        if len(self.metric_values) > 0:
+            prev_metric = self.metric_values[-1]
+            if prev_metric == 0:
+                improvement = 0
+            else:
+                improvement = (prev_metric - metric_value) / prev_metric
+            if improvement < self.improvement_threshold:
+                if self.current_patient == 0:
+                    new_value = old_value * self.annealing_factor
+                    self.current_patient = self.patient
+                else:
+                    self.current_patient -= 1
+        self.metric_values.append(float(metric_value))
+        self.hyperparam_value = new_value
+        return old_value, new_value
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path,
+                    ["hyperparam_value", "metric_values", "current_patient"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=True):
+        _load_attrs(self, path,
+                    ["hyperparam_value", "metric_values", "current_patient"])
 
 
 @register_checkpoint_hooks

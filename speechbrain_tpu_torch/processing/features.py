@@ -1,5 +1,6 @@
-"""Feature extraction: STFT, power spectrum, mel filterbank, and
-global input normalization (eval, and training with statistic updates).
+"""Feature extraction: STFT, power spectrum, mel filterbank, deltas,
+context windows, and global input normalization (eval, and training
+with statistic updates).
 
 Counterpart of ``speechbrain_tpu/processing/features.py``.  The STFT is
 the same chunked-frame DFT matmul as the JAX package's "matmul" backend
@@ -18,6 +19,8 @@ __all__ = [
     "spectral_magnitude",
     "Filterbank",
     "mel_filter_matrix",
+    "Deltas",
+    "ContextWindow",
     "GlobalNormState",
     "InputNormalization",
 ]
@@ -249,6 +252,86 @@ class Filterbank(torch.nn.Module):
         x_db = x_db - self.multiplier * self.db_multiplier
         floor = x_db.reshape(x_db.shape[0], -1).amax(dim=1) - self.top_db
         return torch.maximum(x_db, floor[:, None, None])
+
+
+def _fold_channels(x):
+    """(B, T, F, C) -> (B * C, T, F) and the function that undoes it on a
+    (B * C, T, F') result; a 3-d input passes through."""
+    if x.dim() != 4:
+        return x, lambda y: y
+    b, t, f, c = x.shape
+    folded = x.permute(0, 3, 1, 2).reshape(b * c, t, f)
+    return folded, lambda y: y.reshape(b, c, t, y.shape[-1]).permute(0, 2, 3, 1)
+
+
+class Deltas(torch.nn.Module):
+    """Delta (time-derivative) features: time padded with its edge
+    values, then cross-correlated (not flipped) with the taps
+    ``j / denom``, j = -n..n, ``n = (window_length - 1) // 2`` and
+    ``denom = n (n + 1) (2n + 1) / 3``.
+
+    Counterpart of the JAX ``Deltas``; a (B, T, F, C) input is taken
+    channel by channel.
+
+    Example
+    -------
+    >>> d = Deltas()(torch.arange(5.0)[None, :, None])
+    >>> [round(v, 4) for v in d[0, :, 0].tolist()]
+    [0.5, 0.8, 1.0, 0.8, 0.5]
+    """
+
+    def __init__(self, input_size=None, window_length=5):
+        super().__init__()
+        self.n = (window_length - 1) // 2
+        self.denom = self.n * (self.n + 1) * (2 * self.n + 1) / 3
+        self.taps = [float(t) for t in np.asarray(
+            np.arange(-self.n, self.n + 1, dtype=np.float32) / self.denom,
+            np.float32)]
+
+    def forward(self, x):
+        """x: (B, T, F) or (B, T, F, C) -> the same shape."""
+        x, unfold = _fold_channels(x)
+        T = x.shape[1]
+        xp = torch.cat([x[:, :1].expand(-1, self.n, -1), x,
+                        x[:, -1:].expand(-1, self.n, -1)], 1)
+        out = xp[:, 0:T] * self.taps[0]
+        for i in range(1, len(self.taps)):
+            out = out + xp[:, i:i + T] * self.taps[i]
+        return unfold(out)
+
+
+class ContextWindow(torch.nn.Module):
+    """Frame stacking: each frame gets ``left_frames`` frames before it
+    and ``right_frames`` after it (zeros past the ends), interleaved
+    feature-major: output channel ``f * (l + r + 1) + c`` holds
+    ``x[t + c - l, f]``.
+
+    Counterpart of the JAX ``ContextWindow``; a (B, T, F, C) input is
+    taken channel by channel.
+
+    Example
+    -------
+    >>> x = torch.arange(6.0).reshape(1, 3, 2)
+    >>> ContextWindow(1, 1)(x)[0, 1].tolist()
+    [0.0, 2.0, 4.0, 1.0, 3.0, 5.0]
+    """
+
+    def __init__(self, left_frames=0, right_frames=0):
+        super().__init__()
+        self.left_frames = left_frames
+        self.right_frames = right_frames
+
+    def forward(self, x):
+        """x: (B, T, F) or (B, T, F, C) -> (B, T, F * (l + r + 1)[, C])."""
+        left, right = self.left_frames, self.right_frames
+        if left == 0 and right == 0:
+            return x
+        x, unfold = _fold_channels(x)
+        T = x.shape[1]
+        xp = torch.nn.functional.pad(x, (0, 0, left, right))
+        out = torch.stack([xp[:, i:i + T] for i in range(left + right + 1)],
+                          -1)
+        return unfold(out.reshape(out.shape[0], T, -1))
 
 
 class GlobalNormState:

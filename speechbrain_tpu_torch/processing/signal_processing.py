@@ -1,0 +1,96 @@
+"""Low-level signal ops: amplitude, 1-d correlation, notch filters.
+
+Counterpart of ``speechbrain_tpu/processing/signal_processing.py``
+(``compute_amplitude``, ``convolve1d`` and ``notch_filter``) as far as
+the waveform augmentations of ``processing/speech_augmentation.py`` use
+them.  Everything stays on the input's device; ``convolve1d`` runs as a
+grouped ``F.conv1d``.  The peak and dB amplitudes, ``convolve1d``'s
+per-row kernels, strides and FFT path, and ``reverberate``, which only
+``EnvCorrupt``'s noise and reverberation use, are not ported.
+"""
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+__all__ = ["compute_amplitude", "convolve1d", "blackman_window", "notch_filter"]
+
+
+def compute_amplitude(waveforms, lengths):
+    """The average absolute amplitude of each waveform (B, T) -> (B, 1)
+    over its first ``lengths`` samples (absolute counts, (B,) or (B, 1);
+    at least 1), as the JAX function's "avg", "linear" case computes it.
+
+    Example
+    -------
+    >>> compute_amplitude(torch.tensor([[1.0, -3.0, 9.0]]), torch.tensor([2])).tolist()
+    [[2.0]]
+    """
+    T = waveforms.shape[1]
+    lengths = lengths.reshape(-1, 1)
+    mask = (torch.arange(T, device=waveforms.device)[None, :]
+            < lengths).to(waveforms.dtype)
+    return ((waveforms.abs() * mask).sum(1, keepdim=True)
+            / lengths.to(waveforms.dtype).clamp(min=1.0))
+
+
+def convolve1d(waveform, kernel, padding=0):
+    """Correlation (the kernel is not flipped) along time of each channel,
+    after zero-padding time by ``padding`` each side: ``out[b, n, c] =
+    sum_k x[b, n + k, c] * kernel[0, k, c]``, as the JAX function's
+    direct path computes it for a kernel shared by the batch.
+
+    waveform (B, T, C); kernel (1, K, C).
+
+    Example
+    -------
+    >>> x = torch.arange(5.0)[None, :, None]
+    >>> convolve1d(x, torch.tensor([[[1.0], [0.0], [-1.0]]]))[0, :, 0].tolist()
+    [-2.0, -2.0, -2.0]
+    """
+    C, K = waveform.shape[2], kernel.shape[1]
+    x = F.pad(waveform.transpose(1, 2), (padding, padding))  # (B, C, T')
+    w = kernel.to(x.dtype).permute(2, 0, 1)  # (C, 1, K)
+    return F.conv1d(x, w, groups=C).transpose(1, 2)
+
+
+def blackman_window(filter_width):
+    """The periodic Blackman window of ``filter_width`` points (the
+    symmetric one of N + 1 points, last dropped), float32 on the host."""
+    return torch.tensor(np.blackman(filter_width + 1)[:-1], dtype=torch.float32)
+
+
+def notch_filter(notch_freq, filter_width=101, notch_width=0.05, window=None):
+    """A notch filter's taps (1, filter_width, 1) float32 at the
+    normalized frequency ``notch_freq`` (a float or a 0-d tensor, whose
+    device the taps take): a windowed-sinc low-pass below the notch plus
+    a high-pass above it, each under the periodic Blackman window
+    (``window``, from ``blackman_window`` and already on that device, or
+    None to make it here), in the JAX function's order of operations.
+    With a device ``notch_freq`` and ``window`` nothing is copied from
+    the host.
+
+    Example
+    -------
+    >>> taps = notch_filter(0.25)
+    >>> taps.shape, round(float(taps.sum()), 4)
+    (torch.Size([1, 101, 1]), 1.0)
+    """
+    notch_freq = torch.as_tensor(notch_freq, dtype=torch.float32)
+    device = notch_freq.device
+    if window is None:
+        window = blackman_window(filter_width).to(device)
+    pad = filter_width // 2
+    inputs = torch.arange(filter_width, device=device) - pad
+    notch_freq = notch_freq + notch_width
+
+    def sinc(x):
+        safe = torch.where(x == 0, torch.ones_like(x), x)
+        return torch.where(x == 0, torch.ones_like(x), torch.sin(safe) / safe)
+
+    hlpf = sinc(3 * (notch_freq - notch_width) * inputs) * window
+    hlpf = hlpf / hlpf.sum()
+    hhpf = sinc(3 * (notch_freq + notch_width) * inputs) * window
+    hhpf = hhpf / -hhpf.sum()
+    hhpf = hhpf + (inputs == 0).to(hhpf.dtype)  # + 1 at the centre tap
+    return (hlpf + hhpf).reshape(1, -1, 1)

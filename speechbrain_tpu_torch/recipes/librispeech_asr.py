@@ -44,6 +44,7 @@ from ..utils.checkpoints import Checkpointer
 from ..utils.distributed import run_on_main
 from ..utils.epoch_loop import EpochCounter
 from ..utils.train_logger import FileTrainLogger
+from .common import recipe_hparams
 
 logger = logging.getLogger(__name__)
 
@@ -205,16 +206,9 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
     the CPU; ``debug``, ``staging_depth``, ...).  Returns a dict with
     ``brain``, ``epoch_counter``, ``train_loader``, ``valid_loader``,
     ``test_loader`` and ``hparams``."""
-    hp = dict(HPARAMS, data_folder=data_folder, output_folder=output_folder)
-    hp.update(overrides or {})
-    hp.setdefault("save_folder", os.path.join(output_folder, "save"))
-    hp.setdefault("train_log", os.path.join(output_folder, "train_log.txt"))
-    hp.setdefault("train_json", os.path.join(hp["save_folder"], "train.json"))
-    hp.setdefault("valid_json",
-                  os.path.join(hp["save_folder"], "dev-clean.json"))
-    hp.setdefault("test_json",
-                  os.path.join(hp["save_folder"], "test-clean.json"))
-    os.makedirs(output_folder, exist_ok=True)
+    hp = recipe_hparams(HPARAMS, data_folder, output_folder, overrides, (
+        ("train_json", "train"), ("valid_json", "dev-clean"),
+        ("test_json", "test-clean")))
     run_on_main(prepare_librispeech, kwargs={
         "data_folder": hp["data_folder"],
         "save_folder": hp["save_folder"],

@@ -27,8 +27,6 @@ checkpointer (``asr._ModelBrain``), so a resumed run continues its
 learning-rate schedule instead of restarting the warm-up.
 """
 
-import os
-
 import numpy as np
 
 from ..asr import (
@@ -47,6 +45,7 @@ from ..utils.checkpoints import Checkpointer
 from ..utils.distributed import run_on_main
 from ..utils.epoch_loop import EpochCounter
 from ..utils.train_logger import FileTrainLogger
+from .common import recipe_hparams
 from .librispeech_asr import prepare_librispeech, write_synthetic_librispeech
 
 __all__ = ["HPARAMS", "HPARAMS_CRDNN", "dataio_prepare", "build", "run",
@@ -140,16 +139,11 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
     ...).  Returns a dict with ``brain``, ``epoch_counter``,
     ``train_loader``, ``valid_loader``, ``test_loader`` and
     ``hparams``."""
-    hp = dict(hparams, data_folder=data_folder, output_folder=output_folder)
-    hp.update(overrides or {})
-    hp.setdefault("save_folder", os.path.join(output_folder, "save"))
-    hp.setdefault("train_log", os.path.join(output_folder, "train_log.txt"))
-    for key, splits in (("train_json", "train_splits"),
-                        ("valid_json", "dev_splits"),
-                        ("test_json", "test_splits")):
-        hp.setdefault(key, os.path.join(hp["save_folder"],
-                                        f"{hp[splits][0]}.json"))
-    os.makedirs(output_folder, exist_ok=True)
+    splits = dict(hparams, **(overrides or {}))
+    hp = recipe_hparams(hparams, data_folder, output_folder, overrides, [
+        (key, splits[name][0]) for key, name in (
+            ("train_json", "train_splits"), ("valid_json", "dev_splits"),
+            ("test_json", "test_splits"))])
     run_on_main(prepare_librispeech, kwargs={
         "data_folder": hp["data_folder"],
         "save_folder": hp["save_folder"],

@@ -1,7 +1,7 @@
-"""Metric accumulation across batches: ``MetricStats`` and the WER/CER
-``ErrorRateStats``.
+"""Metric accumulation across batches: ``MetricStats``, the WER/CER
+``ErrorRateStats`` and the classification ``AccuracyStats``.
 
-A copy of ``MetricStats``/``ErrorRateStats`` of
+A copy of ``MetricStats``/``ErrorRateStats``/``AccuracyStats`` of
 ``speechbrain_tpu/utils/metric_stats.py`` (the port imports nothing of
 the JAX package).  Values accumulate on the host (numpy; a tensor is
 brought to the host when appended) and ``summarize()`` at stage end.
@@ -12,7 +12,7 @@ import numpy as np
 from .data_utils import undo_padding
 from .edit_distance import wer_details_for_batch, wer_summary
 
-__all__ = ["MetricStats", "ErrorRateStats"]
+__all__ = ["MetricStats", "ErrorRateStats", "AccuracyStats"]
 
 
 def _to_numpy(x):
@@ -168,6 +168,55 @@ class ErrorRateStats(MetricStats):
             self.summarize()
         print_wer_summary(self.summary, filestream)
         print_alignments(self.scores, filestream)
+
+
+class AccuracyStats(MetricStats):
+    """Masked categorical accuracy of padded (B, T, C) log-probs against
+    (B, T) targets, over each row's first ``round(length * T)`` positions
+    (all of them without ``length``); a (B, 1, C) batch is one
+    prediction a row.
+
+    Example
+    -------
+    >>> probs = np.log(np.array([[[0.9, 0.1], [0.2, 0.8]]]))
+    >>> stats = AccuracyStats()
+    >>> stats.append(probs, np.array([[0, 1]]), np.array([1.0]))
+    >>> stats.summarize()
+    1.0
+    """
+
+    def __init__(self):
+        self.clear()
+
+    def clear(self):
+        """Reset accumulated statistics."""
+        self.correct = 0.0
+        self.total = 0.0
+        self.summary = {}
+
+    def append(self, log_probabilities, targets, length=None):
+        """Accumulate a batch of predictions and targets."""
+        log_probabilities = _to_numpy(log_probabilities)
+        targets = _to_numpy(targets)
+        if length is not None:
+            length = _to_numpy(length)
+            abs_len = np.round(length * targets.shape[1]).astype(np.int64)
+            mask = np.arange(targets.shape[1])[None, :] < abs_len[:, None]
+        else:
+            mask = np.ones(targets.shape[:2], dtype=bool)
+        pred = log_probabilities.argmax(-1)
+        self.correct += float(((pred == targets) & mask).sum())
+        self.total += float(mask.sum())
+
+    def summarize(self, field=None):
+        """The accuracy (``correct / max(1, total)``), or the summary's
+        ``field`` ("accuracy", "correct", "total")."""
+        acc = self.correct / max(1.0, self.total)
+        self.summary = {"accuracy": acc, "correct": self.correct,
+                        "total": self.total}
+        if field is not None:
+            return self.summary[field]
+        return acc
 
 
 def _merge_tokens(sequences, space_token):

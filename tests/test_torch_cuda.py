@@ -1352,3 +1352,80 @@ def test_crdnn_transducer_step_kernels_vs_plain(gen):
     G = max(float(g.abs().max()) for g in gp)
     for n, a, b in zip(names, gk, gp):
         assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-3 * G), n
+
+
+def test_time_domain_augment_on_the_card(gen):
+    """``TimeDomainSpecAugment`` (the x-vector recipe's: speeds 95/100/105,
+    notches, chunks with a noise fill) on the card: with the same draws
+    the same waveforms and lengths as on the CPU (within 1e-6 of their
+    scale), and with draws from a card generator, no synchronising call
+    (``torch.cuda.set_sync_debug_mode("error")`` raises on one)."""
+    from speechbrain_tpu_torch.lobes.augment import TimeDomainSpecAugment
+
+    aug = TimeDomainSpecAugment(sample_rate=16000, drop_chunk_noise_factor=0.5)
+    x = torch.randn(4, 16000, generator=torch.Generator().manual_seed(0))
+    lens = torch.tensor([1.0, 0.8, 0.6, 0.9])
+    for seed in range(3):
+        draws = aug.draw(x.shape, torch.Generator().manual_seed(seed))
+        want = aug(x, lens, draws=draws)
+        on_card = {part: {k: None if v is None else v.cuda()
+                          for k, v in d.items()} for part, d in draws.items()}
+        got = aug.to("cuda")(x.cuda(), lens.cuda(), draws=on_card)
+        aug.to("cpu")
+        for a, b in zip(got, want):
+            scale = float(b.abs().max())
+            assert float((a.cpu() - b).abs().max()) <= 1e-6 * scale
+    aug.to("cuda")
+    xc, lc = x.cuda(), lens.cuda()
+    aug(xc, lc, gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, new_lens = aug(xc, lc, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.shape == xc.shape and bool(torch.isfinite(out).all())
+
+
+def test_timit_ctc_step_kernels_vs_plain(gen):
+    """A ``timit_ctc.CTCBrain`` training step at full width (train.yaml:
+    120 features, CNN 128/256, LiGRU 4 x 512, DNN 2 x 512, 40 outputs;
+    dropout 0), B 3 x 2 s with a dummy row (batch mask 0): the loss and
+    every gradient through K3/K4 against the plain recursions, from the
+    same weights; K3 and K4 launch once each on the kernel route and not
+    on the plain one."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes.timit_ctc import CTCBrain
+
+    brain = CTCBrain({"dropout": 0.0}, run_opts={"seed": 0})
+    rng = np.random.default_rng(0)
+    phn = rng.integers(1, 40, (3, 30))
+    phn[1, 20:] = 0
+    batch = brain.prepare_batch({
+        "sig": rng.standard_normal((3, 32000)).astype(np.float32),
+        "sig_lens": np.array([1.0, 0.7, 1.0], np.float32),
+        "phn_encoded": phn,
+        "phn_encoded_lens": np.array([1.0, 20 / 30, 1.0], np.float32),
+        "batch_mask": np.array([1.0, 1.0, 0.0], np.float32)})
+    names, params = zip(*brain.modules.named_parameters())
+    routes = []
+    for flag in (True, False):
+        saved = {k: v.clone() for k, v in brain.modules.named_buffers()}
+        brain.set_kernels(flag).modules.train()
+        ops.reset_launch_counters()
+        loss = brain._loss(batch, Stage.TRAIN)
+        grads = torch.autograd.grad(loss, params)
+        counts = ops.launch_counters()
+        assert (counts["ctc_alpha"], counts["ctc_beta_grad"]) == (
+            (1, 1) if flag else (0, 0))
+        with torch.no_grad():
+            for k, v in brain.modules.named_buffers():
+                v.copy_(saved[k])
+        routes.append((float(loss), grads))
+    (lk, gk), (lp, gp) = routes
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    G = max(float(g.abs().max()) for g in gp)
+    for n, a, b in zip(names, gk, gp):
+        assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-3 * G), n

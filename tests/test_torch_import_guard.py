@@ -68,6 +68,8 @@ def test_import_leaves_jax_unloaded():
         "speechbrain_tpu_torch.nnet.transducer.transducer_joint, "
         "speechbrain_tpu_torch.recipes.librispeech_asr, "
         "speechbrain_tpu_torch.recipes.librispeech_transducer, "
+        "speechbrain_tpu_torch.recipes.timit_ctc, "
+        "speechbrain_tpu_torch.recipes.gsc_xvector, "
         "speechbrain_tpu_torch.lobes.models.CRDNN, "
         "speechbrain_tpu_torch.native, speechbrain_tpu_torch.dataio.dataloader, "
         "speechbrain_tpu_torch.tokenizers.SentencePiece; "

@@ -262,6 +262,35 @@ def test_brain_seeds_every_dropout_from_run_opts():
     assert torch.equal(b1.generator.get_state(), b2.generator.get_state())
 
 
+def test_train_state_restores_the_generator_of_its_own_device_type(tmp_path):
+    """The train state's file carries the generator's state with its
+    device type: a CPU Brain takes back a CPU generator's state, and
+    leaves its generator as it is for a card's Philox state (16 bytes,
+    which a CPU generator's ``set_state`` refuses) or a file without
+    one."""
+    from speechbrain_tpu_torch.core import _TrainStateRecoverable
+
+    brain = ConformerASRBrain(TOY, device="cpu", run_opts={"seed": 5})
+    rec = _TrainStateRecoverable(brain)
+    saved = brain.generator.get_state()
+    rec._save(tmp_path / "cpu.ckpt")
+    torch.rand(7, generator=brain.generator)
+    rec._load(tmp_path / "cpu.ckpt")
+    assert torch.equal(brain.generator.get_state(), saved)
+
+    state = torch.load(tmp_path / "cpu.ckpt", weights_only=True)
+    state["generator"] = {"device": "cuda",
+                          "state": torch.arange(16, dtype=torch.uint8)}
+    torch.save(state, tmp_path / "card.ckpt")
+    del state["generator"]
+    torch.save(state, tmp_path / "none.ckpt")
+    torch.rand(7, generator=brain.generator)
+    drawn = brain.generator.get_state()
+    for name in ("card.ckpt", "none.ckpt"):
+        rec._load(tmp_path / name)
+        assert torch.equal(brain.generator.get_state(), drawn), name
+
+
 # ------------------------------------------------------------ repaired faults
 
 
