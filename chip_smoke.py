@@ -9,6 +9,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe            # build + that phase
     python3 chip_smoke.py --phase train_crdnn_transducer,recipe_transducer
     python3 chip_smoke.py --phase recipe_timit,recipe_gsc
+    python3 chip_smoke.py --phase recipe_voxceleb
 
 Phases, each printing one JSON line when it ends:
 
@@ -176,6 +177,19 @@ Phases, each printing one JSON line when it ends:
    ``evaluate(max_key="acc")``: batches, train ms a batch, validation
    and test seconds, accuracies (in [0, 1]), checkpoint bytes, save and
    resume ms, peak memory.
+15. recipe_voxceleb -- ``recipes.voxceleb_speaker`` (VoxCeleb speaker
+   verification, config 3) at the yamls' widths in f32: the ECAPA step
+   (1024 x 4 + 3072, attention 128, 192-d embedding, the AAM head of
+   7205 classes, 80 mels, ``TimeDomainSpecAugment`` on) takes 4 Adam
+   steps after a warm-up on B = 32 x 3 s: ms/step, utt/s, peak memory,
+   GFLOP a step and its f32 bound, busy share, PyTorch calls and device
+   kernels a step, the device ms of "time_domain_augment", launches
+   (none), and the augmentation, Fbank and sentence normalization under
+   ``set_sync_debug_mode("error")``; then the recipes on a synthetic
+   VoxCeleb tree (16 speakers x 48 clips of 2-5 s, 256 trials): ECAPA 2
+   epochs, epoch 3 resumed bit for bit, ``save_for_pretrained``, cosine
+   verification; the x-vector yaml 2 epochs and PLDA verification
+   (embeddings and scoring timed apart; EER and minDCF in [0, 1]).
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -185,7 +199,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 14, each counted from 0 just before its
+(launch counts from phases 3 to 15, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -2311,10 +2325,13 @@ def _snapshot(brain):
             "optimizer_step": brain.optimizer_step, "lr": brain.lr}
     if hasattr(brain, "noam"):
         snap["noam_n_steps"] = brain.noam.n_steps
-    if hasattr(brain, "lr_annealing"):  # NewBob
+    if hasattr(brain, "lr_annealing"):
         s = brain.lr_annealing
-        snap["newbob"] = (s.hyperparam_value, list(s.metric_values),
-                          s.current_patient)
+        if hasattr(s, "clr_iterations"):  # the cyclic schedule
+            snap["cyclic"] = (s.clr_iterations, s.current_lr)
+        else:  # NewBob
+            snap["newbob"] = (s.hyperparam_value, list(s.metric_values),
+                              s.current_patient)
     return snap
 
 
@@ -2627,15 +2644,10 @@ def _crdnn_brain(precision, dropout):
         run_opts={"precision": precision, "loss_sync_interval": 10})
 
 
-def _ligru_calls(rnn, x):
-    """One forward and backward of the LiGRU ``rnn`` in training mode on
-    ``x`` (the CRDNN's LiGRU input of a step): its PyTorch calls (the aten
-    ops dispatched, counted by a ``TorchDispatchMode``, which the autograd
-    engine's threads inherit: the backward's included), its device
-    kernels (the profiler, the card's events only) and card ms.  The
-    running statistics are put back."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def _pytorch_calls(fn):
+    """The PyTorch calls of ``fn()``: the aten ops dispatched, counted by
+    a ``TorchDispatchMode`` (the autograd engine's threads inherit it, so
+    a backward's count too)."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class Count(TorchDispatchMode):
@@ -2644,6 +2656,19 @@ def _ligru_calls(rnn, x):
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
             Count.calls += 1
             return func(*args, **(kwargs or {}))
+
+    with Count():
+        fn()
+    return Count.calls
+
+
+def _ligru_calls(rnn, x):
+    """One forward and backward of the LiGRU ``rnn`` in training mode on
+    ``x`` (the CRDNN's LiGRU input of a step): its PyTorch calls
+    (``_pytorch_calls``: the backward's included), its device kernels (the profiler, the card's events only) and card ms.  The
+    running statistics are put back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
     saved = {k: v.clone() for k, v in rnn.named_buffers()}
 
@@ -2654,8 +2679,7 @@ def _ligru_calls(rnn, x):
 
     step()  # warm-up
     ms = _time_ms(step, iters=2, warmup=0)
-    with Count():
-        step()
+    calls = _pytorch_calls(step)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
@@ -2668,8 +2692,8 @@ def _ligru_calls(rnn, x):
     T = x.shape[1]
     return {"input_shape": list(x.shape), "dtype": str(x.dtype),
             "layers": rnn.num_layers, "frames": T, "fwd_bwd_ms": ms,
-            "pytorch_calls": Count.calls, "device_kernels": kernels,
-            "pytorch_calls_per_frame_layer": Count.calls / (T * rnn.num_layers),
+            "pytorch_calls": calls, "device_kernels": kernels,
+            "pytorch_calls_per_frame_layer": calls / (T * rnn.num_layers),
             "device_kernels_per_frame_layer": kernels / (T * rnn.num_layers)}
 
 
@@ -3220,14 +3244,263 @@ def _recipe_gsc_run(tmp):
     return run
 
 
+# no TPU kernel runs in the VoxCeleb recipes either
+VOX_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+# the synthetic VoxCeleb tree: more training clips (16 x 43) than the
+# x-vector's 512 dimensions, so that the PLDA's total covariance is
+# full rank
+RECIPE_VOX = dict(speakers=16, clips=48, seconds=(2.0, 5.0),
+                  trials_per_speaker=8)
+
+
+def _vox_batch(B, samples, classes, seed):
+    rng = np.random.default_rng(seed)
+    return {"sig": (0.1 * rng.normal(size=(B, samples))).astype(np.float32),
+            "sig_lens": rng.uniform(0.6, 1.0, B).astype(np.float32),
+            "spk_id_encoded": rng.integers(0, classes, B)}
+
+
+def _model_flops(brain, batch):
+    """Multiply-adds x 2 of one forward of ECAPA and its cosine head on
+    ``batch``'s features (every ``Conv1d`` and the head's product, from
+    the shapes that reach them), and 3x that for a training step (the
+    forward and the backward's two products); the elementwise work is
+    left out."""
+    import torch
+
+    from speechbrain_tpu_torch.lobes.models.ECAPA_TDNN import Classifier
+    from speechbrain_tpu_torch.nnet.CNN import Conv1d
+
+    flops = [0]
+
+    def conv(mod, args, out):
+        k = mod.weight.shape[1] * mod.weight.shape[2]
+        flops[0] += 2 * out.numel() * k
+
+    def head(mod, args, out):
+        flops[0] += 2 * out.numel() * mod.weight.shape[0]
+
+    hooks = []
+    for m in brain.modules.modules():
+        if isinstance(m, Conv1d):
+            hooks.append(m.register_forward_hook(conv))
+        elif isinstance(m, Classifier):
+            hooks.append(m.register_forward_hook(head))
+    saved = {k: v.clone() for k, v in brain.modules.named_buffers()}
+    try:
+        with torch.no_grad():
+            brain.modules.eval()
+            brain.compute_forward(batch, None)
+    finally:
+        for h in hooks:
+            h.remove()
+        with torch.no_grad():
+            for k, v in brain.modules.named_buffers():
+                v.copy_(saved[k])
+    return flops[0], 3 * flops[0]
+
+
+def phase_recipe_voxceleb():
+    """The VoxCeleb speaker recipes (``recipes.voxceleb_speaker``, config
+    3 of ``BASELINE.json``) at the yamls' widths in f32.  First the ECAPA
+    step: ``SpeakerBrain`` (ECAPA-TDNN 1024 x 4 + 3072, attention 128,
+    192-d embedding; the AAM head of 7205 classes; 80 mels;
+    ``TimeDomainSpecAugment`` at speeds 95/100/105) takes 4 timed Adam
+    steps after a warm-up on B = 32 synthetic 3 s clips (T 301): ms/step,
+    utt/s, peak memory, the model's GFLOP a step and its f32 bound, the
+    busy share of one profiled step, the device ms of its
+    "time_domain_augment" range, the PyTorch calls and device kernels a
+    step, the launches (none); the augmentation, ``Fbank`` and the
+    sentence normalization run once more under
+    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync).  Then
+    the recipes end to end on a synthetic VoxCeleb tree
+    (``wav/idXXXXX/<video>/<nnnnn>.wav``, ``RECIPE_VOX``: clips of
+    2-5 s, so that some are cropped to 3 s, and a ``veri_test2.txt`` of
+    positive and negative trials): ECAPA for 2 epochs, epoch 3 in a
+    fresh Brain with the modules, Adam's state, the cyclic schedule, the
+    rate and the generator recovered bit for bit, the best checkpoint's
+    modules written by ``save_for_pretrained``, cosine verification;
+    then the x-vector yaml (``run``, 2 epochs) and PLDA verification.
+    EER and minDCF must be finite and in [0, 1]."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes.voxceleb_speaker import SpeakerBrain
+
+    B, samples, steps = 32, 48000, 4
+    brain = SpeakerBrain(run_opts={"seed": SEED, "loss_sync_interval": 10})
+    classes = brain.hparams.out_neurons
+    params = {name: sum(p.numel() for p in brain.modules[name].parameters())
+              for name in ("embedding_model", "classifier")}
+    batch = brain.prepare_batch(_vox_batch(B, samples, classes, SEED + 9))
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    assert _per_step(counts, steps) == VOX_LAUNCHES, counts
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    calls = _pytorch_calls(one_step)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        wavs, lens = brain.augment(batch["sig"], batch["sig_lens"],
+                                   brain.generator)
+        feats = brain.normalize(brain.modules.compute_features(wavs), lens)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert feats.shape == (B, 301, 80), feats.shape
+    fwd_flops, step_flops = _model_flops(brain, batch)
+    profile = _profile(one_step, ranges=("time_domain_augment",))
+    step_run = {"phase": "recipe_voxceleb_step", "precision": "fp32",
+                "batch": B, "seconds_audio": samples / 16000, "T": 301,
+                "classes": classes, "parameters": params,
+                "augmentation": brain.hparams.augmentation, "steps": steps,
+                "augment_normalize_sync_free": True,
+                "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
+                "peak_mem_bytes": peak, "forward_gflop": fwd_flops / 1e9,
+                "step_gflop": step_flops / 1e9,
+                "f32_bound_ms": 1e3 * step_flops / PEAK_FLOPS["float32"],
+                "pytorch_calls_per_step": calls, "launches": counts,
+                "lr_first_steps": [brain.hparams.lr, brain.lr],
+                "loss_first": first, "loss_last": losses[-1],
+                "profile": profile}
+    emit(step_run)
+    del brain, batch, wavs, feats
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vox_")
+    try:
+        recipe_run = _recipe_vox_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"step": step_run, "recipe": recipe_run}
+
+
+def _recipe_vox_run(tmp):
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.pretrained.training import save_for_pretrained
+    from speechbrain_tpu_torch.recipes import voxceleb_speaker as recipe
+
+    data, out = f"{tmp}/VoxCeleb", f"{tmp}/ecapa"
+    _, write_s = _timed(lambda: recipe.write_synthetic_voxceleb(
+        data, seed=SEED, **RECIPE_VOX))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+
+    at_recovery = {}
+
+    def build(epochs):
+        parts = recipe.build(data, out, {"number_of_epochs": epochs}, opts)
+        b = parts["brain"]
+        fit_start = b.on_fit_start
+
+        def on_fit_start():  # the generator as the recovery left it
+            fit_start()
+            at_recovery["generator"] = b.generator.get_state()
+
+        b.on_fit_start = on_fit_start
+        return parts
+
+    ops.reset_launch_counters()
+    parts = build(2)
+    brain, log = parts["brain"], {}
+    manifests = {s: json.load(open(parts["hparams"][f"{s}_json"]))
+                 for s in ("train", "valid")}
+    durations = [v["duration"] for v in manifests["train"].values()]
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    saved_generator = brain.generator.get_state()
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    assert torch.equal(at_recovery["generator"], saved_generator)
+    assert brain2.lr_annealing.clr_iterations == (
+        saved["cyclic"][0] + log2["steps"][0])
+    assert brain2.hparams.crop.epoch == 3
+    # what ``run`` does after ``fit``
+    _, save_pre_s = _timed(lambda: (
+        brain2.checkpointer.recover_if_possible(min_key="loss"),
+        save_for_pretrained(brain2, f"{out}/pretrained",
+                            module_names=["embedding_model", "classifier"])))
+    cosine, cosine_s = _timed(lambda: recipe.verify_cosine(
+        data, f"{tmp}/cosine", {"pretrain_path": f"{out}/pretrained"}))
+    xvector, xvector_s = _timed(lambda: recipe.run(
+        data, f"{tmp}/xvector", {"number_of_epochs": 2}, opts,
+        hparams=recipe.HPARAMS_XVECTOR))
+    n_train = len(manifests["train"])
+    rank_f = min(100, n_train)
+    plda, plda_total_s = _timed(lambda: recipe.verify_plda(
+        data, f"{tmp}/plda", {"pretrain_path": f"{tmp}/xvector/pretrained",
+                              "rank_f": rank_f}))
+    counts = ops.launch_counters()  # the main path's launches, read here
+    assert all(v == 0 for v in counts.values()), counts
+    for res in (cosine, plda):
+        assert all(np.isfinite(res["scores"])), res["line"]
+        assert 0.0 <= res["eer"] <= 1.0 and 0.0 <= res["min_dcf"] <= 1.0
+    valid_losses = log["valid_loss"] + log2["valid_loss"]
+    assert all(np.isfinite(valid_losses)), valid_losses
+    assert np.isfinite(xvector.stage_stats["VALID"]["loss"])
+    train_s = sum(log["train_s"])
+    run = {
+        "phase": "recipe_voxceleb", "tree": RECIPE_VOX, "write_wavs_s": write_s,
+        "clips": {s: len(m) for s, m in manifests.items()},
+        "cropped_train_clips": sum(d > 3.0 for d in durations),
+        "trials": len(cosine["scores"]), "precision": "fp32",
+        "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_utt_per_s": n_train * len(log["batches"]) / train_s,
+        "staging_wait_s": log["staging_wait_s"] + log2["staging_wait_s"],
+        "valid_s": log["valid_s"] + log2["valid_s"],
+        "valid_loss": valid_losses, "lr_after_epochs": brain2.lr,
+        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal, "cyclic_at_resume": saved["cyclic"],
+        "save_for_pretrained_s": save_pre_s,
+        "cosine": {"eer": cosine["eer"], "min_dcf": cosine["min_dcf"],
+                   "embed_s": cosine["embed_s"], "score_s": cosine["score_s"],
+                   "total_s": cosine_s},
+        "xvector": {"run_2_epochs_s": xvector_s,
+                    "valid_loss": xvector.stage_stats["VALID"]["loss"]},
+        "plda": {"eer": plda["eer"], "min_dcf": plda["min_dcf"],
+                 "rank_f": rank_f, "train_embeddings": n_train,
+                 "embed_s": plda["embed_s"], "plda_s": plda["plda_s"],
+                 "score_s": plda["score_s"], "total_s": plda_total_s},
+        "peak_mem_bytes": max(peak_fit, torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2, xvector
+    torch.cuda.empty_cache()
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
-    of recipe_timit and recipe_gsc), each counted from 0 just before its
-    run."""
+    of recipe_timit, recipe_gsc and recipe_voxceleb), each counted from 0
+    just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -3320,12 +3593,14 @@ def main():
     recipe_transducer = timed("recipe_transducer", phase_recipe_transducer)
     timit = timed("recipe_timit", phase_recipe_timit)
     gsc = timed("recipe_gsc", phase_recipe_gsc)
+    vox = timed("recipe_voxceleb", phase_recipe_voxceleb)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
                  *serve_transducer.values(), recipe, crdnn["bf16"],
                  crdnn["fp32"], *recipe_transducer.values(), timit["step"],
-                 timit["recipe"], gsc["step"], gsc["recipe"]]
+                 timit["recipe"], gsc["step"], gsc["recipe"], vox["step"],
+                 vox["recipe"]]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

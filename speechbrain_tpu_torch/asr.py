@@ -241,8 +241,10 @@ def _transformer(c):
 
 
 def _random_init(module, gen):
-    """Lecun-normal weights (std 1/sqrt(fan_in); the depthwise taps and a
-    cosine classifier's centroids are (in, out)) from one generator, but
+    """Lecun-normal weights (std 1/sqrt(fan_in); the depthwise taps, a
+    cosine classifier's centroids and the ``weight`` of a module that sets
+    ``weight_in_out``, such as the ECAPA head's, are (in, out)) from one
+    generator, but
     orthogonal recurrent weights for the LiGRU (``weight_hh``, as the JAX
     module initialises them: a Gaussian (2H, H) matrix's largest singular
     values exceed 1 and its relu recurrence can blow up over hundreds of
@@ -252,6 +254,8 @@ def _random_init(module, gen):
     weights in every process."""
     norms = {id(p) for m in module.modules() if isinstance(m, LayerNorm)
              for p in m.parameters()}
+    in_out = {id(m.weight) for m in module.modules()
+              if getattr(m, "weight_in_out", False)}
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
@@ -261,7 +265,7 @@ def _random_init(module, gen):
             if leaf == "weight_hh":
                 torch.nn.init.orthogonal_(p, generator=gen)
                 continue
-            if leaf in ("depthwise_kernel", "centroids"):
+            if leaf in ("depthwise_kernel", "centroids") or id(p) in in_out:
                 fan_in = p.shape[0]
             elif leaf.startswith("weight") and p.dim() >= 2:
                 fan_in = p[0].numel()

@@ -32,6 +32,17 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``Dense_{i}``/``BatchNorm1d_{i}`` of its ``lin_blocks`` ->
   ``blocks.{i}.linear``/``blocks.{i}.norm``, then ``Dense_{lin_blocks}``
   -> ``out``, or ``centroids`` as it is;
+- ``ECAPA_TDNN``: ``block_0`` -> ``blocks.0``, ``serez_{i}_in``/
+  ``_res2``/``_out``/``_se`` -> ``blocks.{i}.tdnn1``/``.res2net``/
+  ``.tdnn2``/``.se``, ``mfa``, ``asp`` (``TDNNBlock_0``, ``Conv1d_0`` ->
+  ``tdnn``, ``conv``), ``asp_bn``, ``fc``; inside them a ``TDNNBlock``'s
+  ``Conv1d_0``/``BatchNorm1d_0`` -> ``conv``/``norm``, a Res2Net's
+  ``block_{i}`` -> ``blocks.{i - 1}``, an SE block's ``Conv1d_0``/``_1``
+  -> ``conv1``/``conv2``; ``SERes2NetBlock``'s ``tdnn1``, ``res2net``,
+  ``tdnn2``, ``se`` and ``shortcut`` (a plain Flax ``Conv``) keep their
+  names; the ECAPA ``Classifier``'s ``weight`` (lin, out) stays as it is,
+  its ``Dense_{i}``/``BatchNorm1d_{i}`` -> ``blocks.{i}.linear``/
+  ``blocks.{i}.norm``;
 - ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
   optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
@@ -81,6 +92,12 @@ __all__ = [
     "classifier_state_dict",
     "to_jax_xvector",
     "to_jax_classifier",
+    "ecapa_state_dict",
+    "to_jax_ecapa",
+    "seres2net_state_dict",
+    "to_jax_seres2net",
+    "ecapa_classifier_state_dict",
+    "to_jax_ecapa_classifier",
     "encoder_layer",
     "transformer_lm_state_dict",
     "to_jax_transformer_lm",
@@ -426,6 +443,73 @@ def classifier_state_dict(variables):
     return sd
 
 
+def _tdnn_block(p, st):
+    return {**_prefixed("conv", conv1d(p["Conv1d_0"]["Conv_0"])),
+            **_prefixed("norm", _inner_bn(p, st, "BatchNorm1d_0"))}
+
+
+def _seres2net(p, st, names):
+    """One SE-Res2Net block; ``names`` maps the port's ``tdnn1``,
+    ``res2net``, ``tdnn2``, ``se`` (and ``shortcut``) to the JAX names."""
+    sd = {**_prefixed("tdnn1", _tdnn_block(p[names["tdnn1"]],
+                                           st[names["tdnn1"]])),
+          **_prefixed("tdnn2", _tdnn_block(p[names["tdnn2"]],
+                                           st[names["tdnn2"]]))}
+    res2, res2_st = p[names["res2net"]], st[names["res2net"]]
+    for i in range(1, len(res2) + 1):
+        sd.update(_prefixed(f"res2net.blocks.{i - 1}", _tdnn_block(
+            res2[f"block_{i}"], res2_st[f"block_{i}"])))
+    se = p[names["se"]]
+    sd.update(_prefixed("se.conv1", conv1d(se["Conv1d_0"]["Conv_0"])))
+    sd.update(_prefixed("se.conv2", conv1d(se["Conv1d_1"]["Conv_0"])))
+    if "shortcut" in p:
+        sd.update(_prefixed("shortcut", conv1d(p["shortcut"])))
+    return sd
+
+
+_SERES2NET_NAMES = {k: k for k in ("tdnn1", "res2net", "tdnn2", "se")}
+
+
+def seres2net_state_dict(variables):
+    """JAX ``SERes2NetBlock`` variables ``{"params", "batch_stats"}`` ->
+    the port's ``SERes2NetBlock`` state_dict."""
+    return _seres2net(variables["params"], variables["batch_stats"],
+                      _SERES2NET_NAMES)
+
+
+def ecapa_state_dict(variables):
+    """JAX ``ECAPA_TDNN`` variables ``{"params", "batch_stats"}`` -> the
+    port's ``ECAPA_TDNN`` state_dict."""
+    p, st = variables["params"], variables["batch_stats"]
+    sd = _prefixed("blocks.0", _tdnn_block(p["block_0"], st["block_0"]))
+    n = len([k for k in p if k.startswith("serez_") and k.endswith("_in")])
+    for i in range(1, n + 1):
+        names = {"tdnn1": f"serez_{i}_in", "res2net": f"serez_{i}_res2",
+                 "tdnn2": f"serez_{i}_out", "se": f"serez_{i}_se"}
+        sd.update(_prefixed(f"blocks.{i}", _seres2net(p, st, names)))
+    sd.update(_prefixed("mfa", _tdnn_block(p["mfa"], st["mfa"])))
+    sd.update(_prefixed("asp.tdnn", _tdnn_block(p["asp"]["TDNNBlock_0"],
+                                                st["asp"]["TDNNBlock_0"])))
+    sd.update(_prefixed("asp.conv", conv1d(p["asp"]["Conv1d_0"]["Conv_0"])))
+    sd.update(_prefixed("asp_bn", _batch_norm(p["asp_bn"]["BatchNorm_0"],
+                                              st["asp_bn"]["BatchNorm_0"])))
+    sd.update(_prefixed("fc", conv1d(p["fc"]["Conv_0"])))
+    return sd
+
+
+def ecapa_classifier_state_dict(variables):
+    """JAX ECAPA ``Classifier`` variables ``{"params"[, "batch_stats"]}``
+    -> the port's ``ECAPA_TDNN.Classifier`` state_dict."""
+    p, st = variables["params"], variables.get("batch_stats", {})
+    denses = _numbered(p, "Dense_")
+    sd = {"weight": _t(p["weight"])}
+    for i in range(len(denses)):
+        sd.update(_prefixed(f"blocks.{i}.linear", dense(denses[i])))
+        sd.update(_prefixed(f"blocks.{i}.norm",
+                            _inner_bn(p, st, f"BatchNorm1d_{i}")))
+    return sd
+
+
 # ------------------------------------------------------------------
 # port state_dict -> JAX layout (the inverse of the functions above)
 
@@ -710,6 +794,13 @@ def _bn_pair_to_jax(s):
     return {"BatchNorm_0": p}, {"BatchNorm_0": st}
 
 
+def _conv1d_to_jax(s):
+    p = {"kernel": _a(s["weight"]).transpose(2, 1, 0).copy()}
+    if "bias" in s:
+        p["bias"] = _a(s["bias"])
+    return p
+
+
 def to_jax_xvector(state_dict, prefix=""):
     """The port's ``Xvector`` state_dict -> JAX ``{"params",
     "batch_stats"}``."""
@@ -717,10 +808,7 @@ def to_jax_xvector(state_dict, prefix=""):
     params, stats = {}, {}
     for i in range(s.count("blocks")):
         block = s.sub(f"blocks.{i}")
-        conv = {"kernel": _a(block["conv.weight"]).transpose(2, 1, 0).copy()}
-        if "conv.bias" in block:
-            conv["bias"] = _a(block["conv.bias"])
-        params[f"Conv1d_{i}"] = {"Conv_0": conv}
+        params[f"Conv1d_{i}"] = {"Conv_0": _conv1d_to_jax(block.sub("conv"))}
         params[f"BatchNorm1d_{i}"], stats[f"BatchNorm1d_{i}"] = (
             _bn_pair_to_jax(block.sub("norm")))
     params["Dense_0"] = _dense_to_jax(s.sub("lin"))
@@ -743,6 +831,73 @@ def to_jax_classifier(state_dict, prefix=""):
     else:
         params[f"Dense_{n_blocks}"] = _dense_to_jax(s.sub("out"))
     return {"params": params, "batch_stats": stats}
+
+
+def _tdnn_block_to_jax(s):
+    bn, st = _bn_pair_to_jax(s.sub("norm"))
+    return ({"Conv1d_0": {"Conv_0": _conv1d_to_jax(s.sub("conv"))},
+             "BatchNorm1d_0": bn}, {"BatchNorm1d_0": st})
+
+
+def _seres2net_to_jax(s, names, params, stats):
+    """The inverse of ``_seres2net``: fills ``params``/``stats`` under
+    the JAX names."""
+    for port in ("tdnn1", "tdnn2"):
+        params[names[port]], stats[names[port]] = _tdnn_block_to_jax(
+            s.sub(port))
+    res2, res2_st = {}, {}
+    for i in range(s.sub("res2net").count("blocks")):
+        res2[f"block_{i + 1}"], res2_st[f"block_{i + 1}"] = (
+            _tdnn_block_to_jax(s.sub(f"res2net.blocks.{i}")))
+    params[names["res2net"]], stats[names["res2net"]] = res2, res2_st
+    params[names["se"]] = {
+        "Conv1d_0": {"Conv_0": _conv1d_to_jax(s.sub("se.conv1"))},
+        "Conv1d_1": {"Conv_0": _conv1d_to_jax(s.sub("se.conv2"))}}
+    if "shortcut.weight" in s:
+        params["shortcut"] = _conv1d_to_jax(s.sub("shortcut"))
+
+
+def to_jax_seres2net(state_dict, prefix=""):
+    """The port's ``SERes2NetBlock`` state_dict -> JAX ``{"params",
+    "batch_stats"}``."""
+    params, stats = {}, {}
+    _seres2net_to_jax(_Sub(state_dict, prefix), _SERES2NET_NAMES, params,
+                      stats)
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_ecapa(state_dict, prefix=""):
+    """The port's ``ECAPA_TDNN`` state_dict -> JAX ``{"params",
+    "batch_stats"}``."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {}, {}
+    params["block_0"], stats["block_0"] = _tdnn_block_to_jax(s.sub("blocks.0"))
+    for i in range(1, s.count("blocks")):
+        names = {"tdnn1": f"serez_{i}_in", "res2net": f"serez_{i}_res2",
+                 "tdnn2": f"serez_{i}_out", "se": f"serez_{i}_se"}
+        _seres2net_to_jax(s.sub(f"blocks.{i}"), names, params, stats)
+    params["mfa"], stats["mfa"] = _tdnn_block_to_jax(s.sub("mfa"))
+    tdnn, tdnn_st = _tdnn_block_to_jax(s.sub("asp.tdnn"))
+    params["asp"] = {"TDNNBlock_0": tdnn,
+                     "Conv1d_0": {"Conv_0": _conv1d_to_jax(s.sub("asp.conv"))}}
+    stats["asp"] = {"TDNNBlock_0": tdnn_st}
+    params["asp_bn"], stats["asp_bn"] = _bn_pair_to_jax(s.sub("asp_bn"))
+    params["fc"] = {"Conv_0": _conv1d_to_jax(s.sub("fc"))}
+    return {"params": params, "batch_stats": stats}
+
+
+def to_jax_ecapa_classifier(state_dict, prefix=""):
+    """The port's ``ECAPA_TDNN.Classifier`` state_dict -> JAX
+    ``{"params"[, "batch_stats"]}`` (``batch_stats`` when it has
+    ``lin_blocks``)."""
+    s = _Sub(state_dict, prefix)
+    params, stats = {"weight": _a(s["weight"])}, {}
+    for i in range(s.count("blocks")):
+        block = s.sub(f"blocks.{i}")
+        params[f"Dense_{i}"] = _dense_to_jax(block.sub("linear"))
+        params[f"BatchNorm1d_{i}"], stats[f"BatchNorm1d_{i}"] = (
+            _bn_pair_to_jax(block.sub("norm")))
+    return {"params": params, **({"batch_stats": stats} if stats else {})}
 
 
 def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):

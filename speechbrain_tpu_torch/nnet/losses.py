@@ -1,7 +1,9 @@
 """Sequence losses with the masked relative-length convention.
 
 Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
-``ctc_loss``, ``nll_loss``, ``kldiv_loss``, ``classification_error``):
+``ctc_loss``, ``nll_loss``, ``kldiv_loss``, ``classification_error``, and
+the speaker recipes' ``AngularMargin``, ``AdditiveAngularMargin`` and
+``LogSoftmaxWrapper``):
 lengths are RELATIVE (batch,), padded positions are masked before the
 reduction, and the reductions keep the reference's definitions, quirks
 included.
@@ -19,7 +21,8 @@ from ..ops.ctc import ctc_loss_per_seq, ctc_loss_per_seq_plain
 from .loss.transducer_loss import TransducerLoss
 
 __all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
-           "kldiv_loss", "classification_error"]
+           "kldiv_loss", "classification_error", "AngularMargin",
+           "AdditiveAngularMargin", "LogSoftmaxWrapper"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -232,3 +235,83 @@ def classification_error(probabilities, targets, length=None,
 
     return compute_masked_loss(fn, probabilities, targets, length,
                                reduction=reduction)
+
+
+class AngularMargin:
+    """Margin-scaled logits of cosines: ``scale * (outputs - margin *
+    targets)``, ``targets`` one-hot.
+
+    Example
+    -------
+    >>> AngularMargin(0.2, 30)(torch.tensor([[0.5, 0.5]]),
+    ...                        torch.tensor([[1.0, 0.0]])).tolist()
+    [[9.0, 15.0]]
+    """
+
+    def __init__(self, margin=0.0, scale=1.0):
+        self.margin = margin
+        self.scale = scale
+
+    def __call__(self, outputs, targets):
+        return self.scale * (outputs - self.margin * targets)
+
+
+class AdditiveAngularMargin(AngularMargin):
+    """ArcFace's additive angular margin: the target class's cosine
+    becomes ``cos(theta + margin)``, computed as ``cos cos_m - sin sin_m``
+    with ``sin = sqrt(clip(1 - cos^2, 0, 1))``; where ``cos <= th``
+    (``cos(pi - margin)``) it is ``cos - mm`` instead (``cos > 0`` and
+    the cosine itself with ``easy_margin``).  The other classes keep
+    their cosine; all are scaled by ``scale``.
+
+    Example
+    -------
+    >>> aam = AdditiveAngularMargin(margin=0.2, scale=30)
+    >>> out = aam(torch.tensor([[0.5, -0.5]]), torch.tensor([[1.0, 0.0]]))
+    >>> [round(v, 3) for v in out[0].tolist()]
+    [9.539, -15.0]
+    """
+
+    def __init__(self, margin=0.0, scale=1.0, easy_margin=False):
+        super().__init__(margin, scale)
+        self.easy_margin = easy_margin
+        self.cos_m = math.cos(margin)
+        self.sin_m = math.sin(margin)
+        self.th = math.cos(math.pi - margin)
+        self.mm = math.sin(math.pi - margin) * margin
+
+    def __call__(self, outputs, targets):
+        cosine = outputs
+        targets = targets.to(cosine.dtype)
+        sine = torch.sqrt(torch.clamp(1.0 - cosine ** 2, 0.0, 1.0))
+        phi = cosine * self.cos_m - sine * self.sin_m
+        if self.easy_margin:
+            phi = torch.where(cosine > 0, phi, cosine)
+        else:
+            phi = torch.where(cosine > self.th, phi, cosine - self.mm)
+        return self.scale * (targets * phi + (1.0 - targets) * cosine)
+
+
+class LogSoftmaxWrapper:
+    """A margin function as a classification loss: the mean over the
+    batch of the NLL of ``log_softmax(loss_fn(outputs, one_hot))`` at
+    the targets.  ``outputs`` (B, C) or (B, 1, C); ``targets`` (B,) or
+    (B, 1) ints.  ``length`` is accepted and ignored, as in JAX.
+
+    Example
+    -------
+    >>> wrapper = LogSoftmaxWrapper(AdditiveAngularMargin(0.2, 30))
+    >>> float(wrapper(torch.tensor([[[0.9, -0.9]]]), torch.tensor([[0]]))) < 1.0
+    True
+    """
+
+    def __init__(self, loss_fn):
+        self.loss_fn = loss_fn
+
+    def __call__(self, outputs, targets, length=None):
+        if outputs.dim() == 3:
+            outputs = outputs[:, 0, :]
+        one_hot = torch.nn.functional.one_hot(
+            targets.reshape(-1).long(), outputs.shape[-1]).to(outputs.dtype)
+        log_p = torch.log_softmax(self.loss_fn(outputs, one_hot), -1)
+        return -(one_hot * log_p).sum(-1).mean()

@@ -17,9 +17,10 @@ class BatchNorm1d(torch.nn.Module):
 
     In eval mode it normalizes with the running statistics.  In training
     mode it normalizes with the batch statistics over every axis but the
-    last, computed in float32 as Flax computes them (mean of x and of
-    x^2, var = max(0, E[x^2] - E[x]^2)), and updates the running
-    statistics the way Flax does: ``running = 0.9 running + 0.1 batch``
+    last, computed in float32 (float64 for a float64 input) as Flax
+    computes them (mean of x and of x^2, var = max(0, E[x^2] - E[x]^2)),
+    and updates the running statistics the way Flax does: ``running =
+    0.9 running + 0.1 batch``
     with the **biased** batch variance.  (``F.batch_norm(training=True)``
     would update ``running_var`` with the unbiased one.)
 
@@ -56,7 +57,7 @@ class BatchNorm1d(torch.nn.Module):
         return y.reshape(shape)
 
     def _train_forward(self, x):
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - 1))
         mean = xf.mean(axes)
         var = ((xf * xf).mean(axes) - mean * mean).clamp(min=0.0)

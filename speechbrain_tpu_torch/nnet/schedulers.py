@@ -1,12 +1,13 @@
 """Learning-rate schedulers (host-side, checkpointable).
 
-Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NewBobScheduler``
-and ``NoamScheduler``, each with ``_save``/``_load`` through copies of
-``_save_attrs`` and ``_load_attrs``).  The linear, step and cyclic
-schedulers are not ported.
+Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NewBobScheduler``,
+``NoamScheduler`` and ``CyclicLRScheduler``, each with ``_save``/``_load``
+through copies of ``_save_attrs`` and ``_load_attrs``).  The linear and
+step schedulers are not ported.
 """
 
 import json
+import math
 
 from ..utils.checkpoints import (
     mark_as_loader,
@@ -14,7 +15,7 @@ from ..utils.checkpoints import (
     register_checkpoint_hooks,
 )
 
-__all__ = ["NewBobScheduler", "NoamScheduler"]
+__all__ = ["NewBobScheduler", "NoamScheduler", "CyclicLRScheduler"]
 
 
 def _save_attrs(obj, path, attrs):
@@ -135,3 +136,56 @@ class NoamScheduler:
     @mark_as_loader
     def _load(self, path, end_of_epoch=True):
         _load_attrs(self, path, ["current_lr", "n_steps"])
+
+
+@register_checkpoint_hooks
+class CyclicLRScheduler:
+    """Cyclic rate between ``base_lr`` and ``max_lr``, stepped once per
+    optimizer step: a triangle of half-period ``step_size`` steps, its
+    height scaled by 1 (``"triangular"``), halved every cycle
+    (``"triangular2"``) or ``gamma ** cycle`` (``"exp_range"``, any other
+    mode).  Each call advances ``clr_iterations`` and returns
+    ``(previous lr, new lr)``; a checkpoint holds ``clr_iterations`` and
+    ``current_lr``.
+
+    Example
+    -------
+    >>> s = CyclicLRScheduler(base_lr=0.1, max_lr=0.5, step_size=2)
+    >>> [round(s()[1], 3) for _ in range(5)]
+    [0.3, 0.5, 0.3, 0.1, 0.3]
+    """
+
+    def __init__(self, base_lr=0.001, max_lr=0.006, step_size=2000,
+                 mode="triangular", gamma=1.0):
+        self.base_lr = base_lr
+        self.max_lr = max_lr
+        self.step_size = step_size
+        self.mode = mode
+        self.gamma = gamma
+        self.clr_iterations = 0
+        self.current_lr = base_lr
+
+    def _scale(self, x):
+        if self.mode == "triangular":
+            return 1.0
+        if self.mode == "triangular2":
+            return 1 / (2.0 ** (x - 1))
+        return self.gamma ** x
+
+    def __call__(self, opt_or_none=None):
+        self.clr_iterations += 1
+        current = self.current_lr
+        cycle = math.floor(1 + self.clr_iterations / (2 * self.step_size))
+        x = abs(self.clr_iterations / self.step_size - 2 * cycle + 1)
+        lr = self.base_lr + (self.max_lr - self.base_lr) * max(
+            0, 1 - x) * self._scale(cycle)
+        self.current_lr = lr
+        return current, lr
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["clr_iterations", "current_lr"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=True):
+        _load_attrs(self, path, ["clr_iterations", "current_lr"])

@@ -349,25 +349,33 @@ class GlobalNormState:
 
 
 class InputNormalization(torch.nn.Module):
-    """Global mean/variance normalization: ``(x - mean) / std`` with the
-    stored statistics (buffers ``count``, ``mean``, ``std``).
+    """Mean/variance normalization, by ``norm_type``:
 
-    Counterpart of the JAX ``InputNormalization(norm_type="global")``.
-    In eval mode the stored statistics are used as they are.  In
-    training mode (``module.train()``) each call first updates them from
-    the batch, as the JAX call does at ``training=True``:
+    - ``"sentence"``: each row by its own statistics;
+    - ``"batch"``: by the means over the batch of the rows' statistics;
+    - ``"global"`` (the default): by stored statistics (buffers
+      ``count``, ``mean``, ``std`` of width ``dim``).
 
-    - per sentence, the mean and the Bessel-corrected std over its first
-      ``round(length * T)`` frames (std floored at ``epsilon``), then
-      their means over the batch;
+    Counterpart of the JAX ``InputNormalization``.  A row's statistics
+    are the mean and the Bessel-corrected std over its first
+    ``round(length * T)`` frames (std floored at ``epsilon``); with
+    ``mean_norm=False`` the mean is 0, with ``std_norm=False`` the std
+    is 1.  They are not differentiated (detached, as in the reference).
+
+    In ``"global"`` mode the stored statistics are used as they are in
+    eval mode.  In training mode (``module.train()``) each call first
+    updates them from the batch, as the JAX call does at
+    ``training=True``:
+
+    - the batch's statistics are the means over the batch of the rows';
     - the first training batch sets the statistics; later ones blend in
       with weight ``1 / (count + 1)`` while ``epoch <
       update_until_epoch``, and not at all after that;
     - ``count`` rises by one on every training batch;
 
-    and normalizes with the updated statistics.  The statistics are not
-    differentiated (detached, as in the reference).  ``state()`` returns
-    them as the JAX call returns its new state.
+    and normalizes with the updated statistics.  ``state()`` returns
+    them as the JAX call returns its new state.  The other modes keep no
+    state and act alike in training and eval.
 
     Example
     -------
@@ -377,31 +385,49 @@ class InputNormalization(torch.nn.Module):
     >>> _ = norm.train()(torch.arange(12.0).reshape(2, 2, 3), torch.ones(2))
     >>> norm.state()["mean"].tolist(), float(norm.count)
     ([4.5, 5.5, 6.5], 1.0)
+    >>> sent = InputNormalization(norm_type="sentence", std_norm=False)
+    >>> sent(torch.tensor([[[1.0], [3.0], [9.0]]]),
+    ...      torch.tensor([2 / 3]))[0, :, 0].tolist()
+    [-1.0, 1.0, 7.0]
     """
 
-    def __init__(self, dim, update_until_epoch=3, epsilon=1e-10):
+    def __init__(self, dim=None, update_until_epoch=3, epsilon=1e-10,
+                 norm_type="global", mean_norm=True, std_norm=True):
         super().__init__()
+        if norm_type not in ("sentence", "batch", "global"):
+            raise ValueError(f"Unknown norm_type {norm_type}")
+        self.norm_type = norm_type
+        self.mean_norm = mean_norm
+        self.std_norm = std_norm
         self.update_until_epoch = update_until_epoch
         self.epsilon = epsilon
-        state = GlobalNormState.init(dim)
-        for name, value in state.items():
-            self.register_buffer(name, value)
+        if norm_type == "global":
+            if dim is None:
+                raise ValueError("global InputNormalization needs dim")
+            for name, value in GlobalNormState.init(dim).items():
+                self.register_buffer(name, value)
 
-    def _batch_stats(self, x, lengths):
-        """Means over the batch of the per-sentence mean and std."""
+    @torch.no_grad()
+    def _sentence_stats(self, x, lengths):
+        """Per-row (B, F) mean and std, with the switches and the floor."""
         T = x.shape[1]
         n = torch.round(lengths.float() * T)  # (B,)
         mask = (torch.arange(T, device=x.device)[None, :] < n[:, None])
         mask = mask.to(x.dtype)[..., None]
         mean = (x * mask).sum(1) / n.clamp(min=1.0)[:, None]
+        # the std is taken around the true mean, even without mean_norm
         ss = (((x - mean[:, None, :]) * mask) ** 2).sum(1)
         std = torch.sqrt(ss.clamp(min=1e-20) / (n - 1.0).clamp(min=1.0)[:, None])
-        std = std.clamp(min=self.epsilon)
-        return mean.mean(0), std.mean(0)
+        if not self.mean_norm:
+            mean = torch.zeros_like(mean)
+        if not self.std_norm:
+            std = torch.ones_like(std)
+        return mean, std.clamp(min=self.epsilon)
 
     @torch.no_grad()
     def _update(self, x, lengths, epoch):
-        cur_mean, cur_std = self._batch_stats(x.float(), lengths)
+        mean, std = self._sentence_stats(x.float(), lengths)
+        cur_mean, cur_std = mean.mean(0), std.mean(0)
         w = 1.0 / (self.count + 1.0)
         in_window = 1.0 if epoch < self.update_until_epoch else 0.0
         blend = torch.where(self.count == 0, torch.ones_like(w), in_window * w)
@@ -411,7 +437,17 @@ class InputNormalization(torch.nn.Module):
 
     def forward(self, x, lengths=None, epoch=0):
         """x: (batch, frames, dim); ``lengths`` (batch,) relative, needed
-        in training; ``epoch`` is the current epoch (training only)."""
+        by the global mode in training (else None: every frame);
+        ``epoch`` is the current epoch (global training only)."""
+        if self.norm_type != "global":
+            if lengths is None:
+                lengths = torch.ones(x.shape[0], device=x.device)
+            mean, std = self._sentence_stats(x.float(), lengths)
+            if self.norm_type == "batch":
+                mean, std = mean.mean(0), std.mean(0)
+            else:
+                mean, std = mean[:, None, :], std[:, None, :]
+            return ((x - mean) / std).to(x.dtype)
         if self.training:
             if lengths is None:
                 raise ValueError("InputNormalization in training needs lengths")

@@ -1,5 +1,6 @@
 """Metric accumulation across batches: ``MetricStats``, the WER/CER
-``ErrorRateStats`` and the classification ``AccuracyStats``.
+``ErrorRateStats`` and the classification ``AccuracyStats``; and the
+speaker-verification metrics ``EER`` and ``minDCF``.
 
 A copy of ``MetricStats``/``ErrorRateStats``/``AccuracyStats`` of
 ``speechbrain_tpu/utils/metric_stats.py`` (the port imports nothing of
@@ -12,7 +13,7 @@ import numpy as np
 from .data_utils import undo_padding
 from .edit_distance import wer_details_for_batch, wer_summary
 
-__all__ = ["MetricStats", "ErrorRateStats", "AccuracyStats"]
+__all__ = ["MetricStats", "ErrorRateStats", "AccuracyStats", "EER", "minDCF"]
 
 
 def _to_numpy(x):
@@ -217,6 +218,60 @@ class AccuracyStats(MetricStats):
         if field is not None:
             return self.summary[field]
         return acc
+
+
+def _error_rates(positive_scores, negative_scores):
+    """The thresholds of the JAX ``EER``/``minDCF`` (the unique scores and
+    their midpoints, sorted) and at each the miss rate (the share of
+    positive scores <= t) and the false-alarm rate (negative scores >
+    t), as float64 numpy arrays.  The JAX package compares every score
+    with every threshold (two N x 2N boolean matrices); here each count
+    is a ``searchsorted`` into the sorted scores, O(N log N), and the
+    rates are the same numbers (count / N in float64, as ``np.mean`` of
+    the booleans)."""
+    pos = np.asarray(_to_numpy(positive_scores), dtype=np.float64).reshape(-1)
+    neg = np.asarray(_to_numpy(negative_scores), dtype=np.float64).reshape(-1)
+    thresholds = np.unique(np.concatenate([pos, neg]))
+    if len(thresholds) > 1:
+        mid = (thresholds[:-1] + thresholds[1:]) / 2
+        thresholds = np.sort(np.concatenate([thresholds, mid]))
+    miss = np.searchsorted(np.sort(pos), thresholds, side="right") / len(pos)
+    false_alarm = (len(neg) - np.searchsorted(np.sort(neg), thresholds,
+                                              side="right")) / len(neg)
+    return thresholds, miss, false_alarm
+
+
+def EER(positive_scores, negative_scores):
+    """The equal error rate and its threshold: at the first threshold
+    where |FAR - FRR| is least, their mean (thresholds and boundary rules
+    of ``_error_rates``).  Scores are arrays or tensors.
+
+    Example
+    -------
+    >>> EER(np.array([0.6, 0.7, 0.8, 0.5]), np.array([0.4, 0.3, 0.2, 0.1]))
+    (0.0, 0.4)
+    """
+    thresholds, frr, far = _error_rates(positive_scores, negative_scores)
+    idx = np.argmin(np.abs(far - frr))
+    return float((far[idx] + frr[idx]) / 2), float(thresholds[idx])
+
+
+def minDCF(positive_scores, negative_scores, c_miss=1.0, c_fa=1.0,
+           p_target=0.01):
+    """The least detection cost ``c_miss P_miss p_target + c_fa P_fa (1 -
+    p_target)`` over the thresholds of ``_error_rates``, and its
+    threshold.  The cost is the raw one (not divided by the default
+    cost), as in the JAX package.
+
+    Example
+    -------
+    >>> minDCF(np.array([0.6, 0.7, 0.8, 0.5]), np.array([0.4, 0.3, 0.2, 0.1]))
+    (0.0, 0.4)
+    """
+    thresholds, p_miss, p_fa = _error_rates(positive_scores, negative_scores)
+    c_det = c_miss * p_miss * p_target + c_fa * p_fa * (1 - p_target)
+    idx = int(np.argmin(c_det))
+    return float(c_det[idx]), float(thresholds[idx])
 
 
 def _merge_tokens(sequences, space_token):

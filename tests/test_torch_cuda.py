@@ -1429,3 +1429,108 @@ def test_timit_ctc_step_kernels_vs_plain(gen):
     G = max(float(g.abs().max()) for g in gp)
     for n, a, b in zip(names, gk, gp):
         assert float((a - b).abs().max()) <= 1e-3 * (float(b.abs().max()) + 1e-3 * G), n
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_ecapa_step_on_the_card_matches_the_cpu(gen, train):
+    """The VoxCeleb step's model at ``train_ecapa_tdnn.yaml``'s widths
+    (ECAPA 1024 x 4 + 3072, attention 128, 192-d embedding, the AAM head
+    of 7205 classes) on B 8 x 2 s of features (``Fbank`` and the sentence
+    normalization, computed once on the CPU), with lengths, in eval and
+    training mode, on the card against the same weights and features in
+    float64 on the CPU, TF32 off (cuDNN's default is on; ``chip_smoke.py``
+    turns it off too).  The card's float32 loss within 1e-5 relative.
+    In eval mode each float32 gradient within 3e-3 of its tensor's scale
+    (or of 5 % of the largest gradient: the attention's conv bias has an
+    analytic gradient of 0); the CPU's float32 gradients are within 5e-4
+    of the float64 ones (``tools/ecapa_precision_study.py``), and the
+    card's cuDNN ones were within 1.2e-3 on an H100.  In training mode
+    the BatchNorms' batch statistics enter the backward, and at these
+    random weights the float32 gradients are ill conditioned (on the CPU
+    up to 6.4e-2 of their scale from the float64 ones; on the card up to
+    1.2e-2), so the card runs the step in float64 too and its gradients
+    are held within 1e-8 of their scale; the
+    float32 step's running statistics within 1e-4 of their scale.  ECAPA
+    runs no port kernel (cuDNN and cuBLAS on the card)."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.recipes.voxceleb_speaker import SpeakerBrain
+
+    rng = np.random.default_rng(0)
+    brain = SpeakerBrain(run_opts={"device": "cpu", "seed": 0})
+    lens = torch.from_numpy(rng.uniform(0.5, 1.0, 8).astype(np.float32))
+    targets = torch.from_numpy(rng.integers(0, 7205, 8))
+    with torch.no_grad():
+        wavs = torch.from_numpy(
+            (0.1 * rng.standard_normal((8, 32000))).astype(np.float32))
+        feats = brain.normalize(brain.modules.compute_features(wavs), lens)
+    model = torch.nn.ModuleDict({k: brain.modules[k]
+                                 for k in ("embedding_model", "classifier")})
+    initial = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def step(dev, dtype):
+        model.load_state_dict(initial)
+        net = model.to(dev, dtype).train(train)
+        names, params = zip(*net.named_parameters())
+        ops.reset_launch_counters()
+        emb = net["embedding_model"](feats.to(dev, dtype), lens.to(dev))
+        loss = brain.aam_loss(net["classifier"](emb), targets.to(dev))
+        grads = torch.autograd.grad(loss, params)
+        assert all(v == 0 for v in ops.launch_counters().values())
+        return (names, float(loss.detach()),
+                [g.detach().cpu().double() for g in grads],
+                {k: v.detach().cpu().double().clone()
+                 for k, v in net.named_buffers()})
+
+    names, l64, g64, b64 = step("cpu", torch.float64)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, lcard, gcard, bcard = step("cuda", torch.float32)
+        if train:
+            _, _, gcard64, _ = step("cuda", torch.float64)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert abs(lcard - l64) <= 1e-5 * abs(l64)
+    G = max(float(g.abs().max()) for g in g64)
+    got, tol = (gcard64, 1e-8) if train else (gcard, 3e-3)
+    bad = [(n, float((a - b).abs().max()), float(b.abs().max()))
+           for n, a, b in zip(names, got, g64)
+           if float((a - b).abs().max()) > tol * max(float(b.abs().max()),
+                                                     0.05 * G)]
+    assert not bad, bad
+    bad = [k for k, v in b64.items()
+           if float((bcard[k] - v).abs().max()) > 1e-4 * max(
+               float(v.abs().max()), 1.0)]
+    assert not bad, bad
+
+
+def test_voxceleb_step_makes_no_host_sync(gen):
+    """The VoxCeleb step's forward, loss and backward on the card (the
+    augmentation at speeds 95/100/105 drawn from the card's generator,
+    ``Fbank``, the sentence normalization with the augmented lengths,
+    ECAPA's length masks, the AAM loss) make no synchronising call:
+    ``torch.cuda.set_sync_debug_mode("error")`` raises on one."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes.voxceleb_speaker import SpeakerBrain
+
+    hp = {"channels": (64,) * 4 + (192,), "attention_channels": 16,
+          "lin_neurons": 32, "out_neurons": 50}
+    brain = SpeakerBrain(hp, run_opts={"seed": 0})
+    rng = np.random.default_rng(1)
+    batch = brain.prepare_batch({
+        "sig": rng.standard_normal((4, 48000)).astype(np.float32),
+        "sig_lens": np.array([1.0, 0.7, 0.9, 0.5], np.float32),
+        "spk_id_encoded": rng.integers(0, 50, 4)})
+    brain.modules.train()
+    brain._loss(batch, Stage.TRAIN).backward()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = brain._loss(batch, Stage.TRAIN)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(loss))

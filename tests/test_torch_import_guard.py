@@ -1,9 +1,10 @@
 """The PyTorch port stands alone: no module of ``speechbrain_tpu_torch``
-(its subpackages ``dataio``, ``native``, ``recipes``, ``tokenizers`` and
-the rest) and not ``chip_smoke.py`` imports JAX, Flax, Optax or the JAX
-package, nor PyYAML or soundfile, which the card's machine does not
-have; ``tqdm`` only behind ``core.Brain``'s optional progress bar.
-Importing the port leaves ``jax`` and ``yaml`` out of ``sys.modules``."""
+(its subpackages ``dataio``, ``native``, ``pretrained``, ``recipes``,
+``tokenizers`` and the rest) and not ``chip_smoke.py`` imports JAX, Flax,
+Optax or the JAX package, nor PyYAML or soundfile, which the card's
+machine does not have; ``tqdm`` only behind ``core.Brain``'s optional
+progress bar.  Importing the port leaves ``jax`` and ``yaml`` out of
+``sys.modules``."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "speechbrain_tpu", "yaml",
 # the one import of an optional package: Brain's progress bar, inside a
 # try that falls back to no bar where tqdm is not installed
 OPTIONAL = {"speechbrain_tpu_torch/core.py": {"tqdm"}}
-SUBPACKAGES = ("dataio", "native", "recipes", "tokenizers", "utils")
+SUBPACKAGES = ("dataio", "native", "pretrained", "recipes", "tokenizers",
+               "utils")
 
 
 def _port_files():
@@ -70,6 +72,7 @@ def test_import_leaves_jax_unloaded():
         "speechbrain_tpu_torch.recipes.librispeech_transducer, "
         "speechbrain_tpu_torch.recipes.timit_ctc, "
         "speechbrain_tpu_torch.recipes.gsc_xvector, "
+        "speechbrain_tpu_torch.recipes.voxceleb_speaker, "
         "speechbrain_tpu_torch.lobes.models.CRDNN, "
         "speechbrain_tpu_torch.native, speechbrain_tpu_torch.dataio.dataloader, "
         "speechbrain_tpu_torch.tokenizers.SentencePiece; "
