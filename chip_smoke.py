@@ -10,6 +10,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase train_crdnn_transducer,recipe_transducer
     python3 chip_smoke.py --phase recipe_timit,recipe_gsc
     python3 chip_smoke.py --phase recipe_voxceleb
+    python3 chip_smoke.py --phase recipe_separation
 
 Phases, each printing one JSON line when it ends:
 
@@ -190,6 +191,27 @@ Phases, each printing one JSON line when it ends:
    epochs, epoch 3 resumed bit for bit, ``save_for_pretrained``, cosine
    verification; the x-vector yaml 2 epochs and PLDA verification
    (embeddings and scoring timed apart; EER and minDCF in [0, 1]).
+16. recipe_separation -- ``recipes.wsj0mix_separation`` (WSJ0-2mix, 8 kHz)
+   at the yamls' widths in f32: the SepFormer step (``sepformer.yaml``:
+   encoder 256 x 16 taps, 2 x (8 intra + 8 inter) transformer layers,
+   chunks of 250, PIT SI-SNR, Adam) on B = 1 and B = 4 mixtures of 4 s
+   (T' 3999, 34 chunks): ms/step, mixtures/s, peak memory, GFLOP a step
+   (``FlopCounterMode``) and its f32 bound, busy share, PyTorch calls and
+   device kernels a step, launches (none), and the forward, loss and
+   backward under ``set_sync_debug_mode("error")``; the conformer-intra
+   step (``sepformer-conformerintra.yaml``, B = 1 x 4 s): the same, its
+   launches a step (K1 32: forward and dx of 16 conformer layers; K2
+   16), and its loss and gradients through K1/K2 against the plain
+   versions; the Conv-TasNet step (``convtasnet.yaml``: N 256, B 256, H
+   512, X 6, R 4, L 16; B = 1 x 4 s).  Then the recipes on a synthetic
+   WSJ0-2mix tree (harmonic sources, mixtures of 2-5 s; 24 train, 6
+   valid, 6 test): the SepFormer 2 epochs, epoch 3 in a fresh Brain with
+   the modules, Adam's state, the rate, the plateau schedule and the
+   generator recovered bit for bit, ``evaluate(min_key="si-snr")``
+   (SI-SNR finite); Conv-TasNet 1 epoch through ``run``.  The kernels
+   phase also holds K1 (forward and dx) and K2 at the conformer-intra
+   shape, 34 x 250 x 256 with 31 taps (roles "separation" and
+   "separation_dx").
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -199,7 +221,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 15, each counted from 0 just before its
+(launch counts from phases 3 to 16, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -546,6 +568,76 @@ def _check_depthwise_dw(dtype_name):
                                "device_kernels_per_call": kernels,
                                "host_us_per_call": _host_us(backward)},
     }
+
+
+def _check_depthwise_separation():
+    """K1 (forward, and dx: the taps read flipped) and K2 (with the bias
+    gradient) in f32 at the conformer-intra SepFormer's shape: the
+    B x S = 34 chunks of 250 frames of a 4 s mixture, 256 channels, 31
+    taps; each against its plain version, timed beside the library call.
+    Records of roles "separation" and "separation_dx"."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch.ops import (
+        depthwise_conv1d, depthwise_conv1d_dw, depthwise_conv1d_dw_plain,
+        depthwise_conv1d_plain)
+    from speechbrain_tpu_torch.ops.depthwise_conv import _fwd_kernel
+
+    B, T, C, K = 34, 250, 256, 31
+    pad = (K - 1) // 2
+    x, w, bias, dy = _depthwise_inputs(torch.float32, B, T, C, K)
+    taps = _valid_taps(T, K, pad)
+    out = []
+    # forward
+    err = _err(depthwise_conv1d(x, w, bias), depthwise_conv1d_plain(x, w, bias))
+    assert err <= 1e-4, f"depthwise_conv1d at {B}x{T}x{C}: {err} > 1e-4"
+    xc, wc = x.transpose(1, 2).contiguous(), w.t().contiguous()[:, None, :]
+    bound, by = _bound_ms(4 * (2 * B * T * C + K * C + C), 2 * B * C * taps,
+                          "float32")
+    out.append({
+        "name": "depthwise_conv1d", "role": "separation", "dtype": "float32",
+        "shape": [B, T, C, K], "max_abs_err": err, "tol": 1e-4,
+        **_call_times(lambda: depthwise_conv1d(x, w, bias),
+                      lambda: F.conv1d(xc, wc, bias, padding=pad, groups=C)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(x, w, bias)),
+        "bound_ms": bound, "bound_by": by})
+    # dx: K1 reading the taps flipped, as the backward launches it
+    w_flip = w.flip(0).contiguous()
+    err = _err(_fwd_kernel(dy, w, None, pad, flip=True),
+               depthwise_conv1d_plain(dy, w_flip))
+    assert err <= 1e-4, f"depthwise dx at {B}x{T}x{C}: {err} > 1e-4"
+    dyc = dy.transpose(1, 2).contiguous()
+    wfc = w_flip.t().contiguous()[:, None, :]
+    bound, by = _bound_ms(4 * (2 * B * T * C + K * C), 2 * B * C * taps,
+                          "float32")
+    out.append({
+        "name": "depthwise_conv1d", "role": "separation_dx",
+        "dtype": "float32", "shape": [B, T, C, K], "max_abs_err": err,
+        "tol": 1e-4,
+        **_call_times(lambda: _fwd_kernel(dy, w, None, pad, flip=True),
+                      lambda: F.conv1d(dyc, wfc, padding=pad, groups=C)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(dy, w_flip)),
+        "bound_ms": bound, "bound_by": by})
+    # K2: dw and dbias (8500 products an output, as at the training shape)
+    got = depthwise_conv1d_dw(x, dy, K, bias_grad=True)
+    ref = depthwise_conv1d_dw_plain(x, dy, K, bias_grad=True)
+    err = max(_err(got[0], ref[0]), _err(got[1], ref[1]))
+    assert err <= 2e-3, f"depthwise_conv1d_dw at {B}x{T}x{C}: {err} > 2e-3"
+    bound, by = _bound_ms(2 * B * T * C * 4 + 4 * (K + 1) * C,
+                          2 * B * C * taps + B * T * C, "float32")
+    out.append({
+        "name": "depthwise_conv1d_dw", "role": "separation",
+        "dtype": "float32", "shape": [B, T, C, K], "max_abs_err": err,
+        "tol": 2e-3, "bias_grad": True,
+        **_call_times(
+            lambda: depthwise_conv1d_dw(x, dy, K, bias_grad=True),
+            lambda: torch.nn.grad.conv1d_weight(xc, (C, 1, K), dyc,
+                                                padding=pad, groups=C)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_dw_plain(
+            x, dy, K, bias_grad=True)),
+        "bound_ms": bound, "bound_by": by})
+    return out
 
 
 def _ctc_inputs(B, T, C, U):
@@ -1438,6 +1530,8 @@ def phase_kernels(only=None):
             records.append(_check_beam_cache(dtype_name))
             # the middle of the serve's 115 beam steps
             records.append(_check_beam_cache(dtype_name, pos=57, role="pos57"))
+    if want("depthwise"):
+        records.extend(_check_depthwise_separation())
     if want("ctc"):
         records.extend(_check_ctc())
         records.extend(_check_ctc(8, 301, 40, 40, role="timit"))
@@ -2332,6 +2426,9 @@ def _snapshot(brain):
         else:  # NewBob
             snap["newbob"] = (s.hyperparam_value, list(s.metric_values),
                               s.current_patient)
+    if hasattr(brain, "lr_scheduler"):  # ReduceLROnPlateau
+        s = brain.lr_scheduler
+        snap["plateau"] = (s.anchor, s.patience_counter, list(s.losses))
     return snap
 
 
@@ -2365,7 +2462,8 @@ def _instrument(brain, log):
     save = brain.checkpointer.save_and_keep_only
 
     def on_fit_batch(batch):
-        log["shapes"].add(tuple(batch["sig"].shape))
+        sig = batch["sig"] if "sig" in batch else batch["mix_sig"]
+        log["shapes"].add(tuple(sig.shape))
         log["masks"].append(batch["batch_mask"])
         log["batches"][-1] += 1
         return fit_batch(batch)
@@ -3492,6 +3590,244 @@ def _recipe_vox_run(tmp):
     torch.cuda.empty_cache()
     return run
 
+SEP_CONFORMER_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES},
+                              depthwise_conv1d=32, depthwise_conv1d_dw=16)
+# the synthetic WSJ0-2mix tree: mixtures a split, and their seconds
+RECIPE_SEP = {"tr": 24, "cv": 6, "tt": 6}
+RECIPE_SEP_SECONDS = (2.0, 5.0)
+
+
+def _sep_batch(B, samples, seed):
+    """B mixtures of two sources (noise under random envelopes)."""
+    rng = np.random.default_rng(seed)
+    env = np.repeat(rng.uniform(0.1, 1.0, (2, B, samples // 800 + 1)), 800,
+                    axis=-1)[..., :samples]
+    s = (0.1 * env * rng.standard_normal((2, B, samples))).astype(np.float32)
+    return {"mix_sig": s[0] + s[1], "s1_sig": s[0], "s2_sig": s[1]}
+
+
+def _sep_flops(brain, batch):
+    """Floating-point operations of one training forward: the products and
+    convolutions PyTorch dispatches (``FlopCounterMode``), plus the
+    conformer blocks' depthwise convolutions, which run in the port's
+    kernels (2 B T C K each); and 3x that for a training step (the
+    forward and the backward's two products; ``FlopCounterMode`` counts a
+    grouped convolution's weight gradient as a dense one).  The
+    elementwise work is left out.  Returns (forward, step)."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+        ConvolutionModule)
+
+    depthwise = [0]
+
+    def conv_module(mod, args, out):
+        depthwise[0] += 2 * out.numel() * mod.depthwise_kernel.shape[0]
+
+    hooks = [m.register_forward_hook(conv_module)
+             for m in brain.modules.modules()
+             if isinstance(m, ConvolutionModule)]
+    try:
+        with torch.no_grad(), FlopCounterMode(display=False) as counter:
+            brain.modules.train()
+            brain._loss(batch, Stage.TRAIN)
+    finally:
+        for h in hooks:
+            h.remove()
+    forward = counter.get_total_flops() + depthwise[0]
+    return forward, 3 * forward
+
+
+def _sep_step(name, hparams, B, samples, steps, launches, seed):
+    """One yaml's training step: a ``Separation`` Brain at its widths
+    takes a warm-up and ``steps`` timed Adam steps on ``B`` synthetic
+    mixtures; its launches a step must be ``launches``.  Returns the
+    record and the Brain."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes.wsj0mix_separation import Separation
+
+    brain = Separation(hparams, run_opts={"seed": SEED,
+                                          "loss_sync_interval": 10})
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    batch = brain.prepare_batch(_sep_batch(B, samples, seed))
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    assert _per_step(counts, steps) == launches, counts
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    calls = _pytorch_calls(one_step)
+    # the forward, the PIT loss and the backward make no host sync
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        brain._loss(batch, Stage.TRAIN).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    brain.optimizer.zero_grad(set_to_none=True)
+    fwd_flops, step_flops = _sep_flops(brain, batch)
+    bound = 1e3 * step_flops / PEAK_FLOPS["float32"]
+    run = {"phase": "recipe_separation_step", "hparams": name,
+           "precision": "fp32", "batch": B, "seconds_audio": samples / 8000,
+           "parameters": n_params, "steps": steps, "ms_per_step": ms,
+           "mixtures_per_s": 1e3 * B / ms, "peak_mem_bytes": peak,
+           "peak_gib": peak / 2 ** 30,
+           "forward_gflop": fwd_flops / 1e9, "step_gflop": step_flops / 1e9,
+           "f32_bound_ms": bound, "bound_share": bound / ms,
+           "pytorch_calls_per_step": calls, "step_sync_free": True,
+           "launches": counts, "loss_first": first, "loss_last": losses[-1],
+           "profile": _profile(one_step, cpu=False)}
+    emit(run)
+    return run, brain
+
+
+def phase_recipe_separation():
+    """The WSJ0-2mix separation recipe (``recipes.wsj0mix_separation``)
+    at the yamls' widths in f32: the SepFormer step at B 1 and B 4 x 4 s,
+    the conformer-intra step (K1/K2 launches counted and held to the
+    plain versions), the Conv-TasNet step, then the recipes on a
+    synthetic tree (see the module docstring, phase 16)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as recipe
+
+    samples, none = 32000, {k: 0 for k in TRAIN_LAUNCHES}
+    sep1, brain = _sep_step("sepformer", recipe.HPARAMS_SEPFORMER, 1, samples,
+                            4, none, SEED + 11)
+    del brain
+    torch.cuda.empty_cache()
+    sep4, brain = _sep_step("sepformer", recipe.HPARAMS_SEPFORMER, 4, samples,
+                            3, none, SEED + 12)
+    del brain
+    torch.cuda.empty_cache()
+    conformer, brain = _sep_step(
+        "sepformer-conformerintra", recipe.HPARAMS_SEPFORMER_CONFORMERINTRA,
+        1, samples, 3, SEP_CONFORMER_LAUNCHES, SEED + 13)
+    batch = brain.prepare_batch(_sep_batch(1, samples, SEED + 14))
+    # 1e-2 on the gradients: the inter blocks' ReLU FFNs switch units near
+    # their kink on a last-bit difference of their input (the first
+    # weights' gradients differed by 1.7e-3 of their scale on an H100)
+    check = {"phase": "recipe_separation_check",
+             "kernel_vs_plain": _compare_routes(brain, batch, tol_loss=1e-5,
+                                                tol_grad=1e-2),
+             "depthwise_shape": [34, 250, 256, 31]}
+    emit(check)
+    del brain, batch
+    torch.cuda.empty_cache()
+    tasnet, brain = _sep_step("convtasnet", recipe.HPARAMS_CONVTASNET, 1,
+                              samples, 4, none, SEED + 15)
+    del brain
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sep_")
+    try:
+        recipe_run = _recipe_sep_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"sepformer_b1": sep1, "sepformer_b4": sep4,
+            "conformer": conformer, "check": check, "convtasnet": tasnet,
+            "recipe": recipe_run}
+
+
+def _recipe_sep_run(tmp):
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as recipe
+
+    data, out = f"{tmp}/wsj", f"{tmp}/sepformer"
+    _, write_s = _timed(lambda: recipe.write_synthetic_wsj0mix(
+        data, RECIPE_SEP, RECIPE_SEP_SECONDS, seed=SEED))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+    at_recovery = {}
+
+    def build(epochs):
+        parts = recipe.build(data, out, {"number_of_epochs": epochs}, opts)
+        b = parts["brain"]
+        fit_start = b.on_fit_start
+
+        def on_fit_start():  # the generator as the recovery left it
+            fit_start()
+            at_recovery["generator"] = b.generator.get_state()
+
+        b.on_fit_start = on_fit_start
+        return parts
+
+    ops.reset_launch_counters()
+    parts = build(2)
+    brain, log = parts["brain"], {}
+    durations = [v["duration"] for v in json.load(
+        open(parts["hparams"]["train_data"])).values()]
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    peak_fit = torch.cuda.max_memory_allocated()
+    saved = _snapshot(brain)
+    saved_generator = brain.generator.get_state()
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    assert torch.equal(at_recovery["generator"], saved_generator)
+    assert brain2.hparams.crop.epoch == 3
+    assert len(brain2.lr_scheduler.losses) == 3
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="si-snr"))
+    tasnet, tasnet_s = _timed(lambda: recipe.run(
+        data, f"{tmp}/convtasnet", {"number_of_epochs": 1}, opts,
+        hparams=recipe.HPARAMS_CONVTASNET))
+    counts = ops.launch_counters()  # the main path's launches, read here
+    assert all(v == 0 for v in counts.values()), counts
+    valid_losses = log["valid_loss"] + log2["valid_loss"]
+    assert all(np.isfinite(valid_losses + [test_loss])), valid_losses
+    assert np.isfinite(tasnet.stage_stats["TEST"]["si-snr"])
+    train_s = sum(log["train_s"])
+    run = {
+        "phase": "recipe_separation", "tree": RECIPE_SEP,
+        "seconds": RECIPE_SEP_SECONDS, "write_wavs_s": write_s,
+        "cropped_train_mixtures": sum(d > 4.0 for d in durations),
+        "precision": "fp32", "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / sum(log["batches"]),
+        "train_mixtures_per_s": RECIPE_SEP["tr"] * len(log["batches"])
+        / train_s,
+        "staging_wait_s": log["staging_wait_s"] + log2["staging_wait_s"],
+        "valid_s": log["valid_s"] + log2["valid_s"],
+        "valid_si_snr_db": [-v for v in valid_losses],
+        "lr_after_epochs": brain2.lr, "plateau_at_resume": saved["plateau"],
+        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal, "test_s": test_s,
+        "test_si_snr_db": -test_loss,
+        "convtasnet": {"run_1_epoch_s": tasnet_s,
+                       "valid_si_snr_db": -tasnet.stage_stats["VALID"]["si-snr"],
+                       "test_si_snr_db": -tasnet.stage_stats["TEST"]["si-snr"]},
+        "peak_mem_bytes": max(peak_fit, torch.cuda.max_memory_allocated()),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2, tasnet
+    torch.cuda.empty_cache()
+    return run
+
 
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
@@ -3499,8 +3835,8 @@ def kernels_line(records, main_runs):
     summed over the main-path runs (serve, serve_lm, long, train,
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
-    of recipe_timit, recipe_gsc and recipe_voxceleb), each counted from 0
-    just before its run."""
+    of recipe_timit, recipe_gsc, recipe_voxceleb and recipe_separation),
+    each counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -3594,13 +3930,15 @@ def main():
     timit = timed("recipe_timit", phase_recipe_timit)
     gsc = timed("recipe_gsc", phase_recipe_gsc)
     vox = timed("recipe_voxceleb", phase_recipe_voxceleb)
+    sep = timed("recipe_separation", phase_recipe_separation)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
                  *serve_transducer.values(), recipe, crdnn["bf16"],
                  crdnn["fp32"], *recipe_transducer.values(), timit["step"],
                  timit["recipe"], gsc["step"], gsc["recipe"], vox["step"],
-                 vox["recipe"]]
+                 vox["recipe"], sep["sepformer_b1"], sep["sepformer_b4"],
+                 sep["conformer"], sep["convtasnet"], sep["recipe"]]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

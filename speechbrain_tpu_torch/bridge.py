@@ -43,6 +43,28 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   names; the ECAPA ``Classifier``'s ``weight`` (lin, out) stays as it is,
   its ``Dense_{i}``/``BatchNorm1d_{i}`` -> ``blocks.{i}.linear``/
   ``blocks.{i}.norm``;
+- ``ConvTranspose1d``'s ``kernel`` (k, in, out), which Flax applies
+  without flipping its taps, -> ``weight`` (in, out, k) with the taps
+  reversed (PyTorch's transposed convolution flips them);
+- a 1x1 ``Conv1d`` ``kernel`` (1, in, out) that the port runs as a
+  ``Linear`` -> ``weight`` (out, in);
+- ``SepformerWrapper``: ``Encoder_0`` -> ``encoder.conv``,
+  ``Dual_Path_Model_0``'s ``LayerNorm_0``/``Conv1d_0`` -> ``masknet.norm``/
+  ``masknet.conv1d``, ``intra_{l}``/``inter_{l}`` (a ``TransformerEncoder_0``
+  or a conformer ``encoder``) -> ``masknet.intra.{l}.mdl``/
+  ``masknet.inter.{l}.mdl``, ``LayerNorm_{2l+1}``/``LayerNorm_{2l+2}`` ->
+  ``masknet.intra_norm.{l}``/``masknet.inter_norm.{l}``, ``PReLU_0`` ->
+  ``masknet.prelu``, ``Conv1d_1`` -> ``masknet.conv_out``, ``Decoder_0`` ->
+  ``decoder.conv``;
+- ``ConvTasNet``: ``Encoder_0.conv1d_U`` -> ``encoder.conv``, ``MaskNet_0``'s
+  ``layer_norm``, ``bottleneck_conv1x1``, ``mask_conv1x1`` ->
+  ``masknet.layer_norm``, ``.bottleneck``, ``.mask_conv``, its
+  ``temporalblock_{r}_{i}`` -> ``masknet.temporal_conv_net.{r X + i}``
+  (``conv``, ``act``, ``norm``, and ``DSconv``'s ``conv_0``/``act``/``norm``/
+  ``conv_1`` -> ``dsconv.depthwise``/``.act``/``.norm``/``.pointwise``),
+  ``Decoder_0.basis_signals`` -> ``decoder.basis``; a PReLU's
+  ``negative_slope`` and a gLN/cLN's ``gamma``/``beta`` -> ``weight``/
+  ``bias``;
 - ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
   optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
@@ -101,6 +123,12 @@ __all__ = [
     "encoder_layer",
     "transformer_lm_state_dict",
     "to_jax_transformer_lm",
+    "conv_transpose1d",
+    "to_jax_conv_transpose1d",
+    "sepformer_state_dict",
+    "to_jax_sepformer",
+    "convtasnet_state_dict",
+    "to_jax_convtasnet",
     "adamw_state_to_torch",
     "adamw_state_from_torch",
 ]
@@ -898,6 +926,218 @@ def to_jax_ecapa_classifier(state_dict, prefix=""):
         params[f"BatchNorm1d_{i}"], stats[f"BatchNorm1d_{i}"] = (
             _bn_pair_to_jax(block.sub("norm")))
     return {"params": params, **({"batch_stats": stats} if stats else {})}
+
+
+# ------------------------------------------------------------------
+# separation models, both ways
+
+
+def conv_transpose1d(p):
+    """Flax ConvTranspose {kernel (k, in, out)[, bias]} -> ``ConvTranspose1d``
+    {weight (in, out, k), taps reversed[, bias]}."""
+    kern = np.asarray(p["kernel"])[::-1].transpose(1, 2, 0)
+    sd = {"weight": _t(kern).contiguous()}
+    if "bias" in p:
+        sd["bias"] = _t(p["bias"])
+    return sd
+
+
+def to_jax_conv_transpose1d(state_dict, prefix=""):
+    """The inverse of ``conv_transpose1d``."""
+    s = _Sub(state_dict, prefix)
+    p = {"kernel": _a(s["weight"]).transpose(2, 0, 1)[::-1].copy()}
+    if "bias" in s:
+        p["bias"] = _a(s["bias"])
+    return p
+
+
+def _pointwise(p):
+    """A 1x1 Flax Conv {kernel (1, in, out)[, bias]} -> ``Linear``."""
+    return dense({**p, "kernel": np.asarray(p["kernel"])[0]})
+
+
+def _pointwise_to_jax(s):
+    p = _dense_to_jax(s)
+    p["kernel"] = p["kernel"][None]
+    return p
+
+
+def _encoder_stack(p):
+    """A TransformerEncoder's or ConformerEncoder's ``layer_{i}`` and
+    ``norm_out`` -> ``layers.{i}`` and ``norm_out``."""
+    layer = conformer_layer if "ffn1" in p["layer_0"] else encoder_layer
+    sd = {}
+    for i, lp in enumerate(_numbered(p, "layer_")):
+        sd.update(_prefixed(f"layers.{i}", layer(lp)))
+    sd.update(_prefixed("norm_out", layer_norm(p["norm_out"])))
+    return sd
+
+
+def _encoder_stack_to_jax(s):
+    layer = (_conformer_layer_to_jax if "layers.0.ffn1.w_1.weight" in s
+             else _encoder_layer_to_jax)
+    return {**{f"layer_{i}": layer(s.sub(f"layers.{i}"))
+               for i in range(s.count("layers"))},
+            "norm_out": _ln_to_jax(s.sub("norm_out"))}
+
+
+def _slope(p):
+    return {"weight": _t(p["negative_slope"])}
+
+
+def _dual_path(dp):
+    """JAX ``Dual_Path_Model`` params -> the port's ``Dual_Path_Model``
+    state_dict."""
+    sd = {**_prefixed("norm", layer_norm(dp["LayerNorm_0"])),
+          **_prefixed("conv1d", _pointwise(dp["Conv1d_0"]["Conv_0"]))}
+    for layer in range(len(_numbered(dp, "intra_"))):
+        for kind in ("intra", "inter"):
+            block = dp[f"{kind}_{layer}"]
+            stack = block.get("TransformerEncoder_0", block.get("encoder"))
+            sd.update(_prefixed(f"{kind}.{layer}.mdl", _encoder_stack(stack)))
+        sd.update(_prefixed(f"intra_norm.{layer}",
+                            layer_norm(dp[f"LayerNorm_{2 * layer + 1}"])))
+        sd.update(_prefixed(f"inter_norm.{layer}",
+                            layer_norm(dp[f"LayerNorm_{2 * layer + 2}"])))
+    sd.update(_prefixed("prelu", _slope(dp["PReLU_0"])))
+    sd.update(_prefixed("conv_out", _pointwise(dp["Conv1d_1"]["Conv_0"])))
+    return sd
+
+
+def sepformer_state_dict(params):
+    """JAX ``SepformerWrapper`` params (transformer or conformer intra
+    blocks) -> the port's ``SepformerWrapper`` state_dict."""
+    return {
+        **_prefixed("encoder.conv",
+                    conv1d(params["Encoder_0"]["Conv1d_0"]["Conv_0"])),
+        **_prefixed("masknet", _dual_path(params["Dual_Path_Model_0"])),
+        **_prefixed("decoder.conv", conv_transpose1d(
+            params["Decoder_0"]["ConvTranspose1d_0"]["ConvTranspose_0"])),
+    }
+
+
+def to_jax_sepformer(state_dict, prefix=""):
+    """The port's ``SepformerWrapper`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    m = s.sub("masknet")
+    dp = {"LayerNorm_0": _ln_to_jax(m.sub("norm")),
+          "Conv1d_0": {"Conv_0": _pointwise_to_jax(m.sub("conv1d"))}}
+    for layer in range(m.count("intra")):
+        for kind in ("intra", "inter"):
+            stack = m.sub(f"{kind}.{layer}.mdl")
+            name = ("encoder" if "layers.0.ffn1.w_1.weight" in stack
+                    else "TransformerEncoder_0")
+            dp[f"{kind}_{layer}"] = {name: _encoder_stack_to_jax(stack)}
+        dp[f"LayerNorm_{2 * layer + 1}"] = _ln_to_jax(
+            m.sub(f"intra_norm.{layer}"))
+        dp[f"LayerNorm_{2 * layer + 2}"] = _ln_to_jax(
+            m.sub(f"inter_norm.{layer}"))
+    dp["PReLU_0"] = {"negative_slope": _a(m["prelu.weight"])}
+    dp["Conv1d_1"] = {"Conv_0": _pointwise_to_jax(m.sub("conv_out"))}
+    return {
+        "Encoder_0": {"Conv1d_0": {"Conv_0": _conv1d_to_jax(
+            s.sub("encoder.conv"))}},
+        "Dual_Path_Model_0": dp,
+        "Decoder_0": {"ConvTranspose1d_0": {
+            "ConvTranspose_0": to_jax_conv_transpose1d(
+                state_dict, prefix + "decoder.conv.")}},
+    }
+
+
+def _tasnet_norm(p):
+    """A gLN/cLN {gamma, beta} or a LayerNorm {scale, bias}."""
+    if "gamma" in p:
+        return {"weight": _t(p["gamma"]), "bias": _t(p["beta"])}
+    return layer_norm(p)
+
+
+def _tasnet_norm_to_jax(s, kind):
+    if kind == "LayerNorm":
+        return _ln_to_jax(s)
+    return {"gamma": _a(s["weight"]), "beta": _a(s["bias"])}
+
+
+def _dsconv(ds):
+    """JAX ``DepthwiseSeparableConv`` params -> the port's."""
+    return {**_prefixed("depthwise", conv1d(ds["conv_0"]["Conv_0"])),
+            **_prefixed("act", _slope(ds["act"])),
+            **_prefixed("norm", _tasnet_norm(ds["norm"])),
+            **_prefixed("pointwise", _pointwise(ds["conv_1"]["Conv_0"]))}
+
+
+def _temporal_block(b):
+    """JAX ``TemporalBlock`` params -> the port's."""
+    return {**_prefixed("conv", _pointwise(b["conv"]["Conv_0"])),
+            **_prefixed("act", _slope(b["act"])),
+            **_prefixed("norm", _tasnet_norm(b["norm"])),
+            **_prefixed("dsconv", _dsconv(b["DSconv"]))}
+
+
+def _temporal_blocks(tcn):
+    """JAX ``TemporalBlocksSequential`` params (``temporalblock_{r}_{i}``)
+    -> the port's (``{r X + i}``)."""
+    names = sorted(tcn, key=lambda k: tuple(int(v) for v in k.split("_")[1:]))
+    sd = {}
+    for j, name in enumerate(names):
+        sd.update(_prefixed(str(j), _temporal_block(tcn[name])))
+    return sd
+
+
+def _masknet(mn):
+    """JAX Conv-TasNet ``MaskNet`` params -> the port's."""
+    return {
+        **_prefixed("layer_norm", _tasnet_norm(mn["layer_norm"])),
+        **_prefixed("bottleneck", _pointwise(mn["bottleneck_conv1x1"]["Conv_0"])),
+        **_prefixed("temporal_conv_net", _temporal_blocks(mn["temporal_conv_net"])),
+        **_prefixed("mask_conv", _pointwise(mn["mask_conv1x1"]["Conv_0"])),
+    }
+
+
+def convtasnet_state_dict(params):
+    """JAX ``ConvTasNet`` params -> the port's ``ConvTasNet``
+    state_dict."""
+    return {
+        **_prefixed("encoder.conv",
+                    conv1d(params["Encoder_0"]["conv1d_U"]["Conv_0"])),
+        **_prefixed("masknet", _masknet(params["MaskNet_0"])),
+        **_prefixed("decoder.basis",
+                    dense(params["Decoder_0"]["basis_signals"]["Dense_0"])),
+    }
+
+
+def to_jax_convtasnet(state_dict, X, norm_type="gLN", prefix=""):
+    """The port's ``ConvTasNet`` state_dict -> JAX params; ``X`` (blocks
+    a repeat) names the temporal blocks, ``norm_type`` the blocks' norms'
+    parameters ("gLN"/"cLN": ``gamma``/``beta``; else a LayerNorm's)."""
+    s = _Sub(state_dict, prefix)
+    m = s.sub("masknet")
+    kind = "LayerNorm" if norm_type not in ("gLN", "cLN") else "gln"
+    tcn = {}
+    for j in range(m.count("temporal_conv_net")):
+        b = m.sub(f"temporal_conv_net.{j}")
+        tcn[f"temporalblock_{j // X}_{j % X}"] = {
+            "conv": {"Conv_0": _pointwise_to_jax(b.sub("conv"))},
+            "act": {"negative_slope": _a(b["act.weight"])},
+            "norm": _tasnet_norm_to_jax(b.sub("norm"), kind),
+            "DSconv": {
+                "conv_0": {"Conv_0": _conv1d_to_jax(b.sub("dsconv.depthwise"))},
+                "act": {"negative_slope": _a(b["dsconv.act.weight"])},
+                "norm": _tasnet_norm_to_jax(b.sub("dsconv.norm"), kind),
+                "conv_1": {"Conv_0": _pointwise_to_jax(
+                    b.sub("dsconv.pointwise"))}}}
+    return {
+        "Encoder_0": {"conv1d_U": {"Conv_0": _conv1d_to_jax(
+            s.sub("encoder.conv"))}},
+        "MaskNet_0": {
+            "layer_norm": _tasnet_norm_to_jax(m.sub("layer_norm"), "gln"),
+            "bottleneck_conv1x1": {"Conv_0": _pointwise_to_jax(
+                m.sub("bottleneck"))},
+            "temporal_conv_net": tcn,
+            "mask_conv1x1": {"Conv_0": _pointwise_to_jax(m.sub("mask_conv"))},
+        },
+        "Decoder_0": {"basis_signals": {"Dense_0": _dense_to_jax(
+            s.sub("decoder.basis"))}},
+    }
 
 
 def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):

@@ -4,16 +4,18 @@ Counterpart of ``speechbrain_tpu/nnet/CNN.py``: ``Conv1d`` over (batch,
 time, channels) with its ``_pad_1d`` ("same", reflect by default;
 "causal"; "valid"), and ``Conv2d`` over (batch, time, feature[,
 channels]) with "same" padding (``_pad2d_same``, the only padding the
-front end uses), and ``get_padding_elem``.  Inputs and outputs keep the
-JAX layout; the convolutions run as ``F.conv1d`` over (B, C, T) and
-``F.conv2d`` over (B, C, T, F), with the 2-d kernel's first spatial axis
-on time.
+front end uses), ``ConvTranspose1d``, ``get_padding_elem`` and
+``get_padding_elem_transposed``.  Inputs and outputs keep the JAX layout;
+the convolutions run as ``F.conv1d``/``F.conv_transpose1d`` over (B, C, T)
+and ``F.conv2d`` over (B, C, T, F), with the 2-d kernel's first spatial
+axis on time.
 """
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["Conv1d", "Conv2d", "get_padding_elem"]
+__all__ = ["Conv1d", "Conv2d", "ConvTranspose1d", "get_padding_elem",
+           "get_padding_elem_transposed"]
 
 
 def get_padding_elem(L_in, stride, kernel_size, dilation):
@@ -29,6 +31,20 @@ def get_padding_elem(L_in, stride, kernel_size, dilation):
         return [kernel_size // 2, kernel_size // 2]
     L_out = (L_in - dilation * (kernel_size - 1) - 1) // stride + 1
     return [(L_in - L_out) // 2, (L_in - L_out) // 2]
+
+
+def get_padding_elem_transposed(L_out, L_in, stride, kernel_size, dilation,
+                                output_padding):
+    """The padding a transposed convolution needs to reach ``L_out``.
+
+    Example
+    -------
+    >>> get_padding_elem_transposed(100, 50, 2, 4, 1, 0)
+    1
+    """
+    padding = -0.5 * (L_out - (L_in - 1) * stride - dilation * (kernel_size - 1)
+                      - output_padding - 1)
+    return int(padding)
 
 
 def _pad_1d(x, kernel_size, dilation, stride, padding, padding_mode="reflect"):
@@ -136,3 +152,46 @@ class Conv2d(torch.nn.Module):
         y = F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                      stride=(self.sh, self.sw))
         return y.permute(0, 2, 3, 1)
+
+
+class ConvTranspose1d(torch.nn.Module):
+    """Transposed 1-d convolution over (B, T, in_channels) -> (B, T',
+    out_channels) (a (B, T) input is one channel), with the JAX module's
+    length: the full transposed convolution ((T - 1) stride + k frames)
+    cut to ``[padding, padding + target)``, ``target`` being PyTorch's
+    ``(T - 1) stride - 2 padding + k + output_padding``, so an
+    ``output_padding`` above ``padding`` gives fewer frames than
+    ``target``, as in JAX.  ``weight`` is PyTorch's (in, out, k): the
+    JAX kernel (k, in, out), which Flax applies without flipping its
+    taps, with its taps reversed (``bridge.conv_transpose1d``).
+
+    Example
+    -------
+    >>> up = ConvTranspose1d(8, 4, kernel_size=4, stride=2, padding=1)
+    >>> up(torch.ones(1, 10, 8)).shape
+    torch.Size([1, 20, 4])
+    """
+
+    weight_in_out = True  # fan-in on weight.shape[0] (``asr._random_init``)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, bias=True):
+        super().__init__()
+        self.kernel_size, self.stride = kernel_size, stride
+        self.padding, self.output_padding = padding, output_padding
+        self.weight = torch.nn.Parameter(
+            torch.empty(in_channels, out_channels, kernel_size))
+        self.bias = (torch.nn.Parameter(torch.zeros(out_channels)) if bias
+                     else None)
+        torch.nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x):
+        """x: (B, T, in_channels) or (B, T)."""
+        if x.dim() == 2:
+            x = x[..., None]
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv_transpose1d(x.transpose(1, 2), self.weight.to(x.dtype),
+                               bias, stride=self.stride)
+        target = ((x.shape[1] - 1) * self.stride - 2 * self.padding
+                  + self.kernel_size + self.output_padding)
+        return y[..., self.padding:self.padding + target].transpose(1, 2)

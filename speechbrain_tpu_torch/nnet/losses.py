@@ -3,7 +3,8 @@
 Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
 ``ctc_loss``, ``nll_loss``, ``kldiv_loss``, ``classification_error``, and
 the speaker recipes' ``AngularMargin``, ``AdditiveAngularMargin`` and
-``LogSoftmaxWrapper``):
+``LogSoftmaxWrapper``, and the separation recipes' ``PitWrapper``,
+``cal_si_snr``, ``get_si_snr_with_pitwrapper`` and ``get_mask``):
 lengths are RELATIVE (batch,), padded positions are masked before the
 reduction, and the reductions keep the reference's definitions, quirks
 included.
@@ -13,6 +14,7 @@ CUDA tensors), or on its plain recursions with ``use_kernels=False``;
 RNN-T lattice kernels on CUDA tensors).
 """
 
+import itertools
 import math
 
 import torch
@@ -22,7 +24,8 @@ from .loss.transducer_loss import TransducerLoss
 
 __all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
            "kldiv_loss", "classification_error", "AngularMargin",
-           "AdditiveAngularMargin", "LogSoftmaxWrapper"]
+           "AdditiveAngularMargin", "LogSoftmaxWrapper", "PitWrapper",
+           "cal_si_snr", "get_si_snr_with_pitwrapper", "get_mask"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -315,3 +318,123 @@ class LogSoftmaxWrapper:
             targets.reshape(-1).long(), outputs.shape[-1]).to(outputs.dtype)
         log_p = torch.log_softmax(self.loss_fn(outputs, one_hot), -1)
         return -(one_hot * log_p).sum(-1).mean()
+
+
+# ---------------------------------------------------------------------------
+# Source-separation losses
+
+
+class PitWrapper:
+    """Permutation-invariant training: ``base_loss`` (no reduction; time
+    first, as ``cal_si_snr``) is evaluated once on the all-pairs
+    broadcast of each example, ``pred[..., j]`` against ``target[..., i]``
+    at entry (i, j); that matrix is averaged over every axis but the
+    pair, each permutation scores the mean of its entries, and the lowest
+    score wins (the first in ``itertools.permutations`` order on ties).
+
+    ``__call__(preds, targets)`` takes (B, ..., n) tensors and returns
+    ``(loss (B,), perms (B, n) int64)``; ``perms[b]`` reorders the last
+    axis of the predictions into target order (``reorder_tensor``).  The
+    batch runs as one broadcast, with the batch axis just before the
+    pair (``base_loss`` keeps every axis but the first).  No host sync.
+
+    Example
+    -------
+    >>> pit = PitWrapper(lambda p, t: (p - t) ** 2)
+    >>> tgts = torch.tensor([[[1.0, 2.0], [3.0, 4.0]]])  # (1, 2, 2)
+    >>> loss, perms = pit(tgts.flip(-1), tgts)
+    >>> float(loss.sum()), perms.tolist()
+    (0.0, [[1, 0]])
+    """
+
+    def __init__(self, base_loss):
+        self.base_loss = base_loss
+        self._perms = {}
+
+    def _permutations(self, n, device):
+        key = (n, str(device))
+        if key not in self._perms:
+            self._perms[key] = torch.tensor(
+                list(itertools.permutations(range(n))), device=device)
+        return self._perms[key]
+
+    def _loss_mat(self, preds, targets):
+        """(B, n, n): entry (b, i, j) is ``base_loss(pred[b, ..., j],
+        target[b, ..., i])`` averaged over the other axes."""
+        n = preds.shape[-1]
+        B = preds.shape[0]
+        # (..., B, n) with the batch just before the sources
+        p = preds.movedim(0, -2)
+        t = targets.movedim(0, -2)
+        pred_b = p[..., None, :].expand(*p.shape[:-1], n, n)
+        tgt_b = t[..., :, None].expand(*t.shape[:-1], n, n)
+        mat = self.base_loss(pred_b, tgt_b)  # (..., B, n, n)
+        return mat.movedim(-3, 0).reshape(B, -1, n, n).mean(1)
+
+    def __call__(self, preds, targets):
+        n = preds.shape[-1]
+        perms = self._permutations(n, preds.device)  # (n!, n)
+        mat = self._loss_mat(preds, targets)
+        rows = torch.arange(n, device=preds.device)[None, :]
+        scores = mat[:, rows, perms].mean(-1)  # (B, n!)
+        best = scores.argmin(-1)
+        return scores.gather(1, best[:, None])[:, 0], perms[best]
+
+    def reorder_tensor(self, tensor, p):
+        """``tensor``'s last (source) axis reordered per example by the
+        permutations ``p`` (B, n) from ``__call__``."""
+        p = torch.as_tensor(p, device=tensor.device)
+        idx = p.reshape(p.shape[0:1] + (1,) * (tensor.dim() - 2) + p.shape[1:2])
+        return torch.gather(tensor, -1, idx.expand(*tensor.shape[:-1],
+                                                   p.shape[1]))
+
+
+def cal_si_snr(source, estimate_source):
+    """Negative scale-invariant SNR in dB over the leading (time) axis:
+    (T, ...) inputs -> (1, ...); zero-mean signals, eps 1e-8 on both
+    energies and inside the log, as in JAX.
+
+    Example
+    -------
+    >>> x = torch.tensor([[1.0, 0], [123, 45], [34, 5], [2312, 421]])
+    >>> xhat = x[:, (1, 0)]
+    >>> x = x[:, :, None].repeat(1, 1, 2)
+    >>> xhat = xhat[:, None, :].repeat(1, 2, 1)
+    >>> round(float(-cal_si_snr(x, xhat)[0, 0, 0]), 4)
+    25.2142
+    """
+    eps = 1e-8
+    s = source - source.mean(0, keepdim=True)
+    s_hat = estimate_source - estimate_source.mean(0, keepdim=True)
+    dot = (s_hat * s).sum(0, keepdim=True)
+    s_energy = (s ** 2).sum(0, keepdim=True) + eps
+    proj = dot * s / s_energy
+    e_noise = s_hat - proj
+    ratio = (proj ** 2).sum(0) / ((e_noise ** 2).sum(0) + eps)
+    return -(10 * torch.log10(ratio + eps))[None]
+
+
+def get_si_snr_with_pitwrapper(source, estimate_source):
+    """The permutation-invariant negative SI-SNR of each example: (B, T,
+    n) targets and estimates -> (B,).  The targets go in
+    ``PitWrapper``'s ``preds`` place, as in JAX (``cal_si_snr`` is
+    symmetric in the permutation search, not in its value)."""
+    return PitWrapper(cal_si_snr)(source, estimate_source)[0]
+
+
+def get_mask(source, source_lengths):
+    """A mask over the leading (time) axis: ``source`` (T, B, C) or
+    (T, E, B, C), ``source_lengths`` (B,) absolute -> ones where
+    ``t < length``, shaped (T, B, 1) or (T, 1, B, 1) broadcast to
+    ``source``'s rank with a trailing singleton channel.
+
+    Example
+    -------
+    >>> get_mask(torch.ones(4, 3, 2), torch.tensor([2, 1, 4]))[:, :, 0].T.tolist()
+    [[1.0, 1.0, 0.0, 0.0], [1.0, 0.0, 0.0, 0.0], [1.0, 1.0, 1.0, 1.0]]
+    """
+    T, B = source.shape[0], source.shape[-2]
+    t = torch.arange(T, device=source.device)
+    mask = (t[:, None] < source_lengths[None, :B].to(source.device)).to(
+        source.dtype)
+    return mask.reshape((T,) + (1,) * (source.dim() - 3) + (B, 1))

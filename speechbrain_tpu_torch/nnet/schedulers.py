@@ -1,7 +1,7 @@
 """Learning-rate schedulers (host-side, checkpointable).
 
 Counterpart of ``speechbrain_tpu/nnet/schedulers.py`` (``NewBobScheduler``,
-``NoamScheduler`` and ``CyclicLRScheduler``, each with ``_save``/``_load``
+``NoamScheduler``, ``ReduceLROnPlateau`` and ``CyclicLRScheduler``, each with ``_save``/``_load``
 through copies of ``_save_attrs`` and ``_load_attrs``).  The linear and
 step schedulers are not ported.
 """
@@ -15,7 +15,8 @@ from ..utils.checkpoints import (
     register_checkpoint_hooks,
 )
 
-__all__ = ["NewBobScheduler", "NoamScheduler", "CyclicLRScheduler"]
+__all__ = ["NewBobScheduler", "NoamScheduler", "ReduceLROnPlateau",
+           "CyclicLRScheduler"]
 
 
 def _save_attrs(obj, path, attrs):
@@ -136,6 +137,64 @@ class NoamScheduler:
     @mark_as_loader
     def _load(self, path, end_of_epoch=True):
         _load_attrs(self, path, ["current_lr", "n_steps"])
+
+
+@register_checkpoint_hooks
+class ReduceLROnPlateau:
+    """Halves (``factor``) the rate when the loss stops improving, called
+    once an epoch as ``(current_lr, current_epoch, current_loss)`` and
+    returning ``(current_lr, next_lr)``.  Up to epoch
+    ``dont_halve_until_epoch`` the rate is kept and the loss becomes the
+    ``anchor``; after it, a loss at or below the anchor becomes the anchor
+    and resets the patience, a higher one waits ``patience`` calls and
+    then multiplies the rate by ``factor`` (the anchor stays).  The rate
+    never goes below ``lr_min``.  A checkpoint holds ``losses``,
+    ``anchor`` and ``patience_counter``.
+
+    Example
+    -------
+    >>> s = ReduceLROnPlateau(lr_min=0.1, factor=0.5, patience=0)
+    >>> s(1.0, current_epoch=1, current_loss=10.0)
+    (1.0, 1.0)
+    >>> s(1.0, current_epoch=2, current_loss=11.0)
+    (1.0, 0.5)
+    """
+
+    def __init__(self, lr_min=1e-8, factor=0.5, patience=2,
+                 dont_halve_until_epoch=0):
+        self.lr_min = lr_min
+        self.factor = factor
+        self.patience = patience
+        self.patience_counter = 0
+        self.losses = []
+        self.dont_halve_until_epoch = dont_halve_until_epoch
+        self.anchor = 99999.0
+
+    def __call__(self, current_lr, current_epoch, current_loss):
+        if current_epoch <= self.dont_halve_until_epoch:
+            next_lr = current_lr
+            self.anchor = current_loss
+        elif current_loss <= self.anchor:
+            self.patience_counter = 0
+            next_lr = current_lr
+            self.anchor = current_loss
+        elif self.patience_counter < self.patience:
+            self.patience_counter += 1
+            next_lr = current_lr
+        else:
+            next_lr = current_lr * self.factor
+            self.patience_counter = 0
+        next_lr = max(self.lr_min, next_lr)
+        self.losses.append(float(current_loss))
+        return current_lr, next_lr
+
+    @mark_as_saver
+    def _save(self, path):
+        _save_attrs(self, path, ["losses", "anchor", "patience_counter"])
+
+    @mark_as_loader
+    def _load(self, path, end_of_epoch=True):
+        _load_attrs(self, path, ["losses", "anchor", "patience_counter"])
 
 
 @register_checkpoint_hooks

@@ -1,9 +1,10 @@
-"""Low-level signal ops: amplitude, 1-d correlation, notch filters.
+"""Low-level signal ops: amplitude, 1-d correlation, notch filters,
+overlap-add.
 
 Counterpart of ``speechbrain_tpu/processing/signal_processing.py``
-(``compute_amplitude``, ``convolve1d`` and ``notch_filter``) as far as
+(``compute_amplitude``, ``convolve1d`` and ``notch_filter``, as far as
 the waveform augmentations of ``processing/speech_augmentation.py`` use
-them.  Everything stays on the input's device; ``convolve1d`` runs as a
+them, and ``overlap_and_add``, Conv-TasNet's decoder's).  Everything stays on the input's device; ``convolve1d`` runs as a
 grouped ``F.conv1d``.  The peak and dB amplitudes, ``convolve1d``'s
 per-row kernels, strides and FFT path, and ``reverberate``, which only
 ``EnvCorrupt``'s noise and reverberation use, are not ported.
@@ -13,7 +14,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["compute_amplitude", "convolve1d", "blackman_window", "notch_filter"]
+__all__ = ["compute_amplitude", "convolve1d", "blackman_window", "notch_filter",
+           "overlap_and_add"]
 
 
 def compute_amplitude(waveforms, lengths):
@@ -94,3 +96,25 @@ def notch_filter(notch_freq, filter_width=101, notch_width=0.05, window=None):
     hhpf = hhpf / -hhpf.sum()
     hhpf = hhpf + (inputs == 0).to(hhpf.dtype)  # + 1 at the centre tap
     return (hlpf + hhpf).reshape(1, -1, 1)
+
+
+def overlap_and_add(signal, frame_step):
+    """(..., frames, frame_length) -> (..., (frames + 1) frame_step), each
+    frame added at ``frame_step`` times its index, for frames of twice the
+    step (Conv-TasNet's, L at hop L / 2; other shapes raise): the sum of
+    the frames' first halves and the previous frames' second halves, two
+    shifted reshapes, which scatter nothing and are deterministic on
+    CUDA.
+
+    Example
+    -------
+    >>> overlap_and_add(torch.ones(1, 3, 4), 2).tolist()
+    [[1.0, 1.0, 2.0, 2.0, 2.0, 2.0, 1.0, 1.0]]
+    """
+    *lead, frames, length = signal.shape
+    if length != 2 * frame_step:
+        raise ValueError(f"frames of {length} at hop {frame_step}: "
+                         "frames of twice the hop")
+    first = F.pad(signal[..., :frame_step], (0, 0, 0, 1))
+    second = F.pad(signal[..., frame_step:], (0, 0, 1, 0))
+    return (first + second).reshape(*lead, -1)

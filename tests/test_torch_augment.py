@@ -27,6 +27,8 @@ from speechbrain_tpu_torch.asr import (
 from speechbrain_tpu_torch.core import Stage
 from speechbrain_tpu_torch.lobes.augment import SpecAugment
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 SMALL = CONFORMER_SMALL["augmentation"]      # warp, mean fill
 TRANSDUCER = CONFORMER_TRANSDUCER["augmentation"]  # no warp, zero fill
 

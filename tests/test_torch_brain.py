@@ -46,6 +46,8 @@ from speechbrain_tpu.processing.features import (
 from speechbrain_tpu_torch import bridge
 from speechbrain_tpu_torch.asr import CONFORMER_SMALL, ConformerASRBrain
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 CFG = dict(
     CONFORMER_SMALL, n_mels=40, frontend_channels=(8, 8), input_size=80,
     d_model=32, nhead=2, num_encoder_layers=2, num_decoder_layers=1,

@@ -36,6 +36,8 @@ from speechbrain_tpu_torch.utils.checkpoints import (
 )
 from speechbrain_tpu_torch.utils.epoch_loop import EpochCounter
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 
 def test_save_recover_tensors(tmp_path):
     params = Recoverable({"w": torch.ones(2, 2), "b": torch.zeros(3)})

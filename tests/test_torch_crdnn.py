@@ -30,6 +30,8 @@ from speechbrain_tpu_torch.nnet.dropout import Dropout2d
 from speechbrain_tpu_torch.nnet.normalization import LayerNorm
 from speechbrain_tpu_torch.nnet.RNN import LiGRU
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 
 def _np(x):
     return np.asarray(x, np.float32)

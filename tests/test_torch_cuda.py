@@ -1534,3 +1534,95 @@ def test_voxceleb_step_makes_no_host_sync(gen):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("intra", ["transformer", "conformer"])
+def test_sepformer_step_on_the_card_matches_the_cpu(gen, intra):
+    """The SepFormer's training loss and gradients at ``sepformer.yaml``'s
+    widths (encoder 256 x 16 taps, 2 x (8 + 8) layers, chunks of 250), and
+    ``sepformer-conformerintra.yaml``'s (its intra blocks conformers:
+    K1/K2 launch 32 and 16 times), on B 2 x 0.5 s mixtures (T' 499), on
+    the card in float32 (TF32 off) against the same weights in float64
+    on the CPU: the loss within 1e-5 relative, each gradient within 1e-3
+    of its tensor's scale (or of 5 % of the largest gradient: the
+    attention's key bias has an analytic gradient of 0)."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as sep
+
+    hp = (sep.HPARAMS_SEPFORMER if intra == "transformer"
+          else sep.HPARAMS_SEPFORMER_CONFORMERINTRA)
+    brain = sep.Separation(hp, run_opts={"device": "cpu", "seed": 0})
+    rng = np.random.default_rng(2)
+    s = (0.1 * rng.standard_normal((2, 2, 4000))).astype(np.float32)
+    host = {"mix_sig": s[0] + s[1], "s1_sig": s[0], "s2_sig": s[1],
+            "batch_mask": np.ones(2, np.float32)}
+    initial = {k: v.clone() for k, v in brain.modules.state_dict().items()}
+
+    def step(dev, dtype):
+        brain.modules.load_state_dict(initial)
+        brain.modules.to(dev, dtype).train()
+        brain.device, brain.dtype = torch.device(dev), dtype
+        batch = {k: torch.from_numpy(v).to(dev, dtype) for k, v in host.items()}
+        names, params = zip(*brain.modules.named_parameters())
+        ops.reset_launch_counters()
+        loss = brain._loss(batch, Stage.TRAIN)
+        grads = torch.autograd.grad(loss, params)
+        counts = ops.launch_counters()
+        return (names, float(loss.detach()), [g.cpu().double() for g in grads],
+                counts)
+
+    names, l64, g64, _ = step("cpu", torch.float64)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        _, lcard, gcard, counts = step("cuda", torch.float32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+    want = ((32, 16) if intra == "conformer" else (0, 0))
+    assert (counts["depthwise_conv1d"], counts["depthwise_conv1d_dw"]) == want
+    assert abs(lcard - l64) <= 1e-5 * abs(l64)
+    G = max(float(g.abs().max()) for g in g64)
+    bad = [(n, float((a - b).abs().max()), float(b.abs().max()))
+           for n, a, b in zip(names, gcard, g64)
+           if float((a - b).abs().max()) > 1e-2 * max(float(b.abs().max()),
+                                                      0.05 * G)]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", ["sepformer", "conformer", "convtasnet"])
+def test_separation_step_makes_no_host_sync(gen, name):
+    """A separation step's forward, PIT SI-SNR loss and backward on the
+    card (narrow widths; the conformer blocks through K1/K2) make no
+    synchronising call: ``torch.cuda.set_sync_debug_mode("error")``
+    raises on one."""
+    import numpy as np
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as sep
+
+    hp = {"sepformer": sep.HPARAMS_SEPFORMER,
+          "conformer": sep.HPARAMS_SEPFORMER_CONFORMERINTRA,
+          "convtasnet": sep.HPARAMS_CONVTASNET}[name]
+    toy = dict(encoder_out_nchannels=32, masknet_chunksize=50,
+               intra_numlayers=1, inter_numlayers=1, intra_dffn=64,
+               inter_dffn=64, N=32, B=16, H=32, X=2, R=1)
+    brain = sep.Separation(dict(hp, **toy), run_opts={"seed": 0})
+    rng = np.random.default_rng(3)
+    s = (0.1 * rng.standard_normal((2, 2, 8000))).astype(np.float32)
+    batch = brain.prepare_batch({"mix_sig": s[0] + s[1], "s1_sig": s[0],
+                                 "s2_sig": s[1]})
+    brain.modules.train()
+    brain._loss(batch, Stage.TRAIN).backward()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = brain._loss(batch, Stage.TRAIN)
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(torch.isfinite(loss))

@@ -39,6 +39,8 @@ from speechbrain_tpu_torch.utils import data_pipeline as ppipeline
 from speechbrain_tpu_torch.utils import depgraph as pdepgraph
 from tests.unittests.test_native_audio import _int_wave, encode_flac
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 JAX = dict(batch=jbatch, dataio=jdataio, loader=jloader, dataset=jdataset,
            sampler=jsampler)
 PORT = dict(batch=pbatch, dataio=pdataio, loader=ploader, dataset=pdataset,

@@ -7,6 +7,8 @@ from pathlib import Path
 
 import pytest
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = sorted(
     ".".join(p.relative_to(ROOT).with_suffix("").parts)

@@ -81,6 +81,7 @@ from speechbrain_tpu_torch.processing import speech_augmentation as sa
 from speechbrain_tpu_torch.recipes import gsc_xvector as recipe
 from speechbrain_tpu_torch.utils.metric_stats import AccuracyStats
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
 from .test_torch_timit import _jax_initialize, _load_path, _optimizer_parity
 
 REPO = Path(__file__).resolve().parents[1]

@@ -73,6 +73,7 @@ def test_import_leaves_jax_unloaded():
         "speechbrain_tpu_torch.recipes.timit_ctc, "
         "speechbrain_tpu_torch.recipes.gsc_xvector, "
         "speechbrain_tpu_torch.recipes.voxceleb_speaker, "
+        "speechbrain_tpu_torch.recipes.wsj0mix_separation, "
         "speechbrain_tpu_torch.lobes.models.CRDNN, "
         "speechbrain_tpu_torch.native, speechbrain_tpu_torch.dataio.dataloader, "
         "speechbrain_tpu_torch.tokenizers.SentencePiece; "

@@ -42,6 +42,38 @@ def _np(x):
     return np.asarray(x, dtype=np.float32)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch's CPU ops on one thread while a module's tests run, and the
+    former count back after it.  The suite runs in several worker
+    processes at once, and the plain recursions' and the toy models'
+    thousands of small ops each wake an intra-op pool as wide as the
+    machine, which the workers then fight over; one thread a worker runs
+    them many times faster there and computes the same values.  The other
+    port test modules import it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def jax_value_and_grad(f):
+    """``jax.value_and_grad(f, has_aux=True)``, traced once and compiled
+    by XLA without its backend optimizations
+    (``xla_backend_optimization_level`` 0): the same function, computed in
+    f32 as before, whose compile takes a little over half as long for the
+    JAX Pallas kernels in interpret mode, the slowest thing these tests
+    compile.  Called eagerly, ``value_and_grad`` compiles its pieces one
+    by one."""
+    vg = jax.jit(jax.value_and_grad(f, has_aux=True))
+
+    def call(*args):
+        compiled = vg.lower(*args).compile(
+            compiler_options={"xla_backend_optimization_level": 0})
+        return compiled(*args)
+    return call
+
+
 # ---------------------------------------------------------------- K1
 
 
@@ -190,8 +222,7 @@ def test_ctc_loss_per_seq_matches_jax(blank):
                                              blank)
             return jnp.sum(loss * g), loss
 
-        (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
-            jnp.asarray(logits))
+        (_, j_per), j_grad = jax_value_and_grad(f)(jnp.asarray(logits))
         # the same log-semiring recursion in f32; optax's runs in another
         # order and form (its own logaddexp): 1e-4 on losses ~ 20
         np.testing.assert_allclose(per.detach().numpy(), _np(j_per),
@@ -240,8 +271,7 @@ def test_ctc_plain_matches_jax_at_warp_widths(U):
                                 (jnp.asarray(tb), jnp.asarray(ub)), 0, True)
         return jnp.sum(loss * g), loss
 
-    (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
-        jnp.asarray(logits))
+    (_, j_per), j_grad = jax_value_and_grad(f)(jnp.asarray(logits))
     # as test_ctc_loss_per_seq_matches_jax: the same f32 recursion
     np.testing.assert_allclose(per.detach().numpy(), _np(j_per),
                                atol=1e-4, rtol=1e-5)
@@ -271,8 +301,7 @@ def test_ctc_plain_wide_lattice_matches_jax():
                                      jnp.asarray(tg), tb, ub, 0)
         return jnp.sum(loss * g), loss
 
-    (_, j_per), j_grad = jax.value_and_grad(f, has_aux=True)(
-        jnp.asarray(logits))
+    (_, j_per), j_grad = jax_value_and_grad(f)(jnp.asarray(logits))
     # 1100 dependent log-semiring steps in f32 in two forms: losses ~ 2e3,
     # where one ulp is 1.2e-4; the occupancies exp(alpha + beta - logZ)
     # carry alpha's absolute error as a relative one

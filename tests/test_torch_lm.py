@@ -45,6 +45,8 @@ from speechbrain_tpu_torch.nnet.attention import (
     RelPosEncXL,
 )
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 KEY = jax.random.PRNGKey(0)
 VOCAB, D, H, LAYERS, D_FFN = 50, 32, 4, 2, 64
 TOL = 1e-5

@@ -47,6 +47,8 @@ from speechbrain_tpu_torch.lobes.models.transformer.Transformer import (
 from speechbrain_tpu_torch.nnet.attention import RelPosEncXL, RelPosMHAXL
 from speechbrain_tpu_torch.processing.features import InputNormalization
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 KEY = jax.random.PRNGKey(0)
 
 

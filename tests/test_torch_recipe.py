@@ -33,6 +33,7 @@ batch with dummy rows (length 0 in CTC's lattice and in the KL) equal
 JAX's, per loss.
 """
 
+import functools
 import importlib.util
 import re
 from pathlib import Path
@@ -57,6 +58,8 @@ from speechbrain_tpu.utils.hyperyaml import load_hyperpyyaml
 from speechbrain_tpu_torch import bridge
 from speechbrain_tpu_torch.nnet.losses import ctc_loss, kldiv_loss
 from speechbrain_tpu_torch.recipes import librispeech_asr as recipe
+
+from .test_torch_kernels import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 RECIPE = REPO / "recipes/LibriSpeech/ASR/transformer"
@@ -212,6 +215,29 @@ def fitted(tmp_path_factory):
             # one device, as the port trains (the suite's 8 virtual CPU
             # devices would pad every batch with replica rows)
             self.mesh = make_mesh(jax.devices()[:1])
+
+        @functools.cached_property
+        def _forward(self):
+            def forward(state, rngs, batch, stage):
+                self._bind(state["params"], state["model_state"],
+                           state["extra"], rngs, train=False)
+                return self.compute_forward(batch, stage)
+            return jax.jit(forward, static_argnums=3)
+
+        def evaluate_batch_full(self, batch, stage):
+            """The Brain's eager evaluation with the forward jitted (eager,
+            it compiles every operation on its own); the objectives (the
+            losses, the beam search and the WER) outside jit on the bound
+            parameters, as there."""
+            device_batch = self.prepare_batch(batch)
+            state = self.train_state
+            rngs = self._make_step_rngs(self._next_rng())
+            predictions = self._forward(state, rngs, device_batch, stage)
+            self._new_extra = None
+            self._bind(state["params"], state["model_state"],
+                       state["extra"], rngs, train=False)
+            return float(self.compute_objectives(predictions, device_batch,
+                                                 stage))
 
     jb = JaxASR(modules=hp["modules"],
                 opt_class=lambda lr: hp["opt_class"](learning_rate=lr),

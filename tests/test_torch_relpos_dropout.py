@@ -32,6 +32,8 @@ from speechbrain_tpu_torch.ops.relpos_attention import (
     relpos_dropout_keep,
 )
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 # the module (the package's ``relpos_attention`` attribute is the function)
 ops_relpos = importlib.import_module("speechbrain_tpu_torch.ops.relpos_attention")
 

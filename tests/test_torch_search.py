@@ -53,6 +53,8 @@ from speechbrain_tpu_torch.lobes.models.transformer.TransformerLM import (
     TransformerLM,
 )
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 V, D, B, T = 50, 32, 3, 20
 BEAM, CTC_WEIGHT = 4, 0.4
 LENS = np.array([1.0, 0.8, 0.55], np.float32)

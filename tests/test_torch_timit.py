@@ -95,6 +95,8 @@ from speechbrain_tpu_torch.processing.features import (
 )
 from speechbrain_tpu_torch.recipes import timit_ctc as recipe
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 RECIPE = REPO / "recipes/TIMIT/ASR/CTC"
 

@@ -33,6 +33,8 @@ from speechbrain_tpu_torch.tokenizers.SentencePiece import (
     SentencePiece,
 )
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 HAVE_GXX = shutil.which("g++") is not None
 
 

@@ -28,6 +28,8 @@ from speechbrain_tpu_torch.nnet.normalization import BatchNorm1d
 from speechbrain_tpu_torch.nnet.schedulers import NoamScheduler
 from speechbrain_tpu_torch.processing.features import InputNormalization
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 TOY = dict(CONFORMER_SMALL, frontend_channels=(4, 4), input_size=40,
            d_model=16, nhead=2, num_encoder_layers=1, num_decoder_layers=1,
            d_ffn=32, kernel_size=5, vocab_size=12, n_mels=40,

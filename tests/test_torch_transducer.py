@@ -74,6 +74,9 @@ from speechbrain_tpu_torch.nnet.transducer.transducer_joint import (
 )
 from speechbrain_tpu_torch.ops import transducer as ot
 
+from .test_torch_kernels import jax_value_and_grad
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 
 @pytest.fixture
 def interpret(monkeypatch):
@@ -106,6 +109,15 @@ def _port_loss_and_grad(entry, x, targets, t_lens, u_lens, blank, norm):
                  normalize_by_T=norm)
     loss.sum().backward()
     return loss.detach().numpy(), xt.grad.numpy()
+
+
+def _value_and_grad(fn):
+    """``fn(z)`` and the gradient of its sum, from one compiled function
+    (``test_torch_kernels.jax_value_and_grad``)."""
+    def f(z):
+        out = fn(z)
+        return out.sum(), out
+    return jax_value_and_grad(f)
 
 
 def _close(got, ref, what, tol=1e-4):
@@ -142,8 +154,9 @@ def test_loss_logits_matches_jax(interpret, case):
 
     xj = jnp.asarray(x)
     for name, fn in (("pallas", pallas), ("scan", scan)):
-        _close(got, fn(xj), f"{name} loss")
-        _close(g_got, jax.grad(lambda z: fn(z).sum())(xj), f"{name} grad")
+        (_, loss), grad = _value_and_grad(fn)(xj)
+        _close(got, loss, f"{name} loss")
+        _close(g_got, grad, f"{name} grad")
 
 
 @pytest.mark.parametrize("case", CASES.values(), ids=CASES.keys())
@@ -160,9 +173,9 @@ def test_loss_per_seq_matches_jax(interpret, case):
         def f(z, fn=fn):
             return fn(z, tg, tl, ul, blank, norm)
 
-        _close(got, f(jnp.asarray(lp)), f"{name} loss")
-        _close(g_got, jax.grad(lambda z: f(z).sum())(jnp.asarray(lp)),
-               f"{name} grad")
+        (_, loss), grad = _value_and_grad(f)(jnp.asarray(lp))
+        _close(got, loss, f"{name} loss")
+        _close(g_got, grad, f"{name} grad")
 
 
 @pytest.mark.parametrize("logits", [True, False])
@@ -182,13 +195,13 @@ def test_wide_lattice_matches_jax(interpret, logits):
     def fn(z):
         return pallas(z, tg, tl, ul, 0, False)
 
-    xj = jnp.asarray(x)
+    (_, loss), grad = _value_and_grad(fn)(jnp.asarray(x))
     # losses ~ 1e3 (a thousand emissions, V = 2), where one f32 ulp is
     # 6e-5: the two forms' sums agree to a few ulps, 1e-6 relative; the
     # occupancies exp(alpha + beta - logZ) in [-1, 0] carry that absolute
     # error of the exponent as a relative one
-    np.testing.assert_allclose(got, np.asarray(fn(xj)), rtol=1e-6)
-    _close(g_got, jax.grad(lambda z: fn(z).sum())(xj), "grad", tol=1e-3)
+    np.testing.assert_allclose(got, np.asarray(loss), rtol=1e-6)
+    _close(g_got, grad, "grad", tol=1e-3)
 
 
 def test_zero_frame_row_follows_the_kernels(interpret):

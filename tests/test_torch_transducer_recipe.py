@@ -66,6 +66,8 @@ from speechbrain_tpu_torch.asr import (
 from speechbrain_tpu_torch.core import Stage
 from speechbrain_tpu_torch.recipes import librispeech_transducer as recipe
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 REPO = Path(__file__).resolve().parents[1]
 RECIPE = REPO / "recipes/LibriSpeech/ASR/transducer"
 

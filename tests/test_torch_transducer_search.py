@@ -57,6 +57,8 @@ from speechbrain_tpu_torch.decoders.transducer import TransducerBeamSearcher
 from speechbrain_tpu_torch.utils import edit_distance
 from speechbrain_tpu_torch.utils.metric_stats import ErrorRateStats
 
+from .test_torch_kernels import one_torch_thread  # noqa: F401
+
 CFG = dict(
     CONFORMER_TRANSDUCER, n_mels=40, frontend_channels=(4, 4), input_size=40,
     d_model=16, nhead=2, num_encoder_layers=1, d_ffn=32, kernel_size=5,

@@ -92,6 +92,7 @@ from speechbrain_tpu_torch.recipes import voxceleb_speaker as recipe
 from speechbrain_tpu_torch.utils.metric_stats import EER, minDCF
 
 from .test_torch_gsc import _JaxDraws, _randomize, _rel_close
+from .test_torch_kernels import one_torch_thread  # noqa: F401
 from .test_torch_timit import _jax_initialize, _load_path, _optimizer_parity
 
 REPO = Path(__file__).resolve().parents[1]
