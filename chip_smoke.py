@@ -11,6 +11,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_timit,recipe_gsc
     python3 chip_smoke.py --phase recipe_voxceleb
     python3 chip_smoke.py --phase recipe_separation
+    python3 chip_smoke.py --phase recipe_separation_rnn
 
 Phases, each printing one JSON line when it ends:
 
@@ -58,8 +59,10 @@ Phases, each printing one JSON line when it ends:
    beam 10) in float32 and bfloat16, and the test search (B = 2 x 10 s,
    beam 66) in float32: steps, encode and search ms, utt/s, peak memory,
    the launches (depthwise conv 12, beam cache 4 per step) and, from a
-   profiled second run, the LM's device ms and share of the busy time
-   (its calls run in a ``record_function`` range).  The float32
+   profiled second run, the busy share and, for the float32 validation
+   search, the LM's device ms and share of the busy time (its calls run
+   in a ``record_function`` range; the other two trace the card's events
+   alone, since the host's take about a minute a search to collect).  The float32
    validation search is repeated through the plain versions from the
    same encoder states, with the same hypotheses.
 5. long    -- an utterance long enough for T_enc = 512 is encoded; the
@@ -212,6 +215,24 @@ Phases, each printing one JSON line when it ends:
    phase also holds K1 (forward and dx) and K2 at the conformer-intra
    shape, 34 x 250 x 256 with 31 taps (roles "separation" and
    "separation_dx").
+17. recipe_separation_rnn -- the recipe's recurrent yamls at their
+   widths in f32, each step on B = 1 mixture of 4 s as phase 16 times
+   it: the DPRNN (``dprnn.yaml``: 6 x (intra + inter) BiLSTMs of 128
+   units a direction over 34 chunks of 250), SkiM (``skim.yaml``: 4
+   bidirectional SegLSTMs of 256 units over 27 segments of 150, 3
+   MemLSTMs) and the RE-SepFormer (``resepformer.yaml``: 2 one-layer
+   transformer segment blocks and 1 memory block at d_model 128); the
+   LSTMs are cuDNN's, so ``FlopCounterMode`` (no formula for
+   ``_cudnn_rnn``) gets their gate products from the shapes
+   (``recurrent_forward_gflop``).  Each Brain's recurrences hold their
+   weights in one buffer, and no "not part of single contiguous chunk"
+   warning is raised.  The port's LSTM on the card against the CPU at
+   the DPRNN's intra shape and the SkiM SegLSTM's (outputs, states and
+   gradients within ``LSTM_CARD_TOL`` of their float64 scale).  Then the
+   recipes on a synthetic tree (12 train, 3 valid, 3 test mixtures of
+   2-5 s): the DPRNN 1 epoch, epoch 2 in a fresh Brain recovered bit for
+   bit, the test pass; SkiM and the RE-SepFormer 1 epoch each through
+   ``run``; every SI-SNR finite.  No port kernel runs here.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -221,7 +242,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 16, each counted from 0 just before its
+(launch counts from phases 3 to 17, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -1735,9 +1756,11 @@ def phase_serve():
                 "plain_search_ms": 1e3 * plain_search_s,
                 "plain_utt_per_s": B / (plain_encode_s + plain_search_s),
             })
+        # the card's events alone: no range is read, and the host's
+        # events of a search take half a minute to collect
         run["profile"] = _profile(
             lambda: _search(asr, enc, lens, beam, ctc_weight,
-                            ctc_score_mode="partial")[2])
+                            ctc_score_mode="partial")[2], cpu=False)
         emit({"phase": "serve", **run})
         runs[dtype_name] = run
         del asr
@@ -1825,9 +1848,12 @@ def phase_serve_lm():
                         float(np.abs(scores - scores_p).max()),
                     "plain_search_ms": 1e3 * plain_search_s,
                 })
+            # the LM's range needs the host's events, about a minute to
+            # collect a search: read it once, the others the card's alone
+            lm_share = search == "valid" and dtype_name == "float32"
             run["profile"] = _profile(
                 lambda: _search(asr, enc, lens, beam, ctc_weight, **options)[2],
-                ranges=("lm_forward",))
+                ranges=("lm_forward",) if lm_share else (), cpu=lm_share)
             emit({"phase": "serve_lm", **run})
             runs[f"{search}_{dtype_name}"] = run
             del asr, enc
@@ -3053,6 +3079,7 @@ def phase_recipe_timit():
     batch = brain.prepare_batch(host_batch)
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
+    assert _rnn_weights_flat(brain.modules)
     ops.reset_launch_counters()
     ms, losses, peak = _run_steps(brain, batch, steps - 1)
     counts = ops.launch_counters()
@@ -3235,6 +3262,7 @@ def phase_recipe_gsc():
     batch = brain.prepare_batch(host_batch)
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
+    assert _rnn_weights_flat(brain.modules)
     ops.reset_launch_counters()
     ms, losses, peak = _run_steps(brain, batch, steps - 1)
     counts = ops.launch_counters()
@@ -3436,6 +3464,7 @@ def phase_recipe_voxceleb():
     batch = brain.prepare_batch(_vox_batch(B, samples, classes, SEED + 9))
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
+    assert _rnn_weights_flat(brain.modules)
     ops.reset_launch_counters()
     ms, losses, peak = _run_steps(brain, batch, steps)
     counts = ops.launch_counters()
@@ -3606,14 +3635,23 @@ def _sep_batch(B, samples, seed):
     return {"mix_sig": s[0] + s[1], "s1_sig": s[0], "s2_sig": s[1]}
 
 
-def _sep_flops(brain, batch):
+# gate products of a recurrence's frame and direction: 2 G H (in + H)
+_RNN_GATES = {"LSTM": 4, "GRU": 3, "RNN_TANH": 1, "RNN_RELU": 1}
+
+
+def _sep_flops(brain, batch, info=None):
     """Floating-point operations of one training forward: the products and
     convolutions PyTorch dispatches (``FlopCounterMode``), plus the
     conformer blocks' depthwise convolutions, which run in the port's
-    kernels (2 B T C K each); and 3x that for a training step (the
-    forward and the backward's two products; ``FlopCounterMode`` counts a
-    grouped convolution's weight gradient as a dense one).  The
-    elementwise work is left out.  Returns (forward, step)."""
+    kernels (2 B T C K each), and the recurrences' gate products (2 G H
+    (in + H) a frame and direction, G 4 for an LSTM) where
+    ``FlopCounterMode`` counted no recurrent op (it has no formula for
+    cuDNN's ``_cudnn_rnn``); and 3x that for a training step (the forward
+    and the backward's two products; ``FlopCounterMode`` counts a grouped
+    convolution's weight gradient as a dense one).  The elementwise work
+    is left out.  Returns (forward, step); ``info`` (a dict) gets the
+    recurrences' forward FLOPs and whether ``FlopCounterMode`` counted
+    them."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -3621,14 +3659,22 @@ def _sep_flops(brain, batch):
     from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
         ConvolutionModule)
 
-    depthwise = [0]
+    depthwise, recurrent = [0], [0]
 
     def conv_module(mod, args, out):
         depthwise[0] += 2 * out.numel() * mod.depthwise_kernel.shape[0]
 
-    hooks = [m.register_forward_hook(conv_module)
-             for m in brain.modules.modules()
-             if isinstance(m, ConvolutionModule)]
+    def rnn_module(mod, args, out):
+        x = args[0]  # (N, T, in): batch_first
+        H, D = mod.hidden_size, 2 if mod.bidirectional else 1
+        recurrent[0] += (2 * _RNN_GATES[mod.mode] * H * (mod.input_size + H)
+                         * x.shape[0] * x.shape[1] * D)
+
+    modules = list(brain.modules.modules())
+    hooks = ([m.register_forward_hook(conv_module) for m in modules
+              if isinstance(m, ConvolutionModule)]
+             + [m.register_forward_hook(rnn_module) for m in modules
+                if isinstance(m, torch.nn.RNNBase)])
     try:
         with torch.no_grad(), FlopCounterMode(display=False) as counter:
             brain.modules.train()
@@ -3636,15 +3682,35 @@ def _sep_flops(brain, batch):
     finally:
         for h in hooks:
             h.remove()
-    forward = counter.get_total_flops() + depthwise[0]
+    counted = any("rnn" in str(op) or "lstm" in str(op)
+                  for op in counter.get_flop_counts().get("Global", {}))
+    forward = (counter.get_total_flops() + depthwise[0]
+               + (0 if counted else recurrent[0]))
+    if info is not None:
+        info.update(recurrent_forward_gflop=recurrent[0] / 1e9,
+                    flop_counter_counts_recurrences=counted)
     return forward, 3 * forward
 
 
-def _sep_step(name, hparams, B, samples, steps, launches, seed):
+def _rnn_weights_flat(module):
+    """Whether every ``torch.nn`` recurrence in ``module`` holds its
+    weights (and the zero ``bias_hh`` buffers) as views of one buffer, as
+    cuDNN wants them: otherwise each call copies them (PyTorch warns "RNN
+    module weights are not part of single contiguous chunk of memory")."""
+    import torch
+
+    return all(len({w.untyped_storage().data_ptr() for w in m._flat_weights})
+               == 1 for m in module.modules()
+               if isinstance(m, torch.nn.RNNBase))
+
+
+def _sep_step(name, hparams, B, samples, steps, launches, seed,
+              phase="recipe_separation_step"):
     """One yaml's training step: a ``Separation`` Brain at its widths
     takes a warm-up and ``steps`` timed Adam steps on ``B`` synthetic
-    mixtures; its launches a step must be ``launches``.  Returns the
-    record and the Brain."""
+    mixtures; its launches a step must be ``launches``, and its
+    recurrences' weights one buffer each.  Returns the record (phase
+    ``phase``) and the Brain."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -3657,6 +3723,7 @@ def _sep_step(name, hparams, B, samples, steps, launches, seed):
     batch = brain.prepare_batch(_sep_batch(B, samples, seed))
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
+    assert _rnn_weights_flat(brain.modules)
     ops.reset_launch_counters()
     ms, losses, peak = _run_steps(brain, batch, steps)
     counts = ops.launch_counters()
@@ -3677,9 +3744,10 @@ def _sep_step(name, hparams, B, samples, steps, launches, seed):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     brain.optimizer.zero_grad(set_to_none=True)
-    fwd_flops, step_flops = _sep_flops(brain, batch)
+    info = {}
+    fwd_flops, step_flops = _sep_flops(brain, batch, info)
     bound = 1e3 * step_flops / PEAK_FLOPS["float32"]
-    run = {"phase": "recipe_separation_step", "hparams": name,
+    run = {"phase": phase, "hparams": name,
            "precision": "fp32", "batch": B, "seconds_audio": samples / 8000,
            "parameters": n_params, "steps": steps, "ms_per_step": ms,
            "mixtures_per_s": 1e3 * B / ms, "peak_mem_bytes": peak,
@@ -3689,6 +3757,8 @@ def _sep_step(name, hparams, B, samples, steps, launches, seed):
            "pytorch_calls_per_step": calls, "step_sync_free": True,
            "launches": counts, "loss_first": first, "loss_last": losses[-1],
            "profile": _profile(one_step, cpu=False)}
+    if info["recurrent_forward_gflop"]:
+        run.update(info)
     emit(run)
     return run, brain
 
@@ -3829,14 +3899,220 @@ def _recipe_sep_run(tmp):
     return run
 
 
+# the synthetic WSJ0-2mix tree of phase 17: mixtures a split
+RECIPE_SEP_RNN = {"tr": 12, "cv": 3, "tt": 3}
+# the port's LSTM on the card against the CPU: the largest difference,
+# over each output, state and gradient, relative to that tensor's largest
+# float64 entry
+LSTM_CARD_TOL = 1e-4
+
+
+def _check_lstm_card():
+    """The port's ``LSTM`` (bidirectional, weights and input biases drawn
+    as ``wsj0mix_separation.build_model`` draws them) at the DPRNN's intra
+    shape (34 chunks x 250 frames x 256, H 128) and the SkiM SegLSTM's (27
+    segments x 150 x 128, H 256, from random (h, c)), training forward and
+    backward of sum(y R) + sum(h) + sum(c): the card in f32 (TF32 off)
+    against the same weights and inputs on the CPU in f32 and in float64.
+    Each output, state and gradient's largest difference, relative to its
+    float64 scale; the card's ms for the forward and backward."""
+    import copy
+
+    import torch
+
+    from speechbrain_tpu_torch.asr import _random_init
+    from speechbrain_tpu_torch.nnet.RNN import LSTM
+    from speechbrain_tpu_torch.recipes.wsj0mix_separation import (
+        _random_biases)
+
+    records = []
+    for role, (N, T, C, H), with_state in (
+            ("dprnn_intra", (34, 250, 256, 128), False),
+            ("skim_segment", (27, 150, 128, 256), True)):
+        gen = torch.Generator().manual_seed(SEED + 31)
+        base = LSTM(C, H, bidirectional=True)
+        _random_init(base, gen)
+        _random_biases(base, gen)
+        x = torch.randn(N, T, C, generator=gen)
+        R = torch.randn(N, T, 2 * H, generator=gen)
+        hx = tuple(0.5 * torch.randn(2, N, H, generator=gen)
+                   for _ in range(2)) if with_state else None
+
+        def run(dev, dtype, time_it=False):
+            m = copy.deepcopy(base).to(dev, dtype).train()
+            xi = x.to(dev, dtype).requires_grad_()
+            h0 = None if hx is None else tuple(
+                v.to(dev, dtype).requires_grad_() for v in hx)
+            params = list(m.parameters())
+
+            def fwd_bwd():
+                y, (h, c) = m(xi, hx=h0)
+                loss = (y * R.to(dev, dtype)).sum() + h.sum() + c.sum()
+                wrt = [xi] + list(h0 or ()) + params
+                return [y, h, c] + list(torch.autograd.grad(loss, wrt))
+
+            out = [t.detach().double().cpu() for t in fwd_bwd()]
+            ms = _time_ms(fwd_bwd, iters=5, warmup=1) if time_it else None
+            return out, ms
+
+        f64, _ = run("cpu", torch.float64)
+        cpu, _ = run("cpu", torch.float32)
+        card, ms = run("cuda", torch.float32, time_it=True)
+
+        def worst(a):
+            return max(float((u - w).abs().max()) / max(float(w.abs().max()),
+                                                        1e-12)
+                       for u, w in zip(a, f64))
+
+        card_cpu = max(float((u - w).abs().max()) / max(float(r.abs().max()),
+                                                        1e-12)
+                       for u, w, r in zip(card, cpu, f64))
+        rec = {"role": role, "shape": [N, T, C, H], "bidirectional": True,
+               "initial_state": with_state, "card_vs_cpu": card_cpu,
+               "card_vs_float64": worst(card), "cpu_vs_float64": worst(cpu),
+               "tolerance": LSTM_CARD_TOL, "card_fwd_bwd_ms": ms}
+        assert card_cpu <= LSTM_CARD_TOL, rec
+        records.append(rec)
+    return records
+
+
+def phase_recipe_separation_rnn():
+    """The WSJ0-2mix recipe's recurrent yamls at their widths in f32: the
+    DPRNN (``dprnn.yaml``), SkiM (``skim.yaml``) and RE-SepFormer
+    (``resepformer.yaml``) steps at B 1 x 4 s, the port's LSTM on the card
+    against the CPU, then the recipes on a synthetic tree (see the module
+    docstring, phase 17).  No cuDNN recurrence warns that its weights are
+    not one buffer."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as recipe
+
+    samples, none = 32000, {k: 0 for k in TRAIN_LAUNCHES}
+    runs = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for i, (name, hp) in enumerate((
+                ("dprnn", recipe.HPARAMS_DPRNN), ("skim", recipe.HPARAMS_SKIM),
+                ("resepformer", recipe.HPARAMS_RESEPFORMER))):
+            runs[name], brain = _sep_step(name, hp, 1, samples, 3, none,
+                                          SEED + 21 + i,
+                                          phase="recipe_separation_rnn_step")
+            del brain
+            torch.cuda.empty_cache()
+        check = {"phase": "recipe_separation_rnn_check",
+                 "lstm_card_vs_cpu": _check_lstm_card()}
+        emit(check)
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_sep_rnn_")
+        try:
+            runs["recipe"] = _recipe_sep_rnn_run(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+    unflat = [str(w.message) for w in caught
+              if "contiguous chunk" in str(w.message)]
+    assert not unflat, unflat
+    return dict(runs, check=check)
+
+
+def _recipe_sep_rnn_run(tmp):
+    """The DPRNN 1 epoch, then epoch 2 in a fresh Brain with the modules,
+    Adam's state, the rate, the plateau schedule and the generator
+    recovered bit for bit, and the test pass; SkiM and the RE-SepFormer 1
+    epoch each through ``run``; every SI-SNR finite, no kernel launched."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as recipe
+
+    data, out = f"{tmp}/wsj", f"{tmp}/dprnn"
+    _, write_s = _timed(lambda: recipe.write_synthetic_wsj0mix(
+        data, RECIPE_SEP_RNN, RECIPE_SEP_SECONDS, seed=SEED + 1))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+    at_recovery = {}
+
+    def build(epochs):
+        parts = recipe.build(data, out, {"number_of_epochs": epochs}, opts,
+                             hparams=recipe.HPARAMS_DPRNN)
+        b = parts["brain"]
+        fit_start = b.on_fit_start
+
+        def on_fit_start():  # the generator as the recovery left it
+            fit_start()
+            at_recovery["generator"] = b.generator.get_state()
+
+        b.on_fit_start = on_fit_start
+        return parts
+
+    ops.reset_launch_counters()
+    parts = build(1)
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    saved = _snapshot(brain)
+    saved_generator = brain.generator.get_state()
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 1
+    n_equal = _same_state(saved, recovered["state"])
+    assert torch.equal(at_recovery["generator"], saved_generator)
+    assert len(brain2.lr_scheduler.losses) == 2
+    assert _rnn_weights_flat(brain2.modules)
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="si-snr"))
+    others = {}
+    for name, hp in (("skim", recipe.HPARAMS_SKIM),
+                     ("resepformer", recipe.HPARAMS_RESEPFORMER)):
+        b, seconds = _timed(lambda: recipe.run(
+            data, f"{tmp}/{name}", {"number_of_epochs": 1}, opts, hparams=hp))
+        others[name] = {"run_1_epoch_s": seconds,
+                        "valid_si_snr_db": -b.stage_stats["VALID"]["si-snr"],
+                        "test_si_snr_db": -b.stage_stats["TEST"]["si-snr"]}
+        del b
+    counts = ops.launch_counters()  # the main path's launches, read here
+    assert all(v == 0 for v in counts.values()), counts
+    valid_losses = log["valid_loss"] + log2["valid_loss"]
+    assert all(np.isfinite(valid_losses + [test_loss])), valid_losses
+    assert all(np.isfinite([o["valid_si_snr_db"], o["test_si_snr_db"]]).all()
+               for o in others.values()), others
+    train_s = sum(log["train_s"] + log2["train_s"])
+    batches = sum(log["batches"] + log2["batches"])
+    run = {
+        "phase": "recipe_separation_rnn", "tree": RECIPE_SEP_RNN,
+        "seconds": RECIPE_SEP_SECONDS, "write_wavs_s": write_s,
+        "precision": "fp32", "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / batches,
+        "valid_s": log["valid_s"] + log2["valid_s"],
+        "valid_si_snr_db": [-v for v in valid_losses],
+        "fit_1_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal, "test_s": test_s,
+        "test_si_snr_db": -test_loss, **others,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
-    of recipe_timit, recipe_gsc, recipe_voxceleb and recipe_separation),
-    each counted from 0 just before its run."""
+    of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation and
+    recipe_separation_rnn), each counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -3931,6 +4207,7 @@ def main():
     gsc = timed("recipe_gsc", phase_recipe_gsc)
     vox = timed("recipe_voxceleb", phase_recipe_voxceleb)
     sep = timed("recipe_separation", phase_recipe_separation)
+    sep_rnn = timed("recipe_separation_rnn", phase_recipe_separation_rnn)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -3938,7 +4215,9 @@ def main():
                  crdnn["fp32"], *recipe_transducer.values(), timit["step"],
                  timit["recipe"], gsc["step"], gsc["recipe"], vox["step"],
                  vox["recipe"], sep["sepformer_b1"], sep["sepformer_b4"],
-                 sep["conformer"], sep["convtasnet"], sep["recipe"]]
+                 sep["conformer"], sep["convtasnet"], sep["recipe"],
+                 sep_rnn["dprnn"], sep_rnn["skim"], sep_rnn["resepformer"],
+                 sep_rnn["recipe"]]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

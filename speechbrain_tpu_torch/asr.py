@@ -41,6 +41,7 @@ either hparams file.
 """
 
 import math
+import re
 
 import torch
 
@@ -240,18 +241,28 @@ def _transformer(c):
     )
 
 
+# the recurrent weights: the LiGRU's, and torch.nn.GRU/LSTM/RNN's per layer
+# and direction
+_RECURRENT = re.compile(r"weight_hh(_l\d+(_reverse)?)?")
+
+
 def _random_init(module, gen):
     """Lecun-normal weights (std 1/sqrt(fan_in); the depthwise taps, a
     cosine classifier's centroids and the ``weight`` of a module that sets
     ``weight_in_out``, such as the ECAPA head's, are (in, out)) from one
     generator, but
-    orthogonal recurrent weights for the LiGRU (``weight_hh``, as the JAX
-    module initialises them: a Gaussian (2H, H) matrix's largest singular
-    values exceed 1 and its relu recurrence can blow up over hundreds of
-    frames at narrow widths); every bias zero, norms' scales one (the
-    CRDNN's LayerNorms have (F, C) scales), ``pos_bias_u``/``v`` zero (as
-    the JAX modules initialise them).  Nothing is left to the global RNG, so a seed gives the same
-    weights in every process."""
+    orthogonal recurrent weights, as the JAX modules initialise every
+    ``u``: the LiGRU's ``weight_hh`` and each ``weight_hh_l{k}`` and
+    ``weight_hh_l{k}_reverse`` of a ``torch.nn.GRU``/``LSTM``/``RNN``
+    (JAX's ``u`` is (H, G H) with orthonormal rows, torch's ``weight_hh``
+    its transpose, whose orthonormal columns are the same distribution; a
+    Gaussian (2H, H) matrix's largest singular values exceed 1 and the
+    LiGRU's relu recurrence can blow up over hundreds of frames at narrow
+    widths); every bias zero (the recurrent ones too, as in JAX), norms'
+    scales one (the CRDNN's LayerNorms have (F, C) scales),
+    ``pos_bias_u``/``v`` zero (as the JAX modules initialise them).
+    Nothing is left to the global RNG, so a seed gives the same weights in
+    every process."""
     norms = {id(p) for m in module.modules() if isinstance(m, LayerNorm)
              for p in m.parameters()}
     in_out = {id(m.weight) for m in module.modules()
@@ -262,7 +273,7 @@ def _random_init(module, gen):
             if id(p) in norms:
                 p.fill_(1.0 if leaf == "weight" else 0.0)
                 continue
-            if leaf == "weight_hh":
+            if _RECURRENT.fullmatch(leaf):
                 torch.nn.init.orthogonal_(p, generator=gen)
                 continue
             if leaf in ("depthwise_kernel", "centroids") or id(p) in in_out:

@@ -16,15 +16,18 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
 - ``InputNormalization``'s global state ``count``/``mean``/``std``;
 - GRU ``l{i}_wx`` Dense ``(in, 3H)`` + bias -> ``weight_ih``/``bias_ih``,
   ``l{i}_u (H, 3H)`` -> ``weight_hh``, ``l{i}_u_bias`` -> ``bias_hh``
-  (``_bwd`` -> the ``_reverse`` direction), gates r, z, n in both;
+  (``_bwd`` -> the ``_reverse`` direction), gates r, z, n in both; the
+  LSTM's (gates i, f, g, o, ``(in, 4H)``) and the RNN's likewise, with a
+  zero ``bias_hh`` (a buffer: JAX's LSTM and RNN have no recurrent bias);
 - ``Embed_0.embedding`` -> ``weight`` (nothing in one-hot mode);
 - LiGRU ``l{i}_wx`` Dense ``(in, 2H)`` (no bias) -> ``layers.{i}.wx.weight``,
   ``l{i}_bn`` BatchNorm (and its ``batch_stats``) -> ``layers.{i}.bn``,
   ``l{i}_u (H, 2H)`` -> ``layers.{i}.weight_hh (2H, H)``;
 - CRDNN ``cnn_{i}`` (``Conv2d_{j}`` and ``LayerNorm_{j}``, scale and bias
-  of shape (F, C)) -> ``cnn.{i}.convs.{j}``/``cnn.{i}.norms.{j}``, ``rnn`` ->
-  the LiGRU, ``dnn_{i}`` (``Dense_0``, ``BatchNorm1d_0``) ->
-  ``dnn.{i}.linear``/``dnn.{i}.norm``;
+  of shape (F, C)) -> ``cnn.{i}.convs.{j}``/``cnn.{i}.norms.{j}``, the
+  projection ``Dense_0`` -> ``proj``, ``rnn`` -> the LiGRU, LSTM or GRU,
+  ``dnn_{i}`` (``Dense_0``, ``BatchNorm1d_0``) -> ``dnn.{i}.linear``/
+  ``dnn.{i}.norm``;
 - Conv1d ``kernel`` (k, in / groups, out) -> ``weight`` (out, in / groups,
   k);
 - ``Xvector``: ``Conv1d_{i}``/``BatchNorm1d_{i}`` -> ``blocks.{i}.conv``/
@@ -50,12 +53,21 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``Linear`` -> ``weight`` (out, in);
 - ``SepformerWrapper``: ``Encoder_0`` -> ``encoder.conv``,
   ``Dual_Path_Model_0``'s ``LayerNorm_0``/``Conv1d_0`` -> ``masknet.norm``/
-  ``masknet.conv1d``, ``intra_{l}``/``inter_{l}`` (a ``TransformerEncoder_0``
-  or a conformer ``encoder``) -> ``masknet.intra.{l}.mdl``/
+  ``masknet.conv1d``, ``intra_{l}``/``inter_{l}`` (a ``TransformerEncoder_0``,
+  a conformer ``encoder`` or an ``SBRNNBlock``'s ``LSTM_0``) ->
+  ``masknet.intra.{l}.mdl``/
   ``masknet.inter.{l}.mdl``, ``LayerNorm_{2l+1}``/``LayerNorm_{2l+2}`` ->
   ``masknet.intra_norm.{l}``/``masknet.inter_norm.{l}``, ``PReLU_0`` ->
   ``masknet.prelu``, ``Conv1d_1`` -> ``masknet.conv_out``, ``Decoder_0`` ->
   ``decoder.conv``;
+- ``SkiMSeparator`` (and ``ResepformerWrapper``): ``Encoder_0``/
+  ``Decoder_0`` as above, ``masknet.pipeline``'s ``seg_{i}``/``mem_{i}``
+  -> ``masknet.pipeline.seg.{i}``/``.mem.{i}`` (a SegLSTM's ``lstm``,
+  ``proj``, ``norm``; a MemLSTM's ``h_net``/``c_net``, ``*_proj``,
+  ``*_norm``; a transformer segment's ``block`` (its
+  ``TransformerEncoder_0`` -> ``block.mdl``) and ``norm``), ``output_fc``;
+  ``RESepformer``: ``intra_{i}``/``inter_{i}`` -> ``intra.{i}.mdl``/
+  ``inter.{i}.mdl``, the 1x1 ``mask_out`` -> ``mask_out``;
 - ``ConvTasNet``: ``Encoder_0.conv1d_U`` -> ``encoder.conv``, ``MaskNet_0``'s
   ``layer_norm``, ``bottleneck_conv1x1``, ``mask_conv1x1`` ->
   ``masknet.layer_norm``, ``.bottleneck``, ``.mask_conv``, its
@@ -102,6 +114,10 @@ __all__ = [
     "embedding",
     "conformer_transducer_state_dict",
     "to_jax_gru",
+    "lstm",
+    "to_jax_lstm",
+    "rnn",
+    "to_jax_rnn",
     "to_jax_conformer_transducer",
     "ligru_state_dict",
     "to_jax_ligru",
@@ -127,6 +143,10 @@ __all__ = [
     "to_jax_conv_transpose1d",
     "sepformer_state_dict",
     "to_jax_sepformer",
+    "skim_state_dict",
+    "to_jax_skim",
+    "resepformer_state_dict",
+    "to_jax_resepformer",
     "convtasnet_state_dict",
     "to_jax_convtasnet",
     "adamw_state_to_torch",
@@ -318,9 +338,10 @@ def conformer_asr_state_dict(frontend_vars, transformer_params,
     }
 
 
-def gru(p):
-    """JAX GRU params -> the port's ``GRU`` state_dict (``rnns.{i}``, one
-    one-layer ``torch.nn.GRU`` per layer)."""
+def _recurrent(p, gates):
+    """JAX GRU/LSTM/RNN params -> the port's module's state_dict
+    (``rnns.{i}``, one one-layer ``torch.nn`` recurrence per layer); the
+    recurrent bias is the GRU's ``l{i}_u_bias``, zeros for the others."""
     sd = {}
     layers = sorted({int(k[1:].split("_")[0]) for k in p})
     for i in layers:
@@ -328,12 +349,34 @@ def gru(p):
             if f"{name}_wx" not in p:
                 continue
             wx = dense(p[f"{name}_wx"])
+            u = _t(p[f"{name}_u"]).T.contiguous()
+            if u.shape[0] != gates * u.shape[1]:
+                raise ValueError(f"{name}_u {tuple(u.shape)[::-1]}: not "
+                                 f"(H, {gates} H)")
             sd[f"rnns.{i}.weight_ih_l0{suffix}"] = wx["weight"]
-            sd[f"rnns.{i}.weight_hh_l0{suffix}"] = (
-                _t(p[f"{name}_u"]).T.contiguous())
+            sd[f"rnns.{i}.weight_hh_l0{suffix}"] = u
             sd[f"rnns.{i}.bias_ih_l0{suffix}"] = wx["bias"]
-            sd[f"rnns.{i}.bias_hh_l0{suffix}"] = _t(p[f"{name}_u_bias"])
+            sd[f"rnns.{i}.bias_hh_l0{suffix}"] = (
+                _t(p[f"{name}_u_bias"]) if f"{name}_u_bias" in p
+                else torch.zeros(u.shape[0]))
     return sd
+
+
+def gru(p):
+    """JAX GRU params -> the port's ``GRU`` state_dict."""
+    return _recurrent(p, 3)
+
+
+def lstm(p):
+    """JAX LSTM params -> the port's ``LSTM`` state_dict (``bias_hh``
+    zero)."""
+    return _recurrent(p, 4)
+
+
+def rnn(p):
+    """JAX RNN params -> the port's ``RNN`` state_dict (``bias_hh``
+    zero)."""
+    return _recurrent(p, 1)
 
 
 def embedding(p):
@@ -398,8 +441,14 @@ def crdnn_state_dict(params, batch_stats):
         for j, norm in enumerate(_numbered(block, "LayerNorm_")):
             sd.update(_prefixed(f"cnn.{i}.norms.{j}",
                                 layer_norm(norm["LayerNorm_0"])))
-    sd.update(_prefixed("rnn", ligru_state_dict(params["rnn"],
-                                                batch_stats["rnn"])))
+    if "Dense_0" in params:
+        sd.update(_prefixed("proj", dense(params["Dense_0"])))
+    rnn = params["rnn"]
+    if "l0_bn" in rnn:
+        sd.update(_prefixed("rnn", ligru_state_dict(rnn, batch_stats["rnn"])))
+    else:
+        gates = np.shape(rnn["l0_u"])[1] // np.shape(rnn["l0_u"])[0]
+        sd.update(_prefixed("rnn", _recurrent(rnn, gates)))
     for i, block in enumerate(_numbered(params, "dnn_")):
         sd.update(_prefixed(f"dnn.{i}.linear", dense(block["Dense_0"])))
         sd.update(_prefixed(f"dnn.{i}.norm", _batch_norm(
@@ -722,7 +771,10 @@ def to_jax_conformer_asr(state_dict):
 
 
 def to_jax_gru(state_dict, prefix=""):
-    """The port's ``GRU`` state_dict -> JAX GRU params."""
+    """The port's ``GRU``, ``LSTM`` or ``RNN`` state_dict -> JAX params
+    (also ``to_jax_lstm``/``to_jax_rnn``): the GRU (``weight_hh`` (3H,
+    H)) keeps its ``bias_hh`` as ``l{i}_u_bias``; the LSTM's and the
+    RNN's zero ``bias_hh`` has no JAX counterpart."""
     s = _Sub(state_dict, prefix)
     p = {}
     for i in range(s.count("rnns")):
@@ -730,11 +782,16 @@ def to_jax_gru(state_dict, prefix=""):
         for name, suffix in ((f"l{i}", ""), (f"l{i}_bwd", "_reverse")):
             if f"weight_ih_l0{suffix}" not in r:
                 continue
+            u = _a(r[f"weight_hh_l0{suffix}"])
             p[f"{name}_wx"] = {"kernel": _a(r[f"weight_ih_l0{suffix}"]).T.copy(),
                                "bias": _a(r[f"bias_ih_l0{suffix}"])}
-            p[f"{name}_u"] = _a(r[f"weight_hh_l0{suffix}"]).T.copy()
-            p[f"{name}_u_bias"] = _a(r[f"bias_hh_l0{suffix}"])
+            p[f"{name}_u"] = u.T.copy()
+            if u.shape[0] == 3 * u.shape[1]:
+                p[f"{name}_u_bias"] = _a(r[f"bias_hh_l0{suffix}"])
     return p
+
+
+to_jax_lstm = to_jax_rnn = to_jax_gru
 
 
 def to_jax_conformer_transducer(state_dict):
@@ -790,7 +847,12 @@ def to_jax_crdnn(state_dict, prefix=""):
             p[f"LayerNorm_{j}"] = {"LayerNorm_0": _ln_to_jax(
                 block.sub(f"norms.{j}"))}
         params[f"cnn_{i}"] = p
-    params["rnn"], stats["rnn"] = to_jax_ligru(state_dict, prefix + "rnn.")
+    if "proj.weight" in s:
+        params["Dense_0"] = _dense_to_jax(s.sub("proj"))
+    if "rnn.layers.0.weight_hh" in s:
+        params["rnn"], stats["rnn"] = to_jax_ligru(state_dict, prefix + "rnn.")
+    else:
+        params["rnn"] = to_jax_gru(state_dict, prefix + "rnn.")
     for i in range(s.count("dnn")):
         block = s.sub(f"dnn.{i}")
         bn, st = _bn_to_jax(block.sub("norm"))
@@ -993,8 +1055,10 @@ def _dual_path(dp):
     for layer in range(len(_numbered(dp, "intra_"))):
         for kind in ("intra", "inter"):
             block = dp[f"{kind}_{layer}"]
-            stack = block.get("TransformerEncoder_0", block.get("encoder"))
-            sd.update(_prefixed(f"{kind}.{layer}.mdl", _encoder_stack(stack)))
+            sd.update(_prefixed(f"{kind}.{layer}.mdl", (
+                lstm(block["LSTM_0"]) if "LSTM_0" in block else
+                _encoder_stack(block.get("TransformerEncoder_0",
+                                         block.get("encoder"))))))
         sd.update(_prefixed(f"intra_norm.{layer}",
                             layer_norm(dp[f"LayerNorm_{2 * layer + 1}"])))
         sd.update(_prefixed(f"inter_norm.{layer}",
@@ -1005,7 +1069,7 @@ def _dual_path(dp):
 
 
 def sepformer_state_dict(params):
-    """JAX ``SepformerWrapper`` params (transformer or conformer intra
+    """JAX ``SepformerWrapper`` params (transformer, conformer or RNN
     blocks) -> the port's ``SepformerWrapper`` state_dict."""
     return {
         **_prefixed("encoder.conv",
@@ -1025,6 +1089,10 @@ def to_jax_sepformer(state_dict, prefix=""):
     for layer in range(m.count("intra")):
         for kind in ("intra", "inter"):
             stack = m.sub(f"{kind}.{layer}.mdl")
+            if "rnns.0.weight_ih_l0" in stack:
+                dp[f"{kind}_{layer}"] = {"LSTM_0": to_jax_lstm(
+                    state_dict, stack.prefix)}
+                continue
             name = ("encoder" if "layers.0.ffn1.w_1.weight" in stack
                     else "TransformerEncoder_0")
             dp[f"{kind}_{layer}"] = {name: _encoder_stack_to_jax(stack)}
@@ -1042,6 +1110,121 @@ def to_jax_sepformer(state_dict, prefix=""):
             "ConvTranspose_0": to_jax_conv_transpose1d(
                 state_dict, prefix + "decoder.conv.")}},
     }
+
+
+def _resep_block(b):
+    """A JAX pipeline block -> the port's: ``SBTransformerBlock_wnormandskip``
+    (``block``, ``norm``), ``SegLSTM`` (``lstm``, ``proj``, ``norm``) or
+    ``MemLSTM`` (``{h,c}_net``, ``_proj``, ``_norm``)."""
+    if "block" in b:
+        sd = _prefixed("block.mdl",
+                       _encoder_stack(b["block"]["TransformerEncoder_0"]))
+        if "norm" in b:
+            sd.update(_prefixed("norm", layer_norm(b["norm"])))
+        return sd
+    sd = {}
+    for net, proj, norm in (("lstm", "proj", "norm"),
+                            ("h_net", "h_proj", "h_norm"),
+                            ("c_net", "c_proj", "c_norm")):
+        if net in b:
+            sd.update(_prefixed(net, lstm(b[net])))
+            sd.update(_prefixed(proj, dense(b[proj])))
+            sd.update(_prefixed(norm, layer_norm(b[norm])))
+    return sd
+
+
+def _resep_block_to_jax(s):
+    if "block.mdl.norm_out.weight" in s:
+        b = {"block": {"TransformerEncoder_0": _encoder_stack_to_jax(
+            s.sub("block.mdl"))}}
+        if "norm.weight" in s:
+            b["norm"] = _ln_to_jax(s.sub("norm"))
+        return b
+    b = {}
+    for net, proj, norm in (("lstm", "proj", "norm"),
+                            ("h_net", "h_proj", "h_norm"),
+                            ("c_net", "c_proj", "c_norm")):
+        if f"{net}.rnns.0.weight_ih_l0" in s:
+            b[net] = to_jax_lstm(s.sd, f"{s.prefix}{net}.")
+            b[proj] = _dense_to_jax(s.sub(proj))
+            b[norm] = _ln_to_jax(s.sub(norm))
+    return b
+
+
+def _pipeline(p):
+    """JAX ``ResourceEfficientSeparationPipeline`` params -> the port's."""
+    sd = {}
+    for kind in ("seg", "mem"):
+        for i, block in enumerate(_numbered(p, f"{kind}_")):
+            sd.update(_prefixed(f"{kind}.{i}", _resep_block(block)))
+    sd.update(_prefixed("output_fc", dense(p["output_fc"])))
+    return sd
+
+
+def skim_state_dict(params):
+    """JAX ``SkiMSeparator`` (or ``ResepformerWrapper``) params -> the
+    port's state_dict: ``Encoder_0``/``Decoder_0`` as for the SepFormer,
+    ``masknet.pipeline``'s ``seg_{i}``/``mem_{i}`` -> ``seg.{i}``/
+    ``mem.{i}``, ``output_fc`` as it is."""
+    sd = _prefixed("masknet.pipeline",
+                   _pipeline(params["masknet"]["pipeline"]))
+    sd.update(_prefixed("encoder.conv",
+                        conv1d(params["Encoder_0"]["Conv1d_0"]["Conv_0"])))
+    sd.update(_prefixed("decoder.conv", conv_transpose1d(
+        params["Decoder_0"]["ConvTranspose1d_0"]["ConvTranspose_0"])))
+    return sd
+
+
+def _codec_to_jax(state_dict, prefix):
+    s = _Sub(state_dict, prefix)
+    return {
+        "Encoder_0": {"Conv1d_0": {"Conv_0": _conv1d_to_jax(
+            s.sub("encoder.conv"))}},
+        "Decoder_0": {"ConvTranspose1d_0": {
+            "ConvTranspose_0": to_jax_conv_transpose1d(
+                state_dict, prefix + "decoder.conv.")}},
+    }
+
+
+def to_jax_skim(state_dict, prefix=""):
+    """The port's ``SkiMSeparator`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix).sub("masknet.pipeline")
+    pipe = {}
+    for kind in ("seg", "mem"):
+        for i in range(s.count(kind)):
+            pipe[f"{kind}_{i}"] = _resep_block_to_jax(s.sub(f"{kind}.{i}"))
+    pipe["output_fc"] = _dense_to_jax(s.sub("output_fc"))
+    return {**_codec_to_jax(state_dict, prefix),
+            "masknet": {"pipeline": pipe}}
+
+
+def resepformer_state_dict(params):
+    """JAX ``RESepformer`` params -> the port's state_dict: ``intra_{i}``/
+    ``inter_{i}`` (``TransformerEncoder_0``) -> ``intra.{i}.mdl``/
+    ``inter.{i}.mdl``, the 1x1 ``mask_out`` -> ``mask_out``."""
+    sd = {}
+    for kind in ("intra", "inter"):
+        for i, block in enumerate(_numbered(params, f"{kind}_")):
+            sd.update(_prefixed(f"{kind}.{i}.mdl", _encoder_stack(
+                block["TransformerEncoder_0"])))
+    sd.update(_prefixed("mask_out", _pointwise(params["mask_out"]["Conv_0"])))
+    sd.update(_prefixed("encoder.conv",
+                        conv1d(params["Encoder_0"]["Conv1d_0"]["Conv_0"])))
+    sd.update(_prefixed("decoder.conv", conv_transpose1d(
+        params["Decoder_0"]["ConvTranspose1d_0"]["ConvTranspose_0"])))
+    return sd
+
+
+def to_jax_resepformer(state_dict, prefix=""):
+    """The port's ``RESepformer`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    p = _codec_to_jax(state_dict, prefix)
+    for kind in ("intra", "inter"):
+        for i in range(s.count(kind)):
+            p[f"{kind}_{i}"] = {"TransformerEncoder_0": _encoder_stack_to_jax(
+                s.sub(f"{kind}.{i}.mdl"))}
+    p["mask_out"] = {"Conv_0": _pointwise_to_jax(s.sub("mask_out"))}
+    return p
 
 
 def _tasnet_norm(p):

@@ -6,11 +6,12 @@ recipe's ``hparams/train.yaml`` and of the TIMIT CRDNN recipes.  The
 modules are built from their input's widths, since a torch module's
 parameters exist before its first call (Flax infers them then).
 Pooling is a max over VALID windows of the frequency axis, inlined as
-the JAX module inlines it (``nnet/pooling.py`` is not ported).  Only
-``rnn_class="ligru"`` is ported (the LSTM and GRU classes wait for the
-remaining RNNs), and none of the JAX module's options that no recipe
-sets: time pooling, 2-d pooling, the projection, other kernel sizes and
-the CNN blocks' BatchNorm.
+the JAX module inlines it (``nnet/pooling.py`` is not ported).  The
+recurrence is any of the JAX module's ``rnn_class`` values ("ligru",
+"lstm", "gru"), with the optional ``projection_dim`` Linear before it;
+none of the JAX module's options that no recipe sets is ported: time
+pooling, 2-d pooling, other kernel sizes, ``rnn_layers`` 0 and the CNN
+blocks' BatchNorm.
 """
 
 import torch
@@ -20,7 +21,7 @@ from ...nnet.CNN import Conv2d
 from ...nnet.dropout import Dropout, Dropout2d
 from ...nnet.linear import Linear
 from ...nnet.normalization import BatchNorm1d, LayerNorm
-from ...nnet.RNN import LiGRU
+from ...nnet.RNN import GRU, LSTM, LiGRU
 
 __all__ = ["CNN_Block", "DNN_Block", "CRDNN"]
 
@@ -84,16 +85,24 @@ class DNN_Block(torch.nn.Module):
         return self.drop(F.leaky_relu(self.norm(self.linear(x)), 0.01))
 
 
+_RNN_CLASSES = {"ligru": LiGRU, "lstm": LSTM, "gru": GRU}
+
+
 class CRDNN(torch.nn.Module):
-    """CNN blocks -> (B, T, F * C) -> LiGRU (bidirectional by default) ->
-    DNN blocks, over (B, T, input_size) features.
+    """CNN blocks -> (B, T, F * C) -> [Linear(projection_dim)] -> the
+    recurrence (bidirectional by default) -> DNN blocks, over (B, T,
+    input_size) features.
 
     Arguments as in the JAX module, with ``input_size`` the feature bins
     (``n_mels``); the CNN block ``i`` pools the frequency axis by
     ``inter_layer_pooling_size[i]`` (80 -> 40 -> 20 at the recipe's
-    widths), so the LiGRU sees ``F * cnn_channels[-1]`` inputs (2560).
-    ``rnn_class`` must be "ligru".  ``forward(x, lengths=None)`` returns
-    (B, T, dnn_neurons); ``lengths`` is accepted, as in JAX, and unused.
+    widths), so the recurrence sees ``F * cnn_channels[-1]`` inputs
+    (2560), or ``projection_dim`` of them when it is positive (JAX's
+    ``Dense_0``, with a bias).  ``rnn_class``: "ligru" (``LiGRU``),
+    "lstm" (``LSTM``) or "gru" (``GRU``), each with dropout ``dropout``
+    (the LSTM's and GRU's between layers).  ``forward(x, lengths=None)``
+    returns (B, T, dnn_neurons); ``lengths`` is accepted, as in JAX, and
+    unused.
 
     Example
     -------
@@ -106,13 +115,12 @@ class CRDNN(torch.nn.Module):
     def __init__(self, input_size, cnn_blocks=2, cnn_channels=(128, 256),
                  rnn_class="ligru", inter_layer_pooling_size=(2, 2),
                  rnn_layers=4, rnn_neurons=512, rnn_bidirectional=True,
-                 dnn_blocks=2, dnn_neurons=512, dropout=0.15):
+                 dnn_blocks=2, dnn_neurons=512, dropout=0.15,
+                 projection_dim=-1):
         super().__init__()
-        if rnn_class != "ligru":
-            raise ValueError(
-                f"CRDNN rnn_class {rnn_class!r}: only 'ligru' is ported; the "
-                "LSTM and GRU classes wait for the remaining RNNs (ROADMAP "
-                "Queue 1 item 8)")
+        if rnn_class not in _RNN_CLASSES:
+            raise ValueError(f"CRDNN rnn_class {rnn_class!r}: one of "
+                             f"{sorted(_RNN_CLASSES)}")
         blocks, n_freq, in_ch = [], input_size, 1
         for i in range(cnn_blocks):
             blocks.append(CNN_Block(in_ch, n_freq, cnn_channels[i],
@@ -120,8 +128,14 @@ class CRDNN(torch.nn.Module):
             n_freq //= inter_layer_pooling_size[i]
             in_ch = cnn_channels[i]
         self.cnn = torch.nn.ModuleList(blocks)
-        self.rnn = LiGRU(n_freq * in_ch, rnn_neurons, num_layers=rnn_layers,
-                         bidirectional=rnn_bidirectional, dropout=dropout)
+        width = n_freq * in_ch
+        self.proj = None
+        if projection_dim > 0:
+            self.proj = Linear(width, projection_dim)
+            width = projection_dim
+        self.rnn = _RNN_CLASSES[rnn_class](
+            width, rnn_neurons, num_layers=rnn_layers,
+            bidirectional=rnn_bidirectional, dropout=dropout)
         width = rnn_neurons * (2 if rnn_bidirectional else 1)
         dnn = []
         for _ in range(dnn_blocks):
@@ -134,7 +148,11 @@ class CRDNN(torch.nn.Module):
         """x: (B, T, input_size)."""
         for block in self.cnn:
             x = block(x)
-        x, _ = self.rnn(x)  # a 4-d input is flattened to (B, T, F * C)
+        if x.dim() == 4:
+            x = x.reshape(x.shape[0], x.shape[1], -1)  # (B, T, F * C)
+        if self.proj is not None:
+            x = self.proj(x)
+        x, _ = self.rnn(x)
         for block in self.dnn:
             x = block(x)
         return x

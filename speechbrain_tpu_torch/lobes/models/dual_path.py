@@ -1,13 +1,13 @@
-"""Dual-path separation models: the SepFormer and its conformer-intra
-variant.
+"""Dual-path separation models: the SepFormer, its conformer-intra
+variant and the DPRNN.
 
 Counterpart of ``speechbrain_tpu/lobes/models/dual_path.py``
 (``Encoder``, ``Decoder``, ``SBTransformerBlock``,
-``SBConformerEncoderBlock``, ``Dual_Path_Model``, ``SepformerWrapper``,
-``GlobalLayerNorm``, ``CumulativeLayerNorm``, ``select_norm``),
-channels-last as there.  The RNN blocks (``SBRNNBlock``,
-``DPTNetBlock``), ``PytorchTransformerBlock`` and
-``Dual_Computation_Block`` are not ported.
+``SBConformerEncoderBlock``, ``SBRNNBlock``, ``Dual_Path_Model``,
+``SepformerWrapper``, ``GlobalLayerNorm``, ``CumulativeLayerNorm``,
+``select_norm``), channels-last as there.  ``DPTNetBlock``,
+``PytorchTransformerBlock`` and ``Dual_Computation_Block`` are not
+ported.
 
 The chunking and the overlap-add of ``Dual_Path_Model`` run without a
 gather or a scatter: the chunk size K is even (250 in every yaml; an odd
@@ -26,6 +26,7 @@ from ...nnet.activations import PReLU
 from ...nnet.attention import RelPosEncXL
 from ...nnet.CNN import Conv1d, ConvTranspose1d
 from ...nnet.linear import Linear
+from ...nnet.RNN import LSTM
 from .transformer.Conformer import ConformerEncoder, LayerNorm, _ln
 from .transformer.Transformer import PositionalEncoding, TransformerEncoder
 
@@ -34,6 +35,7 @@ __all__ = [
     "Decoder",
     "SBTransformerBlock",
     "SBConformerEncoderBlock",
+    "SBRNNBlock",
     "Dual_Path_Model",
     "SepformerWrapper",
     "GlobalLayerNorm",
@@ -132,6 +134,26 @@ class SBConformerEncoderBlock(torch.nn.Module):
         return self.mdl(x, pos_embs=self.pos_enc(x))[0]
 
 
+class SBRNNBlock(torch.nn.Module):
+    """The DPRNN's block: a bidirectional ``LSTM`` of ``hidden_channels``
+    units a direction (no output layer), (B, T, input_size) -> (B, T, 2
+    hidden_channels).
+
+    Example
+    -------
+    >>> SBRNNBlock(16, 8)(torch.ones(2, 10, 16)).shape
+    torch.Size([2, 10, 16])
+    """
+
+    def __init__(self, input_size, hidden_channels=128, num_layers=1):
+        super().__init__()
+        self.mdl = LSTM(input_size, hidden_channels, num_layers=num_layers,
+                        bidirectional=True)
+
+    def forward(self, x):
+        return self.mdl(x)[0]
+
+
 def _chunk(x, K):
     """(B, T, C) -> (B, S, K, C) chunks at hop K / 2: ``x`` padded with K / 2
     zeros in front and ``gap + K / 2`` behind, so that the chunks cover
@@ -164,10 +186,13 @@ class Dual_Path_Model(torch.nn.Module):
     residual; inter-chunk block over S, LayerNorm, residual) -> PReLU ->
     1x1 conv to ``num_spks`` x ``out_channels`` -> overlap-add -> ReLU.
     Takes (B, T, in_channels) and returns the masks (num_spks, B, T,
-    out_channels).  ``K`` must be even.  ``intra_block``/``inter_block``: "transformer"
-    (``SBTransformerBlock``) or "conformer" (``SBConformerEncoderBlock``).
-    The LayerNorms have Flax's eps (1e-6); the 1x1 convolutions are
-    ``Linear`` layers.
+    out_channels).  ``K`` must be even.  ``intra_block``/``inter_block``:
+    "transformer" (``SBTransformerBlock``), "conformer"
+    (``SBConformerEncoderBlock``) or "rnn" (``SBRNNBlock`` of
+    ``out_channels // 2`` units a direction, whatever the block's
+    ``*_numlayers``, ``*_nhead`` and ``*_dffn``); ``use_rnn`` makes both
+    "rnn" (the DPRNN).  The LayerNorms have Flax's eps (1e-6); the 1x1
+    convolutions are ``Linear`` layers.
 
     Example
     -------
@@ -182,8 +207,11 @@ class Dual_Path_Model(torch.nn.Module):
                  num_spks=2, intra_numlayers=2, inter_numlayers=2,
                  intra_nhead=8, inter_nhead=8, intra_dffn=1024,
                  inter_dffn=1024, intra_block="transformer",
-                 inter_block="transformer", conformer_kernel_size=31):
+                 inter_block="transformer", conformer_kernel_size=31,
+                 use_rnn=False):
         super().__init__()
+        if use_rnn:
+            intra_block = inter_block = "rnn"
         if K % 2:
             raise ValueError(f"chunk size {K}: an even one (hop K / 2)")
         self.K, self.num_spks, self.out_channels = K, num_spks, out_channels
@@ -197,8 +225,10 @@ class Dual_Path_Model(torch.nn.Module):
                     kernel_size=conformer_kernel_size)
             if kind == "transformer":
                 return SBTransformerBlock(numlayers, out_channels, nhead, dffn)
-            raise ValueError(f"block {kind!r}: 'transformer' or 'conformer' "
-                             "(the RNN blocks are not ported)")
+            if kind == "rnn":
+                return SBRNNBlock(out_channels, out_channels // 2)
+            raise ValueError(f"block {kind!r}: 'transformer', 'conformer' or "
+                             "'rnn'")
 
         self.intra = torch.nn.ModuleList(
             block(intra_block, intra_numlayers, intra_nhead, intra_dffn)
@@ -231,11 +261,24 @@ class Dual_Path_Model(torch.nn.Module):
         return masks.reshape(B, T, self.num_spks, C).permute(2, 0, 1, 3)
 
 
+def decode_masked(decoder, w, masks, T):
+    """Each source's mask of ``masks`` (num_spks, B, T', N) applied to the
+    latent ``w`` (B, T', N), all decoded by ``decoder`` at once, cut or
+    zero-padded to T samples -> (B, T, num_spks) estimates."""
+    S, B = masks.shape[0], masks.shape[1]
+    est = decoder((w[None] * masks).flatten(0, 1)).reshape(S, B, -1)
+    if est.shape[-1] >= T:
+        est = est[..., :T]
+    else:
+        est = F.pad(est, (0, T - est.shape[-1]))
+    return est.permute(1, 2, 0)
+
+
 class SepformerWrapper(torch.nn.Module):
-    """The SepFormer: ``Encoder`` -> ``Dual_Path_Model`` masks -> each
-    source's masked latent through the shared ``Decoder``, cut or
-    zero-padded to the mixture's length.  (B, T) mixtures -> (B, T,
-    num_spks) estimates.
+    """The SepFormer (the DPRNN with ``use_rnn``): ``Encoder`` ->
+    ``Dual_Path_Model`` masks -> each source's masked latent through the
+    shared ``Decoder``, cut or zero-padded to the mixture's length.  (B,
+    T) mixtures -> (B, T, num_spks) estimates.
 
     Example
     -------
@@ -252,7 +295,8 @@ class SepformerWrapper(torch.nn.Module):
                  masknet_numlayers=2, masknet_numspks=2, intra_numlayers=8,
                  inter_numlayers=8, intra_nhead=8, inter_nhead=8,
                  intra_dffn=1024, inter_dffn=1024, intra_block="transformer",
-                 inter_block="transformer", conformer_kernel_size=31):
+                 inter_block="transformer", conformer_kernel_size=31,
+                 use_rnn=False):
         super().__init__()
         self.num_spks = masknet_numspks
         self.encoder = Encoder(encoder_kernel_size, encoder_out_nchannels,
@@ -265,20 +309,12 @@ class SepformerWrapper(torch.nn.Module):
             inter_nhead=inter_nhead, intra_dffn=intra_dffn,
             inter_dffn=inter_dffn, intra_block=intra_block,
             inter_block=inter_block,
-            conformer_kernel_size=conformer_kernel_size)
+            conformer_kernel_size=conformer_kernel_size, use_rnn=use_rnn)
         self.decoder = Decoder(encoder_kernel_size, encoder_out_nchannels)
 
     def forward(self, mix):
-        B, T = mix.shape[0], mix.shape[1]
         w = self.encoder(mix)
-        masks = self.masknet(w)  # (spks, B, T', N)
-        est = self.decoder((w[None] * masks).flatten(0, 1))
-        est = est.reshape(self.num_spks, B, -1)
-        if est.shape[-1] >= T:
-            est = est[..., :T]
-        else:
-            est = F.pad(est, (0, T - est.shape[-1]))
-        return est.permute(1, 2, 0)
+        return decode_masked(self.decoder, w, self.masknet(w), mix.shape[1])
 
 
 class GlobalLayerNorm(torch.nn.Module):

@@ -1,28 +1,37 @@
-"""Recurrent layers: the gated recurrent unit and the light GRU.
+"""Recurrent layers: the GRU, the LSTM, the plain RNN and the light GRU.
 
-Counterpart of ``speechbrain_tpu/nnet/RNN.py`` (``GRU`` and the
-multi-layer / bidirectional plumbing of ``_RecurrentBase``).  The JAX
-GRU is a ``lax.scan`` (no kernel); each of its layers here is a
-one-layer ``torch.nn.GRU``, the same formula:
+Counterpart of ``speechbrain_tpu/nnet/RNN.py`` (``GRU``, ``LSTM``,
+``RNN`` and the multi-layer / bidirectional plumbing of
+``_RecurrentBase``).  The JAX layers are ``lax.scan``s (no kernel); each
+of their layers here is a one-layer ``torch.nn.GRU``/``LSTM``/``RNN``
+(cuDNN on the card), the same formulas with the gates in the same order:
 
-    r = sigmoid(W_ir x + b_ir + W_hr h + b_hr)
-    z = sigmoid(W_iz x + b_iz + W_hz h + b_hz)
-    n = tanh(W_in x + b_in + r * (W_hn h + b_hn))
-    h = (1 - z) * n + z * h
+    GRU (r, z, n):  r = sigmoid(W_ir x + b_ir + W_hr h + b_hr)
+                    z = sigmoid(W_iz x + b_iz + W_hz h + b_hz)
+                    n = tanh(W_in x + b_in + r * (W_hn h + b_hn))
+                    h = (1 - z) * n + z * h
+    LSTM (i, f, g, o):  c = sigmoid(f) * c + sigmoid(i) * tanh(g)
+                        h = sigmoid(o) * tanh(c)
+                        (each gate W_i* x + b_i* + W_h* h)
+    RNN:            h = tanh(W_ih x + b_ih + W_hh h)  (or relu)
 
-with the gates in the order r, z, n in both (``bridge.gru`` maps the
-Flax ``l{i}_wx`` Dense (in, 3H) + bias, ``l{i}_u`` (H, 3H) and
-``l{i}_u_bias`` onto ``weight_ih``/``bias_ih``, ``weight_hh`` and
-``bias_hh``).  Dropout between layers is the port's ``Dropout``, whose
-mask comes from the trainer's generator (``nn.GRU(dropout=...)`` would
-draw from the global RNG).
+``bridge.gru``/``lstm``/``rnn`` map the Flax ``l{i}_wx`` Dense (in, G H)
++ bias, ``l{i}_u`` (H, G H) and the GRU's ``l{i}_u_bias`` onto
+``weight_ih``/``bias_ih``, ``weight_hh`` and ``bias_hh`` (``_bwd`` onto
+the ``_reverse`` direction).  JAX's LSTM and RNN have no recurrent bias:
+their ``bias_hh`` here is a zero buffer, not a parameter, so that no
+optimizer moves it and no gradient clip counts it (a trained ``bias_hh``
+would take the same gradient as ``bias_ih``: Adam would move their sum
+twice as far as JAX moves its one bias).  Dropout between layers is the
+port's ``Dropout``, whose mask comes from the trainer's generator
+(``nn.GRU(dropout=...)`` would draw from the global RNG).
 
 ``LiGRU`` is the light GRU of the CRDNN encoder (JAX ``LiGRU``, also a
 ``lax.scan``): the input projection of every step is one GEMM followed
 by a BatchNorm, and the recurrence is a PyTorch loop over time inside an
 autograd ``Function`` whose backward is the loop run backwards (one
 ``addmm`` a step each way), so autograd records two nodes a layer, not
-several per step.  LSTM and QuasiRNN are not ported.
+several per step.  QuasiRNN and the cells are not ported.
 """
 
 import torch
@@ -31,20 +40,82 @@ from .dropout import Dropout
 from .linear import Linear
 from .normalization import BatchNorm1d
 
-__all__ = ["GRU", "LiGRU"]
+__all__ = ["GRU", "LSTM", "RNN", "LiGRU"]
 
 
-class GRU(torch.nn.Module):
+def _zero_recurrent_bias(rnn):
+    """Turn each ``bias_hh_l0[_reverse]`` parameter of a one-layer
+    ``torch.nn`` recurrence into a zero buffer of the same name (cuDNN
+    still reads it; the state_dict still holds it)."""
+    for name in list(rnn._flat_weights_names):
+        if name.startswith("bias_hh"):
+            shape = getattr(rnn, name).shape
+            delattr(rnn, name)
+            rnn.register_buffer(name, torch.zeros(shape))
+    rnn._init_flat_weights()
+
+
+class _Recurrent(torch.nn.Module):
+    """The layer stack of ``GRU``, ``LSTM`` and ``RNN``: one one-layer
+    ``torch.nn`` recurrence (``_cell``) a layer, the port's ``Dropout``
+    between layers.  ``forward(x, hx=None)`` returns ``(y, state)``: y
+    (B, T, H * D), D = 2 if bidirectional else 1, and the last state in
+    torch's stacked layout (num_layers * D, B, H), which ``hx`` also
+    takes (the LSTM's is the pair ``(h, c)``), so a sequence can be
+    resumed step by step.  ``cell_kwargs`` go to the ``torch.nn`` layers
+    (the RNN's ``nonlinearity``).  The recurrence runs in the parameters'
+    dtype (float32); y and the state come back in x's dtype (the JAX
+    modules would run a bfloat16 input in bfloat16)."""
+
+    _cell = None
+    _recurrent_bias = True
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 bidirectional=False, dropout=0.0, **cell_kwargs):
+        super().__init__()
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.directions = 2 if bidirectional else 1
+        self.rnns = torch.nn.ModuleList(
+            self._cell(input_size if i == 0
+                       else hidden_size * self.directions,
+                       hidden_size, batch_first=True,
+                       bidirectional=bidirectional, **cell_kwargs)
+            for i in range(num_layers))
+        if not self._recurrent_bias:
+            for rnn in self.rnns:
+                _zero_recurrent_bias(rnn)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x, hx=None):
+        """x: (B, T, C) or (B, T, C1, C2); hx: (num_layers * D, B, H), or
+        a pair of them for the LSTM."""
+        if x.dim() == 4:
+            x = x.reshape(x.shape[0], x.shape[1], -1)
+        dtype = x.dtype
+        wdtype = self.rnns[0].weight_ih_l0.dtype
+        y = x.to(wdtype)
+        D = self.directions
+        pair = isinstance(hx, tuple)
+        states = []
+        for i, rnn in enumerate(self.rnns):
+            h0 = None
+            if hx is not None:
+                h0 = tuple(part[i * D:(i + 1) * D].to(wdtype).contiguous()
+                           for part in (hx if pair else (hx,)))
+                h0 = h0 if pair else h0[0]
+            y, state = rnn(y, h0)
+            states.append(state if isinstance(state, tuple) else (state,))
+            if i != self.num_layers - 1:
+                y = self.drop(y)
+        state = tuple(torch.cat(parts, 0).to(dtype) for parts in zip(*states))
+        return y.to(dtype), (state if len(state) == 2 else state[0])
+
+
+class GRU(_Recurrent):
     """Multi-layer, optionally bidirectional GRU over (B, T, C) (a 4-d
-    input is flattened to (B, T, C1 * C2)).
-
-    ``forward(x, hx=None)`` returns ``(y, h)``: y (B, T, H * D), D = 2 if
-    bidirectional else 1, and the last states h (num_layers * D, B, H) in
-    torch's layout, which ``hx`` also takes, so a sequence can be resumed
-    step by step (transducer prediction networks).  The recurrence runs
-    in the parameters' dtype (float32); y and h come back in x's dtype
-    (the JAX module would run a bfloat16 input in bfloat16; the transducer
-    recipe feeds it float32 embeddings).
+    input is flattened to (B, T, C1 * C2)); the state is h (num_layers *
+    D, B, H).  See ``_Recurrent``.
 
     Example
     -------
@@ -57,36 +128,45 @@ class GRU(torch.nn.Module):
     torch.Size([2, 1, 16])
     """
 
-    def __init__(self, input_size, hidden_size, num_layers=1,
-                 bidirectional=False, dropout=0.0):
-        super().__init__()
-        self.hidden_size = hidden_size
-        self.num_layers = num_layers
-        self.directions = 2 if bidirectional else 1
-        self.rnns = torch.nn.ModuleList(
-            torch.nn.GRU(input_size if i == 0 else hidden_size * self.directions,
-                         hidden_size, batch_first=True,
-                         bidirectional=bidirectional)
-            for i in range(num_layers))
-        self.drop = Dropout(dropout)
+    _cell = torch.nn.GRU
 
-    def forward(self, x, hx=None):
-        """x: (B, T, C) or (B, T, C1, C2); hx: (num_layers * D, B, H)."""
-        if x.dim() == 4:
-            x = x.reshape(x.shape[0], x.shape[1], -1)
-        dtype = x.dtype
-        wdtype = self.rnns[0].weight_ih_l0.dtype
-        y = x.to(wdtype)
-        D = self.directions
-        states = []
-        for i, rnn in enumerate(self.rnns):
-            h0 = None if hx is None else (
-                hx[i * D:(i + 1) * D].to(wdtype).contiguous())
-            y, h = rnn(y, h0)
-            states.append(h)
-            if i != self.num_layers - 1:
-                y = self.drop(y)
-        return y.to(dtype), torch.cat(states, 0).to(dtype)
+
+class LSTM(_Recurrent):
+    """Multi-layer, optionally bidirectional LSTM (JAX ``LSTM``) over (B,
+    T, C); the state is the pair (h, c), each (num_layers * D, B, H).  No
+    recurrent bias: each ``bias_hh`` is a zero buffer.  See
+    ``_Recurrent``.
+
+    Example
+    -------
+    >>> lstm = LSTM(4, 8, num_layers=2, bidirectional=True)
+    >>> y, (h, c) = lstm(torch.ones(2, 5, 4))
+    >>> y.shape, h.shape, c.shape
+    (torch.Size([2, 5, 16]), torch.Size([4, 2, 8]), torch.Size([4, 2, 8]))
+    >>> sorted(n for n, _ in lstm.named_buffers())[:2]
+    ['rnns.0.bias_hh_l0', 'rnns.0.bias_hh_l0_reverse']
+    """
+
+    _cell = torch.nn.LSTM
+    _recurrent_bias = False
+
+
+class RNN(_Recurrent):
+    """Multi-layer, optionally bidirectional plain RNN (JAX ``RNN``) with
+    ``nonlinearity`` "tanh" (the default) or "relu"; the state is h
+    (num_layers * D, B, H).  No recurrent bias: each ``bias_hh`` is a
+    zero buffer.  See ``_Recurrent``.
+
+    Example
+    -------
+    >>> rnn = RNN(4, 8, nonlinearity="relu")
+    >>> y, h = rnn(torch.ones(2, 5, 4))
+    >>> y.shape, h.shape
+    (torch.Size([2, 5, 8]), torch.Size([1, 2, 8]))
+    """
+
+    _cell = torch.nn.RNN
+    _recurrent_bias = False
 
 
 class _LiGRURecurrence(torch.autograd.Function):

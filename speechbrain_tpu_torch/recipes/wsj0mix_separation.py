@@ -1,9 +1,12 @@
 """The WSJ0-2mix separation recipe end to end, on the port.
 
-Does what ``recipes/WSJ0Mix/separation/train.py`` does with its hparams
-files ``sepformer.yaml`` (``HPARAMS_SEPFORMER``),
-``sepformer-conformerintra.yaml`` (``HPARAMS_SEPFORMER_CONFORMERINTRA``)
-and ``convtasnet.yaml`` (``HPARAMS_CONVTASNET``): a wsj0-mix tree
+Does what ``recipes/WSJ0Mix/separation/train.py`` does with its seven
+hparams files: ``sepformer.yaml`` (``HPARAMS_SEPFORMER``),
+``sepformer-conformerintra.yaml`` (``HPARAMS_SEPFORMER_CONFORMERINTRA``),
+``sepformer-customdataset.yaml`` (``HPARAMS_SEPFORMER_CUSTOMDATASET``),
+``convtasnet.yaml`` (``HPARAMS_CONVTASNET``), ``dprnn.yaml``
+(``HPARAMS_DPRNN``), ``skim.yaml`` (``HPARAMS_SKIM``) and
+``resepformer.yaml`` (``HPARAMS_RESEPFORMER``): a wsj0-mix tree
 (``<data_folder>/{tr,cv,tt}/{mix,s1,s2}/<name>.wav``) -> JSON manifests
 (``prepare_wsjmix``) -> ``Separation.fit`` (training mixtures cut or
 zero-padded to ``training_signal_len`` samples; the model's (B, T, 2)
@@ -43,7 +46,9 @@ Differences from the JAX recipe, each on purpose:
 
 The conformer-intra yaml's intra blocks run the depthwise convolution
 kernels (K1 forward and input gradient, K2 weight gradient) on CUDA
-tensors, at (B x S chunks, K, 256) with 31 taps.
+tensors, at (B x S chunks, K, 256) with 31 taps.  The DPRNN's, SkiM's
+and the RE-SepFormer's recurrences are ``torch.nn.LSTM``s (cuDNN on the
+card), as JAX runs them as ``lax.scan``s with no kernel of its own.
 """
 
 import json
@@ -61,6 +66,7 @@ from ..dataio.dataloader import SaveableDataLoader
 from ..dataio.dataset import DynamicItemDataset
 from ..lobes.models.conv_tasnet import ConvTasNet
 from ..lobes.models.dual_path import SepformerWrapper
+from ..lobes.models.resepformer import SkiMSeparator
 from ..nnet.activations import PReLU
 from ..nnet.losses import PitWrapper, cal_si_snr
 from ..nnet.schedulers import ReduceLROnPlateau
@@ -71,7 +77,9 @@ from ..utils.train_logger import FileTrainLogger
 from .common import recipe_hparams
 
 __all__ = ["HPARAMS_SEPFORMER", "HPARAMS_SEPFORMER_CONFORMERINTRA",
-           "HPARAMS_CONVTASNET", "prepare_wsjmix", "MixtureCrop",
+           "HPARAMS_SEPFORMER_CUSTOMDATASET", "HPARAMS_CONVTASNET",
+           "HPARAMS_DPRNN", "HPARAMS_SKIM", "HPARAMS_RESEPFORMER",
+           "prepare_wsjmix", "MixtureCrop",
            "dataio_prep", "build_model", "Separation", "build", "run",
            "write_synthetic_wsj0mix"]
 
@@ -108,16 +116,32 @@ _SEPFORMER = dict(
     inter_dffn=1024,
     intra_block="transformer",
     conformer_kernel_size=31,
+    use_rnn=False,
 )
 # recipes/WSJ0Mix/separation/hparams/sepformer.yaml
 HPARAMS_SEPFORMER = dict(_TRAINING, **_SEPFORMER)
+# hparams/sepformer-customdataset.yaml: sepformer.yaml with another output
+# folder (``build``'s argument here)
+HPARAMS_SEPFORMER_CUSTOMDATASET = dict(HPARAMS_SEPFORMER)
 # hparams/sepformer-conformerintra.yaml
 HPARAMS_SEPFORMER_CONFORMERINTRA = dict(HPARAMS_SEPFORMER,
                                         intra_block="conformer")
+# hparams/dprnn.yaml: the SepformerWrapper with BiLSTM blocks of 128 units
+# a direction (its intra/inter counts, heads and widths unused)
+HPARAMS_DPRNN = dict(HPARAMS_SEPFORMER, masknet_numlayers=6, use_rnn=True)
 # hparams/convtasnet.yaml
 HPARAMS_CONVTASNET = dict(
     _TRAINING, model="ConvTasNet", N=256, B=256, H=512, P=3, X=6, R=4, L=16,
     norm_type="gLN", causal=False, mask_nonlinear="relu")
+# hparams/skim.yaml (``unit`` is its ``rnn_latent_size``)
+HPARAMS_SKIM = dict(
+    _TRAINING, model="SkiMSeparator", encoder_kernel_size=16,
+    encoder_out_nchannels=128, segment_size=150, num_blocks=4, unit=256,
+    causal=False, mem_type="hc")
+# hparams/resepformer.yaml (``unit`` is its ``rnn_unit``, which the "av"
+# pipeline never reads)
+HPARAMS_RESEPFORMER = dict(HPARAMS_SKIM, model="ResepformerWrapper",
+                           num_blocks=2, mem_type="av")
 
 
 def prepare_wsjmix(data_folder, save_folder, num_spks=2):
@@ -212,10 +236,18 @@ def dataio_prep(hparams):
 
 def _random_biases(model, gen):
     """Every bias of a layer with weights (and the conformer convolutions'
-    ``depthwise_bias``) drawn uniformly in +-1/sqrt(fan_in), PyTorch's
-    default; the norms' biases stay zero."""
+    ``depthwise_bias``) drawn uniformly in +-1/sqrt(fan_in), and each
+    recurrence's input bias ``bias_ih_l0[_reverse]`` in +-1/sqrt(H),
+    PyTorch's defaults; the norms' biases stay zero, and so do the LSTMs'
+    ``bias_hh`` buffers (JAX has no recurrent bias)."""
     with torch.no_grad():
         for m in model.modules():
+            if isinstance(m, torch.nn.RNNBase):
+                for name, p in m.named_parameters():
+                    if name.startswith("bias_ih"):
+                        bound = m.hidden_size ** -0.5
+                        p.uniform_(-bound, bound, generator=gen)
+                continue
             weight = getattr(m, "weight", None)
             if (isinstance(getattr(m, "bias", None), torch.nn.Parameter)
                     and weight is not None and weight.dim() >= 2):
@@ -228,8 +260,9 @@ def _random_biases(model, gen):
 
 
 def build_model(hparams, seed=0):
-    """``hparams["model"]``'s separator, ``SepformerWrapper`` or
-    ``ConvTasNet``, with Lecun-normal weights from ``seed``
+    """``hparams["model"]``'s separator (``SepformerWrapper``,
+    ``SkiMSeparator``, ``ResepformerWrapper`` (the same class) or
+    ``ConvTasNet``), with Lecun-normal weights from ``seed``
     (``asr._random_init``: norms' scales one and biases zero), each PReLU's
     slope at its initial value, and the other biases drawn from the same
     generator (``_random_biases``).  Not zero, as Flax starts them: the
@@ -238,7 +271,11 @@ def build_model(hparams, seed=0):
     when every bias is zero (no absolute position is added), and each of
     their LayerNorms then multiplies the gradient by 1/sqrt(eps): 1e36 and
     more at the first step, for the yaml's 4 s crops (T' 3999: the last
-    chunk is padding)."""
+    chunk is padding).  The DPRNN's first intra BiLSTM gives that chunk
+    exact zeros too at zero biases, and its LayerNorm puts gradients of
+    ~180 on that LSTM's biases (a global norm of 1056 at the yaml's
+    widths, 453 with the input biases drawn; the other gradients' largest
+    entries have a median of 0.27)."""
     hp = hparams
     if hp["model"] == "SepformerWrapper":
         model = SepformerWrapper(
@@ -252,7 +289,15 @@ def build_model(hparams, seed=0):
             intra_nhead=hp["intra_nhead"], inter_nhead=hp["inter_nhead"],
             intra_dffn=hp["intra_dffn"], inter_dffn=hp["inter_dffn"],
             intra_block=hp["intra_block"],
-            conformer_kernel_size=hp["conformer_kernel_size"])
+            conformer_kernel_size=hp["conformer_kernel_size"],
+            use_rnn=hp.get("use_rnn", False))
+    elif hp["model"] in ("SkiMSeparator", "ResepformerWrapper"):
+        model = SkiMSeparator(
+            encoder_kernel_size=hp["encoder_kernel_size"],
+            encoder_out_nchannels=hp["encoder_out_nchannels"],
+            num_spks=hp["num_spks"], causal=hp["causal"], unit=hp["unit"],
+            segment_size=hp["segment_size"], num_blocks=hp["num_blocks"],
+            mem_type=hp["mem_type"])
     elif hp["model"] == "ConvTasNet":
         model = ConvTasNet(
             N=hp["N"], B=hp["B"], H=hp["H"], P=hp["P"], X=hp["X"], R=hp["R"],
@@ -271,7 +316,7 @@ def build_model(hparams, seed=0):
 
 class Separation(Brain):
     """The WSJ0-2mix recipe's ``Separation`` Brain (``train.py:24``), for
-    any of the three yamls (missing keys from ``HPARAMS_SEPFORMER``).
+    any of the seven yamls (missing keys from ``HPARAMS_SEPFORMER``).
 
     ``compute_forward``: ``masknet`` (the separator) on ``mix_sig``, (B,
     T, num_spks).  ``compute_objectives``: the permutation-invariant

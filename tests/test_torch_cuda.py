@@ -1626,3 +1626,60 @@ def test_separation_step_makes_no_host_sync(gen, name):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(torch.isfinite(loss))
+
+
+@pytest.mark.parametrize("kind", ["LSTM", "RNN_tanh", "RNN_relu"])
+def test_recurrence_on_the_card_matches_the_cpu(gen, kind):
+    """The port's LSTM and RNN (2 layers, bidirectional, from a random
+    state, TF32 off, cuDNN's too) in float32 on the card against the same
+    module in float64 on the CPU: outputs, last states and the input's,
+    the state's and every parameter's gradient within 1e-4 of each
+    float64 tensor's largest entry (``chip_smoke.LSTM_CARD_TOL``; cuDNN's
+    f32 sums lie up to 1e-5 of the scale from float64 at the DPRNN's
+    shape, and 1.7e-5 from the CPU's f32 ones here, 6.1e-6 absolute).
+    Then one Adam step on the card: ``bias_hh`` (a buffer: JAX's LSTM
+    and RNN have no recurrent bias) is still zero, ``bias_ih`` moved,
+    and the weights are still one cuDNN buffer."""
+    from speechbrain_tpu_torch.nnet import RNN
+
+    name, _, act = kind.partition("_")
+    kw = {"nonlinearity": act} if act else {}
+    torch.manual_seed(0)
+    cpu = getattr(RNN, name)(24, 32, num_layers=2, bidirectional=True,
+                             **kw).double()
+    card = getattr(RNN, name)(24, 32, num_layers=2, bidirectional=True,
+                              **kw).cuda()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 50, 24, dtype=torch.float64)
+    hx = tuple(torch.randn(4, 3, 32, dtype=torch.float64)
+               for _ in range(2 if name == "LSTM" else 1))
+    outs = []
+    tf32 = torch.backends.cudnn.allow_tf32  # cuDNN's recurrences use it
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for net, dev, dtype in ((cpu, "cpu", torch.float64),
+                                (card, "cuda", torch.float32)):
+            xi = x.to(dev, dtype).detach().requires_grad_()
+            h0 = tuple(h.to(dev, dtype).detach().requires_grad_() for h in hx)
+            y, state = net(xi, hx=h0 if name == "LSTM" else h0[0])
+            state = state if name == "LSTM" else (state,)
+            ((y * y).sum() + sum((s ** 3).sum() for s in state)).backward()
+            outs.append([y, *state, xi.grad, *(h.grad for h in h0)]
+                        + [p.grad for p in net.parameters()])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    for a, b in zip(*outs):
+        b = b.detach().cpu().double()
+        scale = max(float(a.detach().abs().max()), 1e-6)
+        assert float((a.detach() - b).abs().max()) <= 1e-4 * scale
+    before = {k: v.clone() for k, v in card.state_dict().items()}
+    torch.optim.Adam(card.parameters(), lr=1e-2).step()
+    after = card.state_dict()
+    for k, v in after.items():
+        if "bias_hh" in k:
+            assert not v.any(), k
+        elif "bias_ih" in k:
+            assert not torch.equal(v, before[k]), k
+    for rnn in card.rnns:
+        assert len({w.untyped_storage().data_ptr()
+                    for w in rnn._flat_weights}) == 1
