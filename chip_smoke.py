@@ -12,6 +12,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_voxceleb
     python3 chip_smoke.py --phase recipe_separation
     python3 chip_smoke.py --phase recipe_separation_rnn
+    python3 chip_smoke.py --phase recipe_separation_more
 
 Phases, each printing one JSON line when it ends:
 
@@ -233,6 +234,25 @@ Phases, each printing one JSON line when it ends:
    2-5 s): the DPRNN 1 epoch, epoch 2 in a fresh Brain recovered bit for
    bit, the test pass; SkiM and the RE-SepFormer 1 epoch each through
    ``run``; every SI-SNR finite.  No port kernel runs here.
+18. recipe_separation_more -- the rest of separation at the yamls' widths
+   in f32, each step on B = 1 mixture as phase 16 times it: the
+   CNN-Transformer spectral masker (``cnntransformer-whamr-DM.yaml``:
+   STFT 32 ms at 16 ms, n_fft 512, 8 post-norm layers of d_model 256, 16
+   heads, d_ffn 512, the sigmoid mask, resynthesis through the ISTFT;
+   4 s), the binaural Conv-TasNet in the "cross" (the ILD's STFT, log and
+   linear resize) and "parallel" modes (``convtasnet-{cross,parallel}
+   .yaml``: N 256, B 128, H 256, X 6, R 2, L 16; 3 s stereo) and the
+   SepFormer on three sources (``sepformer-libri3mix.yaml``, 3 s).  For
+   the spectral masker and the "cross" model, the loss and every gradient
+   on the card against the same weights on the CPU (eval mode), within
+   ``SEP_MORE_CARD_TOL``: in float64 the loss and the gradients, in f32
+   the loss (the f32 gradients' distances are reported: a unit at its
+   kink takes another slope on one device).  Then the recipes on synthetic trees (6 train,
+   2 valid, 2 test mixtures of 2-5 s; REAL-M 8/4/4): the WHAM!
+   enhancement with dynamic mixing 1 epoch, epoch 2 in a fresh Brain
+   recovered bit for bit (the ``DynamicMix`` at epoch 2), the test pass;
+   LibriMix 3-mix, binaural "cross" and REAL-M 1 epoch each through
+   ``run``; every SI-SNR and L1 finite.  No port kernel runs here.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -242,7 +262,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 17, each counted from 0 just before its
+(launch counts from phases 3 to 18, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -3626,13 +3646,19 @@ RECIPE_SEP = {"tr": 24, "cv": 6, "tt": 6}
 RECIPE_SEP_SECONDS = (2.0, 5.0)
 
 
-def _sep_batch(B, samples, seed):
-    """B mixtures of two sources (noise under random envelopes)."""
+def _sep_batch(B, samples, seed, sources=2, stereo=False):
+    """B mixtures of ``sources`` sources (noise under random envelopes);
+    with ``stereo`` each source also reaches a right ear, 0.7 times it
+    and 3 samples later: (B, samples, 2) signals."""
     rng = np.random.default_rng(seed)
-    env = np.repeat(rng.uniform(0.1, 1.0, (2, B, samples // 800 + 1)), 800,
-                    axis=-1)[..., :samples]
-    s = (0.1 * env * rng.standard_normal((2, B, samples))).astype(np.float32)
-    return {"mix_sig": s[0] + s[1], "s1_sig": s[0], "s2_sig": s[1]}
+    env = np.repeat(rng.uniform(0.1, 1.0, (sources, B, samples // 800 + 1)),
+                    800, axis=-1)[..., :samples]
+    s = (0.1 * env * rng.standard_normal((sources, B, samples))).astype(
+        np.float32)
+    if stereo:
+        s = np.stack([s, 0.7 * np.roll(s, 3, axis=-1)], -1)
+    return {"mix_sig": s.sum(0),
+            **{f"s{i + 1}_sig": s[i] for i in range(sources)}}
 
 
 # gate products of a recurrence's frame and direction: 2 G H (in + H)
@@ -3705,22 +3731,22 @@ def _rnn_weights_flat(module):
 
 
 def _sep_step(name, hparams, B, samples, steps, launches, seed,
-              phase="recipe_separation_step"):
-    """One yaml's training step: a ``Separation`` Brain at its widths
-    takes a warm-up and ``steps`` timed Adam steps on ``B`` synthetic
-    mixtures; its launches a step must be ``launches``, and its
-    recurrences' weights one buffer each.  Returns the record (phase
-    ``phase``) and the Brain."""
+              phase="recipe_separation_step", brain_class=None, batch=None):
+    """One yaml's training step: a ``Separation`` Brain (or
+    ``brain_class``) at its widths takes a warm-up and ``steps`` timed
+    Adam steps on ``B`` synthetic mixtures (or ``batch``); its launches a
+    step must be ``launches``, and its recurrences' weights one buffer
+    each.  Returns the record (phase ``phase``) and the Brain."""
     import torch
 
     from speechbrain_tpu_torch import ops
     from speechbrain_tpu_torch.core import Stage
     from speechbrain_tpu_torch.recipes.wsj0mix_separation import Separation
 
-    brain = Separation(hparams, run_opts={"seed": SEED,
-                                          "loss_sync_interval": 10})
+    brain = (brain_class or Separation)(
+        hparams, run_opts={"seed": SEED, "loss_sync_interval": 10})
     n_params = sum(p.numel() for p in brain.modules.parameters())
-    batch = brain.prepare_batch(_sep_batch(B, samples, seed))
+    batch = brain.prepare_batch(batch or _sep_batch(B, samples, seed))
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
     assert _rnn_weights_flat(brain.modules)
@@ -4105,14 +4131,278 @@ def _recipe_sep_rnn_run(tmp):
     return run
 
 
+# the synthetic trees of phase 18: mixtures a split
+RECIPE_SEP_MORE = {"tr": 6, "cv": 2, "tt": 2}
+RECIPE_REALM = {"tr": 8, "cv": 4, "tt": 4}
+# phase 18's card-vs-CPU check.  In float64 (the attention's softmax
+# stays f32 there, as in JAX: ``nnet/attention._softmax``), the loss's
+# difference relative to the CPU's and each gradient's largest difference
+# relative to its scale (floored at 5 % of the largest gradient); in f32,
+# the loss's alone.  The f32 gradients are reported, not bounded: on an
+# H100 the spectral masker's f32 gradients differed from the CPU's by up
+# to 5.0e-3 of their scale (layer 5's leaky-ReLU FFN, ``ffn.w_1``: a
+# unit within a last bit of its kink takes the other slope on one
+# device) while its float64 runs agreed within 1.9e-6 of the scale and
+# 2.2e-9 of the loss; the binaural "parallel" model's f32 gradients lie
+# 1.5e-2 from float64 on either device.
+SEP_MORE_CARD_TOL = {"loss_f32": 1e-5, "loss_float64": 1e-7,
+                     "gradients_float64": 1e-4}
+
+
+def _card_vs_cpu(brain, batch, hparams):
+    """The Brain's model in eval mode (no dropout) on the card and on the
+    CPU, on the same weights and batch, in f32 (TF32 off) and in float64:
+    the capped PIT loss (``Separation``'s, the targets as the Brain stacks
+    them, in each run's precision) and every parameter's gradient.  The
+    STFT, ISTFT and resynthesis of the spectral masker and the ILD's STFT,
+    log and resize of the binaural "cross" model are all inside.  Returns
+    the differences beside ``SEP_MORE_CARD_TOL``."""
+    import torch
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes.wsj0mix_separation import build_model
+
+    state = {k: v.detach().cpu()
+             for k, v in brain.modules.masknet.state_dict().items()}
+    names = [n for n, _ in brain.modules.masknet.named_parameters()]
+
+    def run(dev, dtype):
+        model = build_model(hparams).to(dtype)
+        model.load_state_dict(state)
+        model.to(dev).eval()
+        b = {k: v.to(dev, dtype) for k, v in batch.items()}
+        saved, saved_dtype = brain.modules.masknet, brain.dtype
+        brain.modules.masknet, brain.dtype = model, dtype
+        try:
+            pred = brain.compute_forward(b, Stage.TRAIN)
+        finally:
+            brain.modules.masknet, brain.dtype = saved, saved_dtype
+        pred = pred.reshape(pred.shape[0], -1, pred.shape[-1])
+        per_ex = brain.pit_si_snr(brain.targets(b), pred)[0]
+        loss = per_ex.clamp(max=hparams["loss_upper_lim"]).mean()
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return [loss.detach().double().cpu()] + [g.double().cpu()
+                                                 for g in grads]
+
+    out = {(dev, str(dt)[6:]): run(dev, dt)
+           for dev in (brain.device, "cpu")
+           for dt in (torch.float32, torch.float64)}
+    card, cpu = brain.device, "cpu"
+    f64 = out[cpu, "float64"]
+    G = max(float(g.abs().max()) for g in f64[1:])
+
+    def worst(a, b):
+        rel = [float((u - w).abs().max()) / max(float(r.abs().max()),
+                                                0.05 * G)
+               for u, w, r in zip(a[1:], b[1:], f64[1:])]
+        i = int(np.argmax(rel))
+        return rel[i], names[i]
+
+    def loss_rel(a, b):
+        return abs(float(a[0] - b[0])) / abs(float(f64[0]))
+
+    g32, name32 = worst(out[card, "float32"], out[cpu, "float32"])
+    rec = {"loss_card_f32": float(out[card, "float32"][0]),
+           "loss_cpu_f32": float(out[cpu, "float32"][0]),
+           "loss_float64": float(f64[0]),
+           "loss_card_vs_cpu_f32": loss_rel(out[card, "float32"],
+                                            out[cpu, "float32"]),
+           "loss_card_vs_cpu_float64": loss_rel(out[card, "float64"], f64),
+           "gradients_card_vs_cpu_float64": worst(out[card, "float64"],
+                                                  f64)[0],
+           "gradients_card_vs_cpu_f32": g32,
+           "gradients_card_vs_cpu_f32_worst": name32,
+           "gradients_card_f32_vs_float64": worst(out[card, "float32"],
+                                                  f64)[0],
+           "gradients_cpu_f32_vs_float64": worst(out[cpu, "float32"], f64)[0],
+           "tolerance": SEP_MORE_CARD_TOL}
+    assert all(np.isfinite(float(t.abs().max()))
+               for t in out[card, "float32"]), rec
+    tol = SEP_MORE_CARD_TOL
+    assert rec["loss_card_vs_cpu_f32"] <= tol["loss_f32"], rec
+    assert rec["loss_card_vs_cpu_float64"] <= tol["loss_float64"], rec
+    assert rec["gradients_card_vs_cpu_float64"] <= tol["gradients_float64"], rec
+    return rec
+
+
+def phase_recipe_separation_more():
+    """The rest of separation at the yamls' widths in f32: one training
+    step of each of ``cnntransformer-whamr-DM.yaml`` (the spectral masker,
+    B 1 x 4 s), ``convtasnet-cross.yaml`` and ``convtasnet-parallel.yaml``
+    (binaural, B 1 x 3 s stereo) and ``sepformer-libri3mix.yaml`` (three
+    sources, B 1 x 3 s); the card's loss and gradients against the CPU's
+    for the spectral masker (the ISTFT) and the "cross" model (the ILD's
+    resize; "parallel" runs a subset of its operations); then the recipes
+    on synthetic trees (see the module docstring, phase 18)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from speechbrain_tpu_torch.recipes import binaural_separation as bi
+    from speechbrain_tpu_torch.recipes import librimix_separation as lm
+    from speechbrain_tpu_torch.recipes import wham_separation as wham
+
+    none = {k: 0 for k in TRAIN_LAUNCHES}
+    runs, checks = {}, {}
+    for i, (name, hp, samples, brain_class, kw) in enumerate((
+            ("cnntransformer-whamr-DM",
+             wham.HPARAMS_ENHANCEMENT_CNNTRANSFORMER_WHAMR_DM, 32000, None,
+             {}),
+            ("convtasnet-cross", bi.HPARAMS_CROSS, 24000,
+             bi.BinauralSeparation, {"stereo": True}),
+            ("convtasnet-parallel", bi.HPARAMS_PARALLEL, 24000,
+             bi.BinauralSeparation, {"stereo": True}),
+            ("sepformer-libri3mix", lm.HPARAMS_LIBRI3MIX, 24000, None,
+             {"sources": 3}))):
+        batch = _sep_batch(1, samples, SEED + 41 + i, **kw)
+        runs[name], brain = _sep_step(
+            name, hp, 1, samples, 3, none, SEED + 41 + i,
+            phase="recipe_separation_more_step", brain_class=brain_class,
+            batch=batch)
+        if name in ("cnntransformer-whamr-DM", "convtasnet-cross"):
+            rec, seconds = _timed(lambda: _card_vs_cpu(
+                brain, brain.prepare_batch(batch), dict(hp)))
+            checks[name] = dict(rec, seconds=seconds)
+            emit({"phase": "recipe_separation_more_check", "hparams": name,
+                  **checks[name]})
+        del brain
+        torch.cuda.empty_cache()
+    check = {"card_vs_cpu": checks}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sep_more_")
+    try:
+        runs["recipe"] = _recipe_sep_more_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(runs, check=check)
+
+
+def _recipe_sep_more_run(tmp):
+    """The WHAM! enhancement with dynamic mixing
+    (``cnntransformer-whamr-DM.yaml``) 1 epoch, then epoch 2 in a fresh
+    Brain with the modules, Adam's state, the rate, the plateau schedule
+    and the generator recovered bit for bit, and the test pass; the
+    LibriMix 3-mix, binaural "cross" and REAL-M recipes 1 epoch each
+    through ``run``; every SI-SNR (and REAL-M's L1) finite, no kernel
+    launched."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import binaural_separation as bi
+    from speechbrain_tpu_torch.recipes import librimix_separation as lm
+    from speechbrain_tpu_torch.recipes import realm_sisnr as rm
+    from speechbrain_tpu_torch.recipes import wham_separation as wham
+    from speechbrain_tpu_torch.recipes import wsj0mix_separation as ws
+
+    trees = {}
+    _, trees["wham"] = _timed(lambda: wham.write_synthetic_wham(
+        f"{tmp}/wham", RECIPE_SEP_MORE, RECIPE_SEP_SECONDS, seed=SEED + 2,
+        num_spks=1))
+    _, trees["libri3mix"] = _timed(lambda: lm.write_synthetic_librimix(
+        f"{tmp}/libri3", {"train-100": RECIPE_SEP_MORE["tr"],
+                          "dev": RECIPE_SEP_MORE["cv"],
+                          "test": RECIPE_SEP_MORE["tt"]},
+        RECIPE_SEP_SECONDS, seed=SEED + 3, num_spks=3))
+    _, trees["binaural"] = _timed(lambda: bi.write_synthetic_binaural(
+        f"{tmp}/bi", RECIPE_SEP_MORE, RECIPE_SEP_SECONDS, seed=SEED + 4))
+    _, trees["wsj"] = _timed(lambda: ws.write_synthetic_wsj0mix(
+        f"{tmp}/wsj", RECIPE_REALM, RECIPE_SEP_SECONDS, seed=SEED + 5))
+    opts = {"staging_depth": 2, "noprogressbar": True}
+    at_recovery = {}
+    hparams = wham.HPARAMS_ENHANCEMENT_CNNTRANSFORMER_WHAMR_DM
+
+    def build(epochs):
+        parts = wham.build(f"{tmp}/wham", f"{tmp}/wham_out",
+                           {"number_of_epochs": epochs}, opts,
+                           hparams=hparams)
+        b = parts["brain"]
+        fit_start = b.on_fit_start
+
+        def on_fit_start():  # the generator as the recovery left it
+            fit_start()
+            at_recovery["generator"] = b.generator.get_state()
+
+        b.on_fit_start = on_fit_start
+        return parts
+
+    ops.reset_launch_counters()
+    parts = build(1)
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    saved = _snapshot(brain)
+    saved_generator = brain.generator.get_state()
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 1
+    n_equal = _same_state(saved, recovered["state"])
+    assert torch.equal(at_recovery["generator"], saved_generator)
+    assert isinstance(brain2.hparams.crop, wham.DynamicMix)
+    assert brain2.hparams.crop.epoch == 2
+    assert len(brain2.lr_scheduler.losses) == 2
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="si-snr"))
+    others = {}
+    for name, fn in (
+            ("libri3mix", lambda: lm.run(
+                f"{tmp}/libri3", f"{tmp}/libri3_out", {"number_of_epochs": 1},
+                opts, hparams=lm.HPARAMS_LIBRI3MIX)),
+            ("binaural_cross", lambda: bi.run(
+                f"{tmp}/bi", f"{tmp}/bi_out", {"number_of_epochs": 1}, opts,
+                hparams=bi.HPARAMS_CROSS)),
+            ("realm", lambda: rm.run(
+                f"{tmp}/wsj", f"{tmp}/realm_out", {"number_of_epochs": 1},
+                opts))):
+        b, seconds = _timed(fn)
+        key = "si-snr-l1" if name == "realm" else "si-snr"
+        others[name] = {"run_1_epoch_s": seconds,
+                        f"valid_{key}": b.stage_stats["VALID"][key],
+                        f"test_{key}": b.stage_stats["TEST"][key]}
+        del b
+    counts = ops.launch_counters()  # the main path's launches, read here
+    assert all(v == 0 for v in counts.values()), counts
+    valid_losses = log["valid_loss"] + log2["valid_loss"]
+    assert all(np.isfinite(valid_losses + [test_loss])), valid_losses
+    assert all(np.isfinite(list(o.values())).all()
+               for o in others.values()), others
+    train_s = sum(log["train_s"] + log2["train_s"])
+    batches = sum(log["batches"] + log2["batches"])
+    run = {
+        "phase": "recipe_separation_more", "tree": RECIPE_SEP_MORE,
+        "realm_tree": RECIPE_REALM, "seconds": RECIPE_SEP_SECONDS,
+        "write_wavs_s": trees, "precision": "fp32",
+        "epochs": log["epochs"] + log2["epochs"],
+        "batches_per_epoch": log["batches"][0],
+        "train_s_per_epoch": log["train_s"] + log2["train_s"],
+        "train_ms_per_batch": 1e3 * train_s / batches,
+        "valid_s": log["valid_s"] + log2["valid_s"],
+        "valid_si_snr_db": [-v for v in valid_losses],
+        "fit_1_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "save_ms": log["save_ms"] + log2["save_ms"],
+        "resume_ms": 1e3 * recovered["seconds"],
+        "resume_equal_tensors": n_equal, "test_s": test_s,
+        "test_si_snr_db": -test_loss, **others,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "launches": counts,
+    }
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
     summed over the main-path runs (serve, serve_lm, long, train,
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
-    of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation and
-    recipe_separation_rnn), each counted from 0 just before its run."""
+    of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
+    recipe_separation_rnn and recipe_separation_more), each counted from 0
+    just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -4208,6 +4498,7 @@ def main():
     vox = timed("recipe_voxceleb", phase_recipe_voxceleb)
     sep = timed("recipe_separation", phase_recipe_separation)
     sep_rnn = timed("recipe_separation_rnn", phase_recipe_separation_rnn)
+    sep_more = timed("recipe_separation_more", phase_recipe_separation_more)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -4217,7 +4508,10 @@ def main():
                  vox["recipe"], sep["sepformer_b1"], sep["sepformer_b4"],
                  sep["conformer"], sep["convtasnet"], sep["recipe"],
                  sep_rnn["dprnn"], sep_rnn["skim"], sep_rnn["resepformer"],
-                 sep_rnn["recipe"]]
+                 sep_rnn["recipe"], *(sep_more[k] for k in (
+                     "cnntransformer-whamr-DM", "convtasnet-cross",
+                     "convtasnet-parallel", "sepformer-libri3mix",
+                     "recipe"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -76,7 +76,14 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``conv_1`` -> ``dsconv.depthwise``/``.act``/``.norm``/``.pointwise``),
   ``Decoder_0.basis_signals`` -> ``decoder.basis``; a PReLU's
   ``negative_slope`` and a gLN/cLN's ``gamma``/``beta`` -> ``weight``/
-  ``bias``;
+  ``bias``; ``BinauralConvTasNet``: each ear's ``encoder_{l,r}``,
+  ``masknet_{l,r}`` and ``decoder_{l,r}`` likewise, ``ild_proj`` as it is;
+- ``CNNTransformerSE``: ``in_proj``, ``TransformerEncoder_0`` ->
+  ``encoder``, ``Dense_0`` -> ``output_layer`` (``SpectralMaskWrapper``:
+  under ``masker``); the dual-path blocks: ``PytorchTransformerBlock``'s
+  ``encoder``, ``DPTNetBlock``'s ``mha``/``norm1``/``rnn_ffn`` (a GRU)/
+  ``ffn_out``/``norm2``, ``Dual_Computation_Block``'s ``{intra,inter}_mdl``
+  (``TransformerEncoder_0`` -> ``.mdl``), ``_lin`` and ``_norm``;
 - ``TransformerLM``: ``NormalizedEmbedding_0`` -> ``emb.emb``, the
   optional ``d_embedding`` projection ``Dense_0`` -> ``emb_proj``, the
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
@@ -149,6 +156,18 @@ __all__ = [
     "to_jax_resepformer",
     "convtasnet_state_dict",
     "to_jax_convtasnet",
+    "binaural_convtasnet_state_dict",
+    "to_jax_binaural_convtasnet",
+    "cnn_transformer_se_state_dict",
+    "to_jax_cnn_transformer_se",
+    "spectral_mask_state_dict",
+    "to_jax_spectral_mask",
+    "pytorch_transformer_block_state_dict",
+    "to_jax_pytorch_transformer_block",
+    "dptnet_block_state_dict",
+    "to_jax_dptnet_block",
+    "dual_computation_block_state_dict",
+    "to_jax_dual_computation_block",
     "adamw_state_to_torch",
     "adamw_state_from_torch",
 ]
@@ -1293,7 +1312,17 @@ def to_jax_convtasnet(state_dict, X, norm_type="gLN", prefix=""):
     a repeat) names the temporal blocks, ``norm_type`` the blocks' norms'
     parameters ("gLN"/"cLN": ``gamma``/``beta``; else a LayerNorm's)."""
     s = _Sub(state_dict, prefix)
-    m = s.sub("masknet")
+    return {
+        "Encoder_0": {"conv1d_U": {"Conv_0": _conv1d_to_jax(
+            s.sub("encoder.conv"))}},
+        "MaskNet_0": _masknet_to_jax(s.sub("masknet"), X, norm_type),
+        "Decoder_0": {"basis_signals": {"Dense_0": _dense_to_jax(
+            s.sub("decoder.basis"))}},
+    }
+
+
+def _masknet_to_jax(m, X, norm_type):
+    """The port's Conv-TasNet ``MaskNet`` (under ``m``) -> JAX params."""
     kind = "LayerNorm" if norm_type not in ("gLN", "cLN") else "gln"
     tcn = {}
     for j in range(m.count("temporal_conv_net")):
@@ -1309,18 +1338,158 @@ def to_jax_convtasnet(state_dict, X, norm_type="gLN", prefix=""):
                 "conv_1": {"Conv_0": _pointwise_to_jax(
                     b.sub("dsconv.pointwise"))}}}
     return {
-        "Encoder_0": {"conv1d_U": {"Conv_0": _conv1d_to_jax(
-            s.sub("encoder.conv"))}},
-        "MaskNet_0": {
-            "layer_norm": _tasnet_norm_to_jax(m.sub("layer_norm"), "gln"),
-            "bottleneck_conv1x1": {"Conv_0": _pointwise_to_jax(
-                m.sub("bottleneck"))},
-            "temporal_conv_net": tcn,
-            "mask_conv1x1": {"Conv_0": _pointwise_to_jax(m.sub("mask_conv"))},
-        },
-        "Decoder_0": {"basis_signals": {"Dense_0": _dense_to_jax(
-            s.sub("decoder.basis"))}},
+        "layer_norm": _tasnet_norm_to_jax(m.sub("layer_norm"), "gln"),
+        "bottleneck_conv1x1": {"Conv_0": _pointwise_to_jax(
+            m.sub("bottleneck"))},
+        "temporal_conv_net": tcn,
+        "mask_conv1x1": {"Conv_0": _pointwise_to_jax(m.sub("mask_conv"))},
     }
+
+
+def binaural_convtasnet_state_dict(params):
+    """JAX ``BinauralConvTasNet`` params (any mode) -> the port's:
+    ``encoder_{l,r}.conv1d_U`` -> ``encoder_{l,r}.conv``,
+    ``masknet_{l,r}`` as ``MaskNet_0`` is for ``ConvTasNet``,
+    ``decoder_{l,r}.basis_signals`` -> ``decoder_{l,r}.basis``, and in
+    the "cross" mode ``ild_proj`` as it is."""
+    sd = {}
+    for ear in ("l", "r"):
+        sd.update(_prefixed(f"encoder_{ear}.conv", conv1d(
+            params[f"encoder_{ear}"]["conv1d_U"]["Conv_0"])))
+        sd.update(_prefixed(f"masknet_{ear}", _masknet(params[f"masknet_{ear}"])))
+        sd.update(_prefixed(f"decoder_{ear}.basis", dense(
+            params[f"decoder_{ear}"]["basis_signals"]["Dense_0"])))
+    if "ild_proj" in params:
+        sd.update(_prefixed("ild_proj", dense(params["ild_proj"])))
+    return sd
+
+
+def to_jax_binaural_convtasnet(state_dict, X, norm_type="gLN", prefix=""):
+    """The port's ``BinauralConvTasNet`` state_dict -> JAX params (``X``
+    and ``norm_type`` as for ``to_jax_convtasnet``)."""
+    s = _Sub(state_dict, prefix)
+    p = {}
+    for ear in ("l", "r"):
+        p[f"encoder_{ear}"] = {"conv1d_U": {"Conv_0": _conv1d_to_jax(
+            s.sub(f"encoder_{ear}.conv"))}}
+        p[f"masknet_{ear}"] = _masknet_to_jax(s.sub(f"masknet_{ear}"), X,
+                                              norm_type)
+        p[f"decoder_{ear}"] = {"basis_signals": {"Dense_0": _dense_to_jax(
+            s.sub(f"decoder_{ear}.basis"))}}
+    if "ild_proj.weight" in s:
+        p["ild_proj"] = _dense_to_jax(s.sub("ild_proj"))
+    return p
+
+
+def cnn_transformer_se_state_dict(params):
+    """JAX ``CNNTransformerSE`` params -> the port's: ``in_proj`` as it
+    is, ``TransformerEncoder_0`` -> ``encoder``, the head ``Dense_0`` ->
+    ``output_layer``.
+
+    Example
+    -------
+    >>> from speechbrain_tpu_torch.lobes.models.transformer.TransformerSE \\
+    ...     import CNNTransformerSE
+    >>> net = CNNTransformerSE(8, 5, num_layers=1, nhead=2, d_ffn=16)
+    >>> p = to_jax_cnn_transformer_se(net.state_dict())
+    >>> sorted(p), p["in_proj"]["kernel"].shape
+    (['Dense_0', 'TransformerEncoder_0', 'in_proj'], (5, 8))
+    >>> sd = cnn_transformer_se_state_dict(p)
+    >>> all(torch.equal(sd[k], v) for k, v in net.state_dict().items())
+    True
+    """
+    sd = {**_prefixed("encoder", _encoder_stack(params["TransformerEncoder_0"])),
+          **_prefixed("output_layer", dense(params["Dense_0"]))}
+    if "in_proj" in params:
+        sd.update(_prefixed("in_proj", dense(params["in_proj"])))
+    return sd
+
+
+def to_jax_cnn_transformer_se(state_dict, prefix=""):
+    """The port's ``CNNTransformerSE`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    p = {"TransformerEncoder_0": _encoder_stack_to_jax(s.sub("encoder")),
+         "Dense_0": _dense_to_jax(s.sub("output_layer"))}
+    if "in_proj.weight" in s:
+        p["in_proj"] = _dense_to_jax(s.sub("in_proj"))
+    return p
+
+
+def spectral_mask_state_dict(params):
+    """JAX ``SpectralMaskWrapper`` params over a ``CNNTransformerSE`` ->
+    the port's (``masker.*``)."""
+    return _prefixed("masker", cnn_transformer_se_state_dict(params["masker"]))
+
+
+def to_jax_spectral_mask(state_dict, prefix=""):
+    """The port's ``SpectralMaskWrapper`` state_dict -> JAX params."""
+    return {"masker": to_jax_cnn_transformer_se(state_dict, prefix + "masker.")}
+
+
+def pytorch_transformer_block_state_dict(params):
+    """JAX ``PytorchTransformerBlock`` params -> the port's: its
+    ``encoder`` (a ``TransformerEncoder``) keeps its name; the positional
+    encoding has no weights."""
+    return _prefixed("encoder", _encoder_stack(params["encoder"]))
+
+
+def to_jax_pytorch_transformer_block(state_dict, prefix=""):
+    """The port's ``PytorchTransformerBlock`` state_dict -> JAX params."""
+    return {"encoder": _encoder_stack_to_jax(
+        _Sub(state_dict, prefix).sub("encoder"))}
+
+
+def dptnet_block_state_dict(params):
+    """JAX ``DPTNetBlock`` params -> the port's: ``mha`` (q/k/v/out
+    projections), ``norm1``/``norm2``, the GRU ``rnn_ffn`` and the Dense
+    ``ffn_out`` keep their names."""
+    return {**_prefixed("mha", mha(params["mha"])),
+            **_prefixed("norm1", layer_norm(params["norm1"])),
+            **_prefixed("rnn_ffn", gru(params["rnn_ffn"])),
+            **_prefixed("ffn_out", dense(params["ffn_out"])),
+            **_prefixed("norm2", layer_norm(params["norm2"]))}
+
+
+def to_jax_dptnet_block(state_dict, prefix=""):
+    """The port's ``DPTNetBlock`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    return {"mha": {n: _dense_to_jax(s.sub(f"mha.{n}"))
+                    for n in ("q_proj", "k_proj", "v_proj", "out_proj")},
+            "norm1": _ln_to_jax(s.sub("norm1")),
+            "rnn_ffn": to_jax_gru(state_dict, prefix + "rnn_ffn."),
+            "ffn_out": _dense_to_jax(s.sub("ffn_out")),
+            "norm2": _ln_to_jax(s.sub("norm2"))}
+
+
+def dual_computation_block_state_dict(params):
+    """JAX ``Dual_Computation_Block`` params -> the port's: ``intra_mdl``/
+    ``inter_mdl`` (an ``SBTransformerBlock``'s ``TransformerEncoder_0``
+    -> ``{intra,inter}_mdl.mdl``), ``intra_lin``/``inter_lin`` and
+    ``intra_norm``/``inter_norm`` where present."""
+    sd = {}
+    for kind in ("intra", "inter"):
+        sd.update(_prefixed(f"{kind}_mdl.mdl", _encoder_stack(
+            params[f"{kind}_mdl"]["TransformerEncoder_0"])))
+        if f"{kind}_lin" in params:
+            sd.update(_prefixed(f"{kind}_lin", dense(params[f"{kind}_lin"])))
+        if f"{kind}_norm" in params:
+            sd.update(_prefixed(f"{kind}_norm",
+                                layer_norm(params[f"{kind}_norm"])))
+    return sd
+
+
+def to_jax_dual_computation_block(state_dict, prefix=""):
+    """The port's ``Dual_Computation_Block`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    p = {}
+    for kind in ("intra", "inter"):
+        p[f"{kind}_mdl"] = {"TransformerEncoder_0": _encoder_stack_to_jax(
+            s.sub(f"{kind}_mdl.mdl"))}
+        if f"{kind}_lin.weight" in s:
+            p[f"{kind}_lin"] = _dense_to_jax(s.sub(f"{kind}_lin"))
+        if f"{kind}_norm.weight" in s:
+            p[f"{kind}_norm"] = _ln_to_jax(s.sub(f"{kind}_norm"))
+    return p
 
 
 def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):

@@ -1,7 +1,8 @@
 """Manifests and audio files on the host, and ``length_to_mask``.
 
 Copies of ``speechbrain_tpu/dataio/dataio.py``'s ``load_data_json``,
-``load_data_csv`` and ``read_audio`` (the port imports nothing of the
+``load_data_csv``, ``read_audio`` and ``read_audio_multichannel`` (the
+port imports nothing of the
 JAX package): WAV through the stdlib ``wave`` module (PCM 16/24/32-bit;
 ``scipy.io.wavfile`` for IEEE float), NIST SPHERE and ``.npy`` in
 numpy, and FLAC through the native decoder (``native/``), which raises
@@ -21,7 +22,7 @@ import torch
 logger = logging.getLogger(__name__)
 
 __all__ = ["load_data_json", "load_data_csv", "read_audio",
-           "length_to_mask"]
+           "read_audio_multichannel", "length_to_mask"]
 
 
 def load_data_json(json_path, replacements={}):
@@ -154,6 +155,36 @@ def read_audio(waveforms_obj):
     stop = waveforms_obj.get("stop", None)
     audio, _ = _load_audio_any(path, start, stop)
     return audio
+
+
+def read_audio_multichannel(waveforms_obj):
+    """Audio as (time, channels) float32 numpy: a path reads as
+    ``read_audio`` (a stereo WAV gives (time, 2), a mono one (time,)); a
+    dict ``{"files": [paths], "start": s, "stop": e}`` (or ``"file"``)
+    stacks each file's channels side by side.
+
+    Example
+    -------
+    >>> import tempfile, wave
+    >>> path = tempfile.NamedTemporaryFile(suffix=".wav", delete=False).name
+    >>> with wave.open(path, "wb") as w:
+    ...     w.setnchannels(2); w.setsampwidth(2); w.setframerate(8000)
+    ...     w.writeframes(np.array([[0, 16384]] * 5, "<i2").tobytes())
+    >>> read_audio_multichannel(path)[0].tolist()
+    [0.0, 0.5]
+    >>> read_audio_multichannel({"files": [path, path], "stop": 3}).shape
+    (3, 4)
+    """
+    if isinstance(waveforms_obj, str):
+        return read_audio(waveforms_obj)
+    files = waveforms_obj.get("files", [waveforms_obj.get("file")])
+    start = int(waveforms_obj.get("start", 0))
+    stop = waveforms_obj.get("stop", None)
+    waveforms = []
+    for path in files:
+        audio, _ = _load_audio_any(path, start, stop)
+        waveforms.append(audio[:, None] if audio.ndim == 1 else audio)
+    return np.concatenate(waveforms, axis=-1)
 
 
 def _read_sphere(path, start=0, stop=None):

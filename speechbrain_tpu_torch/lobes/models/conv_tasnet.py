@@ -5,25 +5,31 @@ Counterpart of ``speechbrain_tpu/lobes/models/conv_tasnet.py``
 (``Encoder``, ``Decoder``, ``ChannelwiseLayerNorm``, ``GlobalLayerNorm``,
 ``choose_norm``, ``Chomp1d``, ``DepthwiseSeparableConv``,
 ``TemporalBlock``, ``TemporalBlocksSequential``, ``MaskNet``,
-``ConvTasNet``), channels-last as there.  The 1x1 convolutions are
+``ConvTasNet``, ``BinauralConvTasNet``), channels-last as there.  The 1x1 convolutions are
 ``Linear`` layers; the depthwise dilated convolution is a grouped
 ``F.conv1d`` (it reaches no kernel in JAX either), reflect-padded for
 "same" as the JAX ``Conv1d``; ``GlobalLayerNorm`` is ``dual_path``'s (the
-same arithmetic on these (M, K, C) inputs).  ``BinauralConvTasNet`` is not
-ported.
+same arithmetic on these (M, K, C) inputs).  The binaural model's
+interaural level differences are resized to the encoder's frames by
+``F.interpolate`` (linear, half-pixel centres), which is JAX's
+``jax.image.resize(method="linear")`` when it enlarges; it asserts that
+it does (JAX antialiases when it shrinks).
 """
 
 import torch
+import torch.nn.functional as F
 
 from ...nnet.activations import PReLU
 from ...nnet.CNN import Conv1d
 from ...nnet.linear import Linear
+from ...processing.features import STFT, spectral_magnitude
 from ...processing.signal_processing import overlap_and_add
 from .dual_path import GlobalLayerNorm
 
 __all__ = ["Encoder", "Decoder", "ChannelwiseLayerNorm", "GlobalLayerNorm",
            "choose_norm", "Chomp1d", "DepthwiseSeparableConv", "TemporalBlock",
-           "TemporalBlocksSequential", "MaskNet", "ConvTasNet"]
+           "TemporalBlocksSequential", "MaskNet", "ConvTasNet",
+           "BinauralConvTasNet"]
 
 EPS = 1e-8
 
@@ -245,6 +251,96 @@ class ConvTasNet(torch.nn.Module):
         T = mixture.shape[1]
         w = self.encoder(mixture)
         y = self.decoder(w, self.masknet(w).permute(1, 2, 0, 3))
-        if y.shape[1] >= T:
-            return y[:, :T]
-        return torch.nn.functional.pad(y, (0, 0, 0, T - y.shape[1]))
+        return _fit_length(y, T)
+
+
+def _fit_length(y, T):
+    """``y`` (B, T', ...) cut or zero-padded to T frames."""
+    if y.shape[1] >= T:
+        return y[:, :T]
+    return F.pad(y, (0, 0) * (y.dim() - 2) + (0, T - y.shape[1]))
+
+
+class BinauralConvTasNet(torch.nn.Module):
+    """Conv-TasNet for two ears: (B, T, 2) mixtures -> (B, T, 2, C)
+    estimates, each ear with its own ``Encoder``/``Decoder``
+    (``encoder_l``/``_r``, ``decoder_l``/``_r``) and masker
+    (``masknet_l``/``_r``), wired by ``mode``:
+
+    - "independent": each ear's masker sees its ear's latent frames;
+    - "parallel": ``masknet_l`` sees ``encoder_l(left) || encoder_r(right)``
+      and ``masknet_r`` ``encoder_r(left) || encoder_l(right)`` (the
+      encoders' weights shared between the pairings); each 2N-channel mask
+      is split, applied to the two latents it saw, and the two products
+      summed for the ear;
+    - "cross": the interaural level difference, 10 log10(|L| / (|R| +
+      1e-8) + 1e-8) of the ears' STFT magnitudes (256 samples at hop
+      128), resized to the encoder's frames, projected by ``ild_proj``
+      (a Linear to N) and concatenated to each ear's latent (sign-flipped
+      for the right); each ear keeps the first N channels of its mask.
+
+    The decoders take the masked latents as masks over ones, as in JAX.
+
+    Example
+    -------
+    >>> net = BinauralConvTasNet(mode="cross", N=16, B=8, H=16, X=2, R=1,
+    ...                          C=2, L=8)
+    >>> net(torch.ones(1, 2048, 2)).shape
+    torch.Size([1, 2048, 2, 2])
+    """
+
+    def __init__(self, mode="parallel", N=256, B=128, H=256, P=3, X=6, R=2,
+                 C=2, L=16, norm_type="gLN", causal=False,
+                 mask_nonlinear="relu", sample_rate=8000):
+        super().__init__()
+        if mode not in ("independent", "parallel", "cross"):
+            raise ValueError(f"unknown binaural mode {mode}")
+        self.mode, self.N = mode, N
+        self.encoder_l, self.encoder_r = Encoder(L, N), Encoder(L, N)
+        self.decoder_l, self.decoder_r = Decoder(L, N), Decoder(L, N)
+        n_in = N if mode == "independent" else 2 * N
+        self.masknet_l, self.masknet_r = (
+            MaskNet(n_in, B, H, P, X, R, C, norm_type=norm_type,
+                    causal=causal, mask_nonlinear=mask_nonlinear)
+            for _ in range(2))
+        if mode == "cross":
+            self.stft = STFT(sample_rate, 256 * 1000.0 / sample_rate,
+                             128 * 1000.0 / sample_rate, n_fft=256)
+            self.ild_proj = Linear(129, N)
+
+    def _ild(self, xl, xr, K):
+        """(B, K, N): the projected ILD at the encoder's K frames."""
+        eps = 1e-8
+        mag_l = spectral_magnitude(self.stft(xl), power=0.5)
+        mag_r = spectral_magnitude(self.stft(xr), power=0.5)
+        ild = 10.0 * torch.log10(mag_l / (mag_r + eps) + eps)
+        assert K >= ild.shape[1], (K, ild.shape)  # enlarging only
+        ild = F.interpolate(ild.transpose(1, 2), size=K, mode="linear",
+                            align_corners=False).transpose(1, 2)
+        return self.ild_proj(ild)
+
+    def forward(self, mix):
+        T, N = mix.shape[1], self.N
+        xl, xr = mix[:, :, 0], mix[:, :, 1]
+        wl, wr = self.encoder_l(xl), self.encoder_r(xr)
+        if self.mode == "independent":
+            sep_l = wl[None] * self.masknet_l(wl)  # (C, B, K, N)
+            sep_r = wr[None] * self.masknet_r(wr)
+        elif self.mode == "parallel":
+            masks_l = self.masknet_l(torch.cat([wl, wr], -1))
+            wl2, wr1 = self.encoder_r(xl), self.encoder_l(xr)
+            masks_r = self.masknet_r(torch.cat([wl2, wr1], -1))
+            sep_l = wl[None] * masks_l[..., :N] + wr[None] * masks_l[..., N:]
+            sep_r = (wl2[None] * masks_r[..., :N]
+                     + wr1[None] * masks_r[..., N:])
+        else:
+            ild = self._ild(xl, xr, wl.shape[1])
+            masks_l = self.masknet_l(torch.cat([wl, ild], -1))
+            masks_r = self.masknet_r(torch.cat([wr, -ild], -1))
+            sep_l = wl[None] * masks_l[..., :N]
+            sep_r = wr[None] * masks_r[..., :N]
+        ones = torch.ones_like(wl)
+        est = torch.stack([dec(ones, sep.permute(1, 2, 0, 3)) for dec, sep in
+                           ((self.decoder_l, sep_l), (self.decoder_r, sep_r))],
+                          dim=2)  # (B, T', 2, C)
+        return _fit_length(est, T)

@@ -1,13 +1,13 @@
 """Dual-path separation models: the SepFormer, its conformer-intra
-variant and the DPRNN.
+variant and the DPRNN, and the other intra/inter blocks.
 
 Counterpart of ``speechbrain_tpu/lobes/models/dual_path.py``
 (``Encoder``, ``Decoder``, ``SBTransformerBlock``,
 ``SBConformerEncoderBlock``, ``SBRNNBlock``, ``Dual_Path_Model``,
 ``SepformerWrapper``, ``GlobalLayerNorm``, ``CumulativeLayerNorm``,
-``select_norm``), channels-last as there.  ``DPTNetBlock``,
-``PytorchTransformerBlock`` and ``Dual_Computation_Block`` are not
-ported.
+``select_norm``, ``PyTorchPositionalEncoding``,
+``PytorchTransformerBlock``, ``DPTNetBlock``, ``Dual_Computation_Block``
+and the ``FastTransformerBlock`` stub), channels-last as there.
 
 The chunking and the overlap-add of ``Dual_Path_Model`` run without a
 gather or a scatter: the chunk size K is even (250 in every yaml; an odd
@@ -19,14 +19,17 @@ sums, deterministic on CUDA (an ``index_add_`` accumulates with atomics
 there).
 """
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from ...nnet.activations import PReLU
-from ...nnet.attention import RelPosEncXL
+from ...nnet.attention import MultiheadAttention, RelPosEncXL
 from ...nnet.CNN import Conv1d, ConvTranspose1d
+from ...nnet.dropout import Dropout
 from ...nnet.linear import Linear
-from ...nnet.RNN import LSTM
+from ...nnet.RNN import GRU, LSTM
 from .transformer.Conformer import ConformerEncoder, LayerNorm, _ln
 from .transformer.Transformer import PositionalEncoding, TransformerEncoder
 
@@ -41,6 +44,11 @@ __all__ = [
     "GlobalLayerNorm",
     "CumulativeLayerNorm",
     "select_norm",
+    "PyTorchPositionalEncoding",
+    "PytorchTransformerBlock",
+    "DPTNetBlock",
+    "FastTransformerBlock",
+    "Dual_Computation_Block",
 ]
 
 
@@ -374,3 +382,145 @@ def select_norm(norm, dim, eps=1e-8):
     if norm == "cln":
         return CumulativeLayerNorm(dim, eps)
     return torch.nn.LayerNorm(dim, eps=eps)
+
+
+class PyTorchPositionalEncoding(torch.nn.Module):
+    """The sinusoids of the PyTorch tutorial (sine on the even channels,
+    cosine on the odd) for the input's T positions, added, then dropout.
+
+    Example
+    -------
+    >>> PyTorchPositionalEncoding(16).eval()(torch.ones(2, 10, 16)).shape
+    torch.Size([2, 10, 16])
+    """
+
+    def __init__(self, d_model, dropout=0.1, max_len=5000):
+        super().__init__()
+        self.d_model = d_model
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        T = x.shape[1]
+        pos = torch.arange(T, dtype=torch.float32, device=x.device)[:, None]
+        div = torch.exp(torch.arange(0, self.d_model, 2, dtype=torch.float32,
+                                     device=x.device)
+                        * (-math.log(10000.0) / self.d_model))
+        pe = torch.zeros(T, self.d_model, device=x.device)
+        pe[:, 0::2] = torch.sin(pos * div)
+        pe[:, 1::2] = torch.cos(pos * div)
+        return self.drop(x + pe[None].to(x.dtype))
+
+
+class PytorchTransformerBlock(torch.nn.Module):
+    """``PyTorchPositionalEncoding`` (``pos``, optional), then a post-norm
+    ``TransformerEncoder`` (``encoder``: ReLU FFN, final LayerNorm), as a
+    dual-path intra or inter block.
+
+    Example
+    -------
+    >>> blk = PytorchTransformerBlock(16, num_layers=1, nhead=4, d_ffn=32)
+    >>> blk.eval()(torch.ones(2, 10, 16)).shape
+    torch.Size([2, 10, 16])
+    """
+
+    def __init__(self, out_channels, num_layers=6, nhead=8, d_ffn=2048,
+                 dropout=0.1, use_positional_encoding=True):
+        super().__init__()
+        self.pos = (PyTorchPositionalEncoding(out_channels, dropout)
+                    if use_positional_encoding else None)
+        self.encoder = TransformerEncoder(num_layers, nhead, d_ffn,
+                                          out_channels, dropout=dropout,
+                                          normalize_before=False)
+
+    def forward(self, x):
+        if self.pos is not None:
+            x = self.pos(x)
+        return self.encoder(x)[0]
+
+
+class DPTNetBlock(torch.nn.Module):
+    """The DPTNet layer: multi-head self-attention (``mha``), dropout,
+    residual, LayerNorm (``norm1``); then a bidirectional ``GRU``
+    (``rnn_ffn``) of ``dim_feedforward // 2`` units a direction, ReLU, a
+    Linear back to ``d_model`` (``ffn_out``), dropout, residual, LayerNorm
+    (``norm2``).
+
+    Example
+    -------
+    >>> DPTNetBlock(16, 4)(torch.ones(2, 10, 16)).shape
+    torch.Size([2, 10, 16])
+    """
+
+    def __init__(self, d_model, nhead, dim_feedforward=256, dropout=0.0):
+        super().__init__()
+        self.mha = MultiheadAttention(nhead, d_model, dropout)
+        self.norm1 = LayerNorm(d_model)
+        self.rnn_ffn = GRU(d_model, dim_feedforward // 2, bidirectional=True)
+        self.ffn_out = Linear(2 * (dim_feedforward // 2), d_model)
+        self.norm2 = LayerNorm(d_model)
+        self.drop = Dropout(dropout)
+
+    def forward(self, x):
+        x = _ln(self.norm1, x + self.drop(self.mha(x, x, x)[0]))
+        y = self.ffn_out(torch.relu(self.rnn_ffn(x)[0]))
+        return _ln(self.norm2, x + self.drop(y))
+
+
+class FastTransformerBlock:
+    """Stands for the dual-path block over the ``fast_transformers``
+    package (linear attention), which neither package depends on:
+    building one raises ``ImportError``, as in JAX."""
+
+    def __init__(self, *args, **kwargs):
+        raise ImportError(
+            "FastTransformerBlock needs the fast_transformers package; use "
+            "SBTransformerBlock instead.")
+
+
+class Dual_Computation_Block(torch.nn.Module):
+    """One dual-path step on chunks (B, S, K, N): the intra-chunk
+    ``SBTransformerBlock`` (``intra_mdl``) over K, an optional Linear
+    (``intra_lin``, with ``linear_layer_after_inter_intra``), a
+    LayerNorm (``intra_norm``, unless ``norm`` is None) and, with
+    ``skip_around_intra``, the input added; then the inter-chunk block
+    over S the same way (``inter_mdl``, ``inter_lin``, ``inter_norm``),
+    plus the intra result.
+
+    Example
+    -------
+    >>> blk = Dual_Computation_Block(16, nhead=4, d_ffn=32)
+    >>> blk.eval()(torch.ones(2, 5, 10, 16)).shape
+    torch.Size([2, 5, 10, 16])
+    """
+
+    def __init__(self, out_channels, nhead=8, d_ffn=1024, intra_numlayers=1,
+                 inter_numlayers=1, norm="ln", skip_around_intra=True,
+                 linear_layer_after_inter_intra=False):
+        super().__init__()
+        N = out_channels
+        self.skip_around_intra = skip_around_intra
+        self.intra_mdl = SBTransformerBlock(intra_numlayers, N, nhead, d_ffn)
+        self.inter_mdl = SBTransformerBlock(inter_numlayers, N, nhead, d_ffn)
+        lin = linear_layer_after_inter_intra
+        self.intra_lin = Linear(N, N) if lin else None
+        self.inter_lin = Linear(N, N) if lin else None
+        self.intra_norm = LayerNorm(N) if norm is not None else None
+        self.inter_norm = LayerNorm(N) if norm is not None else None
+
+    def forward(self, x):
+        B, S, K, N = x.shape
+        intra = self.intra_mdl(x.reshape(B * S, K, N))
+        if self.intra_lin is not None:
+            intra = self.intra_lin(intra)
+        intra = intra.reshape(B, S, K, N)
+        if self.intra_norm is not None:
+            intra = _ln(self.intra_norm, intra)
+        if self.skip_around_intra:
+            intra = intra + x
+        inter = self.inter_mdl(intra.transpose(1, 2).reshape(B * K, S, N))
+        if self.inter_lin is not None:
+            inter = self.inter_lin(inter)
+        inter = inter.reshape(B, K, S, N).transpose(1, 2)
+        if self.inter_norm is not None:
+            inter = _ln(self.inter_norm, inter)
+        return inter + intra

@@ -1,12 +1,14 @@
-"""Feature extraction: STFT, power spectrum, mel filterbank, deltas,
-context windows, and global input normalization (eval, and training
-with statistic updates).
+"""Feature extraction: STFT and its inverse, power spectrum, mel
+filterbank, deltas, context windows, and global input normalization
+(eval, and training with statistic updates).
 
 Counterpart of ``speechbrain_tpu/processing/features.py``.  The STFT is
 the same chunked-frame DFT matmul as the JAX package's "matmul" backend
 (frames are concatenations of hop-sized chunks, times a windowed DFT
 matrix zero-padded to a whole number of chunks), so both packages
-compute identical products.
+compute identical products.  The ISTFT's overlap-add is a sum of
+shifted reshapes where the hop divides the frame (``F.fold``
+otherwise), not the JAX package's scatter-add: no atomics on CUDA.
 """
 
 import math
@@ -14,8 +16,11 @@ import math
 import numpy as np
 import torch
 
+from .signal_processing import overlap_add
+
 __all__ = [
     "STFT",
+    "ISTFT",
     "spectral_magnitude",
     "Filterbank",
     "mel_filter_matrix",
@@ -163,6 +168,84 @@ def spectral_magnitude(stft, power=1, log=False, eps=1e-14):
     if log:
         return torch.log(spectr + eps)
     return spectr
+
+
+class ISTFT(torch.nn.Module):
+    """Inverse STFT: (batch, frames, freq, 2) -> (batch, time), the real
+    inverse DFT of each frame times the analysis window, overlap-added at
+    the hop and divided by the overlap-added squared window (at least
+    ``epsilon``); with ``center`` the first and last n_fft // 2 samples
+    are dropped, and ``sig_length`` cuts the result.  A 5-d input
+    (batch, frames, freq, 2, channels) gives (batch, time, channels).
+    ``n_fft`` None takes 2 (freq - 1).  ``win_length``/``hop_length`` in
+    milliseconds, the window as ``STFT`` makes it (zero-padded, centred,
+    when shorter than n_fft).
+
+    Example
+    -------
+    >>> stft = STFT(8000, win_length=32, hop_length=16, n_fft=512)
+    >>> istft = ISTFT(8000, win_length=32, hop_length=16, n_fft=512)
+    >>> x = torch.randn(2, 4096)
+    >>> y = istft(stft(x))
+    >>> y.shape, bool((y - x).abs().max() < 1e-4)
+    (torch.Size([2, 4096]), True)
+    """
+
+    def __init__(self, sample_rate, win_length=25, hop_length=10, n_fft=None,
+                 window_type="hamming", normalized_stft=False, center=True,
+                 epsilon=1e-12):
+        super().__init__()
+        self.win_length = _ms_to_samples(sample_rate, win_length)
+        self.hop_length = _ms_to_samples(sample_rate, hop_length)
+        self.n_fft = n_fft
+        self.window_type = window_type
+        self.normalized_stft = normalized_stft
+        self.center = center
+        self.epsilon = epsilon
+        if n_fft is not None:  # a buffer: no copy from the host a call
+            self.register_buffer("window", torch.from_numpy(
+                self._make(n_fft)), persistent=False)
+
+    def _make(self, n_fft):
+        window = _make_window(self.window_type, self.win_length)
+        if self.win_length < n_fft:
+            left = (n_fft - self.win_length) // 2
+            padded = np.zeros(n_fft, dtype=np.float32)
+            padded[left : left + self.win_length] = window
+            window = padded
+        return window
+
+    def _window(self, n_fft, like):
+        if self.n_fft is not None:
+            return self.window.to(like.dtype)
+        return torch.from_numpy(self._make(n_fft)).to(like.device, like.dtype)
+
+    def forward(self, x, sig_length=None):
+        """x: (batch, frames, freq, 2) or (batch, frames, freq, 2,
+        channels)."""
+        multi_channel = x.dim() == 5
+        if multi_channel:
+            batch, n_frames, freq, _, channels = x.shape
+            x = x.permute(0, 4, 1, 2, 3).reshape(batch * channels, n_frames,
+                                                 freq, 2)
+        n_fft = self.n_fft or 2 * (x.shape[2] - 1)
+        spec = torch.complex(x[..., 0], x[..., 1])
+        if self.normalized_stft:
+            spec = spec * math.sqrt(n_fft)
+        frames = torch.fft.irfft(spec, n=n_fft, dim=-1)
+        window = self._window(n_fft, frames)
+        sig = overlap_add(frames * window, self.hop_length)
+        norm = overlap_add((window ** 2).expand(1, frames.shape[1], n_fft),
+                           self.hop_length)
+        sig = sig / norm.clamp(min=self.epsilon)
+        if self.center:
+            pad = n_fft // 2
+            sig = sig[:, pad:-pad] if pad else sig
+        if sig_length is not None:
+            sig = sig[:, :sig_length]
+        if multi_channel:
+            sig = sig.reshape(batch, channels, -1).transpose(1, 2)
+        return sig
 
 
 def hz_to_mel(hz):

@@ -64,9 +64,11 @@ from ..core import Brain, Stage
 from ..dataio.dataio import _load_audio_any, read_audio
 from ..dataio.dataloader import SaveableDataLoader
 from ..dataio.dataset import DynamicItemDataset
-from ..lobes.models.conv_tasnet import ConvTasNet
+from ..lobes.models.conv_tasnet import BinauralConvTasNet, ConvTasNet
 from ..lobes.models.dual_path import SepformerWrapper
 from ..lobes.models.resepformer import SkiMSeparator
+from ..lobes.models.transformer.TransformerSE import (CNNTransformerSE,
+                                                      SpectralMaskWrapper)
 from ..nnet.activations import PReLU
 from ..nnet.losses import PitWrapper, cal_si_snr
 from ..nnet.schedulers import ReduceLROnPlateau
@@ -79,8 +81,9 @@ from .common import recipe_hparams
 __all__ = ["HPARAMS_SEPFORMER", "HPARAMS_SEPFORMER_CONFORMERINTRA",
            "HPARAMS_SEPFORMER_CUSTOMDATASET", "HPARAMS_CONVTASNET",
            "HPARAMS_DPRNN", "HPARAMS_SKIM", "HPARAMS_RESEPFORMER",
-           "prepare_wsjmix", "MixtureCrop",
-           "dataio_prep", "build_model", "Separation", "build", "run",
+           "prepare_wsjmix", "write_manifest", "MixtureCrop",
+           "dataio_prep", "build_model", "Separation", "build", "assemble",
+           "fit_and_test", "run", "harmonic_sources", "pcm16", "write_wav",
            "write_synthetic_wsj0mix"]
 
 SPLITS = ("tr", "cv", "tt")
@@ -144,33 +147,41 @@ HPARAMS_RESEPFORMER = dict(HPARAMS_SKIM, model="ResepformerWrapper",
                            num_blocks=2, mem_type="av")
 
 
-def prepare_wsjmix(data_folder, save_folder, num_spks=2):
-    """``<save_folder>/wsj_{tr,cv,tt}.json`` from a wsj0-mix tree: one entry
-    per ``<split>/mix/*.wav`` (sorted), keyed by its name without
+def prepare_wsjmix(data_folder, save_folder, num_spks=2, name="wsj"):
+    """``<save_folder>/<name>_{tr,cv,tt}.json`` from a wsj0-mix tree: one
+    entry per ``<split>/mix/*.wav`` (sorted), keyed by its name without
     ``.wav``: ``mix_wav``, ``duration`` (seconds at the file's own rate,
     to 3 decimals) and ``s{i}_wav`` for each source.  A manifest that
     exists is kept."""
     os.makedirs(save_folder, exist_ok=True)
     for split in SPLITS:
-        out = os.path.join(save_folder, f"wsj_{split}.json")
-        if os.path.exists(out):
+        write_manifest(os.path.join(save_folder, f"{name}_{split}.json"),
+                       os.path.join(data_folder, split, "mix"),
+                       {f"s{i}_wav": os.path.join(data_folder, split, f"s{i}")
+                        for i in range(1, num_spks + 1)})
+
+
+def write_manifest(out, mix_dir, others):
+    """Write the JSON manifest ``out`` of the WAVs in ``mix_dir`` (sorted),
+    unless it exists: each keyed by its name without ``.wav``, with
+    ``mix_wav``, ``duration`` (seconds at the file's own rate, to 3
+    decimals) and, for each ``key: folder`` of ``others``, the file of the
+    same name there."""
+    if os.path.exists(out):
+        return
+    if not os.path.isdir(mix_dir):
+        raise FileNotFoundError(f"Missing {mix_dir}")
+    manifest = {}
+    for fn in sorted(os.listdir(mix_dir)):
+        if not fn.endswith(".wav"):
             continue
-        mix_dir = os.path.join(data_folder, split, "mix")
-        if not os.path.isdir(mix_dir):
-            raise FileNotFoundError(f"Missing {mix_dir}")
-        manifest = {}
-        for fn in sorted(os.listdir(mix_dir)):
-            if not fn.endswith(".wav"):
-                continue
-            audio, rate = _load_audio_any(os.path.join(mix_dir, fn))
-            entry = {"mix_wav": os.path.join(data_folder, split, "mix", fn),
-                     "duration": round(len(audio) / rate, 3)}
-            for i in range(1, num_spks + 1):
-                entry[f"s{i}_wav"] = os.path.join(data_folder, split,
-                                                  f"s{i}", fn)
-            manifest[os.path.splitext(fn)[0]] = entry
-        with open(out, "w") as f:
-            json.dump(manifest, f, indent=2)
+        audio, rate = _load_audio_any(os.path.join(mix_dir, fn))
+        entry = {"mix_wav": os.path.join(mix_dir, fn),
+                 "duration": round(len(audio) / rate, 3)}
+        entry.update({k: os.path.join(d, fn) for k, d in others.items()})
+        manifest[os.path.splitext(fn)[0]] = entry
+    with open(out, "w") as f:
+        json.dump(manifest, f, indent=2)
 
 
 class MixtureCrop:
@@ -179,7 +190,7 @@ class MixtureCrop:
     (as the JAX pipeline draws it) from ``np.random.default_rng((seed,
     epoch, crc32(mixture id)))``, so a mixture's crop depends on the
     epoch (``set_epoch``) and its id alone; shorter ones zero-padded at
-    the end.
+    the end.  Signals are (time,) or (time, channels).
 
     Example
     -------
@@ -201,35 +212,44 @@ class MixtureCrop:
     def __call__(self, signals, mix_id):
         n = len(signals[0])
         if n <= self.samples:
-            return [np.pad(s, (0, self.samples - n)) for s in signals]
+            pad = [(0, self.samples - n)]
+            return [np.pad(s, pad + [(0, 0)] * (s.ndim - 1)) for s in signals]
         key = (self.seed, self.epoch, zlib.crc32(mix_id.encode()))
         start = int(np.random.default_rng(key).integers(0, n - self.samples))
         return [s[start:start + self.samples] for s in signals]
 
 
-def dataio_prep(hparams):
-    """The datasets of ``train.py:99``: ``mix_sig``, ``s1_sig``, ``s2_sig``
-    read from the manifests' files and cut to their common length; the
-    training ones cropped by a ``MixtureCrop`` of ``training_signal_len``
-    samples when ``limit_training_signal_len``.  Returns ``(datasets,
-    crop)``."""
+def dataio_prep(hparams, read=read_audio, eval_crop=False):
+    """The datasets of ``train.py:99``: ``mix_sig`` and ``s1_sig`` ...
+    ``s{num_spks}_sig`` read by ``read`` from the manifests' files and cut
+    to their common length; the training ones cropped by a
+    ``MixtureCrop`` of ``training_signal_len`` samples when
+    ``limit_training_signal_len``, and with ``eval_crop`` the validation
+    and test ones by another, whose epoch stays 0 (the same crops every
+    epoch).  Returns ``(datasets, crop)``, ``crop`` the training one."""
     crop = MixtureCrop(hparams["training_signal_len"], hparams["seed"])
+    fixed = (MixtureCrop(hparams["training_signal_len"], hparams["seed"])
+             if eval_crop else None)
+    spks = range(1, hparams.get("num_spks", 2) + 1)
+    keys, sigs = [f"s{i}_wav" for i in spks], [f"s{i}_sig" for i in spks]
     datasets = {}
     for split in ("train", "valid", "test"):
         ds = DynamicItemDataset.from_json(hparams[f"{split}_data"])
+        cut = (crop if hparams["limit_training_signal_len"] else None
+               ) if split == "train" else fixed
 
-        def audio_pipeline(mix_wav, s1_wav, s2_wav, mix_id, split=split):
-            sigs = [read_audio(p) for p in (mix_wav, s1_wav, s2_wav)]
-            n = min(len(s) for s in sigs)
-            sigs = [s[:n] for s in sigs]
-            if split == "train" and hparams["limit_training_signal_len"]:
-                sigs = crop(sigs, mix_id)
-            return tuple(sigs)
+        def audio_pipeline(mix_wav, *rest, cut=cut):
+            *paths, mix_id = rest
+            signals = [read(p) for p in (mix_wav, *paths)]
+            n = min(len(x) for x in signals)
+            signals = [x[:n] for x in signals]
+            if cut is not None:
+                signals = cut(signals, mix_id)
+            return tuple(signals)
 
-        ds.add_dynamic_item(audio_pipeline,
-                            takes=["mix_wav", "s1_wav", "s2_wav", "id"],
-                            provides=["mix_sig", "s1_sig", "s2_sig"])
-        ds.set_output_keys(["id", "mix_sig", "s1_sig", "s2_sig"])
+        ds.add_dynamic_item(audio_pipeline, takes=["mix_wav"] + keys + ["id"],
+                            provides=["mix_sig"] + sigs)
+        ds.set_output_keys(["id", "mix_sig"] + sigs)
         datasets[split] = ds
     return datasets, crop
 
@@ -261,8 +281,12 @@ def _random_biases(model, gen):
 
 def build_model(hparams, seed=0):
     """``hparams["model"]``'s separator (``SepformerWrapper``,
-    ``SkiMSeparator``, ``ResepformerWrapper`` (the same class) or
-    ``ConvTasNet``), with Lecun-normal weights from ``seed``
+    ``SkiMSeparator``, ``ResepformerWrapper`` (the same class),
+    ``ConvTasNet``, ``BinauralConvTasNet`` (``mode``) or
+    ``SpectralMaskWrapper`` over a ``CNNTransformerSE`` (``n_fft``,
+    ``d_model``, ``nhead``, ``num_layers``, ``d_ffn``, ``causal``,
+    ``dropout``, ``output_activation``)), with Lecun-normal weights from
+    ``seed``
     (``asr._random_init``: norms' scales one and biases zero), each PReLU's
     slope at its initial value, and the other biases drawn from the same
     generator (``_random_biases``).  Not zero, as Flax starts them: the
@@ -303,6 +327,21 @@ def build_model(hparams, seed=0):
             N=hp["N"], B=hp["B"], H=hp["H"], P=hp["P"], X=hp["X"], R=hp["R"],
             C=hp["num_spks"], L=hp["L"], norm_type=hp["norm_type"],
             causal=hp["causal"], mask_nonlinear=hp["mask_nonlinear"])
+    elif hp["model"] == "BinauralConvTasNet":
+        model = BinauralConvTasNet(
+            mode=hp["mode"], N=hp["N"], B=hp["B"], H=hp["H"], P=hp["P"],
+            X=hp["X"], R=hp["R"], C=hp["num_spks"], L=hp["L"],
+            norm_type=hp["norm_type"], causal=hp["causal"],
+            mask_nonlinear=hp["mask_nonlinear"],
+            sample_rate=hp["sample_rate"])
+    elif hp["model"] == "SpectralMaskWrapper":
+        masker = CNNTransformerSE(
+            d_model=hp["d_model"], output_size=hp["n_fft"] // 2 + 1,
+            output_activation=hp["output_activation"], nhead=hp["nhead"],
+            num_layers=hp["num_layers"], d_ffn=hp["d_ffn"],
+            dropout=hp["dropout"], causal=hp["causal"])
+        model = SpectralMaskWrapper(masker, sample_rate=hp["sample_rate"],
+                                    n_fft=hp["n_fft"])
     else:
         raise ValueError(f"Unknown model {hp['model']}")
     gen = torch.Generator().manual_seed(seed)
@@ -381,9 +420,14 @@ class Separation(Brain):
         """(B, T, num_spks) estimates of the sources."""
         return self.modules.masknet(batch["mix_sig"].to(self.dtype))
 
+    def targets(self, batch):
+        """The sources stacked on a last axis."""
+        return torch.stack([batch[f"s{i}_sig"] for i in
+                            range(1, self.hparams.num_spks + 1)], dim=-1)
+
     def compute_objectives(self, predictions, batch, stage):
         """The capped PIT negative SI-SNR, averaged over the real rows."""
-        targets = torch.stack([batch["s1_sig"], batch["s2_sig"]], dim=-1)
+        targets = self.targets(batch)
         mask = batch["batch_mask"]
         per_ex = self.pit_si_snr(targets, predictions.float())[0]
         per_ex = per_ex.clamp(max=self.hparams.loss_upper_lim)
@@ -434,12 +478,22 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
         "data_folder": hp["data_folder"], "save_folder": hp["save_folder"],
         "num_spks": hp["num_spks"]})
     datasets, crop = dataio_prep(hp)
-    epoch_counter = EpochCounter(hp["number_of_epochs"])
-    brain = Separation(
+    return assemble(hp, datasets, crop, run_opts)
+
+
+def assemble(hp, datasets, crop, run_opts, brain_class=Separation):
+    """The parts of a separation recipe's ``build`` over its
+    ``datasets``: an ``EpochCounter``, a ``brain_class`` Brain (a
+    ``Checkpointer`` on ``save_folder``, a ``FileTrainLogger`` on
+    ``train_log``, ``crop`` in its hparams: a ``MixtureCrop`` or anything
+    with ``set_epoch``) and the loaders (``batch_size`` rows; training
+    shuffled), with ``hp`` as ``hparams``."""
+    brain = brain_class(
         dict(hp, train_logger=FileTrainLogger(hp["train_log"]), crop=crop),
         run_opts=run_opts, checkpointer=Checkpointer(hp["save_folder"]))
     bs = hp["batch_size"]
-    return {"brain": brain, "epoch_counter": epoch_counter,
+    return {"brain": brain,
+            "epoch_counter": EpochCounter(hp["number_of_epochs"]),
             "train_loader": SaveableDataLoader(datasets["train"],
                                                batch_size=bs, shuffle=True),
             "valid_loader": SaveableDataLoader(datasets["valid"],
@@ -449,6 +503,17 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
             "hparams": hp}
 
 
+def fit_and_test(parts, min_key="si-snr"):
+    """``fit`` (resuming from the latest checkpoint), then ``evaluate`` on
+    the test set with the checkpoint of the least ``min_key``.  Returns
+    the Brain."""
+    brain = parts["brain"]
+    brain.fit(parts["epoch_counter"], parts["train_loader"],
+              parts["valid_loader"])
+    brain.evaluate(parts["test_loader"], min_key=min_key)
+    return brain
+
+
 def run(data_folder, output_folder, overrides=None, run_opts=None,
         hparams=HPARAMS_SEPFORMER):
     """``train.py`` end to end: ``build``, ``fit`` (resuming from the
@@ -456,12 +521,39 @@ def run(data_folder, output_folder, overrides=None, run_opts=None,
     checkpoint of the least validation loss.  Returns the Brain; its
     ``stage_stats["TEST"]["si-snr"]`` is the test loss (the negative
     SI-SNR in dB)."""
-    parts = build(data_folder, output_folder, overrides, run_opts, hparams)
-    brain = parts["brain"]
-    brain.fit(parts["epoch_counter"], parts["train_loader"],
-              parts["valid_loader"])
-    brain.evaluate(parts["test_loader"], min_key="si-snr")
-    return brain
+    return fit_and_test(build(data_folder, output_folder, overrides,
+                              run_opts, hparams))
+
+
+def harmonic_sources(rng, count, samples, sample_rate, peak=0.4):
+    """``count`` synthetic sources of ``samples`` samples: harmonic tones
+    (random f0 in 90-300 Hz, four partials with random weights and
+    phases) under random smooth envelopes, at most ``peak``."""
+    t = np.arange(samples) / sample_rate
+    out = []
+    for _ in range(count):
+        f0 = rng.uniform(90.0, 300.0)
+        tone = sum(rng.uniform(0.2, 1.0) * np.sin(
+            2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi))
+            for k in range(1, 5))
+        env = np.interp(t, np.linspace(0, t[-1], 6), rng.uniform(0.1, 1.0, 6))
+        out.append(peak * env * tone / np.abs(tone).max())
+    return out
+
+
+def pcm16(signal):
+    """Float samples in [-1, 1] -> int32 16-bit PCM values (rounded)."""
+    return np.round(np.asarray(signal) * 32767).astype(np.int32)
+
+
+def write_wav(path, pcm, sample_rate):
+    """Write 16-bit PCM values, (time,) or (time, channels), as a WAV."""
+    pcm = np.clip(pcm, -32768, 32767).astype("<i2")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1 if pcm.ndim == 1 else pcm.shape[1])
+        w.setsampwidth(2)
+        w.setframerate(sample_rate)
+        w.writeframes(pcm.tobytes())
 
 
 def write_synthetic_wsj0mix(folder, n=None, seconds=(2.0, 5.0), seed=0,
@@ -470,10 +562,9 @@ def write_synthetic_wsj0mix(folder, n=None, seconds=(2.0, 5.0), seed=0,
     recipe without the corpus: for each split of ``n`` (default
     ``{"tr": 24, "cv": 6, "tt": 6}``) that many 16-bit WAVs at
     ``sample_rate`` in ``<folder>/<split>/{s1,s2,mix}/``, lasting
-    ``seconds`` (uniform).  Each source is a harmonic tone (random f0 in
-    90-300 Hz, four partials with random weights) under a random smooth
-    envelope; the mixture is the sum of the two stored sources, sample
-    for sample.  Everything comes from ``seed``."""
+    ``seconds`` (uniform): two ``harmonic_sources``; the mixture is the
+    sum of the two stored sources, sample for sample.  Everything comes
+    from ``seed``."""
     n = n or {"tr": 24, "cv": 6, "tt": 6}
     rng = np.random.default_rng(seed)
     for split, count in n.items():
@@ -481,23 +572,10 @@ def write_synthetic_wsj0mix(folder, n=None, seconds=(2.0, 5.0), seed=0,
             os.makedirs(os.path.join(folder, split, sub), exist_ok=True)
         for i in range(count):
             samples = int(rng.uniform(*seconds) * sample_rate)
-            t = np.arange(samples) / sample_rate
-            pcm = []
-            for _ in range(2):
-                f0 = rng.uniform(90.0, 300.0)
-                tone = sum(rng.uniform(0.2, 1.0) * np.sin(
-                    2 * np.pi * k * f0 * t + rng.uniform(0, 2 * np.pi))
-                    for k in range(1, 5))
-                knots = rng.uniform(0.1, 1.0, 6)
-                env = np.interp(t, np.linspace(0, t[-1], 6), knots)
-                sig = 0.4 * env * tone / np.abs(tone).max()
-                pcm.append(np.round(sig * 32767).astype(np.int32))
+            pcm = [pcm16(x) for x in harmonic_sources(rng, 2, samples,
+                                                      sample_rate)]
             name = f"synth{i:04d}.wav"
             for sub, data in (("s1", pcm[0]), ("s2", pcm[1]),
                               ("mix", pcm[0] + pcm[1])):
-                with wave.open(os.path.join(folder, split, sub, name),
-                               "wb") as w:
-                    w.setnchannels(1)
-                    w.setsampwidth(2)
-                    w.setframerate(sample_rate)
-                    w.writeframes(data.astype("<i2").tobytes())
+                write_wav(os.path.join(folder, split, sub, name), data,
+                          sample_rate)
