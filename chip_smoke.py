@@ -13,6 +13,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_separation
     python3 chip_smoke.py --phase recipe_separation_rnn
     python3 chip_smoke.py --phase recipe_separation_more
+    python3 chip_smoke.py --phase recipe_seq2seq
 
 Phases, each printing one JSON line when it ends:
 
@@ -42,9 +43,11 @@ Phases, each printing one JSON line when it ends:
    seed (the same Philox mask), bit-identical across two launches with
    one seed, different at seed + 1.  K5 and K6 run on the tensor cores:
    their bounds divide by the peak of the tensor cores they use; bf16 K5
-   is also held to the rounding-point reference.  The lattice kernels
-   also run wider than a block has threads (role "wide_lattice": CTC
-   2U+1 = 1041, RNN-T U+1 = 1100).
+   is also held to the rounding-point reference.  K3/K4 also run at the
+   TIMIT step's lattice (role "timit": B8 T301 C40 U40) and the CRDNN
+   seq2seq step's (role "seq2seq": B8 T1001 C1000 U48, the warp path).
+   The lattice kernels also run wider than a block has threads (role
+   "wide_lattice": CTC 2U+1 = 1041, RNN-T U+1 = 1100).
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
    weights from a seed) transcribes 8 synthetic 10 s utterances with
    beam 10 and CTC weight 0.4, in float32 and then bfloat16.  The launch
@@ -253,6 +256,33 @@ Phases, each printing one JSON line when it ends:
    recovered bit for bit (the ``DynamicMix`` at epoch 2), the test pass;
    LibriMix 3-mix, binaural "cross" and REAL-M 1 epoch each through
    ``run``; every SI-SNR and L1 finite.  No port kernel runs here.
+19. recipe_seq2seq -- the LibriSpeech CRDNN seq2seq recipe
+   (``recipes.librispeech_seq2seq``, ``train_BPE_1000.yaml``: Fbank 40,
+   the CRDNN with a bidirectional LSTM of 4 x 1024, the GRU decoder with
+   location attention of 1024, ~119 M parameters) at full width: the
+   training step on B = 8 synthetic 10 s utterances (T 1001) with 24-48
+   tokens each in a CTC epoch (0.5 CTC on K3/K4, warp path, + 0.5 NLL;
+   SpecAugment, dropout 0.15, Adadelta at lr 1.0) in bf16 (the yaml's)
+   and f32: ms/step, utt/s, peak memory, the launches a step (K3 1, K4
+   1, nothing else), PyTorch calls, FLOPs, the profile of one step and
+   the teacher-forced decoder's forward and backward alone; the
+   ``train_BPE_5000.yaml`` head's step once.  At toy widths in float64,
+   the loss and every gradient on the card against the CPU (an epoch
+   after the CTC epochs: the CTC runs in float32) and the LM-fused beam
+   search's hypotheses (equal) and scores, within ``S2S_CARD_TOL``; its
+   control, the card side in float32 against the same CPU float64 run,
+   must break both bounds.  At full width in f32 (a CTC epoch, ragged
+   lengths, a dummy row, dropout 0), the step's loss and gradients
+   through K3/K4 against the plain CTC recursions (``set_kernels``).  The
+   LM-fused beam search as the recipe validates (beam 8, temperature
+   1.25, coverage 1.5, attention shift 240, eos threshold 1.5, an RNNLM
+   of 2 x 2048 fused at 0.5, random weights) on B 8 x 10 s in f32 and
+   bf16, capped at int(1001 x ``S2S_SEARCH_RATIO``) steps: the steps
+   run, ms a step, utt/s (encode + search), a profile.  Then the recipe
+   on a synthetic tree (16 train, 8 valid, 4 test utterances of 2-4 s,
+   the LM from a checkpoint file, bf16, searches capped as above): epoch
+   1, epoch 2 in a fresh Brain recovered bit for bit, the test at beam
+   80; every WER, CER and loss finite.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -262,7 +292,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 18, each counted from 0 just before its
+(launch counts from phases 3 to 19, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -803,15 +833,17 @@ def _kernel_profile(fn):
     return {"device_ms_by_kernel": by_kernel, "device_kernels_per_call": kernels}
 
 
-def _check_ctc(B=32, T=251, C=5000, U=40, role=None):
+def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3):
     """K3 (alpha + loss) and K4 (beta + gradient) at the training shape
     (or, with a ``role``, at (B, T, C, U): "timit" is the TIMIT recipe's
-    step, 40 classes) against their plain recursions, float32 only (the
-    log-probs are f32 in the JAX package too); two calls give the same
-    bits.  Each timed as a call (card ms, device ms, host us, beside
-    ``F.ctc_loss``) with its device kernels by name; at B1 U0 (one
-    lattice state) as the floor of the frame chain (``chain_floor_ms``);
-    and beside ``chain_term_ms``, T steps of ``_chain_step_ms``."""
+    step, 40 classes; "seq2seq" the CRDNN seq2seq recipe's, T 1001)
+    against their plain recursions, float32 only (the log-probs are f32
+    in the JAX package too); two calls give the same bits.  Each timed as a
+    call (card ms, device ms, host us, beside ``F.ctc_loss``) with its
+    device kernels by name; at B1 U0 (one lattice state) as the floor of the
+    frame chain (``chain_floor_ms``); and beside ``chain_term_ms``, T steps
+    of ``_chain_step_ms``.  The logits' gradient is held to ``F.ctc_loss``'s
+    within ``lib_tol``."""
     import torch
     import torch.nn.functional as F
 
@@ -863,7 +895,7 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None):
     ours = ctc_loss_per_seq(torch.log_softmax(lg2, -1), targets, tlen, ulen, 0)
     ours.sum().backward()
     lib_err = {"loss": _err(ours, lib), "logits_grad": _err(lg2.grad, g_lib)}
-    assert lib_err["logits_grad"] <= tol_grad, lib_err
+    assert lib_err["logits_grad"] <= lib_tol, lib_err
     n_live = int(live.sum())
     lat_bytes = 4 * n_live  # gathered lattice values, read once
     k3_bound = _bound_ms(2 * lat_bytes + 4 * B * U + 12 * B, 12 * n_live, "float32")
@@ -896,7 +928,8 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None):
              "ctc_beta_grad": _device_ms(lambda: ctc_beta_grad(
                  *args1, alpha1, logz1, ones[:1]))[0]}
     common = {"dtype": "float32", "shape": [B, T, C, U],
-              "vs_F_ctc_loss": lib_err, "live_states": n_live,
+              "vs_F_ctc_loss": lib_err, "vs_F_ctc_loss_tol": lib_tol,
+              "live_states": n_live,
               "same_bits_twice": True, "log1p_mismatches": log1p_bad,
               "chain_term_ms": chain_term,
               "chain_floor_shape": [1, T, C, 0]}
@@ -1576,6 +1609,14 @@ def phase_kernels(only=None):
     if want("ctc"):
         records.extend(_check_ctc())
         records.extend(_check_ctc(8, 301, 40, 40, role="timit"))
+        # the CRDNN seq2seq step's lattice: T_enc 1001, BPE 1000, 48
+        # tokens.  |log Z| reaches ~7e3 there (3.5x the 2e3 at which 2e-3
+        # was set), and the occupancies carry its f32 ulp (4.9e-4) as a
+        # relative error: the logits' gradient lay 5.99e-3 from
+        # F.ctc_loss's on an H100 while K4 kept within 2e-3 of the plain
+        # recursion
+        records.extend(_check_ctc(8, 1001, 1000, 48, role="seq2seq",
+                                  lib_tol=1e-2))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -4394,6 +4435,410 @@ def _recipe_sep_more_run(tmp):
     return run
 
 
+# phase 19: the CRDNN seq2seq recipe.  A CTC-epoch step launches K3 and
+# K4 once each and nothing else; its batch's 2U + 1 <= 257 lattice takes
+# the warp path of csrc/ctc.cu.
+S2S_LAUNCHES = dict(TIMIT_LAUNCHES)
+S2S_B, S2S_SAMPLES, S2S_U = 8, 160000, 48
+# the LM-fused search's step budget: max_steps = int(1001 frames x 0.1)
+S2S_SEARCH_RATIO = 0.1
+# the card-vs-CPU checks at toy widths (float64 modules, after the CTC
+# epochs: the CTC's recursions, kernels and plain, run in float32): the
+# loss relative to the CPU's, each gradient's largest difference relative
+# to its scale (floored at 5 % of the largest gradient), the searches'
+# scores absolute (the search keeps its scores in float32).  The step is
+# float64 throughout (the LayerNorms', BatchNorms' and InputNormalization's
+# statistics at least float32, float64 kept); the control, the card side
+# in float32, must break both bounds.  On an H100 the float64 step read
+# 1.2e-16 (loss) and 3.3e-14 (gradients), the control 1.4e-7 and 4.9e-5:
+# each bound lies about three orders below the control and five above
+# the reading.
+S2S_CARD_TOL = {"loss_float64": 1e-10, "gradients_float64": 1e-8,
+                "search_scores": 1e-4}
+S2S_TOY = dict(cnn_channels=(4, 6), rnn_layers=1, rnn_neurons=8,
+               dnn_blocks=1, dnn_neurons=8, emb_size=8, dec_neurons=16,
+               attn_dim=12, vocab_size=40, dropout=0.0, augmentation=None,
+               max_attn_shift=20, lm_emb_dim=8, lm_rnn_neurons=16,
+               lm_dnn_neurons=12)
+RECIPE_S2S_UTTERANCES = {"train-clean-100": 16, "dev-clean": 8,
+                         "test-clean": 4}
+RECIPE_S2S_SECONDS = (2.0, 4.0)
+
+
+def _s2s_batch(B, samples, U, V, seed):
+    """B synthetic utterances of white noise (every length full) with
+    U / 2 to U token ids in 1..V-1 each, padded with 0 (the yaml's blank,
+    bos and eos): ``tokens``, ``tokens_bos`` = [0] + tokens, ``tokens_eos``
+    = tokens + [0], and their relative lengths."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(U // 2, U + 1, B)
+    tok = rng.integers(1, V, (B, U))
+    tok[np.arange(U)[None, :] >= n[:, None]] = 0
+    zero = np.zeros((B, 1), tok.dtype)
+    return {"sig": rng.normal(size=(B, samples)).astype(np.float32),
+            "sig_lens": np.ones(B, np.float32), "tokens": tok,
+            "tokens_lens": (n / U).astype(np.float32),
+            "tokens_bos": np.concatenate([zero, tok], 1),
+            "tokens_eos": np.concatenate([tok, zero], 1),
+            "tokens_eos_lens": ((n + 1) / (U + 1)).astype(np.float32)}
+
+
+def _s2s_brain(precision, device=None, **hparams):
+    """``librispeech_seq2seq.Seq2SeqBrain`` (``train_BPE_1000.yaml``'s
+    widths unless ``hparams`` says otherwise) in a CTC epoch."""
+    from speechbrain_tpu_torch.recipes.librispeech_seq2seq import Seq2SeqBrain
+
+    brain = Seq2SeqBrain(hparams, run_opts={
+        "seed": SEED, "precision": precision, "loss_sync_interval": 10,
+        "device": device})
+    brain.epoch = 1
+    return brain
+
+
+def _s2s_step(precision, vocab=1000, steps=3, profile=True):
+    """The recipe's training step at full width on B 8 x 10 s: a warm-up,
+    ``steps`` timed Adadelta steps at lr 1.0 (dropout 0.15, SpecAugment),
+    the launches a step (``S2S_LAUNCHES``), and with ``profile`` the
+    PyTorch calls and the profile of one more step, the FLOPs, and the
+    decoder loop's share."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _s2s_brain(precision, vocab_size=vocab)
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    host = _s2s_batch(S2S_B, S2S_SAMPLES, S2S_U, vocab, SEED + 19)
+    batch = brain.prepare_batch(host)
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    assert _rnn_weights_flat(brain.modules)
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    per_step = _per_step(counts, steps)
+    assert per_step == S2S_LAUNCHES, per_step
+    assert all(np.isfinite([first] + losses)), losses
+    U = int(host["tokens"].shape[1])
+    run = {"phase": "recipe_seq2seq_step", "precision": precision,
+           "vocab_size": vocab, "batch": S2S_B,
+           "seconds_audio": S2S_SAMPLES / 16000, "T_enc": 1001,
+           "tokens": (host["tokens_lens"] * U).round().tolist(),
+           "ctc_lattice": [S2S_B, 1001, 2 * U + 1],
+           "ctc_path": "warp" if 2 * U + 1 <= 257 else "block",
+           "parameters": n_params, "steps": steps, "lr": brain.lr,
+           "ms_per_step": ms, "utt_per_s": 1e3 * S2S_B / ms,
+           "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
+           "launches": counts, "launches_per_step": per_step,
+           "loss_first": first, "loss_last": losses[-1]}
+    if profile:
+        def one_step():
+            brain.step += 1
+            brain.fit_batch(batch)
+            return 1
+
+        info = {}
+        fwd, step_flops = _sep_flops(brain, batch, info)
+        run.update(pytorch_calls_per_step=_pytorch_calls(one_step),
+                   forward_gflop=fwd / 1e9, step_gflop=step_flops / 1e9,
+                   profile=_profile(one_step, cpu=False), **info)
+        # the teacher-forced decoder alone: forward and backward at the
+        # step's shapes, in training mode
+        m = brain.modules
+        with torch.no_grad():
+            enc = m.enc(torch.randn(S2S_B, 1001, 40, device="cuda")
+                        .to(brain.dtype))
+        enc.requires_grad_()
+        emb = m.emb(batch["tokens_bos"]).to(brain.dtype).detach()
+
+        def decoder():
+            out, _ = m.dec(emb, enc, batch["sig_lens"])
+            (g,) = torch.autograd.grad(out.float().sum(), enc)
+            return g
+
+        decoder()
+        run["decoder_fwd_bwd_ms"] = _time_ms(decoder, iters=2, warmup=0)
+        run["decoder_pytorch_calls"] = _pytorch_calls(decoder)
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _s2s_routes():
+    """The step's loss and every gradient through K3/K4 and through the
+    plain CTC recursions (``Seq2SeqBrain.set_kernels``), from the same
+    weights: full width, f32, a CTC epoch, B 8 x 10 s with ragged lengths
+    and a dummy row (no frame, no token), dropout 0 and SpecAugment (its
+    draws put back between the routes)."""
+    import torch
+
+    brain = _s2s_brain("fp32", dropout=0.0)
+    host = _s2s_batch(S2S_B, S2S_SAMPLES, S2S_U, 1000, SEED + 22)
+    host["sig_lens"] = np.linspace(1.0, 0.6, S2S_B).astype(np.float32)
+    host["batch_mask"] = np.ones(S2S_B, np.float32)
+    host["batch_mask"][-1] = 0.0
+    batch = brain.prepare_batch(host)
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+    cmp.update(lattice=[S2S_B, 1001, 2 * S2S_U + 1], dummy_rows=1)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return cmp
+
+
+def _s2s_card_vs_cpu():
+    """The step's loss and every gradient at toy widths, float64 modules,
+    on the card and on the CPU from the same weights and batch (an epoch
+    after the CTC epochs: the CTC runs in float32; training mode without
+    dropout), and the LM-fused beam search (beam 4,
+    the yaml's options, a toy RNNLM; eval mode) on both: the same
+    hypotheses, scores within ``S2S_CARD_TOL``.  The control runs the
+    card side in float32 (TF32 off) against the same CPU run: both of
+    its readings must break their bounds, or the bounds could not see a
+    float32 leak."""
+    import torch
+
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes.librispeech_seq2seq import build_lm
+
+    host = _s2s_batch(3, 16000, 6, S2S_TOY["vocab_size"], SEED + 20)
+    host["sig_lens"] = np.array([1.0, 0.8, 0.6], np.float32)
+    lm = build_lm(S2S_TOY, seed=SEED + 1).double()
+
+    def run(dev, dtype):
+        brain = _s2s_brain("fp32", device=dev, **S2S_TOY)
+        brain.modules.to(dtype)
+        brain.dtype = dtype
+        # training mode (cuDNN's RNN backward needs it); no dropout, no
+        # SpecAugment at these widths
+        brain.modules.train()
+        brain.epoch = brain.hparams.number_of_ctc_epochs + 1
+        brain.lm = lm.to(dev, dtype)
+        batch = brain.prepare_batch(
+            {k: v.astype(np.float64) if v.dtype == np.float32 else v
+             for k, v in host.items()})
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        names, params = zip(*brain.modules.named_parameters())
+        preds = brain.compute_forward(batch, Stage.TRAIN)
+        loss = brain.compute_objectives(preds, batch, Stage.TRAIN)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g  # ctc_lin's
+                 for p, g in zip(params, grads)]
+        brain.modules.eval()
+        with torch.no_grad():
+            enc = brain.modules.enc(
+                brain.modules.normalize(brain.modules.compute_features(
+                    batch["sig"]), batch["sig_lens"]), batch["sig_lens"])
+            hyps, scores = brain.make_searcher(4)(enc, batch["sig_lens"])
+        return (names, float(loss.detach()),
+                [g.cpu().double() for g in grads], hyps, scores)
+
+    names, lp, gp, hp_, sp = run("cpu", torch.float64)
+    G = max(float(g.abs().max()) for g in gp)
+
+    def errors(loss, grads):
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 0.05 * G)
+               for a, b in zip(grads, gp)]
+        i = int(np.argmax(rel))
+        return abs(loss - lp) / abs(lp), rel[i], names[i]
+
+    _, lc, gc, hc, sc = run("cuda", torch.float64)
+    loss_err, grad_err, worst = errors(lc, gc)
+    _, lf, gf, hf, _ = run("cuda", torch.float32)
+    control_loss, control_grad, control_worst = errors(lf, gf)
+    live = np.abs(sp) < 1e10
+    assert np.array_equal(live, np.abs(sc) < 1e10) and live.any()
+    rec = {"loss_card": lc, "loss_cpu": lp,
+           "loss_card_vs_cpu_float64": loss_err,
+           "gradients_card_vs_cpu_float64": grad_err,
+           "gradient_worst": worst,
+           "n_gradients": len(gp), "hyps_card": hc, "hyps_cpu": hp_,
+           "search_scores_card": sc.tolist(), "search_scores_cpu": sp.tolist(),
+           # over the live hypotheses: a beam whose every candidate the
+           # attention-shift limit masked scores ~-1e20 / steps
+           "search_scores_max_abs_diff": float(np.abs(sc - sp)[live].max()),
+           "control_card_float32": {
+               "loss": control_loss, "gradients": control_grad,
+               "gradient_worst": control_worst, "hyps_equal": hf == hp_},
+           "tolerance": S2S_CARD_TOL}
+    assert loss_err <= S2S_CARD_TOL["loss_float64"], rec
+    assert grad_err <= S2S_CARD_TOL["gradients_float64"], rec
+    assert hc == hp_, rec
+    tol = S2S_CARD_TOL["search_scores"]
+    assert rec["search_scores_max_abs_diff"] <= tol, rec
+    assert control_loss > S2S_CARD_TOL["loss_float64"], rec
+    assert control_grad > S2S_CARD_TOL["gradients_float64"], rec
+    return rec
+
+
+def _s2s_search(precision):
+    """The LM-fused beam search as the recipe validates: beam 8, the
+    yaml's options (temperature 1.25, coverage 1.5, attention shift 240,
+    eos threshold 1.5) and the RNNLM at 2 x 2048 fused at 0.5 (random
+    weights), over B 8 x 10 s encoded by the model, for at most
+    int(1001 x ``S2S_SEARCH_RATIO``) steps; the profile of a second
+    search (the card's events)."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes.librispeech_seq2seq import build_lm
+
+    brain = _s2s_brain(precision, max_decode_ratio=S2S_SEARCH_RATIO)
+    brain.lm = build_lm({}, seed=SEED + 1).to("cuda")
+    n_lm = sum(p.numel() for p in brain.lm.parameters())
+    host = _s2s_batch(S2S_B, S2S_SAMPLES, S2S_U, 1000, SEED + 21)
+    batch = brain.prepare_batch(host)
+    m = brain.modules.eval()
+    ops.reset_launch_counters()
+
+    @torch.no_grad()
+    def encode():
+        feats = m.normalize(m.compute_features(batch["sig"]),
+                            batch["sig_lens"])
+        return m.enc(feats.to(brain.dtype), batch["sig_lens"])
+
+    enc, encode_s = _timed(encode)
+    searcher = brain.make_searcher(brain.hparams.valid_beam_size)
+    assert type(searcher).__name__ == "S2SRNNBeamSearchLM"
+    steps = [0]
+    step = searcher.forward_step
+
+    def counted(*args):
+        steps[0] += 1
+        return step(*args)
+
+    searcher.forward_step = counted
+    (hyps, scores), search_s = _timed(lambda: searcher(enc,
+                                                        batch["sig_lens"]))
+    n_steps = steps[0]
+    counts = ops.launch_counters()
+    assert all(v == 0 for v in counts.values()), counts
+    assert np.isfinite(scores).all() and len(hyps) == S2S_B
+    max_steps = int(1001 * S2S_SEARCH_RATIO)
+    assert 0 < n_steps <= max_steps
+
+    def search():
+        steps[0] = 0
+        searcher(enc, batch["sig_lens"])
+        return steps[0]
+
+    run = {"phase": "recipe_seq2seq_search", "precision": precision,
+           "batch": S2S_B, "beam": brain.hparams.valid_beam_size,
+           "rows": S2S_B * brain.hparams.valid_beam_size, "T_enc": 1001,
+           "lm_parameters": n_lm, "lm_weight": brain.hparams.lm_weight,
+           "max_steps": max_steps, "steps": n_steps,
+           "encode_ms": 1e3 * encode_s, "search_ms": 1e3 * search_s,
+           "ms_per_step": 1e3 * search_s / n_steps,
+           "utt_per_s": S2S_B / (encode_s + search_s),
+           "hyp_lengths": [len(h) for h in hyps], "launches": counts,
+           "profile": _profile(search, cpu=False)}
+    emit(run)
+    del brain, enc
+    torch.cuda.empty_cache()
+    return run
+
+
+def _recipe_s2s_run(tmp):
+    """The recipe through ``build``/``fit``/``evaluate`` on a synthetic
+    tree at full width (bf16), the RNNLM fused from a checkpoint file:
+    epoch 1, epoch 2 in a fresh Brain recovered bit for bit, the test at
+    beam 80; the searches capped at ``S2S_SEARCH_RATIO``."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import librispeech_seq2seq as recipe
+    from speechbrain_tpu_torch.recipes.librispeech_asr import (
+        write_synthetic_librispeech)
+
+    data, out = f"{tmp}/LibriSpeech", f"{tmp}/out"
+    _, write_s = _timed(lambda: write_synthetic_librispeech(
+        data, RECIPE_S2S_UTTERANCES, seconds=RECIPE_S2S_SECONDS,
+        n_words=(5, 10), seed=SEED))
+    lm_ckpt = f"{tmp}/lm.ckpt"
+    torch.save(recipe.build_lm({}, seed=SEED + 1).state_dict(), lm_ckpt)
+    opts = {"noprogressbar": True, "lm_ckpt": lm_ckpt}
+    overrides = {"train_splits": ["train-clean-100"],
+                 "max_decode_ratio": S2S_SEARCH_RATIO}
+
+    def build(epochs):
+        return recipe.build(data, out, dict(overrides,
+                                            number_of_epochs=epochs), opts)
+
+    ops.reset_launch_counters()
+    parts, build_s = _timed(lambda: build(1))
+    brain, log = parts["brain"], {}
+    assert brain.lm is not None and brain.dtype == torch.bfloat16
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    saved = _snapshot(brain)
+    valid = [dict(brain.stage_stats["VALID"])]
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 1
+    n_equal = _same_state(saved, recovered["state"])
+    valid.append(dict(brain2.stage_stats["VALID"]))
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="WER"))
+    counts = ops.launch_counters()
+    test = brain2.stage_stats["TEST"]
+    for stats in valid + [test]:
+        assert all(np.isfinite(v) for v in stats.values()), stats
+    assert counts["ctc_alpha"] > 0 and counts["ctc_beta_grad"] > 0, counts
+    assert all(v == 0 for k, v in counts.items()
+               if k not in ("ctc_alpha", "ctc_beta_grad")), counts
+    train_s = sum(log["train_s"] + log2["train_s"])
+    batches = sum(log["batches"] + log2["batches"])
+    run = {"phase": "recipe_seq2seq", "utterances": RECIPE_S2S_UTTERANCES,
+           "seconds": RECIPE_S2S_SECONDS, "write_wav_s": write_s,
+           "build_s": build_s, "tokenizer_pieces":
+           parts["brain"].tokenizer.sp.get_piece_size(),
+           "precision": "bf16", "epochs": log["epochs"] + log2["epochs"],
+           "batches_per_epoch": log["batches"][0],
+           "batch_shapes": sorted(log["shapes"]),
+           "train_s_per_epoch": log["train_s"] + log2["train_s"],
+           "train_ms_per_batch": 1e3 * train_s / batches,
+           "valid_s": log["valid_s"] + log2["valid_s"], "valid": valid,
+           "lr_per_epoch": [brain.lr, brain2.lr], "fit_1_epoch_s": fit_s,
+           "checkpoint_bytes": ckpt_bytes,
+           "save_ms": log["save_ms"] + log2["save_ms"],
+           "resume_ms": 1e3 * recovered["seconds"],
+           "resume_equal_tensors": n_equal, "test_s": test_s,
+           "test": test, "test_loss": test_loss,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_recipe_seq2seq():
+    """The LibriSpeech CRDNN seq2seq recipe (``recipes.librispeech_seq2seq``,
+    ``train_BPE_1000.yaml``) at full width: see the module docstring,
+    phase 19."""
+    import shutil
+    import tempfile
+
+    runs = {"bf16": _s2s_step("bf16"), "fp32": _s2s_step("fp32"),
+            "bpe5000": _s2s_step("bf16", vocab=5000, steps=1, profile=False)}
+    routes = _s2s_routes()
+    check = dict(_s2s_card_vs_cpu(), kernel_vs_plain=routes)
+    emit(dict(check, phase="recipe_seq2seq_check"))
+    runs["search_fp32"] = _s2s_search("fp32")
+    runs["search_bf16"] = _s2s_search("bf16")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq2seq_")
+    try:
+        runs["recipe"] = _recipe_s2s_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs["check"] = check
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -4401,8 +4846,8 @@ def kernels_line(records, main_runs):
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
-    recipe_separation_rnn and recipe_separation_more), each counted from 0
-    just before its run."""
+    recipe_separation_rnn, recipe_separation_more and recipe_seq2seq), each
+    counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -4499,6 +4944,7 @@ def main():
     sep = timed("recipe_separation", phase_recipe_separation)
     sep_rnn = timed("recipe_separation_rnn", phase_recipe_separation_rnn)
     sep_more = timed("recipe_separation_more", phase_recipe_separation_more)
+    s2s = timed("recipe_seq2seq", phase_recipe_seq2seq)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -4511,7 +4957,9 @@ def main():
                  sep_rnn["recipe"], *(sep_more[k] for k in (
                      "cnntransformer-whamr-DM", "convtasnet-cross",
                      "convtasnet-parallel", "sepformer-libri3mix",
-                     "recipe"))]
+                     "recipe")),
+                 *(s2s[k] for k in ("bf16", "fp32", "bpe5000", "search_fp32",
+                                    "search_bf16", "recipe"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -253,27 +253,30 @@ def _random_init(module, gen):
     generator, but
     orthogonal recurrent weights, as the JAX modules initialise every
     ``u``: the LiGRU's ``weight_hh`` and each ``weight_hh_l{k}`` and
-    ``weight_hh_l{k}_reverse`` of a ``torch.nn.GRU``/``LSTM``/``RNN``
-    (JAX's ``u`` is (H, G H) with orthonormal rows, torch's ``weight_hh``
-    its transpose, whose orthonormal columns are the same distribution; a
-    Gaussian (2H, H) matrix's largest singular values exceed 1 and the
-    LiGRU's relu recurrence can blow up over hundreds of frames at narrow
-    widths); every bias zero (the recurrent ones too, as in JAX), norms'
-    scales one (the CRDNN's LayerNorms have (F, C) scales),
-    ``pos_bias_u``/``v`` zero (as the JAX modules initialise them).
-    Nothing is left to the global RNG, so a seed gives the same weights in
-    every process."""
+    ``weight_hh_l{k}_reverse`` of a ``torch.nn.GRU``/``LSTM``/``RNN``,
+    and the ``weight`` of a module that sets ``recurrent`` (the cells'
+    ``u`` Linears) (JAX's ``u`` is (H, G H) with orthonormal rows,
+    torch's ``weight_hh`` its transpose, whose orthonormal columns are the
+    same distribution; a Gaussian (2H, H) matrix's largest singular values
+    exceed 1 and the LiGRU's relu recurrence can blow up over hundreds of
+    frames at narrow widths); every bias zero (the recurrent ones too, as in
+    JAX), norms' scales one (the CRDNN's LayerNorms have (F, C) scales),
+    ``pos_bias_u``/``v`` zero (as the JAX modules initialise them). Nothing
+    is left to the global RNG, so a seed gives the same weights in every
+    process."""
     norms = {id(p) for m in module.modules() if isinstance(m, LayerNorm)
              for p in m.parameters()}
     in_out = {id(m.weight) for m in module.modules()
               if getattr(m, "weight_in_out", False)}
+    recurrent = {id(m.weight) for m in module.modules()
+                 if getattr(m, "recurrent", False)}
     with torch.no_grad():
         for name, p in module.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
             if id(p) in norms:
                 p.fill_(1.0 if leaf == "weight" else 0.0)
                 continue
-            if _RECURRENT.fullmatch(leaf):
+            if _RECURRENT.fullmatch(leaf) or id(p) in recurrent:
                 torch.nn.init.orthogonal_(p, generator=gen)
                 continue
             if leaf in ("depthwise_kernel", "centroids") or id(p) in in_out:

@@ -89,7 +89,15 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   last ``Dense_*`` -> ``output_proj``, ``TransformerEncoder_0`` ->
   ``encoder`` (each layer's attention ``MultiheadAttention_0`` or
   ``RelPosMHAXL_0`` -> ``self_attn``, ``LayerNorm_0``/``_1`` ->
-  ``norm1``/``norm2``, ``PositionalwiseFeedForward_0`` -> ``ffn``).
+  ``norm1``/``norm2``, ``PositionalwiseFeedForward_0`` -> ``ffn``);
+- the single-step cells' ``l{i}_wx``/``l{i}_u`` Dense layers ->
+  ``wx.{i}``/``u.{i}`` (the GRU cell's ``u`` has a bias, the LSTM's and
+  RNN's none); the RNN attentions' Dense layers keep their names, the
+  location conv's ``conv_loc`` kernel (K, 1, C) -> ``weight`` (C, 1, K);
+  ``AttentionalRNNDecoder``'s ``rnn``, ``attn`` and ``proj`` keep theirs;
+- ``RNNLM``: ``Embedding_0`` -> ``emb``, ``LSTM_0`` -> ``rnn``, the DNN
+  blocks' ``Dense_{i}``/``LayerNorm_{i}`` -> ``dnn.{i}.linear``/
+  ``dnn.{i}.norm``, the last ``Dense_*`` -> ``out``.
 
 The optimizer's state: optax ``adamw``'s ``mu``, ``nu`` and ``count``
 are torch ``AdamW``'s ``exp_avg``, ``exp_avg_sq`` and ``step``
@@ -168,6 +176,16 @@ __all__ = [
     "to_jax_dptnet_block",
     "dual_computation_block_state_dict",
     "to_jax_dual_computation_block",
+    "rnn_cell",
+    "to_jax_rnn_cell",
+    "rnn_attention",
+    "to_jax_rnn_attention",
+    "attentional_rnn_decoder",
+    "to_jax_attentional_rnn_decoder",
+    "rnnlm_state_dict",
+    "to_jax_rnnlm",
+    "crdnn_seq2seq_state_dict",
+    "to_jax_crdnn_seq2seq",
     "adamw_state_to_torch",
     "adamw_state_from_torch",
 ]
@@ -1490,6 +1508,130 @@ def to_jax_dual_computation_block(state_dict, prefix=""):
         if f"{kind}_norm.weight" in s:
             p[f"{kind}_norm"] = _ln_to_jax(s.sub(f"{kind}_norm"))
     return p
+
+
+def rnn_cell(p):
+    """JAX ``GRUCell``/``LSTMCell``/``RNNCell`` params -> the port's cell
+    state_dict (``wx.{i}``, ``u.{i}``)."""
+    sd = {}
+    for i in range(len([k for k in p if k.endswith("_wx")])):
+        sd.update(_prefixed(f"wx.{i}", dense(p[f"l{i}_wx"])))
+        sd.update(_prefixed(f"u.{i}", dense(p[f"l{i}_u"])))
+    return sd
+
+
+def to_jax_rnn_cell(state_dict, prefix=""):
+    """The port's cell state_dict -> JAX cell params."""
+    s = _Sub(state_dict, prefix)
+    p = {}
+    for i in range(s.count("wx")):
+        p[f"l{i}_wx"] = _dense_to_jax(s.sub(f"wx.{i}"))
+        p[f"l{i}_u"] = _dense_to_jax(s.sub(f"u.{i}"))
+    return p
+
+
+_RNN_ATTENTION_DENSES = ("mlp_enc", "mlp_dec", "mlp_loc", "mlp_attn",
+                         "mlp_out", "key_linear", "query_linear",
+                         "value_linear")
+
+
+def rnn_attention(p):
+    """JAX ``ContentBasedAttention``/``LocationAwareAttention``/
+    ``KeyValueAttention`` params -> the port's state_dict."""
+    sd = {}
+    for name in _RNN_ATTENTION_DENSES:
+        if name in p:
+            sd.update(_prefixed(name, dense(p[name])))
+    if "conv_loc" in p:
+        kern = np.asarray(p["conv_loc"]["kernel"])  # (K, 1, C)
+        sd["conv_loc.weight"] = _t(kern.transpose(2, 1, 0)).contiguous()
+    return sd
+
+
+def to_jax_rnn_attention(state_dict, prefix=""):
+    """The port's RNN attention state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    p = {name: _dense_to_jax(s.sub(name)) for name in _RNN_ATTENTION_DENSES
+         if f"{name}.weight" in s}
+    if "conv_loc.weight" in s:
+        p["conv_loc"] = {"kernel": _a(s["conv_loc.weight"]).transpose(2, 1, 0)
+                         .copy()}
+    return p
+
+
+def attentional_rnn_decoder(p):
+    """JAX ``AttentionalRNNDecoder`` params -> the port's state_dict."""
+    return {**_prefixed("rnn", rnn_cell(p["rnn"])),
+            **_prefixed("attn", rnn_attention(p["attn"])),
+            **_prefixed("proj", dense(p["proj"]))}
+
+
+def to_jax_attentional_rnn_decoder(state_dict, prefix=""):
+    """The port's ``AttentionalRNNDecoder`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    return {"rnn": to_jax_rnn_cell(state_dict, prefix + "rnn."),
+            "attn": to_jax_rnn_attention(state_dict, prefix + "attn."),
+            "proj": _dense_to_jax(s.sub("proj"))}
+
+
+def rnnlm_state_dict(p):
+    """JAX ``RNNLM`` params -> the port's ``RNNLM`` state_dict."""
+    blocks = len([k for k in p if k.startswith("LayerNorm_")])
+    sd = {**_prefixed("emb", embedding(p["Embedding_0"])),
+          **_prefixed("rnn", lstm(p["LSTM_0"])),
+          **_prefixed("out", dense(p[f"Dense_{blocks}"]))}
+    for i in range(blocks):
+        sd.update(_prefixed(f"dnn.{i}.linear", dense(p[f"Dense_{i}"])))
+        sd.update(_prefixed(f"dnn.{i}.norm",
+                            layer_norm(p[f"LayerNorm_{i}"]["LayerNorm_0"])))
+    return sd
+
+
+def to_jax_rnnlm(state_dict, prefix=""):
+    """The port's ``RNNLM`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    blocks = s.count("dnn")
+    p = {"Embedding_0": {"Embed_0": {"embedding": _a(s["emb.weight"])}},
+         "LSTM_0": to_jax_lstm(state_dict, prefix + "rnn."),
+         f"Dense_{blocks}": _dense_to_jax(s.sub("out"))}
+    for i in range(blocks):
+        p[f"Dense_{i}"] = _dense_to_jax(s.sub(f"dnn.{i}.linear"))
+        p[f"LayerNorm_{i}"] = {
+            "LayerNorm_0": _ln_to_jax(s.sub(f"dnn.{i}.norm"))}
+    return p
+
+
+def crdnn_seq2seq_state_dict(enc_vars, emb, dec, ctc_lin, seq_lin,
+                             norm_state):
+    """The modules of the CRDNN seq2seq recipe
+    (``recipes/librispeech_seq2seq``), from the JAX recipe's pieces: the
+    ``CRDNN``'s ``{"params", "batch_stats"}``, the ``emb`` Embedding, the
+    ``dec`` decoder, the ``ctc_lin``/``seq_lin`` Linear params and the
+    global input-normalization state."""
+    return {
+        **_prefixed("normalize", input_norm_state_dict(norm_state)),
+        **_prefixed("enc", crdnn_state_dict(enc_vars["params"],
+                                            enc_vars["batch_stats"])),
+        **_prefixed("emb", embedding(emb)),
+        **_prefixed("dec", attentional_rnn_decoder(dec)),
+        **_prefixed("ctc_lin", _head(ctc_lin)),
+        **_prefixed("seq_lin", _head(seq_lin)),
+    }
+
+
+def to_jax_crdnn_seq2seq(state_dict):
+    """The CRDNN seq2seq recipe's modules' state_dict -> the JAX pieces
+    ``crdnn_seq2seq_state_dict`` takes: ``{"enc", "emb", "dec",
+    "ctc_lin", "seq_lin", "norm"}``."""
+    s = _Sub(state_dict)
+    return {
+        "enc": to_jax_crdnn(state_dict, "enc."),
+        "emb": {"Embed_0": {"embedding": _a(s["emb.weight"])}},
+        "dec": to_jax_attentional_rnn_decoder(state_dict, "dec."),
+        **{name: {"Dense_0": _dense_to_jax(s.sub(name))}
+           for name in ("ctc_lin", "seq_lin")},
+        "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
+    }
 
 
 def adamw_state_to_torch(optimizer, names, exp_avg, exp_avg_sq, step):

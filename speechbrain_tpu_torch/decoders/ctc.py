@@ -2,8 +2,8 @@
 beam search.
 
 Counterpart of ``speechbrain_tpu/decoders/ctc.py``
-(``filter_ctc_output``, ``ctc_greedy_decode``, ``CTCPrefixScorer``
-without the attention-window option).  The scorer's two time recursions
+(``filter_ctc_output``, ``ctc_greedy_decode``, ``CTCPrefixScorer`` with
+its attention window).  The scorer's two time recursions
 are linear in the log semiring; like the JAX package they run as
 parallel prefix scans, here a Hillis-Steele scan of depth ceil(log2 T).
 """
@@ -84,6 +84,11 @@ class CTCPrefixScorer:
     enc_lens : (batch,) relative lengths; frames past round(len * T)
         (round half to even) may emit blank only.
     batch_size, beam_size, blank_index, eos_index : int
+    ctc_window_size : int; when > 0 and ``forward_step`` is given the
+        step's attention weights (n, T), the time recursion runs only
+        over frames [min peak - W, max peak + W) (and from the usual
+        start), the peaks being each row's argmax and the min and max
+        taken over all n rows of the batch, as in JAX.
 
     State is a dict of tensors threaded through ``forward_step`` and
     ``permute_mem``; ``init_state`` builds the first one.
@@ -98,8 +103,9 @@ class CTCPrefixScorer:
     """
 
     def __init__(self, x, enc_lens, batch_size, beam_size, blank_index,
-                 eos_index):
+                 eos_index, ctc_window_size=0):
         self.blank_index = blank_index
+        self.ctc_window_size = int(ctc_window_size)
         self.eos_index = eos_index
         self.batch_size = batch_size
         self.beam_size = beam_size
@@ -131,10 +137,11 @@ class CTCPrefixScorer:
             "step": 0,
         }
 
-    def forward_step(self, inp_tokens, state, candidates=None):
+    def forward_step(self, inp_tokens, state, candidates=None, attn=None):
         """Delta CTC scores (n, width) of extending each row's prefix by
         each candidate: the (n, K) ``candidates`` ("partial" mode) or
-        every vocabulary entry ("full" mode)."""
+        every vocabulary entry ("full" mode).  ``attn`` (n, T), the
+        attention weights of the step, sets the window (see the class)."""
         if state is None:
             state = self.init_state()
         n = self.batch_size * self.beam_size
@@ -165,6 +172,11 @@ class CTCPrefixScorer:
         start = max(1, state["step"] + 1)
         t_idx = torch.arange(1, self.T, device=x.device).reshape(-1, 1, 1)
         bad = t_idx < start
+        if self.ctc_window_size > 0 and attn is not None:
+            peak = attn.argmax(dim=-1)
+            lo = torch.clamp(peak.min() - self.ctc_window_size, min=start)
+            hi = torch.clamp(peak.max() + self.ctc_window_size, max=self.T)
+            bad = bad | ~((t_idx >= lo) & (t_idx < hi))
         xc_t = torch.where(bad, mi, xc[1:])
         xb_t = torch.where(bad, mi, xb[1:].expand_as(xc[1:]))
         phix = phi[:-1] + xc[1:]  # phi[t-1] + x[t]

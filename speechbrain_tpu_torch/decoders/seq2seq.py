@@ -1,22 +1,27 @@
-"""Batched beam search for the joint CTC/attention transformer ASR, with
-shallow fusion of a transformer LM.
+"""Autoregressive searches for seq2seq models: the batched beam search of
+the joint CTC/attention transformer ASR (shallow fusion of a transformer
+LM), and the greedy and beam searches of the attentional RNN decoder
+(shallow fusion of an RNNLM).
 
 Counterpart of ``speechbrain_tpu/decoders/seq2seq.py``
-(``S2SBeamSearcher.search_device``/``finalize``,
+(``S2SBeamSearcher.search_device``/``finalize`` with all its options,
 ``S2STransformerBeamSearch`` on its KV-cache path with the deferred
 ``rows`` permutation and on its prefix-buffer path, its transformer-LM
-step, and the helpers ``inflate_tensor``, ``mask_by_condition``,
-``filter_seq2seq_output`` and ``batch_filter_seq2seq_output``).  The
-JAX ``lax.while_loop`` becomes a Python loop with the same early exit
-(every batch item holds ``beam_size`` finished hypotheses).  Hypothesis
-bookkeeping is the same masked, fixed-shape tensor code, so results
-match step for step.  Top-k breaks ties toward the lower index, as
-``jax.lax.top_k`` does.
+step, ``S2SGreedySearcher``, ``S2SRNNGreedySearcher``,
+``S2SRNNBeamSearcher``, ``S2SRNNBeamSearchLM``, and the helpers
+``inflate_tensor``, ``mask_by_condition``, ``filter_seq2seq_output`` and
+``batch_filter_seq2seq_output``).  The JAX ``lax.while_loop`` becomes a
+Python loop with the same early exit (every batch item holds
+``beam_size`` finished hypotheses).  Hypothesis bookkeeping is the same
+masked, fixed-shape tensor code, so results match step for step.  Top-k
+breaks ties toward the lower index, as ``jax.lax.top_k`` does.
 
-Not ported: the coverage penalty, the attention-shift limit and the CTC
-attention window, which act only on attention weights that the
-transformer searcher's step does not return (``None`` in JAX too), and
-the greedy and RNN searchers.
+The options that act on attention weights (``coverage_penalty``,
+``using_max_attn_shift``, the CTC scorer's ``ctc_window_size``) read the
+weights that ``forward_step`` returns: the RNN searchers return the
+decoder's, the transformer searcher none (``None`` in JAX too).
+
+Not ported: ``S2SRNNBeamSearchTransformerLM`` and the Whisper searchers.
 """
 
 import numpy as np
@@ -25,7 +30,11 @@ import torch
 from .ctc import CTCPrefixScorer
 
 __all__ = [
+    "S2SGreedySearcher",
+    "S2SRNNGreedySearcher",
     "S2SBeamSearcher",
+    "S2SRNNBeamSearcher",
+    "S2SRNNBeamSearchLM",
     "S2STransformerBeamSearch",
     "inflate_tensor",
     "mask_by_condition",
@@ -49,19 +58,173 @@ def _gather_rows(memory, rows):
             for k, v in memory.items()}
 
 
+def _swap01(hs):
+    """Layer-major (L, n, H) <-> row-major (n, L, H) hidden states (an
+    LSTM's pair swapped part by part): the searchers keep them row-major
+    so that the beam permutation reorders rows, not layers."""
+    if isinstance(hs, tuple):
+        return tuple(h.transpose(0, 1) for h in hs)
+    return hs.transpose(0, 1)
+
+
+class _RNNSteps:
+    """The searcher hooks over an ``AttentionalRNNDecoder``'s callables
+    (JAX ``S2SRNNGreedySearcher``/``S2SRNNBeamSearcher``'s arguments):
+
+    embedding_fn : tokens (n,) -> (n, E).
+    decoder_step_fn : (emb, hs, c, enc_states, enc_lens, attn_state) ->
+        (dec_out, hs, c, w, attn_state): the decoder's ``forward_step``.
+    linear_fn : (n, H) -> (n, V).
+    dec_hidden_size : width of the zero initial context.
+    attn_init_fn : enc_states (B, T, D) -> the attention's first state.
+    rnn_init_fn : (n, dtype, device) -> the cell's zero state, layer-major
+        ((L, n, H), or the LSTM's pair).
+
+    The memory holds the cell state row-major, the context, the attention
+    state and the (B, T, D) encoder states.  The encoder side is not
+    tiled over the beams (JAX tiles it): the attention broadcasts each
+    item's over its rows.  The beam search's predecessor map
+    ``memory["rows"]`` is applied at the next step to every entry with
+    one row a hypothesis; entries with one row an item (the encoder
+    projection) are shared by its beams and stay."""
+
+    def _init_rnn_hooks(self, embedding_fn, decoder_step_fn, linear_fn,
+                        dec_hidden_size, attn_init_fn, rnn_init_fn):
+        self.embedding_fn = embedding_fn
+        self.decoder_step_fn = decoder_step_fn
+        self.linear_fn = linear_fn
+        self.dec_hidden_size = dec_hidden_size
+        self.attn_init_fn = attn_init_fn
+        self.rnn_init_fn = rnn_init_fn
+
+    def reset_mem(self, batch_size, enc_states):
+        """Zero cell state and context for ``batch_size`` rows, the
+        attention's first state, the encoder states."""
+        dtype, dev = enc_states.dtype, enc_states.device
+        return {
+            "hs": _swap01(self.rnn_init_fn(batch_size, dtype, dev)),
+            "c": torch.zeros(batch_size, self.dec_hidden_size, dtype=dtype,
+                             device=dev),
+            "attn_state": self.attn_init_fn(enc_states),
+            "enc": enc_states,
+        }
+
+    def _scores(self, logits):
+        raise NotImplementedError
+
+    def forward_step(self, inp_tokens, memory, enc_lens):
+        """One decoder step: ``(scores (n, V) float32, memory, attention
+        weights (n, T))``."""
+        rows = memory.get("rows")
+        hs, c, attn_state = memory["hs"], memory["c"], memory["attn_state"]
+        if rows is not None:
+            n = rows.shape[0]
+
+            def take(v):
+                return v[rows] if v.shape[0] == n else v
+
+            hs = tuple(map(take, hs)) if isinstance(hs, tuple) else take(hs)
+            c = c[rows]
+            attn_state = {k: take(v) for k, v in attn_state.items()}
+        dec_out, hs, c, w, attn_state = self.decoder_step_fn(
+            self.embedding_fn(inp_tokens), _swap01(hs), c, memory["enc"],
+            enc_lens, attn_state)
+        scores = self._scores(self.linear_fn(dec_out).float())
+        return scores, dict(memory, hs=_swap01(hs), c=c,
+                            attn_state=attn_state), w
+
+
+class S2SGreedySearcher:
+    """Greedy decoding (JAX ``S2SGreedySearcher``): from bos, each step
+    takes each row's argmax of ``forward_step``'s scores and adds its
+    score, until every row has emitted eos or ``max_steps`` = max(1,
+    int(T * max_decode_ratio)) steps (JAX runs all of them; a finished
+    row only adds eos at score 0, so stopping early changes nothing).
+    ``min_decode_ratio`` is stored and unused, as in JAX.  Subclasses
+    provide ``reset_mem`` and ``forward_step`` as ``S2SBeamSearcher``'s.
+    Calling it returns ``(hyps, scores (B,) numpy)``, each hypothesis cut
+    before its first eos."""
+
+    def __init__(self, bos_index, eos_index, min_decode_ratio,
+                 max_decode_ratio):
+        self.bos_index = bos_index
+        self.eos_index = eos_index
+        self.min_decode_ratio = min_decode_ratio
+        self.max_decode_ratio = max_decode_ratio
+
+    @torch.no_grad()
+    def __call__(self, enc_states, wav_len):
+        B, T = enc_states.shape[0], enc_states.shape[1]
+        dev = enc_states.device
+        memory = self.reset_mem(B, enc_states)
+        inp = torch.full((B,), self.bos_index, dtype=torch.long, device=dev)
+        finished = torch.zeros(B, dtype=torch.bool, device=dev)
+        score = torch.zeros(B, device=dev)
+        tokens = []
+        for _ in range(max(1, int(T * self.max_decode_ratio))):
+            log_probs, memory, _ = self.forward_step(inp, memory, wav_len)
+            tok_score, token = log_probs.max(dim=-1)
+            token = torch.where(finished, self.eos_index, token)
+            score = score + torch.where(finished, 0.0, tok_score)
+            finished = finished | (token == self.eos_index)
+            tokens.append(token)
+            inp = token
+            if bool(finished.all()):
+                break
+        rows = torch.stack(tokens, 1).cpu().tolist()
+        return ([filter_seq2seq_output(r, eos_id=self.eos_index)
+                 for r in rows], score.cpu().numpy())
+
+
+class S2SRNNGreedySearcher(_RNNSteps, S2SGreedySearcher):
+    """Greedy search over an ``AttentionalRNNDecoder`` (JAX
+    ``S2SRNNGreedySearcher``): the arguments of ``_RNNSteps``, then
+    ``S2SGreedySearcher``'s.  ``linear_fn`` must give log-probs: as in
+    JAX, its output is the step's scores as it is.
+
+    Example
+    -------
+    >>> from speechbrain_tpu_torch.nnet.RNN import AttentionalRNNDecoder
+    >>> dec = AttentionalRNNDecoder("gru", "content", hidden_size=8,
+    ...     attn_dim=6, enc_dim=5, input_size=4).eval()
+    >>> emb, lin = torch.nn.Embedding(10, 4), torch.nn.Linear(8, 10)
+    >>> searcher = S2SRNNGreedySearcher(
+    ...     emb, dec.forward_step, lambda h: torch.log_softmax(lin(h), -1),
+    ...     8, dec.attn_init, dec.rnn.init_state, bos_index=1, eos_index=2,
+    ...     min_decode_ratio=0.0, max_decode_ratio=1.0)
+    >>> hyps, scores = searcher(torch.randn(2, 6, 5), torch.ones(2))
+    >>> len(hyps), scores.shape
+    (2, (2,))
+    """
+
+    def __init__(self, embedding_fn, decoder_step_fn, linear_fn,
+                 dec_hidden_size, attn_init_fn, rnn_init_fn, **kwargs):
+        super().__init__(**kwargs)
+        self._init_rnn_hooks(embedding_fn, decoder_step_fn, linear_fn,
+                             dec_hidden_size, attn_init_fn, rnn_init_fn)
+
+    def _scores(self, logits):
+        return logits
+
+
 class S2SBeamSearcher:
     """Batched beam search with masked fixed-shape bookkeeping.
 
     Subclasses provide ``reset_mem(n, enc_states)``,
     ``forward_step(inp_tokens, memory, enc_lens)`` -> (log_probs (n, V),
-    memory), where ``memory["rows"]`` is the predecessor map that the
-    search sets after each step and the next step applies,
+    memory, attention weights (n, T) or None), where ``memory["rows"]``
+    is the predecessor map that the search sets after each step and the
+    next step applies,
     ``ctc_forward_step(enc_states)``, and, for LM fusion,
     ``reset_lm_mem(n)`` and ``lm_forward_step(inp_tokens, lm_memory)``.
     Calling the searcher returns ``finalize``'s result.
 
     Each step, as in JAX: the attention log-probs are scaled by
-    ``1 - ctc_weight``; the eos column is -inf before ``min_steps`` and,
+    ``1 - ctc_weight``; with ``using_max_attn_shift``, a row whose
+    attention peak (argmax) moved more than ``max_attn_shift`` frames
+    from its predecessor's (``peak <= prev + shift`` and strictly ``peak
+    > prev - shift``; the first step's predecessor peak is 0) gets -inf
+    everywhere; the eos column is -inf before ``min_steps`` and,
     with ``using_eos_threshold``, wherever eos scores below
     ``eos_threshold`` x the row's best; then ``lm_weight`` x the LM's
     log-probs are added; then, with ``ctc_weight`` > 0, the blank column
@@ -71,17 +234,26 @@ class S2SBeamSearcher:
     "partial" for the attention's top 2 * beam tokens only.  Scores are
     divided by the length with ``length_normalization``;
     ``length_rewarding`` x length is added to the finished hypotheses'
-    scores only (the two cannot be combined).  ``topk`` > 1 makes
-    ``finalize`` also return the ``topk`` best hypotheses per item;
-    ``return_log_probs`` is stored and unused, as in JAX.
+    scores only (the two cannot be combined).  ``coverage_penalty`` > 0
+    subtracts ``coverage_penalty`` x (sum over all T frames, padding
+    too, of max(coverage, 0.5) - T / 2), divided by t + 1 under length
+    normalization, from the selection scores that are stored, not from
+    the running ones; coverage sums the selected rows' attention, and at
+    t = 0 it counts the first step's attention twice, once permuted
+    twice (JAX's quirk, kept).  ``ctc_window_size`` > 0 restricts the
+    CTC scorer to the step's attention window (``CTCPrefixScorer``).
+    ``topk`` > 1 makes ``finalize`` also return the ``topk`` best
+    hypotheses per item; ``return_log_probs`` is stored and unused, as in
+    JAX.
     """
 
     def __init__(self, bos_index, eos_index, min_decode_ratio,
                  max_decode_ratio, beam_size, topk=1, return_log_probs=False,
                  using_eos_threshold=True, eos_threshold=1.5,
                  length_normalization=True, length_rewarding=0,
-                 lm_weight=0.0, ctc_weight=0.0, blank_index=0,
-                 ctc_score_mode="full"):
+                 coverage_penalty=0.0, lm_weight=0.0, ctc_weight=0.0,
+                 blank_index=0, ctc_score_mode="full", ctc_window_size=0,
+                 using_max_attn_shift=False, max_attn_shift=60):
         if length_normalization and length_rewarding > 0:
             raise ValueError(
                 "length normalization is not compatible with length rewarding"
@@ -103,6 +275,10 @@ class S2SBeamSearcher:
         self.ctc_weight = ctc_weight
         self.blank_index = blank_index
         self.ctc_score_mode = ctc_score_mode
+        self.coverage_penalty = coverage_penalty
+        self.ctc_window_size = ctc_window_size
+        self.using_max_attn_shift = using_max_attn_shift
+        self.max_attn_shift = max_attn_shift
         self.minus_inf = MINUS_INF
         # attention scores are scaled once by (1 - ctc_weight)
         self.att_weight = 1.0 - ctc_weight
@@ -148,6 +324,7 @@ class S2SBeamSearcher:
             scorer = CTCPrefixScorer(
                 self.ctc_forward_step(enc_states), wav_len, B, beam,
                 self.blank_index, self.eos_index,
+                ctc_window_size=self.ctc_window_size,
             )
             ctc_state = scorer.init_state()
 
@@ -166,6 +343,8 @@ class S2SBeamSearcher:
         store_score = torch.full((B, beam + 1), mi, device=dev)
         store_count = torch.zeros(B, dtype=torch.long, device=dev)
         sel_scores = torch.zeros((B, beam), device=dev)
+        prev_attn_peak = torch.zeros(n, dtype=torch.long, device=dev)
+        coverage = torch.zeros((n, T), device=dev)
 
         def store(is_eos_bb, seqs_bb, lens, scores_bb):
             offs = torch.cumsum(is_eos_bb, dim=1) - is_eos_bb
@@ -181,9 +360,16 @@ class S2SBeamSearcher:
 
         t = 0
         while t < max_steps:
-            log_probs, memory = self.forward_step(inp, memory, enc_lens_i)
+            log_probs, memory, attn = self.forward_step(inp, memory,
+                                                        enc_lens_i)
             log_probs = self.att_weight * log_probs.float()
             V = log_probs.shape[-1]
+            if self.using_max_attn_shift and attn is not None:
+                attn_peak = attn.argmax(dim=-1)
+                ok = ((attn_peak <= prev_attn_peak + self.max_attn_shift)
+                      & (attn_peak > prev_attn_peak - self.max_attn_shift))
+                log_probs = torch.where(ok[:, None], log_probs, mi)
+                prev_attn_peak = attn_peak
             if t < min_steps:
                 log_probs[:, self.eos_index] = mi
             elif self.using_eos_threshold:
@@ -200,11 +386,12 @@ class S2SBeamSearcher:
                     K = min(2 * beam, V)
                     cand_v, row_tokens = _topk(log_probs, K)
                     ctc_scores, ctc_state = scorer.forward_step(
-                        inp, ctc_state, candidates=row_tokens
+                        inp, ctc_state, candidates=row_tokens, attn=attn
                     )
                     row_scores = cand_v + self.ctc_weight * ctc_scores
                 else:
-                    ctc_scores, ctc_state = scorer.forward_step(inp, ctc_state)
+                    ctc_scores, ctc_state = scorer.forward_step(
+                        inp, ctc_state, attn=attn)
                     K = min(beam, V)
                     row_scores, row_tokens = _topk(
                         log_probs + self.ctc_weight * ctc_scores, K
@@ -234,9 +421,21 @@ class S2SBeamSearcher:
                 ctc_state = scorer.permute_mem(
                     ctc_state, (pred_beam * V + tokens).reshape(-1)
                 )
+            if self.using_max_attn_shift:
+                prev_attn_peak = prev_attn_peak[rows]
             alived_seq = alived_seq[rows]
             alived_seq[:, t] = tokens_flat
             finished = finished[rows] | (tokens_flat == self.eos_index)
+            if self.coverage_penalty > 0 and attn is not None:
+                cur_attn = attn.float()[rows]
+                coverage = coverage[rows] + cur_attn
+                if t == 0:
+                    coverage = coverage + cur_attn[rows]
+                penalty = coverage.clamp(min=0.5).sum(-1) - T * 0.5
+                if self.length_normalization:
+                    penalty = penalty / (t + 1)
+                sel_scores = sel_scores - (
+                    self.coverage_penalty * penalty.reshape(B, beam))
             is_eos_bb = (tokens_flat == self.eos_index).reshape(B, beam).long()
             store(
                 is_eos_bb, alived_seq.reshape(B, beam, -1),
@@ -359,7 +558,8 @@ class S2STransformerBeamSearch(S2SBeamSearcher):
         return {"cache": cache, "cross": cross, "len": 0, "rows": rows}
 
     def forward_step(self, inp_tokens, memory, enc_lens):
-        """One decoder step; returns (log_probs (n, V) f32, memory)."""
+        """One decoder step; returns (log_probs (n, V) f32, memory, None):
+        no attention weights."""
         ln = memory["len"]
         if self.step_fn is None:
             buf = memory["buf"][memory["rows"]]
@@ -379,7 +579,8 @@ class S2STransformerBeamSearch(S2SBeamSearcher):
                 "rows": memory["rows"],
             }
         logits = self.linear_fn(out_t).float()
-        return torch.log_softmax(logits / self.temperature, dim=-1), new_mem
+        return (torch.log_softmax(logits / self.temperature, dim=-1), new_mem,
+                None)
 
     def reset_lm_mem(self, n):
         """LM memory: a prefix buffer of ``max_steps + 1`` slots seeded
@@ -407,6 +608,77 @@ class S2STransformerBeamSearch(S2SBeamSearcher):
     def ctc_forward_step(self, enc_states):
         """CTC log-probabilities (B, T, V) in float32."""
         return torch.log_softmax(self.ctc_linear_fn(enc_states).float(), -1)
+
+
+class S2SRNNBeamSearcher(_RNNSteps, S2SBeamSearcher):
+    """Beam search over an ``AttentionalRNNDecoder`` (JAX
+    ``S2SRNNBeamSearcher``): the arguments of ``_RNNSteps``, then
+    ``ctc_linear_fn`` ((B, T, D) -> CTC logits, for ``ctc_weight`` > 0),
+    ``temperature`` (the decoder's logits are divided by it before their
+    log-softmax) and ``S2SBeamSearcher``'s keywords, all of whose options
+    apply: the step returns the decoder's attention weights.
+
+    Example
+    -------
+    >>> from speechbrain_tpu_torch.nnet.RNN import AttentionalRNNDecoder
+    >>> dec = AttentionalRNNDecoder("gru", "location", hidden_size=8,
+    ...     attn_dim=6, enc_dim=5, input_size=4, kernel_size=2).eval()
+    >>> emb, lin = torch.nn.Embedding(10, 4), torch.nn.Linear(8, 10)
+    >>> searcher = S2SRNNBeamSearcher(
+    ...     emb, dec.forward_step, lin, 8, dec.attn_init, dec.rnn.init_state,
+    ...     temperature=1.25, bos_index=0, eos_index=0, min_decode_ratio=0.0,
+    ...     max_decode_ratio=1.0, beam_size=3, coverage_penalty=1.5,
+    ...     using_max_attn_shift=True, max_attn_shift=2)
+    >>> hyps, scores = searcher(torch.randn(2, 6, 5), torch.ones(2))
+    >>> len(hyps), scores.shape
+    (2, (2,))
+    """
+
+    def __init__(self, embedding_fn, decoder_step_fn, linear_fn,
+                 dec_hidden_size, attn_init_fn, rnn_init_fn,
+                 ctc_linear_fn=None, temperature=1.0, **kwargs):
+        super().__init__(**kwargs)
+        self._init_rnn_hooks(embedding_fn, decoder_step_fn, linear_fn,
+                             dec_hidden_size, attn_init_fn, rnn_init_fn)
+        self.ctc_linear_fn = ctc_linear_fn
+        self.temperature = temperature
+
+    def _scores(self, logits):
+        return torch.log_softmax(logits / self.temperature, dim=-1)
+
+    def ctc_forward_step(self, enc_states):
+        """CTC log-probabilities (B, T, V) in float32."""
+        return torch.log_softmax(self.ctc_linear_fn(enc_states).float(), -1)
+
+
+class S2SRNNBeamSearchLM(S2SRNNBeamSearcher):
+    """``S2SRNNBeamSearcher`` with shallow fusion of a language model at
+    ``lm_weight`` (JAX ``S2SRNNBeamSearchLM``):
+
+    lm_step_fn : (tokens (n,), lm_memory) -> (log_probs (n, V), lm_memory):
+        one LM step on the tokens that the search fed the decoder (bos
+        first).
+    lm_init_fn : n -> the first ``lm_memory``, every tensor's leading
+        axis the n rows (the search reorders them by predecessor).
+
+    With ``RNNLM.step`` the memory is the LSTM's (h, c), a fixed size:
+    each step costs one token.  (The JAX recipe's step concatenates each
+    token onto the prefix and reruns it whole, which JAX's device loop
+    refuses: its carry changes shape.)
+    """
+
+    def __init__(self, lm_step_fn, lm_init_fn, **kwargs):
+        super().__init__(**kwargs)
+        self.lm_step_fn = lm_step_fn
+        self.lm_init_fn = lm_init_fn
+
+    def reset_lm_mem(self, n):
+        """Initial LM memory for a fresh search."""
+        return self.lm_init_fn(n)
+
+    def lm_forward_step(self, inp_tokens, memory):
+        """One LM step: (log_probs (n, V), updated LM memory)."""
+        return self.lm_step_fn(inp_tokens, memory)
 
 
 def inflate_tensor(tensor, times, dim):

@@ -31,16 +31,29 @@ port's ``Dropout``, whose mask comes from the trainer's generator
 by a BatchNorm, and the recurrence is a PyTorch loop over time inside an
 autograd ``Function`` whose backward is the loop run backwards (one
 ``addmm`` a step each way), so autograd records two nodes a layer, not
-several per step.  QuasiRNN and the cells are not ported.
+several per step.
+
+The single-step cells (``GRUCell``, ``LSTMCell``, ``RNNCell``) and the
+``AttentionalRNNDecoder`` built on them are JAX's formulas on plain
+``Linear`` layers (``wx.{i}``, ``u.{i}``: the bridge is a transpose); the
+decoder's teacher-forced ``forward`` is a Python loop over the tokens
+(JAX's ``nn.scan``), each step the arithmetic of ``forward_step``.
+QuasiRNN is not ported.
 """
 
 import torch
 
+from .attention import (
+    ContentBasedAttention,
+    KeyValueAttention,
+    LocationAwareAttention,
+)
 from .dropout import Dropout
 from .linear import Linear
 from .normalization import BatchNorm1d
 
-__all__ = ["GRU", "LSTM", "RNN", "LiGRU"]
+__all__ = ["GRU", "LSTM", "RNN", "LiGRU", "GRUCell", "LSTMCell", "RNNCell",
+           "AttentionalRNNDecoder"]
 
 
 def _zero_recurrent_bias(rnn):
@@ -315,3 +328,243 @@ class LiGRU(torch.nn.Module):
             x, last = self._layer(layer, x, h0)
             states.extend(last)
         return x, torch.stack(states)
+
+
+class _Cell(torch.nn.Module):
+    """A stack of ``num_layers`` single-step cells over (B, C) inputs:
+    layer ``i`` has ``wx.{i}`` = Linear(in, G H) with a bias and ``u.{i}``
+    = Linear(H, G H), with a bias for the GRU only (JAX's ``l{i}_wx`` and
+    ``l{i}_u``); the port's ``Dropout`` acts between layers, in training
+    (``train`` None: the module's mode)."""
+
+    gates = 1
+    u_bias = False
+
+    def __init__(self, input_size, hidden_size, num_layers=1, dropout=0.0):
+        super().__init__()
+        G, H = self.gates, hidden_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.wx = torch.nn.ModuleList(
+            Linear(input_size if i == 0 else H, G * H)
+            for i in range(num_layers))
+        self.u = torch.nn.ModuleList(
+            Linear(H, G * H, bias=self.u_bias) for _ in range(num_layers))
+        for u in self.u:
+            u.recurrent = True  # asr._random_init draws it orthogonally
+        self.drop = Dropout(dropout)
+
+    def init_state(self, n, dtype=torch.float32, device=None):
+        """Zero state for n rows: (num_layers, n, H)."""
+        return torch.zeros(self.num_layers, n, self.hidden_size, dtype=dtype,
+                           device=device)
+
+    def _layer(self, i, x, h):
+        raise NotImplementedError
+
+    def _stack(self, x, states, train):
+        new, inp = [], x
+        train = self.training if train is None else train
+        for i in range(self.num_layers):
+            inp, state = self._layer(i, inp, tuple(s[i] for s in states))
+            new.append(state)
+            if i != self.num_layers - 1 and train:
+                inp = self.drop(inp)
+        return inp, [torch.stack(parts) for parts in zip(*new)]
+
+    def forward(self, x, hx=None, train=None):
+        """x (B, C), hx (num_layers, B, H) or None (zeros) -> ``(out (B,
+        H), hx)``."""
+        if hx is None:
+            hx = self.init_state(x.shape[0], x.dtype, x.device)
+        out, (h,) = self._stack(x, (hx,), train)
+        return out, h
+
+
+class GRUCell(_Cell):
+    """Single-step GRU stack (JAX ``GRUCell``), gates r, z, n::
+
+        r = sigmoid(W_r x + b_r + U_r h + c_r)
+        z = sigmoid(W_z x + b_z + U_z h + c_z)
+        n = tanh(W_n x + b_n + r * (U_n h + c_n))
+        h = (1 - z) n + z h
+
+    Example
+    -------
+    >>> cell = GRUCell(4, 8, num_layers=2)
+    >>> out, h = cell(torch.ones(3, 4))
+    >>> out.shape, h.shape
+    (torch.Size([3, 8]), torch.Size([2, 3, 8]))
+    """
+
+    gates = 3
+    u_bias = True
+
+    def _layer(self, i, x, h):
+        (h,) = h
+        rx, zx, nx = self.wx[i](x).chunk(3, dim=-1)
+        rh, zh, nh = self.u[i](h).chunk(3, dim=-1)
+        r = torch.sigmoid(rx + rh)
+        z = torch.sigmoid(zx + zh)
+        n = torch.tanh(nx + r * nh)
+        h = (1 - z) * n + z * h
+        return h, (h,)
+
+
+class LSTMCell(_Cell):
+    """Single-step LSTM stack (JAX ``LSTMCell``), gates i, f, g, o, no
+    recurrent bias; the state is the pair (h, c), each (num_layers, B,
+    H)::
+
+        c = sigmoid(f) c + sigmoid(i) tanh(g),  h = sigmoid(o) tanh(c)
+
+    Example
+    -------
+    >>> cell = LSTMCell(4, 8)
+    >>> out, (h, c) = cell(torch.ones(3, 4))
+    >>> out.shape, h.shape, c.shape
+    (torch.Size([3, 8]), torch.Size([1, 3, 8]), torch.Size([1, 3, 8]))
+    """
+
+    gates = 4
+
+    def init_state(self, n, dtype=torch.float32, device=None):
+        """Zero (h, c) for n rows."""
+        zeros = super().init_state(n, dtype, device)
+        return zeros, zeros
+
+    def _layer(self, i, x, hc):
+        h, c = hc
+        gi, gf, gg, go = (self.wx[i](x) + self.u[i](h)).chunk(4, dim=-1)
+        c = torch.sigmoid(gf) * c + torch.sigmoid(gi) * torch.tanh(gg)
+        h = torch.sigmoid(go) * torch.tanh(c)
+        return h, (h, c)
+
+    def forward(self, x, hx=None, train=None):
+        """x (B, C), hx the pair (h, c) or None -> ``(out, (h, c))``."""
+        if hx is None:
+            hx = self.init_state(x.shape[0], x.dtype, x.device)
+        out, (h, c) = self._stack(x, hx, train)
+        return out, (h, c)
+
+
+class RNNCell(_Cell):
+    """Single-step plain RNN stack (JAX ``RNNCell``): ``h = act(W x + b +
+    U h)``, ``nonlinearity`` "tanh" or "relu", no recurrent bias.
+
+    Example
+    -------
+    >>> out, h = RNNCell(4, 8, nonlinearity="relu")(torch.ones(3, 4))
+    >>> bool((out >= 0).all()), h.shape
+    (True, torch.Size([1, 3, 8]))
+    """
+
+    def __init__(self, input_size, hidden_size, num_layers=1,
+                 nonlinearity="tanh", dropout=0.0):
+        super().__init__(input_size, hidden_size, num_layers, dropout)
+        if nonlinearity not in ("tanh", "relu"):
+            raise ValueError(f"nonlinearity {nonlinearity!r}: tanh or relu")
+        self.act = torch.tanh if nonlinearity == "tanh" else torch.relu
+
+    def _layer(self, i, x, h):
+        (h,) = h
+        h = self.act(self.wx[i](x) + self.u[i](h))
+        return h, (h,)
+
+
+_CELLS = {"gru": GRUCell, "lstm": LSTMCell, "rnn": RNNCell}
+
+
+class AttentionalRNNDecoder(torch.nn.Module):
+    """Attention-equipped RNN decoder (JAX ``AttentionalRNNDecoder``, the
+    CRDNN seq2seq recipes' ``dec``).  Each step::
+
+        cell_out, hs = rnn([emb_t, context])
+        context, w, attn_state = attn(enc_states, enc_lens, cell_out, ...)
+        out_t = proj([cell_out, context])
+
+    Arguments
+    ---------
+    rnn_type : "gru", "lstm" or "rnn" (the cells above).
+    attn_type : "content", "location" or "keyvalue" (``nnet/attention``).
+    hidden_size, attn_dim, num_layers, scaling, channels, kernel_size,
+    dropout : as in JAX (``channels``/``kernel_size`` for "location": 10
+        channels of 2 kernel_size + 1 taps).  ``dropout`` acts between the
+        cell's layers in training only; JAX applies none to the cell's
+        input, so with one layer it never acts (kept).
+    enc_dim, input_size : widths of the encoder states and the token
+        embeddings (JAX infers them at the first call).
+
+    ``forward(inp (B, U, E), enc_states (B, T, enc_dim), enc_lens (B,))``
+    is teacher-forced: ``(outputs (B, U, H), attn (B, U, T) float32)``,
+    a Python loop over U of ``forward_step``'s arithmetic from zero
+    states.  ``forward_step(inp (n, E), hs, c (n, H), enc_states,
+    enc_lens, attn_state)`` -> ``(out, hs, c, w, attn_state)`` is one
+    decode step; n may be g * B rows (see ``ContentBasedAttention``).
+    ``attn_init(enc_states)`` gives the attention's first state and
+    ``rnn.init_state(n, ...)`` the cell's.
+
+    Example
+    -------
+    >>> dec = AttentionalRNNDecoder("gru", "location", hidden_size=8,
+    ...     attn_dim=6, enc_dim=5, input_size=4, kernel_size=2)
+    >>> out, attn = dec(torch.randn(2, 3, 4), torch.randn(2, 7, 5),
+    ...                 torch.tensor([1.0, 0.6]))
+    >>> out.shape, attn.shape
+    (torch.Size([2, 3, 8]), torch.Size([2, 3, 7]))
+    """
+
+    def __init__(self, rnn_type, attn_type, hidden_size, attn_dim,
+                 enc_dim, input_size, num_layers=1, scaling=1.0,
+                 channels=10, kernel_size=100, dropout=0.0):
+        super().__init__()
+        if rnn_type not in _CELLS:
+            raise ValueError(f"rnn_type {rnn_type!r}: one of {sorted(_CELLS)}")
+        H = hidden_size
+        self.rnn_type, self.attn_type = rnn_type, attn_type
+        self.hidden_size = H
+        self.rnn = _CELLS[rnn_type](input_size + H, H, num_layers,
+                                    dropout=dropout)
+        if attn_type == "content":
+            self.attn = ContentBasedAttention(enc_dim, H, attn_dim, H, scaling)
+        elif attn_type == "location":
+            self.attn = LocationAwareAttention(enc_dim, H, attn_dim, H,
+                                               channels, kernel_size, scaling)
+        elif attn_type == "keyvalue":
+            self.attn = KeyValueAttention(enc_dim, H, attn_dim, H)
+        else:
+            raise ValueError(f"Unknown attn_type {attn_type}")
+        self.proj = Linear(2 * H, H)
+
+    def attn_init(self, enc_states):
+        """The attention's first state (the encoder projection, and for
+        location attention zero previous weights)."""
+        return self.attn.init_state(enc_states)
+
+    def _step(self, inp, hs, c, enc_states, enc_lens, attn_state, train):
+        cell_out, hs = self.rnn(torch.cat([inp, c], dim=-1), hs, train=train)
+        c, w, attn_state = self.attn(enc_states, enc_lens, cell_out,
+                                     attn_state)
+        out = self.proj(torch.cat([cell_out, c], dim=-1))
+        return out, hs, c, w, attn_state
+
+    def forward_step(self, inp, hs, c, enc_states, enc_lens, attn_state=None):
+        """One decode step (no dropout, as JAX's ``train=False``)."""
+        return self._step(inp, hs, c, enc_states, enc_lens, attn_state,
+                          train=False)
+
+    def forward(self, inp_tensor, enc_states, enc_lens):
+        """Teacher-forced decode; see the class."""
+        B, U = inp_tensor.shape[:2]
+        dtype = inp_tensor.dtype
+        c = inp_tensor.new_zeros(B, self.hidden_size)
+        hs = self.rnn.init_state(B, dtype, inp_tensor.device)
+        attn_state = self.attn.init_state(enc_states)
+        outs, ws = [], []
+        for u in range(U):
+            out, hs, c, w, attn_state = self._step(
+                inp_tensor[:, u], hs, c, enc_states, enc_lens, attn_state,
+                train=None)
+            outs.append(out)
+            ws.append(w)
+        return torch.stack(outs, 1), torch.stack(ws, 1)

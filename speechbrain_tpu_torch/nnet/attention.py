@@ -1,9 +1,12 @@
-"""Attention for the conformer encoder and the transformer decoder.
+"""Attention for the conformer encoder, the transformer decoder and the
+attentional RNN decoder.
 
 Counterpart of ``speechbrain_tpu/nnet/attention.py``: ``RelPosEncXL``,
 ``_rel_shift``, ``RelPosMHAXL``, ``MultiheadAttention`` (modes "full",
-"project_kv" and "step") and ``PositionalwiseFeedForward``.  Masks
-replace scores with -65000 (``NEG_FILL``); softmax runs in float32.
+"project_kv" and "step"), ``PositionalwiseFeedForward`` and the RNN
+decoder's ``ContentBasedAttention``, ``LocationAwareAttention`` and
+``KeyValueAttention`` (with ``_length_mask``).  Masks replace scores
+with -65000 (``NEG_FILL``); softmax runs in float32.
 
 Each module that can reach a kernel has ``use_kernels`` (default True).
 With it, ``RelPosMHAXL`` routes long utterances to the rel-pos kernel
@@ -34,6 +37,9 @@ from .dropout import Dropout
 from .linear import Linear
 
 __all__ = [
+    "ContentBasedAttention",
+    "LocationAwareAttention",
+    "KeyValueAttention",
     "RelPosEncXL",
     "RelPosMHAXL",
     "MultiheadAttention",
@@ -45,6 +51,186 @@ NEG_FILL = -65000.0
 
 def _softmax(s, dtype):
     return torch.softmax(s.float(), dim=-1).to(dtype)
+
+
+def _length_mask(enc_lens, T):
+    """(B,) lengths -> (B, T) bool mask of the valid frames: frame t is
+    valid where ``t < lens * T`` for relative (floating) lengths, with no
+    rounding, as in JAX, or ``t < lens`` for integer ones."""
+    abs_lens = enc_lens * T if enc_lens.is_floating_point() else enc_lens
+    return torch.arange(T, device=enc_lens.device)[None, :] < abs_lens[:, None]
+
+
+def _attend(scores, enc_lens, values, scaling=1.0):
+    """Masked softmax of ``scores`` (B, g, T) over the frames (``enc_lens``
+    of B rows, or of B * g: one a decoder row), in float32 (float64 for
+    float64 scores), then the weighted sum of ``values`` (B, T, C).
+    Returns (context (B, g, C) in ``values``' dtype, weights (B, g, T))."""
+    B, _, T = scores.shape
+    mask = _length_mask(enc_lens, T).view(B, -1, T)
+    if scores.dtype != torch.float64:
+        scores = scores.float()
+    scores = torch.where(mask, scores, NEG_FILL)
+    w = torch.softmax(scores * scaling, dim=-1)
+    return torch.einsum("bgt,btc->bgc", w.to(values.dtype), values), w
+
+
+class ContentBasedAttention(torch.nn.Module):
+    """Additive (Bahdanau) attention of the RNN decoder over the encoder
+    states, with their projection computed once (``init_state``)::
+
+        scores = mlp_attn(tanh(mlp_enc(enc) + mlp_dec(dec)))
+        w = softmax(scaling * where(valid frame, scores, -65000))
+        context = mlp_out(sum_t w_t enc_t)
+
+    Arguments
+    ---------
+    enc_dim, dec_dim : widths of the encoder states and decoder states
+        (JAX infers them at the first call).
+    attn_dim, output_dim, scaling : as in JAX.
+
+    ``forward(enc_states (B, T, enc_dim), enc_lens (B,) or (n,),
+    dec_states (n, dec_dim), state)`` -> ``(context (n, output_dim),
+    weights (n, T) float32 (float64 for float64 inputs), state)``: n may
+    be a multiple g of B (a beam search's rows, the g rows of an item
+    consecutive), and the encoder side is then broadcast over each item's
+    rows, not copied (JAX tiles it).
+
+    Example
+    -------
+    >>> att = ContentBasedAttention(6, 4, attn_dim=5, output_dim=3)
+    >>> enc = torch.randn(2, 7, 6)
+    >>> c, w, _ = att(enc, torch.tensor([1.0, 0.5]), torch.randn(4, 4))
+    >>> c.shape, w.shape, round(float(w[3, 4:].sum()), 6)
+    (torch.Size([4, 3]), torch.Size([4, 7]), 0.0)
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim, scaling=1.0):
+        super().__init__()
+        self.mlp_enc = Linear(enc_dim, attn_dim)
+        self.mlp_dec = Linear(dec_dim, attn_dim)
+        self.mlp_attn = Linear(attn_dim, 1, bias=False)
+        self.mlp_out = Linear(enc_dim, output_dim)
+        self.scaling = scaling
+
+    def init_state(self, enc_states):
+        """The state of a fresh decode: the encoder projection."""
+        return {"enc_proj": self.mlp_enc(enc_states)}
+
+    def _score(self, enc_proj, dec_states, extra=None):
+        B, T, A = enc_proj.shape
+        act = enc_proj[:, None] + self.mlp_dec(dec_states).view(B, -1, 1, A)
+        if extra is not None:
+            act = act + extra.view(B, -1, T, A)
+        return self.mlp_attn(torch.tanh(act))[..., 0]  # (B, g, T)
+
+    def forward(self, enc_states, enc_lens, dec_states, state=None):
+        """One attention step; see the class."""
+        if state is None:
+            state = self.init_state(enc_states)
+        scores = self._score(state["enc_proj"], dec_states)
+        context, w = _attend(scores, enc_lens, enc_states, self.scaling)
+        n = dec_states.shape[0]
+        return self.mlp_out(context).reshape(n, -1), w.reshape(n, -1), state
+
+
+class LocationAwareAttention(ContentBasedAttention):
+    """Content attention plus convolutional features of the previous
+    step's weights (JAX ``LocationAwareAttention``)::
+
+        loc = mlp_loc(conv_loc(prev_attn))      (2 kernel_size + 1 taps,
+                                                 "SAME", no bias)
+        scores = mlp_attn(tanh(mlp_enc(enc) + mlp_dec(dec) + loc))
+
+    then as ``ContentBasedAttention``.  The state holds the encoder
+    projection and ``prev_attn`` (n, T), zeros at the start; the step's
+    weights become the next ``prev_attn``.  ``conv_loc.weight`` is
+    (conv_channels, 1, 2 kernel_size + 1), Flax's (K, 1, C) transposed.
+
+    Example
+    -------
+    >>> att = LocationAwareAttention(6, 4, attn_dim=5, output_dim=3,
+    ...                              conv_channels=2, kernel_size=3)
+    >>> enc = torch.randn(2, 7, 6)
+    >>> st = att.init_state(enc)
+    >>> c, w, st = att(enc, torch.ones(2), torch.randn(2, 4), st)
+    >>> torch.equal(st["prev_attn"], w)
+    True
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim,
+                 conv_channels=10, kernel_size=100, scaling=1.0):
+        super().__init__(enc_dim, dec_dim, attn_dim, output_dim, scaling)
+        self.mlp_loc = Linear(conv_channels, attn_dim)
+        self.conv_loc = torch.nn.Conv1d(1, conv_channels, 2 * kernel_size + 1,
+                                        padding=kernel_size, bias=False)
+        self.kernel_size = kernel_size
+
+    def init_state(self, enc_states):
+        """The encoder projection and zero previous weights."""
+        B, T = enc_states.shape[:2]
+        return {"enc_proj": self.mlp_enc(enc_states),
+                "prev_attn": enc_states.new_zeros(B, T)}
+
+    def forward(self, enc_states, enc_lens, dec_states, state=None):
+        """One attention step; see the class."""
+        if state is None:
+            state = self.init_state(enc_states)
+        prev = state["prev_attn"]
+        if prev.shape[0] != dec_states.shape[0]:
+            prev = prev.repeat_interleave(dec_states.shape[0] // prev.shape[0],
+                                          dim=0)
+        conv = F.conv1d(prev[:, None, :].to(self.conv_loc.weight.dtype),
+                        self.conv_loc.weight, padding=self.kernel_size)
+        loc = self.mlp_loc(conv.transpose(1, 2).to(dec_states.dtype))
+        scores = self._score(state["enc_proj"], dec_states, loc)
+        context, w = _attend(scores, enc_lens, enc_states, self.scaling)
+        n = dec_states.shape[0]
+        w = w.reshape(n, -1)
+        return (self.mlp_out(context).reshape(n, -1), w,
+                {"enc_proj": state["enc_proj"], "prev_attn": w})
+
+
+class KeyValueAttention(torch.nn.Module):
+    """Scaled dot-product attention with one head (JAX
+    ``KeyValueAttention``): keys and values from the encoder states
+    (``init_state``), the query from the decoder state; scores divided
+    by sqrt(attn_dim), masked, float32 softmax; no output projection.
+
+    ``forward`` as ``ContentBasedAttention``'s: ``(context (n,
+    output_dim), weights (n, T) float32, state)``.
+
+    Example
+    -------
+    >>> att = KeyValueAttention(6, 4, attn_dim=5, output_dim=3)
+    >>> c, w, _ = att(torch.randn(2, 7, 6), torch.ones(2), torch.randn(2, 4))
+    >>> c.shape, w.shape
+    (torch.Size([2, 3]), torch.Size([2, 7]))
+    """
+
+    def __init__(self, enc_dim, dec_dim, attn_dim, output_dim):
+        super().__init__()
+        self.key_linear = Linear(enc_dim, attn_dim)
+        self.query_linear = Linear(dec_dim, attn_dim)
+        self.value_linear = Linear(enc_dim, output_dim)
+        self.attn_dim = attn_dim
+
+    def init_state(self, enc_states):
+        """The keys and values of a fresh decode."""
+        return {"keys": self.key_linear(enc_states),
+                "values": self.value_linear(enc_states)}
+
+    def forward(self, enc_states, enc_lens, dec_states, state=None):
+        """One attention step; see the class."""
+        if state is None:
+            state = self.init_state(enc_states)
+        keys = state["keys"]
+        B, T, A = keys.shape
+        q = self.query_linear(dec_states).view(B, -1, A)
+        scores = torch.einsum("bga,bta->bgt", q, keys) / math.sqrt(A)
+        context, w = _attend(scores, enc_lens, state["values"])
+        n = dec_states.shape[0]
+        return context.reshape(n, -1), w.reshape(n, -1), state
 
 
 class RelPosEncXL(torch.nn.Module):

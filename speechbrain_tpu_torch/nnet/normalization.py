@@ -65,8 +65,8 @@ class BatchNorm1d(torch.nn.Module):
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean.detach())
             self.running_var.mul_(1.0 - m).add_(m * var.detach())
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(x.dtype)
 
 
 class LayerNorm(torch.nn.Module):
@@ -76,9 +76,10 @@ class LayerNorm(torch.nn.Module):
     parameters of shape (F, C); a 2-d input over its last axis.
 
     ``shape`` is the normalized shape, e.g. ``(F, C)``.  The statistics
-    are computed in float32 as Flax computes them (mean of x and of x^2,
-    var = max(0, E[x^2] - E[x]^2)), and the result is cast back to the
-    input's dtype (Flax's ``dtype=x.dtype``).  eps is 1e-5.
+    are computed in at least float32 (float64 stays float64) as Flax
+    computes them (mean of x and of x^2, var = max(0, E[x^2] - E[x]^2)),
+    and the result is cast back to the input's dtype (Flax's
+    ``dtype=x.dtype``).  eps is 1e-5.
 
     Example
     -------
@@ -98,9 +99,9 @@ class LayerNorm(torch.nn.Module):
 
     def forward(self, x):
         """x: (B, T, *shape), or (B, *shape) for a 1-d ``shape``."""
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         axes = tuple(range(x.dim() - len(self.shape), x.dim()))
         mean = xf.mean(axes, keepdim=True)
         var = ((xf * xf).mean(axes, keepdim=True) - mean * mean).clamp(min=0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight.float()
-        return ((xf - mean) * mul + self.bias.float()).to(x.dtype)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        return ((xf - mean) * mul + self.bias.to(xf.dtype)).to(x.dtype)

@@ -509,7 +509,8 @@ class InputNormalization(torch.nn.Module):
 
     @torch.no_grad()
     def _update(self, x, lengths, epoch):
-        mean, std = self._sentence_stats(x.float(), lengths)
+        mean, std = self._sentence_stats(
+            x.to(torch.promote_types(x.dtype, torch.float32)), lengths)
         cur_mean, cur_std = mean.mean(0), std.mean(0)
         w = 1.0 / (self.count + 1.0)
         in_window = 1.0 if epoch < self.update_until_epoch else 0.0
@@ -525,7 +526,8 @@ class InputNormalization(torch.nn.Module):
         if self.norm_type != "global":
             if lengths is None:
                 lengths = torch.ones(x.shape[0], device=x.device)
-            mean, std = self._sentence_stats(x.float(), lengths)
+            mean, std = self._sentence_stats(
+            x.to(torch.promote_types(x.dtype, torch.float32)), lengths)
             if self.norm_type == "batch":
                 mean, std = mean.mean(0), std.mean(0)
             else:

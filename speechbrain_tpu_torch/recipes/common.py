@@ -70,13 +70,18 @@ class NewBobBrain(Brain):
         """The metric of the stage that ends."""
         raise NotImplementedError
 
+    def extra_stats(self):
+        """Further stats of the stage that ends, logged and kept beside
+        the metric (none by default)."""
+        return {}
+
     def on_stage_end(self, stage, stage_loss, epoch=None):
         """The stage's stats; at VALID, NewBob, the log line and the
         keep-best checkpoint."""
         if stage == Stage.TRAIN:
             return
         value = self.summarize_metric()
-        stats = {"loss": stage_loss, self.metric: value}
+        stats = {"loss": stage_loss, self.metric: value, **self.extra_stats()}
         self.stage_stats[stage.name] = stats
         if stage != Stage.VALID:
             return

@@ -48,8 +48,8 @@ from .common import recipe_hparams
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["HPARAMS", "prepare_librispeech", "dataio_prepare", "build",
-           "run", "write_synthetic_librispeech"]
+__all__ = ["HPARAMS", "prepare_librispeech", "make_datasets",
+           "dataio_prepare", "build", "run", "write_synthetic_librispeech"]
 
 SAMPLERATE = 16000
 
@@ -142,15 +142,12 @@ def prepare_librispeech(data_folder, save_folder,
                 json.dump(merged, f, indent=2)
 
 
-def dataio_prepare(hparams, tokenizer):
-    """The recipe's three loaders (``train.py:226-292``): the manifests'
-    audio read from disk (``sig``) and words encoded by ``tokenizer``
-    (``tokens``, ``tokens_bos``, ``tokens_eos``); training batches from
-    a ``DynamicBatchSampler`` (``max_batch_length`` seconds a batch,
-    ``num_buckets``, shuffled) padded by the recipe's
-    ``BatchShapePolicy`` (time to the sampler's bucket boundaries, tokens
-    to powers of two from 16, the batch dim to powers of two from 2 with
-    dummy rows); validation and test batches of 8 in manifest order."""
+def make_datasets(hparams, tokenizer):
+    """The train, valid and test datasets of the LibriSpeech recipes
+    (``hparams["<split>_json"]``): the manifests' audio read from disk
+    (``sig``) and words encoded by ``tokenizer`` (``tokens``,
+    ``tokens_bos`` = [bos_index] + tokens, ``tokens_eos`` = tokens +
+    [eos_index]), with ``id``.  Returns a dict by split name."""
     datasets = {}
     for split in ("train", "valid", "test"):
         ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
@@ -169,6 +166,18 @@ def dataio_prepare(hparams, tokenizer):
         ds.set_output_keys(["id", "sig", "tokens", "tokens_bos",
                             "tokens_eos"])
         datasets[split] = ds
+    return datasets
+
+
+def dataio_prepare(hparams, tokenizer):
+    """The recipe's three loaders (``train.py:226-292``) over
+    ``make_datasets``' splits: training batches from
+    a ``DynamicBatchSampler`` (``max_batch_length`` seconds a batch,
+    ``num_buckets``, shuffled) padded by the recipe's
+    ``BatchShapePolicy`` (time to the sampler's bucket boundaries, tokens
+    to powers of two from 16, the batch dim to powers of two from 2 with
+    dummy rows); validation and test batches of 8 in manifest order."""
+    datasets = make_datasets(hparams, tokenizer)
     sampler = DynamicBatchSampler(
         datasets["train"], max_batch_length=hparams["max_batch_length"],
         num_buckets=hparams["num_buckets"], shuffle=True)
