@@ -14,6 +14,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_separation_rnn
     python3 chip_smoke.py --phase recipe_separation_more
     python3 chip_smoke.py --phase recipe_seq2seq
+    python3 chip_smoke.py --phase recipe_lm,recipe_timit_seq2seq
 
 Phases, each printing one JSON line when it ends:
 
@@ -44,8 +45,10 @@ Phases, each printing one JSON line when it ends:
    one seed, different at seed + 1.  K5 and K6 run on the tensor cores:
    their bounds divide by the peak of the tensor cores they use; bf16 K5
    is also held to the rounding-point reference.  K3/K4 also run at the
-   TIMIT step's lattice (role "timit": B8 T301 C40 U40) and the CRDNN
-   seq2seq step's (role "seq2seq": B8 T1001 C1000 U48, the warp path).
+   TIMIT step's lattice (role "timit": B8 T301 C40 U40), the CRDNN
+   seq2seq step's (role "seq2seq": B8 T1001 C1000 U48, the warp path)
+   and the TIMIT distillation's (role "kd": B8 T301 C42, the teacher's
+   path in a (B, 301) label buffer, 236-240 labels live: the block path).
    The lattice kernels also run wider than a block has threads (role
    "wide_lattice": CTC 2U+1 = 1041, RNN-T U+1 = 1100).
 3. serve   -- ``ConformerASR(CONFORMER_SMALL)`` (full width, random
@@ -284,6 +287,53 @@ Phases, each printing one JSON line when it ends:
    1, epoch 2 in a fresh Brain recovered bit for bit, the test at beam
    80; every WER, CER and loss finite.
 
+20. recipe_lm -- the LM training recipes (``recipes.lm_training``) at the
+   LibriSpeech yamls' widths: the ``RNNLM.yaml`` step (RNNLM, LSTM 2 x
+   2048, vocab 1000) and the ``transformer.yaml`` step (TransformerLM 12
+   x 768, 12 heads, d_ffn 3072, vocab 5000), each on B = 64 rows at the
+   max_seq_len cap (255 tokens and the bos) in bf16 and f32: a warm-up, 3
+   timed Adam steps (Noam), ms/step, tokens/s, peak memory, GFLOP a step
+   and its bound, the PyTorch calls and the profile of one more step (busy
+   share, device kernels), no launch of a port kernel; for the RNNLM the
+   cuDNN kernels of its LSTM's forward and backward (the recurrence stays
+   f32 under bf16).  Then the recipes on synthetic corpora (the ASR
+   recipes' tokenizer files trained on a LibriSpeech tree's transcripts,
+   vocab 1000 and 5000; 128/64/64 lines of 10-150 words; a
+   Timers-and-Such tree of 96 + 32 train, 32 dev and 32 test rows):
+   ``HPARAMS_RNNLM``, ``HPARAMS_TRANSFORMER`` and ``HPARAMS_TAS`` each 2
+   epochs, epoch 3 in a fresh Brain recovered bit for bit, the test,
+   ``lm.ckpt``; the RNNLM's ``lm.ckpt`` fused into
+   ``librispeech_seq2seq``'s validation search (full width, bf16, beam 8,
+   LM 0.5) and the TransformerLM's into ``librispeech_asr``'s
+   (conformer_small, beam 10, CTC 0.4, LM 0.6: K1 and K7 launch), each
+   over the dev set's first batch, capped at int(T_enc x
+   ``LM_FUSED_RATIO``) steps, its scores held apart from the same search
+   at ``lm_weight`` 0.
+21. recipe_timit_seq2seq -- the TIMIT seq2seq recipe and its distillation
+   (``recipes.timit_seq2seq``, ``recipes.timit_kd``) at ``train.yaml``'s
+   widths (120 features, CNN 128/256, LiGRU 4 x 512 bidirectional, DNN 2
+   x 512, decoder GRU 256 with location attention 256, 42 outputs;
+   dropout 0.15): the seq2seq step (0.5 CTC + 0.5 NLL; K3 1, K4 1 a step)
+   and the distillation step (a young teacher's posteriors: its greedy
+   path nearly T long; K3 2, K4 2 a step) on B = 8 x 3 s (T 301) with
+   20-40 phones, in bf16 (the yaml's) and f32: a warm-up, 3 timed
+   Adadelta steps, ms/step, utt/s, peak memory, the PyTorch calls and the
+   profile of one more step.  Both steps' loss and gradients through
+   K3/K4 against the plain CTC recursions at full width in f32 (the
+   seq2seq step with a dummy row; the distillation step with the
+   teachers' paths at full length, the block path, and a row whose
+   teacher is all blank: its path one label equal to the blank).  At toy
+   widths in float64, the seq2seq, distillation and transformer-LM steps'
+   loss and every gradient on the card against the CPU (the CTC on its
+   plain recursions, which keep float64), within ``TS2S_CARD_TOL``; each
+   control, the card in float32 against the same CPU run, must break both
+   bounds.  Then the chain on a synthetic TIMIT tree (16 train, 4 dev, 4
+   test SPHERE files of 1.5-3 s) at the yaml's widths and 2 of its 4
+   recurrent layers, bf16: teachers tea0 (LiGRU) and tea3 (LSTM) one
+   epoch each through ``run``, ``save_teachers`` (float16 npz), the
+   student 2 epochs, epoch 3 in a fresh Brain recovered bit for bit, the
+   test at beam 16; every PER and loss finite.
+
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
 generator; its device ms is the "spec_augment" range of the profiled
@@ -292,7 +342,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 19, each counted from 0 just before its
+(launch counts from phases 3 to 21, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -301,6 +351,7 @@ is not printed.  Exits non-zero when no CUDA card is present.
 """
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -711,9 +762,11 @@ def _check_depthwise_separation():
     return out
 
 
-def _ctc_inputs(B, T, C, U):
+def _ctc_inputs(B, T, C, U, live_u=None):
     """Log-probs of random logits, random labels (no blank), ragged
-    frame and label counts, as the training step gives them."""
+    frame and label counts, as the training step gives them; with
+    ``live_u`` the labels of a (B, U) buffer count up to ``live_u`` of
+    them (a distillation path padded to U = T)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -722,7 +775,8 @@ def _ctc_inputs(B, T, C, U):
     targets = torch.randint(1, C, (B, U), device="cuda", generator=g)
     targets[:, 1] = targets[:, 0]  # a repeated label: the skip rule
     tlen = torch.tensor([T - (i % 8) * 4 for i in range(B)], device="cuda")
-    ulen = torch.tensor([U - (i % 5) for i in range(B)], device="cuda")
+    ulen = torch.tensor([(live_u or U) - (i % 5) for i in range(B)],
+                        device="cuda")
     return logits, lp, targets, tlen, ulen
 
 
@@ -833,7 +887,8 @@ def _kernel_profile(fn):
     return {"device_ms_by_kernel": by_kernel, "device_kernels_per_call": kernels}
 
 
-def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3):
+def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3,
+               live_u=None):
     """K3 (alpha + loss) and K4 (beta + gradient) at the training shape
     (or, with a ``role``, at (B, T, C, U): "timit" is the TIMIT recipe's
     step, 40 classes; "seq2seq" the CRDNN seq2seq recipe's, T 1001)
@@ -850,7 +905,7 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3):
     from speechbrain_tpu_torch.ops import (
         ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain)
 
-    logits, lp, targets, tlen, ulen = _ctc_inputs(B, T, C, U)
+    logits, lp, targets, tlen, ulen = _ctc_inputs(B, T, C, U, live_u)
     args = (lp, targets, tlen, ulen, 0)
     alpha, loss, logz = ctc_alpha(*args)
     alpha_p, loss_p, logz_p = ctc_alpha_plain(*args)
@@ -859,6 +914,8 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3):
     dlp_p = ctc_beta_grad_plain(*args, alpha_p, logz_p, ones)
     torch.cuda.synchronize()
     live = torch.zeros(B, T, 2 * U + 1, dtype=torch.bool, device="cuda")
+    # a lattice state is live up to 2 U_b + 1, and on every frame up to
+    # T_b (alpha is also written at t 0 past T_b: a row with no frame)
     for b in range(B):
         live[b, : int(tlen[b]), : 2 * int(ulen[b]) + 1] = True
     alpha_err = _err(alpha[live], alpha_p[live])
@@ -1617,6 +1674,10 @@ def phase_kernels(only=None):
         # recursion
         records.extend(_check_ctc(8, 1001, 1000, 48, role="seq2seq",
                                   lib_tol=1e-2))
+        # the TIMIT distillation's second CTC: the teacher's collapsed
+        # greedy path in a (B, T) buffer (2U+1 603: the block path), ~240
+        # labels long for a young teacher
+        records.extend(_check_ctc(8, 301, 42, 301, role="kd", live_u=240))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -2510,6 +2571,8 @@ def _snapshot(brain):
         s = brain.lr_annealing
         if hasattr(s, "clr_iterations"):  # the cyclic schedule
             snap["cyclic"] = (s.clr_iterations, s.current_lr)
+        elif hasattr(s, "n_warmup_steps"):  # Noam (the LM recipes)
+            snap["noam"] = (s.n_steps, s.current_lr)
         else:  # NewBob
             snap["newbob"] = (s.hyperparam_value, list(s.metric_values),
                               s.current_patient)
@@ -2549,8 +2612,8 @@ def _instrument(brain, log):
     save = brain.checkpointer.save_and_keep_only
 
     def on_fit_batch(batch):
-        sig = batch["sig"] if "sig" in batch else batch["mix_sig"]
-        log["shapes"].add(tuple(sig.shape))
+        key = next(k for k in ("sig", "mix_sig", "tokens_bos") if k in batch)
+        log["shapes"].add(tuple(batch[key].shape))
         log["masks"].append(batch["batch_mask"])
         log["batches"][-1] += 1
         return fit_batch(batch)
@@ -4839,6 +4902,742 @@ def phase_recipe_seq2seq():
     return runs
 
 
+# ------------------------------------------------------------ recipe_lm
+
+# the LibriSpeech LM yamls' batch at the max_seq_len cap: 64 rows of 255
+# tokens and the bos
+LM_B, LM_L = 64, 256
+LM_NAMES = ("rnnlm", "transformer")
+RECIPE_LM_UTTERANCES = {"train-clean-100": 32, "dev-clean": 4,
+                        "test-clean": 2}
+RECIPE_LM_LINES = {"train": 128, "valid": 64, "test": 64}
+RECIPE_TAS = {"train-synth": 96, "train-real": 32, "dev-real": 32,
+              "test-real": 32}
+# the fused searches' cap: max_steps = int(T_enc x ratio)
+LM_FUSED_RATIO = 0.5
+
+
+def _lm_hparams(name):
+    from speechbrain_tpu_torch.recipes import lm_training
+
+    return {"rnnlm": lm_training.HPARAMS_RNNLM,
+            "transformer": lm_training.HPARAMS_TRANSFORMER}[name]
+
+
+def _lm_batch(V, seed, B=LM_B, L=LM_L):
+    """B rows of L - 1 random tokens in 3..V-1 behind bos 1 (every row at
+    the max_seq_len cap), ``tokens_eos`` the tokens and eos 2."""
+    rng = np.random.default_rng(seed)
+    tok = rng.integers(3, V, (B, L - 1))
+    return {"tokens_bos": np.concatenate([np.ones((B, 1), np.int64), tok], 1),
+            "tokens_eos": np.concatenate([tok, np.full((B, 1), 2)], 1),
+            "tokens_eos_lens": np.ones(B, np.float32)}
+
+
+def _rnn_kernels(fn):
+    """The device kernels of ``fn()`` whose names say cuDNN's recurrence
+    runs them (RNN, LSTM, elemWise, gemm), by name with their counts and
+    device ms, under the profiler (the card's events only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)
+                and re.search(r"RNN|LSTM|lstm|rnn|elemWise|gemm", e.name)):
+            ms, n = names.get(e.name[:70], (0.0, 0))
+            names[e.name[:70]] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return sorted(([k, ms, n] for k, (ms, n) in names.items()),
+                  key=lambda r: -r[1])[:8]
+
+
+def _lm_step(name, precision, steps=3):
+    """``lm_training.LM`` at its yaml's widths on B 64 x 256 tokens: a
+    warm-up, ``steps`` timed Adam steps (Noam), tokens/s, peak memory,
+    FLOPs and their bound, the PyTorch calls and the profile of one more
+    step; for the RNNLM the cuDNN kernels of its LSTM's forward and
+    backward."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes.lm_training import LM
+
+    hp = _lm_hparams(name)
+    brain = LM(hp, run_opts={"seed": SEED, "precision": precision,
+                             "loss_sync_interval": 10})
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    batch = brain.prepare_batch(_lm_batch(hp["vocab_size"], SEED + 30))
+    brain.step = 1
+    first = float(brain.fit_batch(batch))
+    assert _rnn_weights_flat(brain.modules)
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    assert all(v == 0 for v in counts.values()), counts
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    info = {}
+    fwd, step_flops = _sep_flops(brain, batch, info)
+    dtype = "bfloat16" if precision == "bf16" else "float32"
+    bound = _bound_ms(0, step_flops, dtype)
+    run = {"phase": "recipe_lm_step", "model": name, "precision": precision,
+           "batch": LM_B, "tokens_per_row": LM_L, "vocab": hp["vocab_size"],
+           "parameters": n_params, "steps": steps, "lr": brain.lr,
+           "ms_per_step": ms, "tokens_per_s": 1e3 * LM_B * LM_L / ms,
+           "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
+           "forward_gflop": fwd / 1e9, "step_gflop": step_flops / 1e9,
+           "bound_ms": bound[0], "bound_peak": dtype, **info,
+           "pytorch_calls_per_step": _pytorch_calls(one_step),
+           "profile": _profile(one_step, cpu=False),
+           "launches": counts, "loss_first": first, "loss_last": losses[-1]}
+    if name == "rnnlm":
+        lstm = brain.modules.model.rnn
+        x = torch.randn(LM_B, LM_L, lstm.rnns[0].input_size, device="cuda",
+                        dtype=brain.dtype, requires_grad=True)
+
+        def fwd_bwd():
+            y, _ = lstm(x)
+            torch.autograd.grad(y.float().sum(), x)
+
+        fwd_bwd()
+        run["lstm_dtype_in_out"] = str(brain.dtype)
+        run["lstm_weight_dtype"] = str(lstm.rnns[0].weight_ih_l0.dtype)
+        run["lstm_fwd_bwd_ms"] = _time_ms(fwd_bwd, iters=2, warmup=0)
+        run["lstm_cudnn_kernels"] = _rnn_kernels(fwd_bwd)
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _lm_recipe_run(tmp):
+    """The three LM dicts through ``lm_training.build``/``fit``/``evaluate``
+    (f32, the yamls' precision) on synthetic corpora, the LibriSpeech LMs
+    on the ASR recipes' tokenizer files (vocab 1000 for the RNNLM, the
+    seq2seq recipe's; 5000 for the transformer, the conformer recipe's):
+    2 epochs, epoch 3 in a fresh Brain recovered bit for bit, the test,
+    ``lm.ckpt``; then each LibriSpeech LM's ``lm.ckpt`` fused into its ASR
+    recipe's search (full width, ``run_opts["lm_ckpt"]``) for a fixed
+    number of steps, against the same search at ``lm_weight`` 0."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import (
+        librispeech_asr, librispeech_seq2seq, lm_training)
+    from speechbrain_tpu_torch.recipes.timers_and_such_prepare import (
+        write_synthetic_tas)
+    from speechbrain_tpu_torch.tokenizers.SentencePiece import SentencePiece
+
+    data = f"{tmp}/LibriSpeech"
+    # the train split's transcripts train the tokenizers (long ones: its
+    # audio is not read here); the dev split's 2-4 s are decoded
+    librispeech_asr.write_synthetic_librispeech(
+        data, {"train-clean-100": RECIPE_LM_UTTERANCES["train-clean-100"]},
+        seconds=(0.2, 0.3), n_words=(40, 60), seed=SEED)
+    librispeech_asr.write_synthetic_librispeech(
+        data, {k: v for k, v in RECIPE_LM_UTTERANCES.items()
+               if k != "train-clean-100"},
+        seconds=(2.0, 4.0), n_words=(6, 12), seed=SEED)
+    # the ASR recipes' manifests and tokenizers, where their builds find
+    # them
+    tokenizers = {}
+    for name, folder in (("rnnlm", f"{tmp}/s2s/save"),
+                         ("transformer", f"{tmp}/asr/save")):
+        vocab = _lm_hparams(name)["vocab_size"]
+        librispeech_asr.prepare_librispeech(
+            data, folder, tr_splits=["train-clean-100"],
+            dev_splits=["dev-clean"], te_splits=["test-clean"],
+            merge_lst=["train-clean-100"], merge_name="train.json")
+        tok, seconds = _timed(lambda: SentencePiece(
+            folder, vocab, annotation_train=f"{folder}/train.json",
+            annotation_read="words", annotation_format="json"))
+        tokenizers[name] = (tok.prefix_model_file, tok.sp.get_piece_size(),
+                            tok.sp.train_route, seconds)
+    words = [w for r in json.load(open(f"{tmp}/s2s/save/train.json")).values()
+             for w in r["words"].split()]
+    lm_training.write_synthetic_text(f"{tmp}/text", RECIPE_LM_LINES, words,
+                                     n_words=(10, 150), seed=SEED)
+    write_synthetic_tas(f"{tmp}/TAS", RECIPE_TAS, seconds=(0.5, 1.0),
+                        seed=SEED)
+    opts = {"noprogressbar": True, "seed": SEED}
+    runs = {}
+    ops.reset_launch_counters()
+    for name, hp, corpus in (
+            ("rnnlm", lm_training.HPARAMS_RNNLM, f"{tmp}/text"),
+            ("transformer", lm_training.HPARAMS_TRANSFORMER, f"{tmp}/text"),
+            ("tas", lm_training.HPARAMS_TAS, f"{tmp}/TAS")):
+        out = f"{tmp}/lm_{name}"
+        tok_file = tokenizers[name][0] if name in tokenizers else None
+
+        def build(epochs):
+            return lm_training.build(corpus, out, {"number_of_epochs": epochs},
+                                     opts, hp, tok_file)
+
+        parts, build_s = _timed(lambda: build(2))
+        brain, log = parts["brain"], {}
+        _instrument(brain, log)
+        _, fit_s = _timed(lambda: brain.fit(
+            parts["epoch_counter"], parts["train_loader"],
+            parts["valid_loader"]))
+        saved = _snapshot(brain)
+        ckpt = brain.checkpointer.find_checkpoint()
+        ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+        parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+        brain2 = parts2["brain"]
+        assert recovered["epoch"] == 2
+        n_equal = _same_state(saved, recovered["state"])
+        test_loss, test_s = _timed(lambda: brain2.evaluate(
+            parts2["test_loader"], min_key="ppl"))
+        torch.save({k: v.detach().cpu() for k, v in
+                    brain2.modules.model.state_dict().items()},
+                   f"{out}/lm.ckpt")
+        stats = [dict(brain.stage_stats["VALID"]),
+                 dict(brain2.stage_stats["VALID"]),
+                 dict(brain2.stage_stats["TEST"])]
+        assert all(np.isfinite(v) for st in stats for v in st.values()), stats
+        train_s = sum(log["train_s"] + log2["train_s"])
+        batches = sum(log["batches"] + log2["batches"])
+        runs[name] = {
+            "vocab": hp["vocab_size"], "bos_eos": [hp["bos_index"],
+                                                   hp["eos_index"]],
+            "tokenizer_file": tok_file is not None,
+            "pieces": parts["tokenizer"].sp.get_piece_size(),
+            "build_s": build_s, "epochs": log["epochs"] + log2["epochs"],
+            "batches_per_epoch": log["batches"][0],
+            "batch_shapes": sorted(log["shapes"]),
+            "train_ms_per_batch": 1e3 * train_s / batches,
+            "valid_s": log["valid_s"] + log2["valid_s"], "test_s": test_s,
+            "valid_test": stats, "lr_per_epoch": [brain.lr, brain2.lr],
+            "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+            "save_ms": log["save_ms"] + log2["save_ms"],
+            "resume_ms": 1e3 * recovered["seconds"],
+            "resume_equal_tensors": n_equal}
+        del brain, brain2, parts, parts2
+        torch.cuda.empty_cache()
+    counts = ops.launch_counters()
+    assert all(v == 0 for v in counts.values()), counts
+    run = {"phase": "recipe_lm", "tokenizers": tokenizers,
+           "lines": RECIPE_LM_LINES, "tas_rows": RECIPE_TAS,
+           "precision": "fp32", "runs": runs, "launches": counts,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    emit(run)
+    fused = {"seq2seq": _lm_fused_seq2seq(data, tmp),
+             "conformer": _lm_fused_conformer(data, tmp)}
+    return run, fused
+
+
+def _lm_fused_seq2seq(data, tmp):
+    """The trained RNNLM's ``lm.ckpt`` through ``librispeech_seq2seq.build``
+    (full width, bf16): the validation search (beam 8, the yaml's
+    options, the LM at 0.5) over the dev set's first batch, capped at
+    int(T_enc x ``LM_FUSED_RATIO``) steps; the same search at
+    ``lm_weight`` 0 from the same encoder states."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import librispeech_seq2seq
+
+    ops.reset_launch_counters()
+    parts = librispeech_seq2seq.build(
+        data, f"{tmp}/s2s", {"train_splits": ["train-clean-100"],
+                             "max_decode_ratio": LM_FUSED_RATIO},
+        {"noprogressbar": True, "lm_ckpt": f"{tmp}/lm_rnnlm/lm.ckpt"})
+    brain = parts["brain"]
+    assert brain.lm is not None
+    batch = brain.prepare_batch(next(iter(parts["valid_loader"])))
+    m = brain.modules.eval()
+    with torch.no_grad():
+        enc = m.enc(m.normalize(m.compute_features(batch["sig"]),
+                                batch["sig_lens"]).to(brain.dtype),
+                    batch["sig_lens"])
+    steps = [0]
+
+    def search(weight):
+        brain.hparams.lm_weight = weight
+        searcher = brain.make_searcher(brain.hparams.valid_beam_size)
+        step = searcher.forward_step
+
+        def counted(*args):
+            steps[0] += 1
+            return step(*args)
+
+        searcher.forward_step = counted
+        steps[0] = 0
+        with torch.no_grad():
+            return searcher(enc, batch["sig_lens"])
+
+    (hyps, scores), search_s = _timed(lambda: search(0.5))
+    n_steps = steps[0]
+    _, plain = search(0.0)
+    counts = ops.launch_counters()
+    assert all(v == 0 for v in counts.values()), counts
+    assert np.isfinite(scores).all()
+    diff = float(np.abs(np.asarray(scores) - np.asarray(plain)).max())
+    assert diff > 1e-3, diff
+    run = {"phase": "recipe_lm_fused_seq2seq", "precision": "bf16",
+           "batch": int(batch["sig"].shape[0]), "T_enc": int(enc.shape[1]),
+           "beam": brain.hparams.valid_beam_size, "lm_weight": 0.5,
+           "steps": n_steps, "search_ms": 1e3 * search_s,
+           "ms_per_step": 1e3 * search_s / n_steps,
+           "scores_vs_lm_weight_0_max_abs_diff": diff,
+           "hyp_lengths": [len(h) for h in hyps], "launches": counts}
+    emit(run)
+    del brain, parts, enc
+    torch.cuda.empty_cache()
+    return run
+
+
+def _lm_fused_conformer(data, tmp):
+    """The trained TransformerLM's ``lm.ckpt`` through
+    ``librispeech_asr.build`` (conformer_small at full width, bf16): the
+    validation search (beam 10, full CTC scoring at 0.4, the LM at the
+    yaml's 0.6) of the dev set's first batch, capped at int(T_enc x
+    ``LM_FUSED_RATIO``) steps, through ``evaluate_batch``; the same search
+    at ``lm_weight`` 0."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.core import Stage
+    from speechbrain_tpu_torch.recipes import librispeech_asr
+
+    ops.reset_launch_counters()
+    parts = librispeech_asr.build(
+        data, f"{tmp}/asr", {"train_splits": ["train-clean-100"],
+                             "test_splits": ["test-clean"], "num_workers": 0,
+                             "max_decode_ratio": LM_FUSED_RATIO},
+        {"noprogressbar": True, "lm_ckpt": f"{tmp}/lm_transformer/lm.ckpt"})
+    brain = parts["brain"]
+    assert brain.lm is not None and brain.config["lm_weight"] == 0.6
+    host = next(iter(parts["valid_loader"]))
+    batch = brain.prepare_batch(host)
+    brain.on_stage_start(Stage.VALID, 1)
+    loss, search_s = _timed(lambda: brain.evaluate_batch(batch, Stage.VALID))
+    counts = ops.launch_counters()
+    with torch.no_grad():
+        _, fused = brain.model.transcribe(
+            batch["sig"], batch["sig_lens"], beam_size=10, ctc_weight=0.4,
+            lm=brain.lm, lm_weight=0.6)
+        _, plain = brain.model.transcribe(
+            batch["sig"], batch["sig_lens"], beam_size=10, ctc_weight=0.4,
+            lm=brain.lm, lm_weight=0.0)
+    diff = float(np.abs(np.asarray(fused) - np.asarray(plain)).max())
+    assert diff > 1e-3 and np.isfinite(loss), (diff, loss)
+    assert counts["depthwise_conv1d"] > 0 and counts["beam_attend_step"] > 0
+    run = {"phase": "recipe_lm_fused_conformer", "precision": "bf16",
+           "batch": int(batch["sig"].shape[0]), "beam": 10, "lm_weight": 0.6,
+           "max_decode_ratio": LM_FUSED_RATIO, "valid_batch_s": search_s,
+           "valid_loss": loss,
+           "wer": brain.wer_metric.summarize("error_rate"),
+           "scores_vs_lm_weight_0_max_abs_diff": diff, "launches": counts}
+    emit(run)
+    del brain, parts
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_recipe_lm():
+    """The LM training recipes (``recipes.lm_training``): see the module
+    docstring, phase 20."""
+    import shutil
+    import tempfile
+
+    runs = {}
+    for name in LM_NAMES:
+        for precision in ("bf16", "fp32"):
+            runs[f"{name}_{precision}"] = _lm_step(name, precision)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        runs["recipe"], fused = _lm_recipe_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs["fused_seq2seq"] = fused["seq2seq"]
+    runs["fused_conformer"] = fused["conformer"]
+    return runs
+
+
+# ------------------------------------------------- recipe_timit_seq2seq
+
+TS2S_B, TS2S_SAMPLES, TS2S_U = 8, 48000, 40
+# ctc_loss_kd pads the teacher's path to T frames: 2T + 1 lattice states
+TS2S_T_PAD = 301
+# a seq2seq step runs K3/K4 once, a distillation step twice
+TS2S_LAUNCHES = dict(TIMIT_LAUNCHES)
+KD_LAUNCHES = dict(TIMIT_LAUNCHES, ctc_alpha=2, ctc_beta_grad=2)
+# the float64 card-vs-CPU checks at toy widths (the CTC on its plain
+# recursions, which keep float64): the loss relative to the CPU's, each
+# gradient's largest difference relative to its scale (floored at 5 % of
+# the largest gradient); the control, the card in float32 against the
+# same CPU run, must break both.  On an H100 the float64 steps read loss
+# 0.0 and gradients 9.5e-16-9.3e-14 (seq2seq, KD, transformer LM), the
+# controls 1.8e-8-7.8e-8 and 5.6e-7-1.2e-4: the gradient bound lies 56x
+# under the closest control and 1e5 over the readings
+TS2S_CARD_TOL = {"loss_float64": 1e-10, "gradients_float64": 1e-8}
+TS2S_TOY = dict(cnn_channels=(4, 6), rnn_layers=1, rnn_neurons=8,
+                dnn_blocks=1, dnn_neurons=8, emb_size=8, dec_neurons=16,
+                attn_dim=12)
+LM_TOY = dict(vocab_size=40, d_model=16, nhead=2, num_layers=2, d_ffn=32,
+              dropout=0.0)
+RECIPE_TS2S_UTTERANCES = {"train": 16, "dev": 4, "test": 4}
+RECIPE_TS2S_SECONDS = (1.5, 3.0)
+# the chain's depth: 2 of the yaml's 4 recurrent layers, at its widths
+RECIPE_TS2S_DEPTH = {"rnn_layers": 2}
+
+
+def _ts2s_batch(B, samples, U, seed, kd=False, blank_row=None):
+    """B synthetic utterances of white noise (every length full) with U / 2
+    to U phones in 3..41 each, padded with 0, their bos 1 / eos 2 forms;
+    with ``kd`` also a young teacher's posteriors: ``teacher_ctc`` (B, T,
+    42), random (its greedy path nearly T long), row ``blank_row`` all
+    blank, and ``teacher_seq`` (B, U + 1, 42), rounded through float16 as
+    ``save_teachers`` stores them."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(U // 2, U + 1, B)
+    phn = rng.integers(3, 42, (B, U))
+    phn[np.arange(U)[None, :] >= n[:, None]] = 0
+    bos = np.concatenate([np.ones((B, 1), np.int64), phn], 1)
+    eos = np.concatenate([phn, np.zeros((B, 1), np.int64)], 1)
+    eos[np.arange(B), n] = 2
+    out = {"sig": rng.normal(size=(B, samples)).astype(np.float32),
+           "sig_lens": np.ones(B, np.float32), "phn_encoded": phn,
+           "phn_encoded_lens": (n / U).astype(np.float32),
+           "phn_encoded_bos": bos, "phn_encoded_eos": eos,
+           "phn_encoded_eos_lens": ((n + 1) / (U + 1)).astype(np.float32)}
+    if kd:
+        T = samples // 160 + 1
+
+        def probs(shape):
+            x = np.exp(2.0 * rng.standard_normal(shape))
+            return (x / x.sum(-1, keepdims=True)).astype(np.float16)
+
+        ctc = probs((B, T, 42))
+        if blank_row is not None:
+            ctc[blank_row] = 0
+            ctc[blank_row, :, 0] = 1
+        out["teacher_ctc"] = ctc.astype(np.float32)
+        out["teacher_seq"] = probs((B, U + 1, 42)).astype(np.float32)
+    return out
+
+
+def _teacher_paths(teacher_ctc, lens):
+    """The lengths of the teachers' collapsed greedy paths (as
+    ``ctc_loss_kd`` builds them), on the host."""
+    pred = teacher_ctc.argmax(-1)
+    B, T = pred.shape
+    prev = np.concatenate([np.full((B, 1), -1), pred[:, :-1]], 1)
+    keep = ((pred != prev) & (pred != 0)
+            & (np.arange(T)[None, :] < np.round(lens * T)[:, None]))
+    return np.maximum(keep.sum(1), 1).tolist()
+
+
+def _ts2s_brain(kd, precision, dropout, device=None, **hparams):
+    from speechbrain_tpu_torch.recipes import timit_kd, timit_seq2seq
+
+    cls = timit_kd.KD if kd else timit_seq2seq.ASR
+    hp = dict(timit_kd.HPARAMS_KD if kd else timit_seq2seq.HPARAMS,
+              dropout=dropout, **hparams)
+    brain = cls(hp, run_opts={"seed": SEED, "precision": precision,
+                              "loss_sync_interval": 10, "device": device})
+    brain.epoch = 1
+    return brain
+
+
+def _ts2s_step(kd, precision, steps=3):
+    """The seq2seq (``kd`` False) or distillation step at the yaml's
+    widths (LiGRU 4 x 512 bidirectional, decoder GRU 256, attention 256,
+    dropout 0.15) on B 8 x 3 s (T 301) with 20-40 phones: a warm-up,
+    ``steps`` timed Adadelta steps, the launches a step, the PyTorch calls
+    and the profile of one more step."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _ts2s_brain(kd, precision, 0.15)
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    host = _ts2s_batch(TS2S_B, TS2S_SAMPLES, TS2S_U, SEED + 40, kd=kd)
+    batch = brain.prepare_batch(host)
+    brain.step = 1
+    first = float(brain.fit_batch(batch))
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    per_step = _per_step(counts, steps)
+    assert per_step == (KD_LAUNCHES if kd else TS2S_LAUNCHES), per_step
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    run = {"phase": "recipe_timit_seq2seq_step", "kd": kd,
+           "precision": precision, "batch": TS2S_B,
+           "seconds_audio": TS2S_SAMPLES / 16000, "T_enc": 301,
+           "phones": (host["phn_encoded_lens"] * TS2S_U).round().tolist(),
+           "parameters": n_params, "steps": steps, "lr": brain.lr,
+           "ms_per_step": ms, "utt_per_s": 1e3 * TS2S_B / ms,
+           "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
+           "launches": counts, "launches_per_step": per_step,
+           "pytorch_calls_per_step": _pytorch_calls(one_step),
+           "profile": _profile(one_step, cpu=False),
+           "loss_first": first, "loss_last": losses[-1]}
+    if kd:
+        paths = _teacher_paths(host["teacher_ctc"], host["sig_lens"])
+        run.update(teacher_path_lengths=paths,
+                   kd_lattice=[TS2S_B, 301, 2 * TS2S_T_PAD + 1],
+                   kd_ctc_path="block")
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _ts2s_routes():
+    """Both steps' loss and gradients through K3/K4 and through the plain
+    recursions (full width, f32, dropout 0): the seq2seq step with a dummy
+    row; the distillation step with the teachers' paths at their full
+    collapsed length (the block path) and one row whose teacher is all
+    blank (its path one label equal to the blank)."""
+    import torch
+
+    out = {}
+    for kd in (False, True):
+        brain = _ts2s_brain(kd, "fp32", 0.0)
+        host = _ts2s_batch(TS2S_B, TS2S_SAMPLES, TS2S_U, SEED + 41, kd=kd,
+                           blank_row=TS2S_B - 1 if kd else None)
+        if not kd:
+            host["batch_mask"] = np.ones(TS2S_B, np.float32)
+            host["batch_mask"][-1] = 0.0
+        batch = brain.prepare_batch(host)
+        cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3)
+        if kd:
+            paths = _teacher_paths(host["teacher_ctc"], host["sig_lens"])
+            assert paths[-1] == 1 and max(paths) > 128, paths
+            cmp.update(teacher_path_lengths=paths,
+                       kd_lattice=[TS2S_B, 301, 2 * TS2S_T_PAD + 1],
+                       all_blank_rows=1)
+        else:
+            cmp.update(lattice=[TS2S_B, 301, 2 * TS2S_U + 1], dummy_rows=1)
+        out["kd" if kd else "seq2seq"] = cmp
+        del brain, batch
+        torch.cuda.empty_cache()
+    return out
+
+
+def _card_vs_cpu_step(make, host, names_filter=None):
+    """A training step's loss and every gradient, float64, on the card and
+    on the CPU from the same weights and batch, and its float32 control
+    (the card in float32 against the same CPU run).  ``make(device,
+    dtype)`` returns a Brain in that dtype (training mode, no dropout)."""
+    import torch
+
+    from speechbrain_tpu_torch.core import Stage
+
+    def run(dev, dtype):
+        brain = make(dev, dtype)
+        batch = brain.prepare_batch(
+            {k: v.astype(np.float64) if v.dtype == np.float32 else v
+             for k, v in host.items()})
+        batch = {k: v.to(dtype) if v.is_floating_point() else v
+                 for k, v in batch.items()}
+        names, params = zip(*brain.modules.named_parameters())
+        loss = brain._loss(batch, Stage.TRAIN)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        return names, float(loss.detach()), [g.cpu().double() for g in grads]
+
+    names, lp, gp = run("cpu", torch.float64)
+    G = max(float(g.abs().max()) for g in gp)
+
+    def errors(loss, grads):
+        rel = [float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                 0.05 * G)
+               for a, b in zip(grads, gp)]
+        i = int(np.argmax(rel))
+        return abs(loss - lp) / abs(lp), rel[i], names[i]
+
+    _, lc, gc = run("cuda", torch.float64)
+    loss_err, grad_err, worst = errors(lc, gc)
+    _, lf, gf = run("cuda", torch.float32)
+    c_loss, c_grad, c_worst = errors(lf, gf)
+    rec = {"loss_card": lc, "loss_cpu": lp,
+           "loss_card_vs_cpu_float64": loss_err,
+           "gradients_card_vs_cpu_float64": grad_err,
+           "gradient_worst": worst, "n_gradients": len(gp),
+           "control_card_float32": {"loss": c_loss, "gradients": c_grad,
+                                    "gradient_worst": c_worst},
+           "tolerance": TS2S_CARD_TOL}
+    assert loss_err <= TS2S_CARD_TOL["loss_float64"], rec
+    assert grad_err <= TS2S_CARD_TOL["gradients_float64"], rec
+    assert c_loss > TS2S_CARD_TOL["loss_float64"], rec
+    assert c_grad > TS2S_CARD_TOL["gradients_float64"], rec
+    return rec
+
+
+def _ts2s_card_vs_cpu():
+    """Float64 card-vs-CPU checks with their float32 controls at toy
+    widths: the TIMIT seq2seq step and the distillation step (3
+    utterances of 1 s with ragged lengths, the CTC on its plain
+    recursions: the kernels take float32 only) and the transformer LM's
+    step (2 layers of 16, B 3 x 12 tokens)."""
+    from speechbrain_tpu_torch.recipes.lm_training import (
+        HPARAMS_TRANSFORMER, LM)
+
+    def timit(kd):
+        def make(dev, dtype):
+            brain = _ts2s_brain(kd, "fp32", 0.0, device=dev, **TS2S_TOY)
+            brain.modules.to(dtype)
+            brain.dtype = dtype
+            brain.modules.train()
+            return brain.set_kernels(False)
+        return make
+
+    out = {}
+    for kd in (False, True):
+        host = _ts2s_batch(3, 16000, 6, SEED + 42, kd=kd, blank_row=2)
+        host["sig_lens"] = np.array([1.0, 0.8, 0.6], np.float32)
+        out["kd" if kd else "seq2seq"] = _card_vs_cpu_step(timit(kd), host)
+
+    def make_lm(dev, dtype):
+        brain = LM(dict(HPARAMS_TRANSFORMER, **LM_TOY),
+                   run_opts={"seed": SEED, "device": dev})
+        brain.modules.to(dtype)
+        brain.dtype = dtype
+        brain.modules.train()
+        return brain
+
+    host = _lm_batch(LM_TOY["vocab_size"], SEED + 43, B=3, L=12)
+    host["tokens_eos_lens"] = np.array([1.0, 0.75, 0.5], np.float32)
+    out["transformer_lm"] = _card_vs_cpu_step(make_lm, host)
+    return out
+
+
+def _recipe_ts2s_run(tmp):
+    """The distillation chain through the recipes' entry points on a
+    synthetic TIMIT tree, at the yaml's widths and 2 of its 4 recurrent
+    layers (bf16, the yaml's): teachers tea0 (ligru) and tea3 (lstm) one
+    epoch each (``timit_seq2seq.run``), ``timit_kd.save_teachers``, the
+    student (``timit_kd.build_kd``) 2 epochs, epoch 3 in a fresh Brain
+    recovered bit for bit, ``evaluate(min_key="PER")`` at beam 16."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import timit_kd, timit_seq2seq
+    from speechbrain_tpu_torch.recipes.timit_ctc import write_synthetic_timit
+
+    data = f"{tmp}/TIMIT"
+    _, write_s = _timed(lambda: write_synthetic_timit(
+        data, RECIPE_TS2S_UTTERANCES, seconds=RECIPE_TS2S_SECONDS, seed=SEED))
+    opts = {"noprogressbar": True}
+    ops.reset_launch_counters()
+    teachers, teacher_runs = [], {}
+    for name in ("tea0", "tea3"):
+        overrides = dict(timit_seq2seq.TEACHERS[name], **RECIPE_TS2S_DEPTH,
+                         number_of_epochs=1)
+        brain, seconds = _timed(lambda: timit_seq2seq.run(
+            data, f"{tmp}/{name}", overrides, opts))
+        teacher_runs[name] = {
+            "rnn_class": type(brain.modules.enc.rnn).__name__,
+            "run_s": seconds, "valid": brain.stage_stats["VALID"],
+            "test": brain.stage_stats["TEST"]}
+        teachers.append((f"{tmp}/{name}", overrides))
+        del brain
+        torch.cuda.empty_cache()
+    paths, save_s = _timed(lambda: timit_kd.save_teachers(
+        data, f"{tmp}/ensemble", teachers, opts))
+    npz = {s: np.load(p) for s, p in paths.items()}
+    assert all(a.dtype == np.float16 for z in npz.values()
+               for a in (z[k] for k in z.files))
+
+    def build(epochs):
+        return timit_kd.build_kd(data, f"{tmp}/kd", f"{tmp}/ensemble",
+                                 dict(RECIPE_TS2S_DEPTH,
+                                      number_of_epochs=epochs), opts)
+
+    parts, build_s = _timed(lambda: build(2))
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    saved = _snapshot(brain)
+    valid = [dict(brain.stage_stats["VALID"])]
+    ckpt = brain.checkpointer.find_checkpoint()
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    brain2 = parts2["brain"]
+    assert recovered["epoch"] == 2
+    n_equal = _same_state(saved, recovered["state"])
+    valid.append(dict(brain2.stage_stats["VALID"]))
+    test_loss, test_s = _timed(lambda: brain2.evaluate(
+        parts2["test_loader"], min_key="PER"))
+    counts = ops.launch_counters()
+    test = brain2.stage_stats["TEST"]
+    for stats in valid + [test]:
+        assert all(np.isfinite(v) for v in stats.values()), stats
+    assert counts["ctc_alpha"] > 0 and counts["ctc_beta_grad"] > 0, counts
+    assert all(v == 0 for k, v in counts.items()
+               if k not in ("ctc_alpha", "ctc_beta_grad")), counts
+    train_s = sum(log["train_s"] + log2["train_s"])
+    batches = sum(log["batches"] + log2["batches"])
+    run = {"phase": "recipe_timit_seq2seq", "utterances":
+           RECIPE_TS2S_UTTERANCES, "seconds": RECIPE_TS2S_SECONDS,
+           "depth": RECIPE_TS2S_DEPTH, "write_sphere_s": write_s,
+           "teachers": teacher_runs, "save_teachers_s": save_s,
+           "npz_bytes": {s: os.path.getsize(p) for s, p in paths.items()},
+           "npz_utterances": {s: len(z.files) // 2 for s, z in npz.items()},
+           "build_s": build_s, "precision": "bf16",
+           "epochs": log["epochs"] + log2["epochs"],
+           "batches_per_epoch": log["batches"][0],
+           "batch_shapes": sorted(log["shapes"]),
+           "train_ms_per_batch": 1e3 * train_s / batches,
+           "valid_s": log["valid_s"] + log2["valid_s"], "valid": valid,
+           "lr_per_epoch": [brain.lr, brain2.lr], "fit_2_epochs_s": fit_s,
+           "checkpoint_bytes": ckpt_bytes,
+           "save_ms": log["save_ms"] + log2["save_ms"],
+           "resume_ms": 1e3 * recovered["seconds"],
+           "resume_equal_tensors": n_equal, "test_s": test_s,
+           "test": test, "test_loss": test_loss,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "launches": counts}
+    emit(run)
+    del brain, brain2, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
+def phase_recipe_timit_seq2seq():
+    """The TIMIT seq2seq recipe and its distillation
+    (``recipes.timit_seq2seq``, ``recipes.timit_kd``): see the module
+    docstring, phase 21."""
+    import shutil
+    import tempfile
+
+    runs = {}
+    for kd in (False, True):
+        for precision in ("bf16", "fp32"):
+            key = f"{'kd' if kd else 'seq2seq'}_{precision}"
+            runs[key] = _ts2s_step(kd, precision)
+    check = {"kernel_vs_plain": _ts2s_routes(),
+             "card_vs_cpu": _ts2s_card_vs_cpu()}
+    emit(dict(check, phase="recipe_timit_seq2seq_check"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_timit_s2s_")
+    try:
+        runs["recipe"] = _recipe_ts2s_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs["check"] = check
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -4846,8 +5645,9 @@ def kernels_line(records, main_runs):
     train_long, train_transducer, serve_transducer, recipe,
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
-    recipe_separation_rnn, recipe_separation_more and recipe_seq2seq), each
-    counted from 0 just before its run."""
+    recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
+    recipe_lm and recipe_timit_seq2seq), each counted from 0 just before
+    its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -4945,6 +5745,8 @@ def main():
     sep_rnn = timed("recipe_separation_rnn", phase_recipe_separation_rnn)
     sep_more = timed("recipe_separation_more", phase_recipe_separation_more)
     s2s = timed("recipe_seq2seq", phase_recipe_seq2seq)
+    lm = timed("recipe_lm", phase_recipe_lm)
+    ts2s = timed("recipe_timit_seq2seq", phase_recipe_timit_seq2seq)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -4959,7 +5761,13 @@ def main():
                      "convtasnet-parallel", "sepformer-libri3mix",
                      "recipe")),
                  *(s2s[k] for k in ("bf16", "fp32", "bpe5000", "search_fp32",
-                                    "search_bf16", "recipe"))]
+                                    "search_bf16", "recipe")),
+                 *(lm[k] for k in ("rnnlm_bf16", "rnnlm_fp32",
+                                   "transformer_bf16", "transformer_fp32",
+                                   "recipe", "fused_seq2seq",
+                                   "fused_conformer")),
+                 *(ts2s[k] for k in ("seq2seq_bf16", "seq2seq_fp32",
+                                     "kd_bf16", "kd_fp32", "recipe"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -539,6 +539,10 @@ class ConformerASRBrain(_ModelBrain):
     normalization sees: the epoch counter's, which ``fit`` passes to
     ``on_stage_start`` (0 before any).
 
+    With ``lm`` (a ``TransformerLM``) the search fuses it at
+    ``config["lm_weight"]`` (0.6 when not given), as the recipe does once
+    trained LM parameters are attached (``train.py:108-116``).
+
     ``on_stage_end`` does what the recipe's does (``train.py:204-223``):
     at VALID it writes the logger's line (``hparams["train_logger"]``,
     a ``FileTrainLogger``, when given) and, with a checkpointer, saves
@@ -555,6 +559,7 @@ class ConformerASRBrain(_ModelBrain):
     device, seed : as for ``ConformerASR``; ``seed`` also seeds dropout.
     run_opts, hparams : as for ``Brain`` (``precision`` "bf16" is the
         recipe's).
+    lm : a ``TransformerLM`` to fuse into the search, or None.
 
     Example
     -------
@@ -577,6 +582,10 @@ class ConformerASRBrain(_ModelBrain):
 
     MODEL, DEFAULTS = ConformerASR, CONFORMER_SMALL
     MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
+
+    def __init__(self, config, *args, lm=None, **kwargs):
+        super().__init__(config, *args, **kwargs)
+        self.lm = None if lm is None else lm.to(self.device).eval()
 
     def on_stage_start(self, stage, epoch=None):
         """The normalization's epoch; a new ``ErrorRateStats`` for the
@@ -645,7 +654,8 @@ class ConformerASRBrain(_ModelBrain):
         if stage != Stage.TRAIN and hasattr(self, "wer_metric"):
             hyps, _ = self.model.transcribe(
                 batch["sig"], batch["sig_lens"], beam_size=c["valid_beam_size"],
-                ctc_weight=c["ctc_weight_decode"])
+                ctc_weight=c["ctc_weight_decode"], lm=self.lm,
+                lm_weight=None if self.lm is None else c.get("lm_weight"))
             self._score_hyps(hyps, batch)
         return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
 

@@ -34,8 +34,8 @@ class RNNLM(torch.nn.Module):
     there (leaky_relu and an LSTM always); here only those values are
     accepted.
 
-    ``forward(x (B, L) ints, hx=None)`` -> logits (B, L, V), or with
-    ``return_hidden`` ``(logits, (h, c))``, each (rnn_layers, B, H), the
+    ``forward(x (B, L) ints, hx=None, dtype=None)`` -> logits (B, L, V),
+    or with ``return_hidden`` ``(logits, (h, c))``, each (rnn_layers, B, H), the
     state after the last token; ``hx`` starts the LSTM from such a state.
     ``step(tokens (n,), state)`` -> ``(logits (n, V), state)`` feeds one
     token a row; its state is ``{"h", "c"}``, each (n, rnn_layers, H),
@@ -83,9 +83,12 @@ class RNNLM(torch.nn.Module):
             y = block.drop(F.leaky_relu(block.norm(block.linear(y)), 0.01))
         return self.out(y)
 
-    def forward(self, x, hx=None):
-        """See the class."""
-        y, hidden = self.rnn(self.emb(x), hx)
+    def forward(self, x, hx=None, dtype=None):
+        """See the class; ``dtype`` (None: the embedding's) is the
+        activation dtype of the LSTM's input and of the head (the LSTM
+        itself runs in its parameters' dtype)."""
+        emb = self.emb(x)
+        y, hidden = self.rnn(emb if dtype is None else emb.to(dtype), hx)
         logits = self._head(y)
         return (logits, hidden) if self.return_hidden else logits
 

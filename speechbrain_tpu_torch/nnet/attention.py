@@ -50,7 +50,12 @@ NEG_FILL = -65000.0
 
 
 def _softmax(s, dtype):
-    return torch.softmax(s.float(), dim=-1).to(dtype)
+    """Softmax over the last axis in float32 (float64 for float64
+    scores, as ``jax.nn.softmax`` keeps its input's dtype), cast to
+    ``dtype``."""
+    if s.dtype != torch.float64:
+        s = s.float()
+    return torch.softmax(s, dim=-1).to(dtype)
 
 
 def _length_mask(enc_lens, T):

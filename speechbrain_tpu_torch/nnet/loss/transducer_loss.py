@@ -67,7 +67,7 @@ def transducer_forward_loss(log_probs, targets, t_lens, u_lens, blank_index,
     >>> round(float(loss[0]), 4)  # -log(2 paths x (1/3)^3)
     2.6027
     """
-    lp = log_probs.float()
+    lp = log_probs if log_probs.dtype == torch.float64 else log_probs.float()
     B, T, U1, _ = lp.shape
     U = U1 - 1
     dev = lp.device
@@ -78,8 +78,9 @@ def transducer_forward_loss(log_probs, targets, t_lens, u_lens, blank_index,
     emit_lp = lp[:, :, :U].gather(3, idx)[..., 0]
     u_valid = torch.arange(U, device=dev)[None, :] < u_lens[:, None]
     emit_lp = torch.where(u_valid[:, None, :], emit_lp, NEG)
-    zero = torch.zeros(B, 1, device=dev)
-    init = torch.cat([zero, torch.full((B, U), NEG, device=dev)], 1)
+    zero = torch.zeros(B, 1, dtype=lp.dtype, device=dev)
+    init = torch.cat([zero, torch.full((B, U), NEG, dtype=lp.dtype,
+                                       device=dev)], 1)
     rows = [_affine_scan(torch.cat([zero, emit_lp[:, 0]], 1), init)]
     for t in range(1, T):
         base = rows[-1] + blank_lp[:, t - 1]

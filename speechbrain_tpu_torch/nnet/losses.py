@@ -4,7 +4,9 @@ Counterpart of ``speechbrain_tpu/nnet/losses.py`` (``compute_masked_loss``,
 ``ctc_loss``, ``nll_loss``, ``kldiv_loss``, ``classification_error``, and
 the speaker recipes' ``AngularMargin``, ``AdditiveAngularMargin`` and
 ``LogSoftmaxWrapper``, and the separation recipes' ``PitWrapper``,
-``cal_si_snr``, ``get_si_snr_with_pitwrapper`` and ``get_mask``):
+``cal_si_snr``, ``get_si_snr_with_pitwrapper`` and ``get_mask``, and the
+TIMIT distillation recipe's ``ctc_loss_kd``, ``nll_loss_kd`` and
+``ce_kd``):
 lengths are RELATIVE (batch,), padded positions are masked before the
 reduction, and the reductions keep the reference's definitions, quirks
 included.
@@ -25,7 +27,8 @@ from .loss.transducer_loss import TransducerLoss
 __all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
            "kldiv_loss", "classification_error", "AngularMargin",
            "AdditiveAngularMargin", "LogSoftmaxWrapper", "PitWrapper",
-           "cal_si_snr", "get_si_snr_with_pitwrapper", "get_mask"]
+           "cal_si_snr", "get_si_snr_with_pitwrapper", "get_mask",
+           "ctc_loss_kd", "nll_loss_kd", "ce_kd"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -438,3 +441,77 @@ def get_mask(source, source_lengths):
     mask = (t[:, None] < source_lengths[None, :B].to(source.device)).to(
         source.dtype)
     return mask.reshape((T,) + (1,) * (source.dim() - 3) + (B, 1))
+
+
+def ctc_loss_kd(log_probs, targets, input_lens, blank_index,
+                use_kernels=True):
+    """CTC of the student's ``log_probs`` (B, T, C) against the teacher's
+    greedy path, read from its posteriors ``targets`` (B, T, C), as JAX's
+    ``ctc_loss_kd`` builds it: the argmax path (the first maximum where
+    classes tie) with repeats merged, blanks dropped and frames at or past
+    ``round(input_lens * T)`` dropped, the kept labels moved in order to
+    the front of a (B, T) buffer padded with the blank (a stable sort of
+    the frames, tensor operations only: no host sync), ``max(kept, 1)``
+    labels a row (an empty path is one label equal to the blank), and
+    the label lengths given to ``ctc_loss`` relative to T.  ``mean``
+    reduction; K3/K4 on CUDA tensors (the path may take up to 2T + 1
+    lattice states: the kernels' block path past 257).
+
+    Example
+    -------
+    >>> teacher = torch.eye(3)[torch.tensor([[1, 1, 0, 2, 2, 0]])]
+    >>> student = torch.log_softmax(torch.zeros(1, 6, 3), -1)
+    >>> float(ctc_loss_kd(student, teacher, torch.ones(1), 0)) > 0
+    True
+    """
+    t_preds = targets.argmax(-1)
+    B, T = t_preds.shape
+    dev = t_preds.device
+    prev = torch.cat([torch.full((B, 1), -1, dtype=t_preds.dtype,
+                                 device=dev), t_preds[:, :-1]], 1)
+    abs_in = torch.round(input_lens.to(torch.float32) * T)
+    frames = torch.arange(T, device=dev)
+    keep = ((t_preds != prev) & (t_preds != blank_index)
+            & (frames[None, :] < abs_in[:, None]))
+    order = torch.argsort(torch.where(keep, frames[None, :], T), dim=1,
+                          stable=True)
+    tgt = torch.where(keep, t_preds, blank_index).gather(1, order)
+    lens = keep.sum(1).clamp(min=1)
+    return ctc_loss(log_probs, tgt, input_lens, lens.to(torch.float32) / T,
+                    blank_index, use_kernels=use_kernels)
+
+
+def nll_loss_kd(probabilities, targets, rel_lab_lengths):
+    """Sequence distillation as JAX's ``nll_loss_kd``: per position
+    ``-(targets * probabilities).sum(-1)`` (the recipes pass the
+    student's log-probabilities and the teacher's probabilities: the
+    cross-entropy), summed over the positions ``< round(rel * U)`` of
+    every row and divided by their count over the whole batch (at least
+    1), not averaged row by row.
+
+    Example
+    -------
+    >>> lp = torch.log(torch.full((2, 3, 2), 0.5))
+    >>> round(float(nll_loss_kd(lp, torch.ones(2, 3, 2) / 2,
+    ...                         torch.tensor([1.0, 1 / 3]))), 4)
+    0.6931
+    """
+    B, U = probabilities.shape[:2]
+    abs_len = torch.round(rel_lab_lengths.to(torch.float32) * U)
+    mask = (torch.arange(U, device=probabilities.device)[None, :]
+            < abs_len[:, None]).to(probabilities.dtype)
+    per = -(targets * probabilities).sum(-1)
+    return (per * mask).sum() / mask.sum().clamp(min=1.0)
+
+
+def ce_kd(inp, target):
+    """Distillation cross-entropy of flattened rows: ``(-target *
+    inp).sum(1)`` (student log-probs ``inp``, teacher probs ``target``).
+
+    Example
+    -------
+    >>> round(float(ce_kd(torch.log(torch.tensor([[0.5, 0.5]])),
+    ...                   torch.tensor([[1.0, 0.0]]))[0]), 4)
+    0.6931
+    """
+    return (-target * inp).sum(1)

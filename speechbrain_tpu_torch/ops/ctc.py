@@ -55,7 +55,8 @@ def _lae(x, y):
 
 def _lattice(log_probs, targets, blank):
     """Extended labels (B, S), the skip mask (B, S) and the gathered
-    lattice log-probs (B, T, S) float32."""
+    lattice log-probs (B, T, S): float64 for float64 log-probs, else
+    float32."""
     B, T, C = log_probs.shape
     U = targets.shape[1]
     s = torch.arange(2 * U + 1, device=log_probs.device)
@@ -66,7 +67,9 @@ def _lattice(log_probs, targets, blank):
     labels = torch.where(s % 2 == 1, tg[:, lab_pos], blank)
     prev2 = torch.roll(labels, 2, dims=1)
     skip = (s % 2 == 1) & (s >= 2) & (labels != prev2)
-    lat = log_probs.float().gather(2, labels[:, None, :].expand(B, T, -1))
+    if log_probs.dtype != torch.float64:
+        log_probs = log_probs.float()
+    lat = log_probs.gather(2, labels[:, None, :].expand(B, T, -1))
     return labels, skip, lat
 
 
@@ -85,7 +88,8 @@ def ctc_alpha_plain(log_probs, targets, input_lengths, target_lengths,
     """Plain version of K3: the alpha recursion over every frame.
 
     log_probs (B, T, C); targets (B, U) ints; lengths (B,) ints.
-    Returns ``(alpha (B, T, S), loss (B,), logz (B,))`` float32.
+    Returns ``(alpha (B, T, S), loss (B,), logz (B,))``, float32 (float64
+    for float64 log-probs: the recursion keeps their dtype).
 
     Example
     -------
@@ -121,8 +125,9 @@ def ctc_alpha_plain(log_probs, targets, input_lengths, target_lengths,
 def ctc_beta_grad_plain(log_probs, targets, input_lengths, target_lengths,
                         blank, alpha, logz, g):
     """Plain version of K4: the beta recursion and the gradient
-    ``g[b] * d loss[b] / d log_probs`` (B, T, C) float32, scattered onto
-    the classes (states sharing a class add up).
+    ``g[b] * d loss[b] / d log_probs`` (B, T, C), scattered onto the
+    classes (states sharing a class add up); float32, or float64 for
+    float64 log-probs.
 
     Example
     -------
@@ -139,9 +144,11 @@ def ctc_beta_grad_plain(log_probs, targets, input_lengths, target_lengths,
     s = torch.arange(S, device=lat.device)
     tb = input_lengths.long().clamp(0, T)[:, None]
     sb = 2 * target_lengths.long().clamp(0, targets.shape[1])[:, None] + 1
-    final = torch.where((s == sb - 1) | ((s == sb - 2) & (sb >= 2)), 0.0, NEG)
-    beta = torch.full((B, S), NEG, device=lat.device)
-    occ = torch.zeros(B, T, S, device=lat.device)
+    dt = lat.dtype
+    final = torch.where((s == sb - 1) | ((s == sb - 2) & (sb >= 2)), 0.0,
+                        NEG).to(dt)
+    beta = torch.full((B, S), NEG, dtype=dt, device=lat.device)
+    occ = torch.zeros(B, T, S, dtype=dt, device=lat.device)
     for t in range(T - 1, -1, -1):
         contrib = lat[:, min(t + 1, T - 1)] + beta
         c2 = torch.where(skip, contrib, torch.full_like(contrib, NEG))
@@ -149,8 +156,8 @@ def ctc_beta_grad_plain(log_probs, targets, input_lengths, target_lengths,
         beta = torch.where(t == tb - 1, final, rec)
         post = alpha[:, t] + beta - logz[:, None]
         occ[:, t] = torch.where(t < tb, -torch.exp(post), 0.0)
-    occ = occ * g.float()[:, None, None]
-    dlp = torch.zeros(B, T, C, device=lat.device)
+    occ = occ * g.to(dt)[:, None, None]
+    dlp = torch.zeros(B, T, C, dtype=dt, device=lat.device)
     return dlp.scatter_add_(2, labels[:, None, :].expand(B, T, S), occ)
 
 

@@ -1,12 +1,21 @@
 """What the port's recipes share: the folders and manifests of their
-``build``, and the Brain of the recipes whose rate NewBob anneals."""
+``build``, the Brain of the recipes whose rate NewBob anneals, and the
+dtype their log-softmax runs in."""
 
 import os
+
+import torch
 
 from ..core import Brain, Stage
 from ..nnet.schedulers import NewBobScheduler
 
-__all__ = ["recipe_hparams", "NewBobBrain"]
+__all__ = ["recipe_hparams", "NewBobBrain", "at_least_f32"]
+
+
+def at_least_f32(x):
+    """bfloat16 -> float32; float32 and float64 as they are (the dtype of
+    the recipes' log-softmax and losses)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def recipe_hparams(defaults, data_folder, output_folder, overrides=None,

@@ -22,8 +22,12 @@ The yaml's values are ``HPARAMS`` (the yaml file itself is not read);
         overrides={"d_model": 32, "num_encoder_layers": 1, ...})
 
 The recipe fuses a language model only when trained LM parameters are
-attached (``train.py:108-116``); a random model has none, so ``run``
-decodes without one.
+attached (``train.py:108-116``): here when ``run_opts["lm_ckpt"]`` names a
+local file holding the ``state_dict`` of the yaml's ``lm_model`` (a
+``TransformerLM``, ``lm_model`` of ``HPARAMS``), e.g. the ``lm.ckpt`` that
+``recipes.lm_training.run`` writes with ``HPARAMS_TRANSFORMER`` and this
+recipe's tokenizer file; the searches then fuse it at ``lm_weight``.
+Without one they decode without an LM.
 """
 
 import json
@@ -33,7 +37,14 @@ import wave
 
 import numpy as np
 
-from ..asr import CONFORMER_SMALL, ConformerASRBrain
+import torch
+
+from ..asr import (
+    CONFORMER_SMALL,
+    TRANSFORMER_LM,
+    ConformerASRBrain,
+    build_transformer_lm,
+)
 from ..dataio.batch import BatchShapePolicy, PaddedBatch
 from ..dataio.dataio import read_audio
 from ..dataio.dataloader import SaveableDataLoader
@@ -72,6 +83,8 @@ HPARAMS = dict(
     valid_beam_size=10,
     test_beam_size=66,
     lm_weight=0.6,
+    # lm_model (conformer_small.yaml:121-126), over vocab_size tokens
+    lm_model={k: v for k, v in TRANSFORMER_LM.items() if k != "vocab"},
 )
 
 
@@ -212,7 +225,8 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
 
     ``overrides`` replace values of ``HPARAMS``; ``run_opts`` are the
     ``Brain``'s (``device``: None for the CUDA card, "cpu" to ask for
-    the CPU; ``debug``, ``staging_depth``, ...).  Returns a dict with
+    the CPU; ``debug``, ``staging_depth``, ...) and ``lm_ckpt`` (the
+    ``TransformerLM`` to fuse, see the module).  Returns a dict with
     ``brain``, ``epoch_counter``, ``train_loader``, ``valid_loader``,
     ``test_loader`` and ``hparams``."""
     hp = recipe_hparams(HPARAMS, data_folder, output_folder, overrides, (
@@ -233,12 +247,21 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
         model_type=hp["token_type"], annotation_format="json",
     )
     train_loader, valid_loader, test_loader = dataio_prepare(hp, tokenizer)
+    run_opts = dict(run_opts or {})
+    lm = None
+    lm_ckpt = run_opts.pop("lm_ckpt", None)
+    if lm_ckpt is not None:
+        lm = build_transformer_lm(dict(hp["lm_model"],
+                                       vocab=hp["vocab_size"]), device="cpu")
+        lm.load_state_dict(torch.load(lm_ckpt, map_location="cpu",
+                                      weights_only=True))
     epoch_counter = EpochCounter(hp["number_of_epochs"])
     brain = ConformerASRBrain(
         hp, seed=hp["seed"], run_opts=run_opts,
         hparams=dict(hp, train_logger=FileTrainLogger(hp["train_log"]),
                      epoch_counter=epoch_counter),
         checkpointer=Checkpointer(hp["save_folder"]), tokenizer=tokenizer,
+        lm=lm,
     )
     return {"brain": brain, "epoch_counter": epoch_counter,
             "train_loader": train_loader, "valid_loader": valid_loader,

@@ -67,7 +67,7 @@ from ..utils.distributed import run_on_main
 from ..utils.epoch_loop import EpochCounter
 from ..utils.metric_stats import ErrorRateStats
 from ..utils.train_logger import FileTrainLogger
-from .common import NewBobBrain, recipe_hparams
+from .common import NewBobBrain, at_least_f32, recipe_hparams
 from .librispeech_asr import make_datasets, prepare_librispeech
 
 logger = logging.getLogger(__name__)
@@ -191,11 +191,6 @@ def build_lm(hparams, seed=0):
     return lm.eval()
 
 
-def _at_least_f32(x):
-    """bfloat16 -> float32; float32 and float64 as they are."""
-    return x if x.dtype == torch.float64 else x.float()
-
-
 class Seq2SeqBrain(NewBobBrain):
     """The seq2seq recipe's ``ASR`` Brain (``train.py:31-196``).
 
@@ -283,8 +278,8 @@ class Seq2SeqBrain(NewBobBrain):
         enc = m.enc(feats.to(self.dtype), lengths=batch["sig_lens"])
         emb = m.emb(batch["tokens_bos"]).to(self.dtype)
         dec_out, _ = m.dec(emb, enc, batch["sig_lens"])
-        seq_logp = torch.log_softmax(_at_least_f32(m.seq_lin(dec_out)), -1)
-        ctc_logp = torch.log_softmax(_at_least_f32(m.ctc_lin(enc)), -1)
+        seq_logp = torch.log_softmax(at_least_f32(m.seq_lin(dec_out)), -1)
+        ctc_logp = torch.log_softmax(at_least_f32(m.ctc_lin(enc)), -1)
         return ctc_logp, seq_logp, enc
 
     def compute_objectives(self, predictions, batch, stage):

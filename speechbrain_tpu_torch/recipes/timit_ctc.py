@@ -264,14 +264,24 @@ def prepare_timit(data_folder, save_json_train, save_json_valid,
         logger.info(f"Prepared {save_path} ({len(manifest)} utterances)")
 
 
-def dataio_prep(hparams):
+def dataio_prep(hparams, seq2seq=False):
     """The recipe's datasets (``train.py:87-115``): ``sig`` read from the
     manifests' files, ``phn_encoded`` the phones through a
     ``CTCTextEncoder`` that is loaded from ``<save_folder>/
     label_encoder.txt`` or made from the train set with ``<blank>`` at
-    index 0 and saved there.  Returns ``(datasets, label_encoder)``."""
+    index 0 and saved there.  With ``seq2seq`` (the seq2seq recipes'
+    ``dataio_prep``, ``seq2seq/train.py:162-206``) the encoder also holds
+    ``<bos>`` at ``bos_index`` and ``<eos>`` at ``eos_index`` (the yamls'
+    1 and 2: the phones that held them move to the end) and the datasets
+    also give ``phn_encoded_bos`` ([bos_index] + phones) and
+    ``phn_encoded_eos`` (phones + [eos_index]).  The JAX recipes append
+    ``<bos>`` and ``<eos>`` after the phones instead, so their bos 1 and
+    eos 2 are phones.  Returns ``(datasets, label_encoder)``."""
     label_encoder = CTCTextEncoder()
     datasets = {}
+    keys = ["id", "sig", "phn_encoded"]
+    if seq2seq:
+        keys += ["phn_encoded_bos", "phn_encoded_eos"]
     for split in ("train", "valid", "test"):
         ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
         ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
@@ -280,15 +290,28 @@ def dataio_prep(hparams):
         ds.add_dynamic_item(
             lambda pl: np.asarray(label_encoder.encode_sequence(pl), np.int64),
             takes="phn_list", provides="phn_encoded")
-        ds.set_output_keys(["id", "sig", "phn_encoded"])
+        if seq2seq:
+            ds.add_dynamic_item(
+                lambda t: (np.concatenate([[hparams["bos_index"]], t])
+                           .astype(np.int64),
+                           np.concatenate([t, [hparams["eos_index"]]])
+                           .astype(np.int64)),
+                takes="phn_encoded",
+                provides=["phn_encoded_bos", "phn_encoded_eos"])
+        ds.set_output_keys(keys)
         datasets[split] = ds
+    path = os.path.join(hparams["save_folder"], "label_encoder.txt")
     label_encoder.load_or_create(
-        path=os.path.join(hparams["save_folder"], "label_encoder.txt"),
+        path=path,
         from_didatasets=[datasets["train"]],
         output_key="phn_list",
         sequence_input=True,
         special_labels={"blank_label": "<blank>"},
     )
+    if seq2seq and "<bos>" not in label_encoder.lab2ind:
+        label_encoder.insert_bos_eos("<bos>", "<eos>", hparams["bos_index"],
+                                     hparams["eos_index"])
+        label_encoder.save(path)
     return datasets, label_encoder
 
 

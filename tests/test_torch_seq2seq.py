@@ -422,15 +422,17 @@ def s2s():
     ctc_lin.load_state_dict(bridge.dense(cparams["Dense_0"]))
     jit_step = jax.jit(lambda e, hs, c, es, el, ast: jdec.apply(
         {"params": dparams}, e, hs, c, es, el, ast, method="forward_step"))
+    # every model call jitted: JAX's host loop calls them once a step
     jfns = dict(
-        embedding_fn=lambda t: jemb.apply({"params": eparams}, t),
+        embedding_fn=jax.jit(lambda t: jemb.apply({"params": eparams}, t)),
         decoder_step_fn=jit_step,
-        linear_fn=lambda d: jseq.apply({"params": sparams}, d[:, None])[:, 0],
+        linear_fn=jax.jit(lambda d: jseq.apply({"params": sparams},
+                                               d[:, None])[:, 0]),
         dec_hidden_size=H,
-        attn_init_fn=lambda es: jdec.apply({"params": dparams}, es,
-                                           method="attn_init"),
+        attn_init_fn=jax.jit(lambda es: jdec.apply({"params": dparams}, es,
+                                                   method="attn_init")),
         rnn_init_fn=lambda n, dtype: jnp.zeros((1, n, H), dtype),
-        ctc_linear_fn=lambda e: jctc.apply({"params": cparams}, e),
+        ctc_linear_fn=jax.jit(lambda e: jctc.apply({"params": cparams}, e)),
     )
     tfns = dict(embedding_fn=emb, decoder_step_fn=dec.forward_step,
                 linear_fn=seq_lin, dec_hidden_size=H,
@@ -523,10 +525,11 @@ def _jax_lm_fns(lms, bos_prefix=True):
     port feeds bos once (reference SpeechBrain's ``hx=None`` start), which
     an empty first prefix gives here."""
     jlm, params, _ = lms
+    apply = jax.jit(lambda p: jlm.apply({"params": params}, p, train=False))
 
     def lm_step_fn(tokens, lm_mem):
         prefix = jnp.concatenate([lm_mem, tokens[:, None]], axis=1)
-        logits = jlm.apply({"params": params}, prefix, train=False)
+        logits = apply(prefix)
         return jax.nn.log_softmax(logits[:, -1], axis=-1), prefix
 
     return dict(lm_step_fn=lm_step_fn,
