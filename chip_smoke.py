@@ -15,6 +15,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_separation_more
     python3 chip_smoke.py --phase recipe_seq2seq
     python3 chip_smoke.py --phase recipe_lm,recipe_timit_seq2seq
+    python3 chip_smoke.py --phase recipe_kspon,recipe_transformer,recipe_corpora
 
 Phases, each printing one JSON line when it ends:
 
@@ -115,7 +116,8 @@ Phases, each printing one JSON line when it ends:
    ``ConformerASRBrain`` in bf16 with the recipe's settings (accumulation
    2, 200 s batches in 10 buckets, 4 loader threads, staging depth 2,
    dropout 0.1, SpecAugment; validation at beam 10, full CTC scoring at
-   0.4, no LM): ``fit`` for 2 epochs; a fresh Brain, loaders and counter
+   0.4, no LM; the searches capped at a quarter of T_enc): ``fit`` for 2
+   epochs; a fresh Brain, loaders and counter
    on the same folder run epoch 3 alone, with the recovered module and
    optimizer state equal to the saved one bit for bit and the Noam step,
    optimizer step and epoch carried over; ``evaluate(min_key="WER")`` on
@@ -333,6 +335,49 @@ Phases, each printing one JSON line when it ends:
    epoch each through ``run``, ``save_teachers`` (float16 npz), the
    student 2 epochs, epoch 3 in a fresh Brain recovered bit for bit, the
    test at beam 16; every PER and loss finite.
+22. recipe_kspon -- KsponSpeech ``conformer_medium.yaml``
+   (``recipes.ksponspeech_asr``: d_model 256, 4 heads, 12 + 6 layers,
+   V 5000) at full width: the step on B 8 x 10 s in bf16 and f32, 2
+   steps timed (SpecAugment, dropout 0.1; K1 24, K2 12, K3 1, K4 1 a
+   step; FLOPs and their f32 bound, PyTorch calls, the profile); one f32
+   step at T_enc 512 (B 8 x 20.44 s) through the kernels and the plain
+   versions, loss and gradients (K5/K6 at dh 64, 12 launches each); the
+   LM-fused search (its 12 x 768 LM at 0.6, CTC 0.4, beam 10, B 8 x 10
+   s, 50 steps) in f32, K7 at H4 Dh64 six times a step, hypotheses
+   kernel = plain; the recipe on a synthetic KsponSpeech corpus at 2 + 2
+   layers (bf16, accumulation 4), epoch 2 resumed in a fresh Brain bit
+   for bit, both eval splits with their WER files; and the LM yaml's
+   step (12 x 768, B 64 x 256) in bf16.
+23. recipe_transformer -- LibriSpeech ``transformer.yaml``
+   (``librispeech_asr.HPARAMS_TRANSFORMER``: the transformer encoder,
+   regularMHA, d_model 512, 12 + 6 layers) at full width: the step on B
+   8 x 10 s in bf16 and f32, 2 steps timed (K3/K4 once a step), kernel
+   vs plain in f32, and the search with its 12 x 512 LM (K7 at H8 Dh64)
+   in f32.
+24. recipe_corpora -- the AISHELL-1 (seq2seq, conformer_small,
+   train_ASR_transformer) and Switchboard (seq2seq on the channel of
+   each row, transformer at 8 kHz, both LM yamls) recipes through their
+   builds and ``run`` on synthetic corpora at full width and reduced depth
+   (2 + 2 layers; the CRDNN's LSTM 1 layer), each 1 epoch then epoch 2
+   in a fresh Brain recovered bit for bit, then its test split; both
+   LMs on the Switchboard transformer recipe's tokenizer.
+
+The kernels phase also holds K5/K6 at dh 64 (role "dh64"), K7 at H4
+Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64") and K3/K4 at Switchboard's
+2000 pieces (role "swbd").
+
+SHORTENED to keep the whole run inside its time limit (torch.profiler's
+collection took 5-21 s a profile beyond the traced work, the LiGRU's
+call counts 30 s a precision): ``serve_lm`` profiles its f32 repeats at
+50 steps (``SERVE_LM_PROFILE_RATIO``), its bf16 search not; the steps of
+``train_crdnn_transducer`` (with the LiGRU's calls), ``recipe_seq2seq``,
+``recipe_timit_seq2seq``, ``recipe_kspon`` and ``recipe_transformer``
+are profiled and their PyTorch calls counted in bf16 only, and the
+host beam of ``serve_transducer`` in f32 only; the f32 runs are timed
+and checked as before.  ``recipe`` caps its validation and test
+searches at a quarter of T_enc (``RECIPE_DECODE_RATIO``),
+``recipe_kspon`` and ``recipe_transformer`` time 2 steps a precision,
+and the two Switchboard LMs reuse the transformer recipe's tokenizer.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -342,7 +387,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 21, each counted from 0 just before its
+(launch counts from phases 3 to 24, each counted from 0 just before its
 run), and last the device line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
@@ -367,8 +412,16 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 DROPOUT_SEED = (3 << 32) + 7  # uses both words of the Philox key
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj):
-    """Print one JSON line and flush it."""
+    """Print one JSON line and flush it; a phase's line also carries
+    ``t_s``, the seconds since the script started (what each part of a
+    phase took is the difference between its line's and the previous
+    one's)."""
+    if "phase" in obj:
+        obj = dict(obj, t_s=time.perf_counter() - _T0)
     print(json.dumps(obj), flush=True)
 
 
@@ -1041,10 +1094,13 @@ def _materialized_bias(q, p, vb, madd, scale):
             + madd[:, None, None, :])
 
 
-def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
-    """K6 at the training shape (B = 8 utterances, T_enc = 512) against
-    autograd through the plain version; with ``rate > 0`` both with the
-    dropout mask of seed DROPOUT_SEED, and the kernel's determinism."""
+def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0, H=4, dh=36,
+                      role=None):
+    """K6 at the training shape (B = 8 utterances, T_enc = 512; H x dh 4 x
+    36, conformer_small's, or 4 x 64, conformer_medium's, role "dh64")
+    against autograd through the plain version; with ``rate > 0`` both
+    with the dropout mask of seed DROPOUT_SEED, and the kernel's
+    determinism."""
     import torch
     import torch.nn.functional as F
 
@@ -1052,7 +1108,6 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
     from speechbrain_tpu_torch.ops.relpos_attention import _fwd_kernel
 
     dtype = getattr(torch, dtype_name)
-    H, dh = 4, 36
     q, k, v, p, u, vb, madd, dout = _relpos_inputs(dtype, B, H, T, dh, SEED + 3)
     scale = 1.0 / (H * dh) ** 0.5
     seed = DROPOUT_SEED if rate > 0 else 0
@@ -1088,6 +1143,8 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
         assert seed_diff > 1e-3, f"relpos_attention_bwd: seed + 1 changes {seed_diff}"
         extra.update({"role": "dropout", "rate": rate, "seed": seed,
                       "seed_plus_one_max_abs_diff": seed_diff})
+    if role is not None:
+        extra["role"] = role
     # library yardstick: SDPA's backward through a materialized bias
     qu = (q.float() + u[None, :, None]).to(dtype).requires_grad_(True)
     kl, vl = k.clone().requires_grad_(True), v.clone().requires_grad_(True)
@@ -1143,10 +1200,11 @@ def _check_relpos_bwd(dtype_name, B=8, T=512, rate=0.0):
     }
 
 
-def _check_relpos(dtype_name, T, B=2, rate=0.0):
+def _check_relpos(dtype_name, T, B=2, rate=0.0, H=4, dh=36, role=None):
     """K5 against its plain version, and its lse; bf16 also against the
     rounding-point reference; with ``rate > 0`` all with the dropout mask
-    of seed DROPOUT_SEED, and the kernel's determinism."""
+    of seed DROPOUT_SEED, and the kernel's determinism.  H x dh 4 x 36 is
+    conformer_small's, 4 x 64 conformer_medium's (role "dh64")."""
     import torch
     import torch.nn.functional as F
 
@@ -1155,7 +1213,6 @@ def _check_relpos(dtype_name, T, B=2, rate=0.0):
         _fwd_kernel, _relpos_attention_rounded)
 
     dtype = getattr(torch, dtype_name)
-    H, dh = 4, 36
     q, k, v, p, u, vb, madd, _ = _relpos_inputs(dtype, B, H, T, dh, SEED + T)
     scale = 1.0 / (H * dh) ** 0.5
     seed = DROPOUT_SEED if rate > 0 else 0
@@ -1210,6 +1267,8 @@ def _check_relpos(dtype_name, T, B=2, rate=0.0):
         extra.update({"role": "dropout", "rate": rate, "seed": seed,
                       "bit_identical_same_seed": True,
                       "seed_plus_one_max_abs_diff": seed_diff})
+    if role is not None:
+        extra["role"] = role
     # library yardstick: SDPA with the materialized position bias
     qu = (q.float() + u[None, :, None]).to(dtype)
     bias = bias.to(dtype)
@@ -1281,11 +1340,12 @@ def _beam_ctx_check(ctx, ref, new, H, pos, dtype_name):
     return float(diff.max()), bad_heads
 
 
-def _check_beam_cache(dtype_name, pos=200, role=None):
-    """K7 at the serving shape (80 beam rows drawn from 36, L 256)
-    against its plain version, which rounds the weights to the cache
-    dtype as the kernel does: the cache bit for bit, ctx within 1e-5
-    (``_beam_ctx_check``).
+def _check_beam_cache(dtype_name, pos=200, role=None, H=4, Dh=36):
+    """K7 at the serving shape (80 beam rows drawn from 36, L 256; H x Dh
+    4 x 36 conformer_small's, 4 x 64 conformer_medium's, 8 x 64 the
+    LibriSpeech transformer's) against its plain version, which rounds
+    the weights to the cache dtype as the kernel does: the cache bit for
+    bit, ctx within 1e-5 (``_beam_ctx_check``).
     Timed as a bare call (contiguous q/k/v, int32 rows) and as the
     decoder makes it (``qkv.chunk`` views, int64 rows), with the device
     kernels that call issues (profiler)."""
@@ -1295,7 +1355,7 @@ def _check_beam_cache(dtype_name, pos=200, role=None):
 
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    n, H, Dh, L = 80, 4, 36, 256
+    n, L = 80, 256
     HD = H * Dh
     kv = torch.randn(n, HD, 2 * L, device="cuda", generator=g).to(dtype)
     rows = torch.randint(0, 36, (n,), device="cuda", generator=g)
@@ -1654,13 +1714,22 @@ def phase_kernels(only=None):
             records.append(_check_relpos(dtype_name, 512, B=8))
             # attention dropout at conformer_small's transformer_dropout
             records.append(_check_relpos(dtype_name, 512, B=8, rate=0.1))
+            # conformer_medium's heads (KsponSpeech, Switchboard): dh 64
+            records.append(_check_relpos(dtype_name, 512, B=8, dh=64,
+                                         role="dh64"))
         if want("relpos_bwd"):
             records.append(_check_relpos_bwd(dtype_name))
             records.append(_check_relpos_bwd(dtype_name, rate=0.1))
+            records.append(_check_relpos_bwd(dtype_name, dh=64, role="dh64"))
         if want("beam_cache"):
             records.append(_check_beam_cache(dtype_name))
             # the middle of the serve's 115 beam steps
             records.append(_check_beam_cache(dtype_name, pos=57, role="pos57"))
+            # conformer_medium's decoder and the LibriSpeech transformer's
+            records.append(_check_beam_cache(dtype_name, Dh=64,
+                                             role="h4dh64"))
+            records.append(_check_beam_cache(dtype_name, H=8, Dh=64,
+                                             role="h8dh64"))
     if want("depthwise"):
         records.extend(_check_depthwise_separation())
     if want("ctc"):
@@ -1678,6 +1747,8 @@ def phase_kernels(only=None):
         # greedy path in a (B, T) buffer (2U+1 603: the block path), ~240
         # labels long for a young teacher
         records.extend(_check_ctc(8, 301, 42, 301, role="kd", live_u=240))
+        # the Switchboard recipes' 2000 pieces (8 kHz audio, 10 ms hop)
+        records.extend(_check_ctc(8, 251, 2000, 40, role="swbd"))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -1894,6 +1965,10 @@ def phase_serve():
 # config (BASELINE.json config 4): (name, batch, beam, dtypes)
 SERVE_LM_SEARCHES = (("valid", 8, 10, ("float32", "bfloat16")),
                      ("test", 2, 66, ("float32",)))
+# the profiled repeat's step cap (50 steps), which keeps the run inside its
+# time limit: the host's events of a whole search took about a minute to
+# collect
+SERVE_LM_PROFILE_RATIO = 0.2
 
 
 def phase_serve_lm():
@@ -1971,11 +2046,17 @@ def phase_serve_lm():
                     "plain_search_ms": 1e3 * plain_search_s,
                 })
             # the LM's range needs the host's events, about a minute to
-            # collect a search: read it once, the others the card's alone
+            # collect a search: read it once, the others the card's alone;
+            # the profiled repeat stops at SERVE_LM_PROFILE_RATIO x T_enc
+            # steps (the whole search is timed above)
             lm_share = search == "valid" and dtype_name == "float32"
-            run["profile"] = _profile(
-                lambda: _search(asr, enc, lens, beam, ctc_weight, **options)[2],
-                ranges=("lm_forward",) if lm_share else (), cpu=lm_share)
+            if dtype_name == "float32":  # profiled in f32: see SHORTENED
+                asr.config["max_decode_ratio"] = SERVE_LM_PROFILE_RATIO
+                run["profiled_max_steps"] = int(251 * SERVE_LM_PROFILE_RATIO)
+                run["profile"] = _profile(
+                    lambda: _search(asr, enc, lens, beam, ctc_weight,
+                                    **options)[2],
+                    ranges=("lm_forward",) if lm_share else (), cpu=lm_share)
             emit({"phase": "serve_lm", **run})
             runs[f"{search}_{dtype_name}"] = run
             del asr, enc
@@ -2145,8 +2226,9 @@ def phase_serve_transducer():
                         "plain_encode_ms": 1e3 * plain_encode_s,
                         "plain_beam_ms": 1e3 * plain_beam_s})
         searcher = model.make_searcher()
-        run["profile"] = _profile(lambda: (searcher(enc, lens), 1)[1],
-                                  cpu=False)
+        if dtype_name == "float32":  # profiled once: see SHORTENED
+            run["profile"] = _profile(lambda: (searcher(enc, lens), 1)[1],
+                                      cpu=False)
         run["beam_device"]["profile"] = _device_beam_profile(searcher, enc,
                                                              lens)
         emit({"phase": "serve_transducer", **run})
@@ -2201,14 +2283,14 @@ def phase_long():
     return run
 
 
-def _train_batch(B, samples, U, seed):
+def _train_batch(B, samples, U, seed, V=None):
     """bench.py's synthetic training batch (``_synthetic_batch``): white
-    noise, U random tokens per utterance with bos 1 / eos 2, every
-    length full."""
+    noise, U random tokens per utterance (of V, by default
+    CONFORMER_SMALL's) with bos 1 / eos 2, every length full."""
     from speechbrain_tpu_torch.asr import CONFORMER_SMALL
 
     rng = np.random.default_rng(seed)
-    tokens = rng.integers(3, CONFORMER_SMALL["vocab_size"], (B, U))
+    tokens = rng.integers(3, V or CONFORMER_SMALL["vocab_size"], (B, U))
     ones = np.ones(B, np.float32)
     return {
         "sig": rng.normal(size=(B, samples)).astype(np.float32),
@@ -2219,14 +2301,15 @@ def _train_batch(B, samples, U, seed):
     }
 
 
-def _brain(precision, dropout, augment=True):
-    """``ConformerASRBrain(CONFORMER_SMALL)`` at full width with the
-    recipe's optimizer settings: AdamW (0.9, 0.98, 1e-9, decay 1e-4),
-    clip 5, Noam (8e-4, 25000 warm-up), the first step at 8e-4; with the
-    recipe's SpecAugment unless ``augment`` is false."""
+def _brain(precision, dropout, augment=True, cfg=None):
+    """``ConformerASRBrain(cfg)`` (a recipe's dict, by default
+    CONFORMER_SMALL) at full width with the recipe's optimizer settings:
+    AdamW (0.9, 0.98, 1e-9, decay 1e-4), clip 5, Noam (``lr_adam``, 25000
+    warm-up), the first step at ``lr_adam``; with the recipe's SpecAugment
+    unless ``augment`` is false."""
     from speechbrain_tpu_torch.asr import CONFORMER_SMALL, ConformerASRBrain
 
-    cfg = dict(CONFORMER_SMALL, transformer_dropout=dropout)
+    cfg = dict(cfg or CONFORMER_SMALL, transformer_dropout=dropout)
     if not augment:
         cfg["augmentation"] = None
     return ConformerASRBrain(
@@ -2545,6 +2628,9 @@ def phase_train_transducer():
 
 # the synthetic LibriSpeech tree of the recipe phase (utterances a split)
 RECIPE_UTTERANCES = {"train-clean-100": 64, "dev-clean": 8, "test-clean": 2}
+# the validation and test searches' cap, max_steps = int(T_enc x ratio):
+# the random model never emits eos, so each would run T_enc steps
+RECIPE_DECODE_RATIO = 0.25
 # the kernels the recipe's path runs: K1/K2 and K3/K4 in every training
 # step, K7 in every step of the validation and test searches
 RECIPE_KERNELS = ("depthwise_conv1d", "depthwise_conv1d_dw", "ctc_alpha",
@@ -2743,7 +2829,8 @@ def phase_recipe():
     depth 2, dropout 0.1 and SpecAugment; validation at beam 10 with full
     CTC scoring at 0.4, no LM) from 16-bit WAV files on disk.  The heads
     keep their random weights (no ``phase_serve`` biases): the model
-    never emits eos, so each search runs its full T_enc steps."""
+    never emits eos, so each search runs to its cap, a quarter of T_enc
+    (``RECIPE_DECODE_RATIO``)."""
     import shutil
     import tempfile
 
@@ -2790,6 +2877,7 @@ def _recipe_run(tmp):
     # 1. fit, 2 epochs (the tokenizer and manifests above are loaded)
     opts = {"staging_depth": 2, "noprogressbar": True}
     ops.reset_launch_counters()
+    splits["max_decode_ratio"] = RECIPE_DECODE_RATIO
     parts = recipe.build(data, out, dict(splits, number_of_epochs=2), opts)
     brain, log = parts["brain"], {}
     _instrument(brain, log)
@@ -2846,6 +2934,7 @@ def _recipe_run(tmp):
         "tokenizer": {"route": tok.sp.train_route, "train_s": tok_s,
                       "vocab_size": vocab, "pieces": pieces},
         "precision": "bf16", "grad_accumulation_factor": 2,
+        "max_decode_ratio": RECIPE_DECODE_RATIO,
         "batches_per_epoch": batches1, "steps_per_epoch": steps1,
         "batch_shapes": sorted(log["shapes"]),
         "train_s_per_epoch": log["train_s"] + log2["train_s"],
@@ -2993,9 +3082,10 @@ def phase_train_crdnn_transducer():
                "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
                "peak_mem_bytes": peak, "launches": counts,
                "launches_per_step": per_step,
-               "loss_first": first, "loss_last": losses[-1],
-               "profile": _profile(one_step, cpu=False),
-               "ligru": _ligru_calls(rnn, x)}
+               "loss_first": first, "loss_last": losses[-1]}
+        if precision == "bf16":  # profiled once: see SHORTENED
+            run.update(profile=_profile(one_step, cpu=False),
+                       ligru=_ligru_calls(rnn, x))
         emit(run)
         runs[precision] = run
         del brain, batch, x
@@ -4886,7 +4976,8 @@ def phase_recipe_seq2seq():
     import shutil
     import tempfile
 
-    runs = {"bf16": _s2s_step("bf16"), "fp32": _s2s_step("fp32"),
+    runs = {"bf16": _s2s_step("bf16"),
+            "fp32": _s2s_step("fp32", profile=False),  # see SHORTENED
             "bpe5000": _s2s_step("bf16", vocab=5000, steps=1, profile=False)}
     routes = _s2s_routes()
     check = dict(_s2s_card_vs_cpu(), kernel_vs_plain=routes)
@@ -4921,7 +5012,8 @@ def _lm_hparams(name):
     from speechbrain_tpu_torch.recipes import lm_training
 
     return {"rnnlm": lm_training.HPARAMS_RNNLM,
-            "transformer": lm_training.HPARAMS_TRANSFORMER}[name]
+            "transformer": lm_training.HPARAMS_TRANSFORMER,
+            "kspon": lm_training.HPARAMS_KSPON}[name]
 
 
 def _lm_batch(V, seed, B=LM_B, L=LM_L):
@@ -5350,7 +5442,7 @@ def _ts2s_brain(kd, precision, dropout, device=None, **hparams):
     return brain
 
 
-def _ts2s_step(kd, precision, steps=3):
+def _ts2s_step(kd, precision, steps=3, profile=True):
     """The seq2seq (``kd`` False) or distillation step at the yaml's
     widths (LiGRU 4 x 512 bidirectional, decoder GRU 256, attention 256,
     dropout 0.15) on B 8 x 3 s (T 301) with 20-40 phones: a warm-up,
@@ -5386,8 +5478,8 @@ def _ts2s_step(kd, precision, steps=3):
            "ms_per_step": ms, "utt_per_s": 1e3 * TS2S_B / ms,
            "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
            "launches": counts, "launches_per_step": per_step,
-           "pytorch_calls_per_step": _pytorch_calls(one_step),
-           "profile": _profile(one_step, cpu=False),
+           **({"pytorch_calls_per_step": _pytorch_calls(one_step),
+               "profile": _profile(one_step, cpu=False)} if profile else {}),
            "loss_first": first, "loss_last": losses[-1]}
     if kd:
         paths = _teacher_paths(host["teacher_ctc"], host["sig_lens"])
@@ -5625,7 +5717,9 @@ def phase_recipe_timit_seq2seq():
     for kd in (False, True):
         for precision in ("bf16", "fp32"):
             key = f"{'kd' if kd else 'seq2seq'}_{precision}"
-            runs[key] = _ts2s_step(kd, precision)
+            # profiled in bf16 only: see SHORTENED
+            runs[key] = _ts2s_step(kd, precision,
+                                   profile=precision == "bf16")
     check = {"kernel_vs_plain": _ts2s_routes(),
              "card_vs_cpu": _ts2s_card_vs_cpu()}
     emit(dict(check, phase="recipe_timit_seq2seq_check"))
@@ -5638,6 +5732,401 @@ def phase_recipe_timit_seq2seq():
     return runs
 
 
+# ---------------------------------- recipe_kspon, recipe_transformer
+
+# a step of the KsponSpeech conformer_medium model (12 conformer layers)
+# below the rel-pos gate, and at T_enc 512 (the rel-pos kernels); the
+# LibriSpeech transformer.yaml's step (no depthwise convolution)
+KSPON_LAUNCHES = dict(TRAIN_LAUNCHES)
+KSPON_LONG_LAUNCHES = dict(TRAIN_LONG_LAUNCHES)
+TRANSFORMER_LAUNCHES = dict(TRAIN_LAUNCHES, depthwise_conv1d=0,
+                            depthwise_conv1d_dw=0)
+ASR_B, ASR_SAMPLES, ASR_U = 8, 160000, 40
+# the searches' step caps (the random models' hypotheses do not end):
+# int(251 x 0.2) = 50 steps timed, 10 to warm up, 20 profiled
+ASR_SEARCH_RATIO, ASR_WARM_RATIO, ASR_PROFILE_RATIO = 0.2, 0.04, 0.08
+RECIPE_KSPON = {"train": 24, "dev": 4, "eval_clean": 2, "eval_other": 2}
+RECIPE_KSPON_SECONDS = (4.0, 10.0)
+# the recipes' runs at reduced depth (full width): encoder and decoder
+# layers, and the searches' cap
+REDUCED = {"num_encoder_layers": 2, "num_decoder_layers": 2,
+           "max_decode_ratio": 0.1}
+
+
+def _asr_step(phase, cfg, precision, launches, samples=ASR_SAMPLES,
+              steps=2, seed=SEED + 40, dropout=0.1, augment=True):
+    """A recipe's training step at full width on B 8 synthetic
+    utterances of ``samples``: a warm-up, ``steps`` timed AdamW steps,
+    the launches a step (``launches``), the FLOPs and their float32 bound,
+    the PyTorch calls and the profile of one more step."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _brain(precision, dropout, augment, cfg)
+    n_params = sum(p.numel() for p in brain.modules.parameters())
+    host = _train_batch(ASR_B, samples, ASR_U, seed, cfg["vocab_size"])
+    batch = brain.prepare_batch(host)
+    brain.step = 1
+    first = float(brain.fit_batch(batch))  # warm-up, untimed
+    ops.reset_launch_counters()
+    ms, losses, peak = _run_steps(brain, batch, steps)
+    counts = ops.launch_counters()
+    per_step = _per_step(counts, steps)
+    assert per_step == launches, per_step
+    assert all(np.isfinite([first] + losses)), losses
+
+    def one_step():
+        brain.step += 1
+        brain.fit_batch(batch)
+        return 1
+
+    fwd, step_flops = _sep_flops(brain, batch)
+    profile = precision == "bf16"  # profiled once: see SHORTENED
+    run = {"phase": phase, "precision": precision, "batch": ASR_B,
+           "seconds_audio": samples / cfg["sample_rate"],
+           "T_enc": (samples // (cfg["sample_rate"] // 100)) // 4 + 1,
+           "tokens": ASR_U, "vocab": cfg["vocab_size"],
+           "d_model": cfg["d_model"], "nhead": cfg["nhead"],
+           "encoder": cfg["encoder_module"], "attention": cfg["attention_type"],
+           "transformer_dropout": dropout,
+           "spec_augment": augment, "parameters": n_params, "steps": steps,
+           "ms_per_step": ms, "utt_per_s": 1e3 * ASR_B / ms,
+           "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
+           "launches": counts, "launches_per_step": per_step,
+           "forward_gflop": fwd / 1e9, "step_gflop": step_flops / 1e9,
+           "f32_bound_ms": _bound_ms(0, step_flops, "float32")[0],
+           **({"pytorch_calls_per_step": _pytorch_calls(one_step),
+               "profile": _profile(one_step, cpu=False)} if profile else {}),
+           "loss_first": first, "loss_last": losses[-1]}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _asr_routes(phase, cfg, samples=ASR_SAMPLES, tol_grad=1e-3):
+    """The step's loss and every gradient through the kernels and through
+    the plain versions (``_compare_routes``), f32, dropout 0, no
+    SpecAugment, at the seeded weights; ``samples`` 327040 gives T_enc
+    512, where the rel-pos kernels run."""
+    import torch
+
+    brain = _brain("fp32", 0.0, False, cfg)
+    host = _train_batch(ASR_B, samples, ASR_U, SEED + 41, cfg["vocab_size"])
+    host["sig_lens"] = np.linspace(1.0, 0.8, ASR_B).astype(np.float32)
+    batch = brain.prepare_batch(host)
+    from speechbrain_tpu_torch import ops
+
+    ops.reset_launch_counters()
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=tol_grad)
+    run = {"phase": phase, "precision": "fp32", "batch": ASR_B,
+           "seconds_audio": samples / cfg["sample_rate"],
+           "kernel_vs_plain": cmp, "launches": ops.launch_counters()}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _asr_search(phase, cfg, precision, lm_cfg=None, beam=10):
+    """The recipe's validation search at full width (beam 10, full CTC
+    scoring at 0.4; with ``lm_cfg`` a ``TransformerLM`` of those dims fused
+    at 0.6, random weights) over B 8 x 10 s, capped at
+    ``ASR_SEARCH_RATIO`` (a warm-up at ``ASR_WARM_RATIO``): steps, encode
+    and search ms, K7's launches (the decoder's layers a step), and the
+    profile of a search capped at ``ASR_PROFILE_RATIO``; the f32 search
+    repeated through the plain versions from the same encoder states
+    gives the same hypotheses."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.asr import ConformerASR, build_transformer_lm
+
+    cfg = dict(cfg, max_decode_ratio=ASR_SEARCH_RATIO)
+    asr = ConformerASR(cfg, dtype=getattr(torch, precision), seed=SEED)
+    with torch.no_grad():
+        asr.ctc_lin.bias[cfg["blank_index"]] += BLANK_BIAS
+    options = {}
+    if lm_cfg is not None:
+        options["lm"] = build_transformer_lm(
+            dict(lm_cfg, vocab=cfg["vocab_size"]), seed=SEED + 1)
+    sig, lens = _synthetic(ASR_B, ASR_SAMPLES, SEED + 42)
+    enc = asr.encode(sig, lens)
+    asr.config["max_decode_ratio"] = ASR_WARM_RATIO
+    _search(asr, enc, lens, beam, 0.4, **options)  # warm-up
+    asr.config["max_decode_ratio"] = ASR_SEARCH_RATIO
+    ops.reset_launch_counters()
+    enc, encode_s = _timed(lambda: asr.encode(sig, lens))
+    hyps, scores, steps, search_s = _search(asr, enc, lens, beam, 0.4,
+                                            **options)
+    counts = ops.launch_counters()
+    n_dec = cfg["num_decoder_layers"]
+    assert counts["beam_attend_step"] == n_dec * steps, (counts, steps)
+    assert np.isfinite(scores).all() and len(hyps) == ASR_B
+    head = cfg["d_model"] // cfg["nhead"]
+    run = {"phase": phase, "precision": precision, "batch": ASR_B,
+           "beam": beam, "rows": ASR_B * beam, "T_enc": int(enc.shape[1]),
+           "heads": cfg["nhead"], "head_dim": head, "lm": lm_cfg,
+           "steps": steps, "encode_ms": 1e3 * encode_s,
+           "search_ms": 1e3 * search_s, "ms_per_step": 1e3 * search_s / steps,
+           "utt_per_s": ASR_B / (encode_s + search_s), "launches": counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    if precision == "float32":
+        asr.set_kernels(False)
+        hyps_p, _, _, plain_s = _search(asr, enc, lens, beam, 0.4, **options)
+        asr.set_kernels(True)
+        assert hyps_p == hyps, "hypotheses differ between kernels and plain"
+        run.update(hyps_equal_plain=True, plain_search_ms=1e3 * plain_s)
+    asr.config["max_decode_ratio"] = ASR_PROFILE_RATIO
+    run["profile"] = _profile(
+        lambda: _search(asr, enc, lens, beam, 0.4, **options)[2], cpu=False)
+    emit(run)
+    del asr, enc
+    torch.cuda.empty_cache()
+    return run
+
+
+def _recipe_resumed(phase, build, epochs_first, test):
+    """A recipe's ``build`` at its folder for ``epochs_first`` epochs, then
+    a fresh Brain from ``build(epochs_first + 1)`` resuming the next epoch
+    with the recovered state equal to the saved one bit for bit, then
+    ``test(parts)``: the launches counted from 0 over all of it."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    ops.reset_launch_counters()
+    parts, build_s = _timed(lambda: build(epochs_first))
+    brain, log = parts["brain"], {}
+    _instrument(brain, log)
+    _, fit_s = _timed(lambda: brain.fit(
+        parts["epoch_counter"], parts["train_loader"], parts["valid_loader"]))
+    saved = _snapshot(brain)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, epochs_first)
+    n_equal = _same_state(saved, recovered["state"])
+    stats, test_s = _timed(lambda: test(parts2))
+    counts = ops.launch_counters()
+    assert counts["ctc_alpha"] > 0 and counts["ctc_beta_grad"] > 0, counts
+    run = {"phase": phase, "build_s": build_s, "fit_s": fit_s,
+           "epochs": log["epochs"] + log2["epochs"],
+           "batches": log["batches"] + log2["batches"],
+           "batch_shapes": sorted(log["shapes"] | log2["shapes"]),
+           "train_s_per_epoch": log["train_s"] + log2["train_s"],
+           "valid_loss": log["valid_loss"] + log2["valid_loss"],
+           "resume_ms": 1e3 * recovered["seconds"],
+           "resume_equal_tensors": n_equal, "test_s": test_s,
+           "test": stats, "launches": counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    emit(run)
+    del brain, parts, parts2
+    torch.cuda.empty_cache()
+    return run
+
+
+def _recipe_kspon_run(tmp):
+    """``ksponspeech_asr`` through ``build``/``fit``/``fit_and_test`` on a
+    synthetic corpus at full width and reduced depth (bf16, the recipe's
+    accumulation 4 and 300 s batches, SpecAugment): epoch 1, epoch 2 in a
+    fresh Brain, both test splits with their WER files."""
+    from speechbrain_tpu_torch.recipes import ksponspeech_asr as recipe
+    from speechbrain_tpu_torch.recipes import ksponspeech_prepare as prep
+    from speechbrain_tpu_torch.recipes import librispeech_asr
+
+    data, out = f"{tmp}/KsponSpeech", f"{tmp}/out"
+    prep.write_synthetic_kspon(data, RECIPE_KSPON,
+                               seconds=RECIPE_KSPON_SECONDS, seed=SEED)
+    prep.convert_all(data)
+
+    def build(epochs):
+        return recipe.build(data, out, dict(REDUCED, number_of_epochs=epochs),
+                            {"noprogressbar": True})
+
+    def test(parts):
+        brain = librispeech_asr.fit_and_test(parts)  # 2 of 2 epochs done
+        for split in RECIPE_KSPON:
+            if split.startswith("eval"):
+                text = open(f"{out}/wer_{split}.txt").read()
+                assert text.count("\nScored ") == 2, split
+        for stats in brain.test_stats.values():
+            assert all(np.isfinite(v) for v in stats.values()), stats
+        return brain.test_stats
+
+    return _recipe_resumed("recipe_kspon_run", build, 1, test)
+
+
+def phase_recipe_kspon():
+    """KsponSpeech conformer_medium (``recipes.ksponspeech_asr``) at full
+    width: its training step on B 8 x 10 s in bf16 and f32, one f32 step
+    at T_enc 512 (K5/K6 at dh 64) through the kernels and the plain
+    versions, the LM-fused search at beam 10 (K7 at H4 Dh64) in f32, the
+    recipe run at reduced depth with a resume, and the LM yaml's step
+    (d_model 768) in bf16."""
+    import shutil
+    import tempfile
+
+    from speechbrain_tpu_torch.recipes import ksponspeech_asr
+
+    cfg = ksponspeech_asr.HPARAMS
+    runs = {p: _asr_step("recipe_kspon_step", cfg, p, KSPON_LAUNCHES)
+            for p in ("bf16", "fp32")}
+    runs["long"] = _asr_routes("recipe_kspon_long", cfg, samples=160 * 2044)
+    long_counts = runs["long"]["launches"]
+    assert long_counts["relpos_attention"] == 12, long_counts
+    assert long_counts["relpos_attention_bwd"] == 12, long_counts
+    runs["search_fp32"] = _asr_search("recipe_kspon_search", cfg, "float32",
+                                      cfg["lm_model"])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kspon_")
+    try:
+        runs["recipe"] = _recipe_kspon_run(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    runs["lm"] = _lm_step("kspon", "bf16", steps=2)
+    return runs
+
+
+def phase_recipe_transformer():
+    """LibriSpeech ``transformer.yaml`` (``librispeech_asr.
+    HPARAMS_TRANSFORMER``: the transformer encoder with regularMHA at
+    d_model 512, 6 decoder layers) at full width: the training step on B
+    8 x 10 s in bf16 and f32, kernel vs plain route (K3/K4) in f32, and
+    the validation search with its LM (d_model 512) at beam 10 (K7 at H8
+    Dh64) in f32."""
+    from speechbrain_tpu_torch.recipes import librispeech_asr
+
+    cfg = librispeech_asr.HPARAMS_TRANSFORMER
+    runs = {p: _asr_step("recipe_transformer_step", cfg, p,
+                         TRANSFORMER_LAUNCHES) for p in ("bf16", "fp32")}
+    runs["routes"] = _asr_routes("recipe_transformer_check", cfg)
+    runs["search_fp32"] = _asr_search("recipe_transformer_search", cfg,
+                                      "float32", cfg["lm_model"])
+    return runs
+
+
+# ----------------------------------------------------------- recipe_corpora
+
+RECIPE_AISHELL = {"train": 12, "dev": 2, "test": 2}
+RECIPE_CORPORA_SECONDS = (2.0, 5.0)
+# the seq2seq recipes' runs: the CRDNN at reduced depth (1 LSTM layer),
+# full width
+REDUCED_S2S = {"rnn_layers": 1, "max_decode_ratio": 0.1}
+
+
+def _corpora_aishell(tmp):
+    """The three AISHELL-1 yamls through ``aishell_asr``'s builds at reduced
+    depth, each 1 epoch then a resumed one, then the test."""
+    from speechbrain_tpu_torch.recipes import aishell_asr as recipe
+    from speechbrain_tpu_torch.recipes import aishell_prepare as prep
+
+    data = f"{tmp}/aishell"
+    prep.write_synthetic_aishell(data, RECIPE_AISHELL,
+                                 seconds=RECIPE_CORPORA_SECONDS, seed=SEED)
+    runs = {}
+    for name, build_family, hp, reduced in (
+            ("seq2seq", recipe.build_seq2seq, recipe.HPARAMS_SEQ2SEQ,
+             REDUCED_S2S),
+            ("conformer", recipe.build_transformer, recipe.HPARAMS_CONFORMER,
+             REDUCED),
+            ("transformer", recipe.build_transformer,
+             recipe.HPARAMS_TRANSFORMER, REDUCED)):
+        out = f"{tmp}/aishell_{name}"
+
+        def build(epochs, build_family=build_family, hp=hp, out=out,
+                  reduced=reduced):
+            return build_family(data, out, dict(reduced,
+                                                number_of_epochs=epochs),
+                                {"noprogressbar": True}, hp)
+
+        def test(parts):
+            parts["brain"].evaluate(parts["test_loader"], min_key="CER")
+            stats = parts["brain"].stage_stats["TEST"]
+            assert set(stats) == {"loss", "CER"} and np.isfinite(
+                stats["loss"]), stats
+            return stats
+
+        runs[name] = _recipe_resumed(f"recipe_corpora_aishell_{name}", build,
+                                     1, test)
+    return runs
+
+
+def _corpora_switchboard(tmp):
+    """The Switchboard yamls through ``switchboard_asr``'s builds (seq2seq,
+    transformer) and ``lm_training.run`` (both LM yamls) at reduced
+    depth, each 1 epoch then a resumed one, then eval2000."""
+    from speechbrain_tpu_torch.recipes import librispeech_asr, lm_training
+    from speechbrain_tpu_torch.recipes import switchboard_asr as recipe
+    from speechbrain_tpu_torch.recipes import switchboard_prepare as prep
+
+    data = f"{tmp}/Switchboard"
+    prep.write_synthetic_switchboard(data, conversations=6, turns=3,
+                                     eval_segments=2,
+                                     seconds=RECIPE_CORPORA_SECONDS, seed=SEED)
+    runs = {}
+    for name, build_family, reduced in (
+            ("seq2seq", recipe.build_seq2seq, REDUCED_S2S),
+            ("transformer", recipe.build_transformer, REDUCED)):
+        out = f"{tmp}/swbd_{name}"
+
+        def build(epochs, build_family=build_family, out=out,
+                  reduced=reduced):
+            return build_family(data, out, dict(reduced, dev_conversations=1,
+                                                number_of_epochs=epochs),
+                                {"noprogressbar": True})
+
+        def test(parts, out=out, name=name):
+            brain = parts["brain"]
+            if name == "transformer":
+                brain = librispeech_asr.fit_and_test(parts)
+                stats = brain.test_stats["eval2000"]
+                assert open(f"{out}/wer_eval2000.txt").read().startswith(
+                    "%WER")
+            else:
+                brain.evaluate(parts["test_loaders"]["eval2000"],
+                               min_key="WER")
+                stats = brain.stage_stats["TEST"]
+            assert np.isfinite(stats["loss"]), stats
+            return stats
+
+        runs[name] = _recipe_resumed(f"recipe_corpora_switchboard_{name}",
+                                     build, 1, test)
+    lm = {"num_layers": 2, "batch_size": 8, "dev_conversations": 1,
+          "number_of_epochs": 2}
+    # both LMs on the transformer recipe's tokenizer (its token ids)
+    tokenizer = (f"{tmp}/swbd_transformer/save/"
+                 f"{recipe.HPARAMS_TRANSFORMER['vocab_size']}_"
+                 f"{recipe.HPARAMS_TRANSFORMER['token_type']}.model.json")
+    for name, hp in (("lm", lm_training.HPARAMS_SWITCHBOARD),
+                     ("lm_finetune", lm_training.HPARAMS_SWITCHBOARD_FINETUNE)):
+        brain, seconds = _timed(lambda hp=hp, name=name: lm_training.run(
+            data, f"{tmp}/swbd_{name}", lm, {"noprogressbar": True}, hp,
+            tokenizer_file=tokenizer))
+        stats = brain.stage_stats
+        assert np.isfinite(stats["TEST"]["loss"]), stats
+        runs[name] = {"phase": f"recipe_corpora_switchboard_{name}",
+                      "seconds": seconds, "stats": stats, "lr": brain.lr,
+                      "launches": {}}
+        emit(runs[name])
+    return runs
+
+
+def phase_recipe_corpora():
+    """The AISHELL-1 (seq2seq, conformer_small, train_ASR_transformer) and
+    Switchboard (seq2seq, transformer, LM, LM finetune) recipes through
+    their ``build``/``run`` at full width and reduced depth, bf16, each
+    resumed in a fresh Brain bit for bit."""
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_corpora_")
+    try:
+        runs = {f"aishell_{k}": v for k, v in _corpora_aishell(tmp).items()}
+        runs.update({f"switchboard_{k}": v
+                     for k, v in _corpora_switchboard(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -5646,8 +6135,8 @@ def kernels_line(records, main_runs):
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
     recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
-    recipe_lm and recipe_timit_seq2seq), each counted from 0 just before
-    its run."""
+    recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer and
+    recipe_corpora), each counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -5747,6 +6236,9 @@ def main():
     s2s = timed("recipe_seq2seq", phase_recipe_seq2seq)
     lm = timed("recipe_lm", phase_recipe_lm)
     ts2s = timed("recipe_timit_seq2seq", phase_recipe_timit_seq2seq)
+    kspon = timed("recipe_kspon", phase_recipe_kspon)
+    transformer = timed("recipe_transformer", phase_recipe_transformer)
+    corpora = timed("recipe_corpora", phase_recipe_corpora)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -5767,7 +6259,8 @@ def main():
                                    "recipe", "fused_seq2seq",
                                    "fused_conformer")),
                  *(ts2s[k] for k in ("seq2seq_bf16", "seq2seq_fp32",
-                                     "kd_bf16", "kd_fp32", "recipe"))]
+                                     "kd_bf16", "kd_fp32", "recipe")),
+                 *kspon.values(), *transformer.values(), *corpora.values()]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

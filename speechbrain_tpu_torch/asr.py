@@ -93,6 +93,8 @@ CONFORMER_SMALL = {
     "vocab_size": 5000,
     "activation": "relu",
     "normalize_before": True,
+    "encoder_module": "conformer",
+    "attention_type": "RelPosMHAXL",
     "bos_index": 1,
     "eos_index": 2,
     "blank_index": 0,
@@ -238,6 +240,8 @@ def _transformer(c):
         activation=c["activation"], normalize_before=c["normalize_before"],
         kernel_size=c["kernel_size"],
         dropout=c.get("transformer_dropout", 0.0),
+        encoder_module=c.get("encoder_module", "conformer"),
+        attention_type=c.get("attention_type", "RelPosMHAXL"),
     )
 
 
@@ -505,6 +509,11 @@ class _ModelBrain(Brain):
         predicted = [self.tokenizer([h], task="decode_from_list")[0]
                      for h in hyps[:real]]
         targets = self.tokenizer(tokens.tolist(), lens, task="decode")
+        self._score_words(ids, predicted, targets)
+
+    def _score_words(self, ids, predicted, targets):
+        """Append the decoded words to the metrics (the WER here; a
+        recipe's Brain also normalizes them or scores their characters)."""
         self.wer_metric.append(ids, predicted, targets)
 
 
@@ -548,8 +557,12 @@ class ConformerASRBrain(_ModelBrain):
     a ``FileTrainLogger``, when given) and, with a checkpointer, saves
     one with ``meta={"WER": wer}`` and keeps the best by WER; at TEST it
     writes the test line with the epoch loaded
-    (``hparams["epoch_counter"]``).  The last stats of each stage are
-    in ``self.stage_stats``.
+    (``hparams["epoch_counter"]``) and, when ``hparams["wer_file"]`` is
+    set, the details (``write_stats``).  The last stats of each stage are
+    in ``self.stage_stats``.  The recipes' Brains change the scoring
+    through ``score_batch`` (the search), ``_score_words`` (the decoded
+    words' metrics), ``stage_metrics`` (the first one keeps the best
+    checkpoint) and ``write_stats``.
 
     Arguments
     ---------
@@ -595,12 +608,18 @@ class ConformerASRBrain(_ModelBrain):
         if stage != Stage.TRAIN:
             self.wer_metric = ErrorRateStats()
 
+    def stage_metrics(self):
+        """The stage's error rates by name; the first is the one the
+        checkpoints keep the best of (here the WER)."""
+        return {"WER": self.wer_metric.summarize("error_rate")}
+
     def on_stage_end(self, stage, stage_loss, epoch=None):
         """The recipe's logging and keep-best checkpoint (see above)."""
         if stage == Stage.TRAIN:
             return
-        wer = self.wer_metric.summarize("error_rate")
-        stats = {"loss": stage_loss, "WER": wer}
+        metrics = self.stage_metrics()
+        key = next(iter(metrics))
+        stats = {"loss": stage_loss, **metrics}
         self.stage_stats[stage.name] = stats
         train_logger = getattr(self.hparams, "train_logger", None)
         if stage == Stage.VALID:
@@ -612,13 +631,23 @@ class ConformerASRBrain(_ModelBrain):
                 )
             if self.checkpointer is not None:
                 self.checkpointer.save_and_keep_only(
-                    meta={"WER": wer}, min_keys=["WER"])
-        elif train_logger is not None:
+                    meta={key: metrics[key]}, min_keys=[key])
+            return
+        if train_logger is not None:
             counter = getattr(self.hparams, "epoch_counter", None)
             train_logger.log_stats(
                 {"Epoch loaded": None if counter is None else counter.current},
                 test_stats=stats,
             )
+        wer_file = getattr(self.hparams, "wer_file", None)
+        if wer_file:
+            with open(wer_file, "w") as w:
+                self.write_stats(w)
+
+    def write_stats(self, stream):
+        """The TEST stage's per-utterance details, written to
+        ``hparams["wer_file"]`` when one is given."""
+        self.wer_metric.write_stats(stream)
 
     def compute_forward(self, batch, stage):
         """Returns the CTC and seq2seq log-probabilities, float32."""
@@ -652,12 +681,18 @@ class ConformerASRBrain(_ModelBrain):
             label_smoothing=c["label_smoothing"], reduction="batchmean",
         )
         if stage != Stage.TRAIN and hasattr(self, "wer_metric"):
-            hyps, _ = self.model.transcribe(
-                batch["sig"], batch["sig_lens"], beam_size=c["valid_beam_size"],
-                ctc_weight=c["ctc_weight_decode"], lm=self.lm,
-                lm_weight=None if self.lm is None else c.get("lm_weight"))
-            self._score_hyps(hyps, batch)
+            self.score_batch(predictions, batch)
         return c["ctc_weight"] * loss_ctc + (1 - c["ctc_weight"]) * loss_seq
+
+    def score_batch(self, predictions, batch):
+        """Outside training: the recipe's search on the batch's real rows,
+        its hypotheses scored by ``_score_hyps``."""
+        c = self.config
+        hyps, _ = self.model.transcribe(
+            batch["sig"], batch["sig_lens"], beam_size=c["valid_beam_size"],
+            ctc_weight=c["ctc_weight_decode"], lm=self.lm,
+            lm_weight=None if self.lm is None else c.get("lm_weight"))
+        self._score_hyps(hyps, batch)
 
 
 class _Transducer(torch.nn.Module):

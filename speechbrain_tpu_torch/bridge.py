@@ -316,16 +316,17 @@ def frontend_state_dict(variables):
 
 
 def transformer_asr_state_dict(params):
-    """TransformerASR (conformer encoder) params -> state_dict; an
-    encoder-only model (0 decoder layers) has no target embedding and no
-    decoder."""
+    """TransformerASR params (conformer or transformer encoder: a
+    conformer layer holds ``ffn1``) -> state_dict; an encoder-only model
+    (0 decoder layers) has no target embedding and no decoder."""
     sd = _prefixed("custom_src_module", dense(params["custom_src_module"]))
     if "custom_tgt_module" in params:
         sd["custom_tgt_module.emb.weight"] = _t(
             params["custom_tgt_module"]["Embed_0"]["embedding"])
     enc = params["encoder"]
     for i, layer in enumerate(_numbered(enc, "layer_")):
-        sd.update(_prefixed(f"encoder.layers.{i}", conformer_layer(layer)))
+        convert = conformer_layer if "ffn1" in layer else encoder_layer
+        sd.update(_prefixed(f"encoder.layers.{i}", convert(layer)))
     sd.update(_prefixed("encoder.norm_out", layer_norm(enc["norm_out"])))
     if "decoder" in params:
         dec = params["decoder"]
@@ -751,14 +752,22 @@ def to_jax_transformer_lm(state_dict, prefix=""):
 
 
 def to_jax_transformer_asr(state_dict, prefix=""):
-    """TransformerASR state_dict (entries under ``prefix``) -> JAX params."""
+    """TransformerASR state_dict (entries under ``prefix``; conformer or
+    transformer encoder: a conformer layer holds ``norm_ffn1``) -> JAX
+    params."""
     s = _Sub(state_dict, prefix)
     enc, dec = s.sub("encoder"), s.sub("decoder")
+
+    def layer(i):
+        sub = enc.sub(f"layers.{i}")
+        if "norm_ffn1.weight" in sub:
+            return _conformer_layer_to_jax(sub)
+        return _encoder_layer_to_jax(sub)
+
     out = {
         "custom_src_module": _dense_to_jax(s.sub("custom_src_module")),
         "encoder": {
-            **{f"layer_{i}": _conformer_layer_to_jax(enc.sub(f"layers.{i}"))
-               for i in range(enc.count("layers"))},
+            **{f"layer_{i}": layer(i) for i in range(enc.count("layers"))},
             "norm_out": _ln_to_jax(enc.sub("norm_out")),
         },
     }

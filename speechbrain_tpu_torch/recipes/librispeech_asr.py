@@ -1,7 +1,10 @@
 """The LibriSpeech conformer recipe end to end, on the port.
 
 Does what ``recipes/LibriSpeech/ASR/transformer/train.py`` does with
-``hparams/conformer_small.yaml``: LibriSpeech folders -> JSON manifests
+``hparams/conformer_small.yaml`` (``HPARAMS``) or ``hparams/
+transformer.yaml`` (``HPARAMS_TRANSFORMER``: a transformer encoder at
+d_model 512, 6 decoder layers, its LM at d_model 512;
+``run(..., hparams=HPARAMS_TRANSFORMER)``): LibriSpeech folders -> JSON manifests
 (``prepare_librispeech``, a copy of
 ``recipes/LibriSpeech/librispeech_prepare.py``) -> a unigram
 ``SentencePiece`` tokenizer trained on the train manifest -> bucketed
@@ -59,8 +62,10 @@ from .common import recipe_hparams
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["HPARAMS", "prepare_librispeech", "make_datasets",
-           "dataio_prepare", "build", "run", "write_synthetic_librispeech"]
+__all__ = ["HPARAMS", "HPARAMS_TRANSFORMER", "prepare_librispeech",
+           "make_dataset", "make_datasets", "make_loaders", "dataio_prepare",
+           "load_lm", "fit_and_test", "build", "run",
+           "write_synthetic_librispeech"]
 
 SAMPLERATE = 16000
 
@@ -85,6 +90,20 @@ HPARAMS = dict(
     lm_weight=0.6,
     # lm_model (conformer_small.yaml:121-126), over vocab_size tokens
     lm_model={k: v for k, v in TRANSFORMER_LM.items() if k != "vocab"},
+)
+
+# recipes/LibriSpeech/ASR/transformer/hparams/transformer.yaml: the same
+# recipe with a transformer encoder (regularMHA, the absolute PE on its
+# input) at d_model 512, and its lm_model (transformer.yaml:121-126)
+HPARAMS_TRANSFORMER = dict(
+    HPARAMS,
+    d_model=512,
+    nhead=8,
+    num_decoder_layers=6,
+    d_ffn=2048,
+    encoder_module="transformer",
+    attention_type="regularMHA",
+    lm_model=dict(HPARAMS["lm_model"], d_model=512, nhead=8, d_ffn=2048),
 )
 
 
@@ -155,65 +174,114 @@ def prepare_librispeech(data_folder, save_folder,
                 json.dump(merged, f, indent=2)
 
 
+def make_dataset(path, hparams, tokenizer, text_key="words",
+                 audio=read_audio, audio_keys="wav"):
+    """One split of the transformer recipes: the manifest at ``path``,
+    its audio (``sig``, ``audio`` over the manifest's ``audio_keys``)
+    and its ``text_key`` encoded by ``tokenizer`` (``tokens``,
+    ``tokens_bos`` = [bos_index] + tokens, ``tokens_eos`` = tokens +
+    [eos_index]), with ``id``."""
+    ds = DynamicItemDataset.from_json(path)
+    ds.add_dynamic_item(audio, takes=audio_keys, provides="sig")
+
+    def text_pipeline(words):
+        tokens = tokenizer.sp.encode_as_ids(words)
+        return (
+            np.asarray(tokens, np.int64),
+            np.asarray([hparams["bos_index"]] + tokens, np.int64),
+            np.asarray(tokens + [hparams["eos_index"]], np.int64),
+        )
+
+    ds.add_dynamic_item(text_pipeline, takes=text_key,
+                        provides=["tokens", "tokens_bos", "tokens_eos"])
+    ds.set_output_keys(["id", "sig", "tokens", "tokens_bos", "tokens_eos"])
+    return ds
+
+
 def make_datasets(hparams, tokenizer):
     """The train, valid and test datasets of the LibriSpeech recipes
-    (``hparams["<split>_json"]``): the manifests' audio read from disk
-    (``sig``) and words encoded by ``tokenizer`` (``tokens``,
-    ``tokens_bos`` = [bos_index] + tokens, ``tokens_eos`` = tokens +
-    [eos_index]), with ``id``.  Returns a dict by split name."""
-    datasets = {}
-    for split in ("train", "valid", "test"):
-        ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
-        ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
-
-        def text_pipeline(words):
-            tokens = tokenizer.sp.encode_as_ids(words)
-            return (
-                np.asarray(tokens, np.int64),
-                np.asarray([hparams["bos_index"]] + tokens, np.int64),
-                np.asarray(tokens + [hparams["eos_index"]], np.int64),
-            )
-
-        ds.add_dynamic_item(text_pipeline, takes="words",
-                            provides=["tokens", "tokens_bos", "tokens_eos"])
-        ds.set_output_keys(["id", "sig", "tokens", "tokens_bos",
-                            "tokens_eos"])
-        datasets[split] = ds
-    return datasets
+    (``hparams["<split>_json"]``, ``make_dataset``).  Returns a dict by
+    split name."""
+    return {split: make_dataset(hparams[f"{split}_json"], hparams, tokenizer)
+            for split in ("train", "valid", "test")}
 
 
-def dataio_prepare(hparams, tokenizer):
-    """The recipe's three loaders (``train.py:226-292``) over
-    ``make_datasets``' splits: training batches from
-    a ``DynamicBatchSampler`` (``max_batch_length`` seconds a batch,
-    ``num_buckets``, shuffled) padded by the recipe's
+def make_loaders(hparams, train, valid, tests,
+                 token_buckets=(16, 32, 64, 128, 256, 512)):
+    """The transformer recipes' loaders: training batches from a
+    ``DynamicBatchSampler`` over ``train`` (``max_batch_length`` seconds a
+    batch, ``num_buckets``, shuffled) padded by the recipes'
     ``BatchShapePolicy`` (time to the sampler's bucket boundaries, tokens
-    to powers of two from 16, the batch dim to powers of two from 2 with
-    dummy rows); validation and test batches of 8 in manifest order."""
-    datasets = make_datasets(hparams, tokenizer)
+    to ``token_buckets``, the batch dim to powers of two from 2 with
+    dummy rows); ``valid`` and each dataset of the dict ``tests`` in
+    batches of 8 in manifest order.  Returns ``(train_loader,
+    valid_loader, {name: test_loader})``."""
     sampler = DynamicBatchSampler(
-        datasets["train"], max_batch_length=hparams["max_batch_length"],
+        train, max_batch_length=hparams["max_batch_length"],
         num_buckets=hparams["num_buckets"], shuffle=True)
     sr = hparams["sample_rate"]
-    token_buckets = [16, 32, 64, 128, 256, 512]
     policy = BatchShapePolicy(
         time_buckets=[int(b * sr) for b in sampler.bucket_boundaries],
         time_keys=("sig",),
-        key_buckets={k: token_buckets
+        key_buckets={k: list(token_buckets)
                      for k in ("tokens", "tokens_bos", "tokens_eos")},
         batch_buckets=[2, 4, 8, 16, 32, 64, 128],
     )
     train_loader = SaveableDataLoader(
-        datasets["train"], batch_sampler=sampler,
-        num_workers=hparams["num_workers"],
+        train, batch_sampler=sampler, num_workers=hparams["num_workers"],
         collate_fn=lambda ex: PaddedBatch(ex, shape_policy=policy),
     )
-    valid_loader = SaveableDataLoader(datasets["valid"], batch_size=8)
-    test_loader = SaveableDataLoader(datasets["test"], batch_size=8)
-    return train_loader, valid_loader, test_loader
+    return (train_loader, SaveableDataLoader(valid, batch_size=8),
+            {name: SaveableDataLoader(ds, batch_size=8)
+             for name, ds in tests.items()})
 
 
-def build(data_folder, output_folder, overrides=None, run_opts=None):
+def dataio_prepare(hparams, tokenizer):
+    """The recipe's three loaders (``train.py:226-292``): ``make_loaders``
+    over ``make_datasets``' splits."""
+    datasets = make_datasets(hparams, tokenizer)
+    train_loader, valid_loader, tests = make_loaders(
+        hparams, datasets["train"], datasets["valid"],
+        {"test": datasets["test"]})
+    return train_loader, valid_loader, tests["test"]
+
+
+def load_lm(hp, run_opts):
+    """The yaml's ``lm_model`` (a ``TransformerLM`` over ``vocab_size``
+    tokens) loaded from ``run_opts["lm_ckpt"]`` (popped), or None without
+    one."""
+    lm_ckpt = run_opts.pop("lm_ckpt", None)
+    if lm_ckpt is None:
+        return None
+    lm = build_transformer_lm(dict(hp["lm_model"], vocab=hp["vocab_size"]),
+                              device="cpu")
+    lm.load_state_dict(torch.load(lm_ckpt, map_location="cpu",
+                                  weights_only=True))
+    return lm
+
+
+def fit_and_test(parts):
+    """What the KsponSpeech and Switchboard transformer scripts do after
+    building (KsponSpeech ``train.py:361-377``): ``fit``, then each of
+    ``parts["test_loaders"]`` at ``test_beam_size`` from the checkpoint
+    with the best validation WER, its details in ``<output_folder>/
+    wer_<split>.txt``.  Returns the Brain; ``brain.test_stats`` holds each
+    split's TEST stats."""
+    brain, hp = parts["brain"], parts["hparams"]
+    brain.fit(parts["epoch_counter"], parts["train_loader"],
+              parts["valid_loader"])
+    brain.config["valid_beam_size"] = hp["test_beam_size"]
+    brain.test_stats = {}
+    for split, loader in parts["test_loaders"].items():
+        brain.hparams.wer_file = os.path.join(hp["output_folder"],
+                                              f"wer_{split}.txt")
+        brain.evaluate(loader, min_key="WER")
+        brain.test_stats[split] = dict(brain.stage_stats["TEST"])
+    return brain
+
+
+def build(data_folder, output_folder, overrides=None, run_opts=None,
+          hparams=HPARAMS):
     """Everything ``run`` trains with, built as the recipe's
     ``__main__`` builds it (``train.py:295-345``): the manifests
     (prepared unless they exist), the tokenizer (trained on the train
@@ -223,13 +291,14 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
     and the epoch counter), a ``FileTrainLogger`` on
     ``<output_folder>/train_log.txt`` and the tokenizer.
 
-    ``overrides`` replace values of ``HPARAMS``; ``run_opts`` are the
-    ``Brain``'s (``device``: None for the CUDA card, "cpu" to ask for
-    the CPU; ``debug``, ``staging_depth``, ...) and ``lm_ckpt`` (the
-    ``TransformerLM`` to fuse, see the module).  Returns a dict with
-    ``brain``, ``epoch_counter``, ``train_loader``, ``valid_loader``,
-    ``test_loader`` and ``hparams``."""
-    hp = recipe_hparams(HPARAMS, data_folder, output_folder, overrides, (
+    ``hparams`` is ``HPARAMS`` (conformer_small.yaml) or
+    ``HPARAMS_TRANSFORMER`` (transformer.yaml); ``overrides`` replace its
+    values; ``run_opts`` are the ``Brain``'s (``device``: None for the CUDA
+    card, "cpu" to ask for the CPU; ``debug``, ``staging_depth``, ...) and
+    ``lm_ckpt`` (the ``TransformerLM`` to fuse, see the module).  Returns a
+    dict with ``brain``, ``epoch_counter``, ``train_loader``,
+    ``valid_loader``, ``test_loader`` and ``hparams``."""
+    hp = recipe_hparams(hparams, data_folder, output_folder, overrides, (
         ("train_json", "train"), ("valid_json", "dev-clean"),
         ("test_json", "test-clean")))
     run_on_main(prepare_librispeech, kwargs={
@@ -248,13 +317,7 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
     )
     train_loader, valid_loader, test_loader = dataio_prepare(hp, tokenizer)
     run_opts = dict(run_opts or {})
-    lm = None
-    lm_ckpt = run_opts.pop("lm_ckpt", None)
-    if lm_ckpt is not None:
-        lm = build_transformer_lm(dict(hp["lm_model"],
-                                       vocab=hp["vocab_size"]), device="cpu")
-        lm.load_state_dict(torch.load(lm_ckpt, map_location="cpu",
-                                      weights_only=True))
+    lm = load_lm(hp, run_opts)
     epoch_counter = EpochCounter(hp["number_of_epochs"])
     brain = ConformerASRBrain(
         hp, seed=hp["seed"], run_opts=run_opts,
@@ -268,14 +331,15 @@ def build(data_folder, output_folder, overrides=None, run_opts=None):
             "test_loader": test_loader, "hparams": hp}
 
 
-def run(data_folder, output_folder, overrides=None, run_opts=None):
+def run(data_folder, output_folder, overrides=None, run_opts=None,
+        hparams=HPARAMS):
     """The recipe's ``__main__`` (``train.py:295-358``): ``build``, then
     ``fit`` (resuming from the latest checkpoint in ``<output_folder>/
     save``), then ``evaluate`` on the test set at ``test_beam_size``
     from the checkpoint with the best validation WER.  Arguments as for
     ``build``.  Returns the Brain (``brain.stage_stats`` holds the last
     VALID and TEST loss and WER)."""
-    parts = build(data_folder, output_folder, overrides, run_opts)
+    parts = build(data_folder, output_folder, overrides, run_opts, hparams)
     brain = parts["brain"]
     brain.fit(parts["epoch_counter"], parts["train_loader"],
               parts["valid_loader"])

@@ -73,7 +73,7 @@ from .librispeech_asr import make_datasets, prepare_librispeech
 logger = logging.getLogger(__name__)
 
 __all__ = ["HPARAMS", "HPARAMS_BPE_5000", "build_modules", "build_lm",
-           "Seq2SeqBrain", "build", "run"]
+           "load_lm", "Seq2SeqBrain", "build", "run"]
 
 # recipes/LibriSpeech/ASR/seq2seq/hparams/train_BPE_1000.yaml (with the
 # JAX Brain's gradient clip, 5)
@@ -189,6 +189,18 @@ def build_lm(hparams, seed=0):
                dnn_neurons=hp["lm_dnn_neurons"])
     _random_init(lm, torch.Generator().manual_seed(seed))
     return lm.eval()
+
+
+def load_lm(hparams, run_opts):
+    """``build_lm`` with the ``state_dict`` saved at
+    ``run_opts["lm_ckpt"]`` (popped), or None without one."""
+    lm_ckpt = run_opts.pop("lm_ckpt", None)
+    if lm_ckpt is None:
+        return None
+    lm = build_lm(hparams)
+    lm.load_state_dict(torch.load(lm_ckpt, map_location="cpu",
+                                  weights_only=True))
+    return lm
 
 
 class Seq2SeqBrain(NewBobBrain):
@@ -427,12 +439,7 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
     )
     datasets = make_datasets(hp, tokenizer)
     run_opts = dict(run_opts or {})
-    lm = None
-    lm_ckpt = run_opts.pop("lm_ckpt", None)
-    if lm_ckpt is not None:
-        lm = build_lm(hp)
-        lm.load_state_dict(torch.load(lm_ckpt, map_location="cpu",
-                                      weights_only=True))
+    lm = load_lm(hp, run_opts)
     epoch_counter = EpochCounter(hp["number_of_epochs"])
     brain = Seq2SeqBrain(
         dict(hp, train_logger=FileTrainLogger(hp["train_log"]),

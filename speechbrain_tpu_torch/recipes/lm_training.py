@@ -2,11 +2,20 @@
 
 Does what ``recipes/LibriSpeech/LM/train.py`` does with
 ``hparams/RNNLM.yaml`` (``HPARAMS_RNNLM``) and ``hparams/transformer.yaml``
-(``HPARAMS_TRANSFORMER``), and what ``recipes/timers-and-such/LM/
-train.py`` does with ``hparams/train.yaml`` (``HPARAMS_TAS``): a corpus
+(``HPARAMS_TRANSFORMER``), what ``recipes/timers-and-such/LM/
+train.py`` does with ``hparams/train.yaml`` (``HPARAMS_TAS``), what
+``recipes/KsponSpeech/LM/train.py`` does with ``hparams/transformer.yaml``
+(``HPARAMS_KSPON``) and what ``recipes/Switchboard/LM/train.py`` does with
+``hparams/transformer.yaml`` and ``transformer_finetune.yaml``
+(``HPARAMS_SWITCHBOARD``, ``HPARAMS_SWITCHBOARD_FINETUNE``: the same
+recipe at lr 1e-4; the yaml's "finetune from a LibriSpeech-pretrained LM"
+loads nothing in the JAX script, and nothing here): a corpus
 (LibriSpeech's: ``train.txt``, ``valid.txt`` and ``test.txt`` of one
-utterance a line in ``data_folder``; Timers and Such: the manifests of
-``timers_and_such_prepare.prepare_TAS``, their ``transcript``s) -> a
+utterance a line in ``data_folder``; the others: the manifests of their
+prepare scripts, ``timers_and_such_prepare.prepare_TAS`` (``transcript``),
+``ksponspeech_prepare.prepare_ksponspeech`` (train, dev and eval_clean;
+``wrd``) and ``switchboard_prepare.prepare_switchboard`` (train, and dev
+as both the validation and the test set; ``words``)) -> a
 unigram ``SentencePiece`` tokenizer (trained on the train text, or an
 existing model file given to ``run``) -> ``tokens_bos`` = [bos] + tokens
 and ``tokens_eos`` = tokens + [eos], the tokens cut to ``max_seq_len -
@@ -60,13 +69,16 @@ from ..utils.distributed import run_on_main
 from ..utils.epoch_loop import EpochCounter
 from ..utils.train_logger import FileTrainLogger
 from .common import at_least_f32, recipe_hparams
+from .ksponspeech_prepare import prepare_ksponspeech
+from .switchboard_prepare import prepare_switchboard
 from .timers_and_such_prepare import prepare_TAS
 
 logger = logging.getLogger(__name__)
 
 __all__ = ["HPARAMS_RNNLM", "HPARAMS_TRANSFORMER", "HPARAMS_TAS",
-           "build_model", "LM", "dataio_prepare", "build", "run",
-           "write_synthetic_text"]
+           "HPARAMS_KSPON", "HPARAMS_SWITCHBOARD",
+           "HPARAMS_SWITCHBOARD_FINETUNE", "build_model", "LM",
+           "dataio_prepare", "build", "run", "write_synthetic_text"]
 
 # what recipes/LibriSpeech/LM/hparams/{RNNLM,transformer}.yaml share
 # (with the JAX Brain's clip, 5)
@@ -142,6 +154,48 @@ HPARAMS_TAS = dict(
     patient=0,
     max_grad_norm=5.0,
 )
+
+
+# recipes/KsponSpeech/LM/hparams/transformer.yaml: the LibriSpeech
+# transformer LM's values on the KsponSpeech manifests
+HPARAMS_KSPON = dict(
+    HPARAMS_TRANSFORMER,
+    corpus="ksponspeech",
+    train_splits=["train"],
+    dev_splits=["dev"],
+    test_splits=["eval_clean"],
+    skip_prep=False,
+)
+
+# recipes/Switchboard/LM/hparams/transformer.yaml: the same at 2000
+# tokens on the Switchboard manifests
+HPARAMS_SWITCHBOARD = dict(
+    HPARAMS_TRANSFORMER,
+    corpus="switchboard",
+    dev_conversations=20,
+    skip_prep=False,
+    vocab_size=2000,
+)
+
+# transformer_finetune.yaml: the same at lr 1e-4
+HPARAMS_SWITCHBOARD_FINETUNE = dict(HPARAMS_SWITCHBOARD, lr=0.0001)
+
+# the corpora read from their prepare scripts' manifests: the prepare
+# function, its keyword arguments taken from the recipe's values (by
+# value name), the manifests read as the train, valid and test sets, and
+# their text key
+_MANIFESTS = {
+    "timers-and-such": (prepare_TAS, {"train_splits": "train_splits"},
+                        ("train", "dev-real", "test-real"), "transcript"),
+    "ksponspeech": (prepare_ksponspeech,
+                    {"tr_splits": "train_splits", "dev_splits": "dev_splits",
+                     "te_splits": "test_splits", "skip_prep": "skip_prep"},
+                    ("train", "dev", "eval_clean"), "wrd"),
+    "switchboard": (prepare_switchboard,
+                    {"dev_conversations": "dev_conversations",
+                     "skip_prep": "skip_prep"},
+                    ("train", "dev", "dev"), "words"),
+}
 
 
 def build_model(hp, seed=0):
@@ -266,8 +320,9 @@ class LM(Brain):
 def dataio_prepare(hparams, tokenizer):
     """The train, valid and test datasets: for LibriSpeech the lines of
     ``train_text``/``valid_text``/``test_text`` (stripped, empty ones
-    skipped; ids ``<split><line>``), for Timers and Such the
-    ``transcript`` of the ``<split>_json`` manifests; each gives ``id``,
+    skipped; ids ``<split><line>``), for the others the text of the
+    ``<split>_json`` manifests (``transcript``, ``wrd`` or ``words``);
+    each gives ``id``,
     ``tokens_bos`` and ``tokens_eos``, the tokens cut to ``max_seq_len -
     1`` when it is set (``train.py:67-100``)."""
     datasets = {}
@@ -281,7 +336,7 @@ def dataio_prepare(hparams, tokenizer):
             key = "text"
         else:
             ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
-            key = "transcript"
+            key = _MANIFESTS[hparams["corpus"]][3]
 
         def text_pipeline(text):
             tokens = tokenizer.sp.encode_as_ids(text)
@@ -304,7 +359,8 @@ def _tokenizer(hp, tokenizer_file):
     if hp["corpus"] == "librispeech":
         train, read, fmt = hp["train_text"], "text", "text"
     else:
-        train, read, fmt = hp["train_json"], "transcript", "json"
+        train, read, fmt = (hp["train_json"], _MANIFESTS[hp["corpus"]][3],
+                            "json")
     if tokenizer_file is not None:
         dst = os.path.join(hp["save_folder"],
                            f"{hp['vocab_size']}_{hp['token_type']}.model.json")
@@ -320,16 +376,19 @@ def _tokenizer(hp, tokenizer_file):
 def build(data_folder, output_folder, overrides=None, run_opts=None,
           hparams=HPARAMS_RNNLM, tokenizer_file=None):
     """Everything ``run`` trains with, built as the recipes' ``__main__``
-    builds it: for Timers and Such the manifests (``prepare_TAS`` on
-    ``train_splits``, unless they exist: ``train.json``, ``dev-real.json``
-    and ``test-real.json`` in the save folder), the tokenizer (see
-    ``run``), the datasets and their loaders (batches of ``batch_size``,
-    the train loader shuffled), an ``EpochCounter``, and an ``LM`` with a
-    ``Checkpointer`` on ``<output_folder>/save`` and a ``FileTrainLogger``
-    on ``<output_folder>/train_log.txt``.
+    builds it: the manifests of the corpora that have them, prepared
+    unless they exist (Timers and Such: ``prepare_TAS`` on
+    ``train_splits``, ``train.json``, ``dev-real.json`` and
+    ``test-real.json`` read; KsponSpeech: ``train.json``, ``dev.json`` and
+    ``eval_clean.json``; Switchboard: ``train.json`` and ``dev.json``,
+    twice), the tokenizer (see ``run``), the datasets and their loaders
+    (batches of ``batch_size``, the train loader shuffled), an
+    ``EpochCounter``, and an ``LM`` with a ``Checkpointer`` on
+    ``<output_folder>/save`` and a ``FileTrainLogger`` on
+    ``<output_folder>/train_log.txt``.
 
-    ``hparams`` is ``HPARAMS_RNNLM``, ``HPARAMS_TRANSFORMER`` or
-    ``HPARAMS_TAS``; ``overrides`` replace its values; ``run_opts`` are
+    ``hparams`` is one of the module's dicts; ``overrides`` replace its
+    values; ``run_opts`` are
     the ``Brain``'s (``device``: None for the CUDA card, "cpu" to ask for
     the CPU).  Returns a dict with ``brain``, ``epoch_counter``,
     ``train_loader``, ``valid_loader``, ``test_loader``, ``tokenizer``
@@ -340,13 +399,13 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
             hp.setdefault(f"{split}_text",
                           os.path.join(data_folder, f"{split}.txt"))
     else:
-        hp = recipe_hparams(hparams, data_folder, output_folder, overrides, (
-            ("train_json", "train"), ("valid_json", "dev-real"),
-            ("test_json", "test-real")))
-        run_on_main(prepare_TAS, kwargs={
-            "data_folder": hp["data_folder"],
-            "save_folder": hp["save_folder"],
-            "train_splits": hp["train_splits"]})
+        prepare, args, splits, _ = _MANIFESTS[hparams["corpus"]]
+        hp = recipe_hparams(hparams, data_folder, output_folder, overrides,
+                            zip(("train_json", "valid_json", "test_json"),
+                                splits))
+        run_on_main(prepare, kwargs=dict(
+            {arg: hp[key] for arg, key in args.items()},
+            data_folder=hp["data_folder"], save_folder=hp["save_folder"]))
     tokenizer = _tokenizer(hp, tokenizer_file)
     datasets = dataio_prepare(hp, tokenizer)
     epoch_counter = EpochCounter(hp["number_of_epochs"])
