@@ -16,6 +16,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_seq2seq
     python3 chip_smoke.py --phase recipe_lm,recipe_timit_seq2seq
     python3 chip_smoke.py --phase recipe_kspon,recipe_transformer,recipe_corpora
+    python3 chip_smoke.py --phase recipe_commonvoice,recipe_slu
 
 Phases, each printing one JSON line when it ends:
 
@@ -65,7 +66,8 @@ Phases, each printing one JSON line when it ends:
    full-vocabulary CTC scoring at 0.4, the LM fused at 0.6, no eos
    threshold, length normalization.  The validation search (B = 8 x 10 s,
    beam 10) in float32 and bfloat16, and the test search (B = 2 x 10 s,
-   beam 66) in float32: steps, encode and search ms, utt/s, peak memory,
+   beam 66) in float32, each capped at a quarter of T_enc (62 steps):
+   steps, encode and search ms, utt/s, peak memory,
    the launches (depthwise conv 12, beam cache 4 per step) and, from a
    profiled second run, the busy share and, for the float32 validation
    search, the LM's device ms and share of the busy time (its calls run
@@ -116,9 +118,9 @@ Phases, each printing one JSON line when it ends:
    ``ConformerASRBrain`` in bf16 with the recipe's settings (accumulation
    2, 200 s batches in 10 buckets, 4 loader threads, staging depth 2,
    dropout 0.1, SpecAugment; validation at beam 10, full CTC scoring at
-   0.4, no LM; the searches capped at a quarter of T_enc): ``fit`` for 2
-   epochs; a fresh Brain, loaders and counter
-   on the same folder run epoch 3 alone, with the recovered module and
+   0.4, no LM; the searches capped at a quarter of T_enc): ``fit`` for 1
+   epoch; a fresh Brain, loaders and counter
+   on the same folder run epoch 2 alone, with the recovered module and
    optimizer state equal to the saved one bit for bit and the Noam step,
    optimizer step and epoch carried over; ``evaluate(min_key="WER")`` on
    the test set at beam 66.  It prints the tokenizer's seconds and route,
@@ -137,10 +139,10 @@ Phases, each printing one JSON line when it ends:
    AdamW steps on B = 12 synthetic 10 s utterances (T_enc 1001: no time
    pooling) with up to 40 tokens padded to 64, in bf16 then f32:
    ms/step, utt/s, peak memory, the busy share of one profiled step,
-   launches per step (RNN-T alpha 1 and beta 1, no depthwise conv), the
-   LiGRU's PyTorch calls, device kernels and ms for one forward and
-   backward at the step's shape (its recurrence is a PyTorch loop over
-   the frames, no kernel of its own), finite losses that fall; then one
+   launches per step (RNN-T alpha 1 and beta 1, no depthwise conv),
+   finite losses that fall (the LiGRU's recurrence is a PyTorch loop
+   over the frames, no kernel of its own: its calls are counted in
+   phase 25's transducer step); then one
    f32 step's loss and gradients through the kernels against the plain
    versions (dropout 0): K8/K9 at B12 x T1001 x U+1 65, which the
    kernels phase also checks alone (role "crdnn").
@@ -151,7 +153,7 @@ Phases, each printing one JSON line when it ends:
    buckets), tokens_blank and token buckets, 4 loader threads, staging
    depth 2, the yamls' dropout and SpecAugment, the random models' blank
    logit biased +4 (so the beam takes a few rounds a frame).
-   ``conformer_transducer.yaml``: 2 epochs, epoch 3 in a fresh Brain
+   ``conformer_transducer.yaml``: 1 epoch, epoch 2 in a fresh Brain
    with the recovered state equal bit for bit, then
    ``evaluate(min_key="loss")`` at beam 4 on the 2 test utterances;
    ``train.yaml`` (the CRDNN): 1 epoch, then the same test.  Each prints
@@ -172,7 +174,7 @@ Phases, each printing one JSON line when it ends:
    through K3/K4 against the plain recursions, with a dummy row; then
    the recipe end to end on a synthetic TIMIT tree (SPHERE files of
    1.5-6 s with phones from all 61, an SA sentence a speaker; 32 train,
-   8 dev, 8 test): 40 labels with the blank, 2 epochs, epoch 3 in a
+   8 dev, 8 test): 40 labels with the blank, 1 epoch, epoch 2 in a
    fresh Brain with the modules, Adadelta accumulators, NewBob state, lr
    and epoch recovered bit for bit, ``evaluate(min_key="PER")``: batches,
    train ms a batch and utt/s, validation and test seconds, PERs (finite,
@@ -186,7 +188,7 @@ Phases, each printing one JSON line when it ends:
    "time_domain_augment" range, which runs once more under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync); then the recipe on a synthetic tree
    (10 commands and 2 unknown words, clips of 0.6-1.0 s; 96 train, 32
-   valid, 32 test): 2 epochs, epoch 3 resumed bit for bit,
+   valid, 32 test): 1 epoch, epoch 2 resumed bit for bit,
    ``evaluate(max_key="acc")``: batches, train ms a batch, validation
    and test seconds, accuracies (in [0, 1]), checkpoint bytes, save and
    resume ms, peak memory.
@@ -199,8 +201,8 @@ Phases, each printing one JSON line when it ends:
    kernels a step, the device ms of "time_domain_augment", launches
    (none), and the augmentation, Fbank and sentence normalization under
    ``set_sync_debug_mode("error")``; then the recipes on a synthetic
-   VoxCeleb tree (16 speakers x 48 clips of 2-5 s, 256 trials): ECAPA 2
-   epochs, epoch 3 resumed bit for bit, ``save_for_pretrained``, cosine
+   VoxCeleb tree (16 speakers x 48 clips of 2-5 s, 256 trials): ECAPA 1
+   epoch, epoch 2 resumed bit for bit, ``save_for_pretrained``, cosine
    verification; the x-vector yaml 2 epochs and PLDA verification
    (embeddings and scoring timed apart; EER and minDCF in [0, 1]).
 16. recipe_separation -- ``recipes.wsj0mix_separation`` (WSJ0-2mix, 8 kHz)
@@ -217,7 +219,7 @@ Phases, each printing one JSON line when it ends:
    versions; the Conv-TasNet step (``convtasnet.yaml``: N 256, B 256, H
    512, X 6, R 4, L 16; B = 1 x 4 s).  Then the recipes on a synthetic
    WSJ0-2mix tree (harmonic sources, mixtures of 2-5 s; 24 train, 6
-   valid, 6 test): the SepFormer 2 epochs, epoch 3 in a fresh Brain with
+   valid, 6 test): the SepFormer 1 epoch, epoch 2 in a fresh Brain with
    the modules, Adam's state, the rate, the plateau schedule and the
    generator recovered bit for bit, ``evaluate(min_key="si-snr")``
    (SI-SNR finite); Conv-TasNet 1 epoch through ``run``.  The kernels
@@ -281,8 +283,8 @@ Phases, each printing one JSON line when it ends:
    through K3/K4 against the plain CTC recursions (``set_kernels``).  The
    LM-fused beam search as the recipe validates (beam 8, temperature
    1.25, coverage 1.5, attention shift 240, eos threshold 1.5, an RNNLM
-   of 2 x 2048 fused at 0.5, random weights) on B 8 x 10 s in f32 and
-   bf16, capped at int(1001 x ``S2S_SEARCH_RATIO``) steps: the steps
+   of 2 x 2048 fused at 0.5, random weights) on B 8 x 10 s in f32,
+   capped at int(1001 x ``S2S_SEARCH_RATIO``) steps: the steps
    run, ms a step, utt/s (encode + search), a profile.  Then the recipe
    on a synthetic tree (16 train, 8 valid, 4 test utterances of 2-4 s,
    the LM from a checkpoint file, bf16, searches capped as above): epoch
@@ -302,8 +304,8 @@ Phases, each printing one JSON line when it ends:
    recipes' tokenizer files trained on a LibriSpeech tree's transcripts,
    vocab 1000 and 5000; 128/64/64 lines of 10-150 words; a
    Timers-and-Such tree of 96 + 32 train, 32 dev and 32 test rows):
-   ``HPARAMS_RNNLM``, ``HPARAMS_TRANSFORMER`` and ``HPARAMS_TAS`` each 2
-   epochs, epoch 3 in a fresh Brain recovered bit for bit, the test,
+   ``HPARAMS_RNNLM``, ``HPARAMS_TRANSFORMER`` and ``HPARAMS_TAS`` each 1
+   epoch, epoch 2 in a fresh Brain recovered bit for bit, the test,
    ``lm.ckpt``; the RNNLM's ``lm.ckpt`` fused into
    ``librispeech_seq2seq``'s validation search (full width, bf16, beam 8,
    LM 0.5) and the TransformerLM's into ``librispeech_asr``'s
@@ -333,7 +335,7 @@ Phases, each printing one JSON line when it ends:
    test SPHERE files of 1.5-3 s) at the yaml's widths and 2 of its 4
    recurrent layers, bf16: teachers tea0 (LiGRU) and tea3 (LSTM) one
    epoch each through ``run``, ``save_teachers`` (float16 npz), the
-   student 2 epochs, epoch 3 in a fresh Brain recovered bit for bit, the
+   student 1 epoch, epoch 2 in a fresh Brain recovered bit for bit, the
    test at beam 16; every PER and loss finite.
 22. recipe_kspon -- KsponSpeech ``conformer_medium.yaml``
    (``recipes.ksponspeech_asr``: d_model 256, 4 heads, 12 + 6 layers,
@@ -362,15 +364,46 @@ Phases, each printing one JSON line when it ends:
    in a fresh Brain recovered bit for bit, then its test split; both
    LMs on the Switchboard transformer recipe's tokenizer.
 
+25. recipe_commonvoice -- the CommonVoice recipes
+   (``recipes.commonvoice_asr``) at full width: the seq2seq
+   ``train_fr.yaml`` step (CRDNN of 3 CNN blocks, LSTM 5 x 1024, the
+   location-attention GRU of 1024, 500 characters; K3/K4 once a step) and
+   the conformer ``transformer/train_fr.yaml`` step (d 144, 12 + 4 layers,
+   4300 characters; K1 24, K2 12, K3 1, K4 1 a step) on B 12 x 6 s in
+   bf16 and f32, the ``transducer/train_fr.yaml`` step (Fbank 40 with
+   deltas, CRDNN-LiGRU 4 x 512, V 40 characters, U+1 81; K8/K9 once a
+   step) on B 8 x 6 s in f32 and bf16; ms/step, utt/s, peak memory, the
+   launches a step, and for the bf16 steps the FLOPs and their f32 bound,
+   the PyTorch calls and the profile of one more step; each family's f32
+   step (dropout 0, ragged lengths) through the kernels and the plain
+   versions, loss and every gradient; then the three recipes through
+   their builds on a synthetic French folder (12 train, 2 dev, 2 test
+   clips of 3-6 s, 3-8 words with accented letters) at full width and reduced depth
+   (the LSTM and the LiGRU 1 layer, the conformer 2 + 2 layers): epoch 1,
+   epoch 2 in a fresh Brain recovered bit for bit, the test (the greedy
+   CTC CER; the transducer's beam-4 PER, its blank logit +4).
+26. recipe_slu -- the spoken language understanding recipes
+   (``recipes.slu_direct``, ``recipes.slu_nlu``) at full width: the
+   direct step (FSC yaml, f32) on B 8 x 3 s and the NLU step (SLURP NLU
+   yaml, bf16) on B 16 rows of 30 transcript pieces, no port kernel a
+   step (the losses are NLL only); then FSC, SLURP and Timers and Such
+   direct, the SLURP NLU and Timers and Such decoupled and multistage
+   through their builds on synthetic corpora, each epoch 1, epoch 2 in a
+   fresh Brain recovered bit for bit, the test (exact-match accuracy, or
+   the loss for SLURP direct).
+
 The kernels phase also holds K5/K6 at dh 64 (role "dh64"), K7 at H4
-Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64") and K3/K4 at Switchboard's
-2000 pieces (role "swbd").
+Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64"), K3/K4 at Switchboard's
+2000 pieces (role "swbd"), at the CommonVoice seq2seq step's lattice
+(role "commonvoice": B12 T601 V500 U80) and the conformer's (role
+"cv_conformer": B12 T151 V4300 U60), and K8/K9 at the CommonVoice
+transducer's (role "commonvoice": B8 T601 U96 V40).
 
 SHORTENED to keep the whole run inside its time limit (torch.profiler's
 collection took 5-21 s a profile beyond the traced work, the LiGRU's
 call counts 30 s a precision): ``serve_lm`` profiles its f32 repeats at
 50 steps (``SERVE_LM_PROFILE_RATIO``), its bf16 search not; the steps of
-``train_crdnn_transducer`` (with the LiGRU's calls), ``recipe_seq2seq``,
+``train_crdnn_transducer``, ``recipe_seq2seq``,
 ``recipe_timit_seq2seq``, ``recipe_kspon`` and ``recipe_transformer``
 are profiled and their PyTorch calls counted in bf16 only, and the
 host beam of ``serve_transducer`` in f32 only; the f32 runs are timed
@@ -378,6 +411,16 @@ and checked as before.  ``recipe`` caps its validation and test
 searches at a quarter of T_enc (``RECIPE_DECODE_RATIO``),
 ``recipe_kspon`` and ``recipe_transformer`` time 2 steps a precision,
 and the two Switchboard LMs reuse the transformer recipe's tokenizer.
+For the CommonVoice and SLU phases: ``serve_lm``'s timed searches stop
+at a quarter of T_enc (``SERVE_LM_SEARCH_RATIO``: 62 steps of the ~110-120
+its random model runs), ``recipe_seq2seq`` times its LM-fused search in
+f32 only, the recipes' resumes run 1 epoch
+and a resumed second (``recipe``, ``recipe_transducer``,
+``recipe_timit``, ``recipe_gsc``, ``recipe_voxceleb``'s ECAPA,
+``recipe_separation``'s SepFormer, ``recipe_lm``'s three LMs and
+``recipe_timit_seq2seq``'s student ran 2 and a third), and the LiGRU's
+own calls and kernels are counted at the CommonVoice transducer's T 601
+(``recipe_commonvoice``), not at ``train_crdnn_transducer``'s T 1001.
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -387,8 +430,9 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 24, each counted from 0 just before its
-run), and last the device line.
+(launch counts from phases 3 to 26, each counted from 0 just before its
+run; the kernel-vs-plain checks' launches left out), and last the device
+line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
 picks deterministic algorithms.  Any
 failed check raises, so the exit code is non-zero and the device line
@@ -1407,26 +1451,27 @@ def _check_beam_cache(dtype_name, pos=200, role=None, H=4, Dh=36):
     return rec
 
 
-def _transducer_inputs(B, T, U, V, seed):
+def _transducer_inputs(B, T, U, V, seed, max_u=40):
     """Joint-network logits, labels 1..V-1 padded with the pad id 0 past
-    U_b, ragged frame counts and label counts of 28 to 40 (the training
-    batch's)."""
+    U_b, ragged frame counts and label counts of ``max_u`` - 12 to
+    ``max_u`` (the training batch's 28 to 40 by default)."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     logits = torch.randn(B, T, U + 1, V, device="cuda", generator=g)
     targets = torch.randint(1, V, (B, U), device="cuda", generator=g)
     tlen = torch.tensor([T - 6 * (i % 5) for i in range(B)], device="cuda")
-    ulen = torch.tensor([min(U, 40) - 3 * (i % 5) for i in range(B)],
+    ulen = torch.tensor([min(U, max_u) - 3 * (i % 5) for i in range(B)],
                         device="cuda")
     targets[torch.arange(U, device="cuda")[None, :] >= ulen[:, None]] = 0
     return logits, targets, tlen, ulen
 
 
-def _check_transducer(U, role=None, T=251):
+def _check_transducer(U, role=None, T=251, B=12, V=1000, max_u=40):
     """K8 (alpha + final) and K9 (beta + occupancy gradients) at the
-    training shape (B 12, T 251, U 64: the recipe's token bucket, V 1000)
-    or the wide one (U 256, the top bucket) against their plain versions,
+    training shape (B 12, T 251, U 64: the recipe's token bucket, V 1000;
+    ``max_u`` labels at most, see ``_transducer_inputs``) or the wide one
+    (U 256, the top bucket) against their plain versions,
     float32; two calls give the same bits; and the loss entry (tables,
     K8, K9, fused softmax backward) against its plain route.  Each kernel
     timed as the loss entry launches it (card ms, device ms, host us,
@@ -1438,8 +1483,8 @@ def _check_transducer(U, role=None, T=251):
     from speechbrain_tpu_torch import ops
     from speechbrain_tpu_torch.ops import transducer as ot
 
-    B, V = 12, 1000
-    logits, targets, tlen, ulen = _transducer_inputs(B, T, U, V, SEED + U)
+    logits, targets, tlen, ulen = _transducer_inputs(B, T, U, V, SEED + U,
+                                                     max_u)
     with torch.no_grad():
         tables = ot.transducer_tables(torch.log_softmax(logits, -1), targets,
                                       0, tlen, ulen)
@@ -1749,11 +1794,22 @@ def phase_kernels(only=None):
         records.extend(_check_ctc(8, 301, 42, 301, role="kd", live_u=240))
         # the Switchboard recipes' 2000 pieces (8 kHz audio, 10 ms hop)
         records.extend(_check_ctc(8, 251, 2000, 40, role="swbd"))
+        # CommonVoice: the seq2seq step's characters (B 12 x 6 s, no time
+        # pooling: T 601; 500 outputs; 80 characters, spaces included;
+        # |log Z| ~4e3, as "seq2seq"'s library tolerance) and the
+        # conformer's (T_enc 151, 4300 outputs, 60 characters)
+        records.extend(_check_ctc(12, 601, 500, 80, role="commonvoice",
+                                  lib_tol=1e-2))
+        records.extend(_check_ctc(12, 151, 4300, 60, role="cv_conformer"))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
         records.extend(_check_transducer(64, role="crdnn", T=1001))
         records.extend(_check_transducer(256, role="wide"))
+        # the CommonVoice transducer's characters: B 8 x 6 s (T 601, no
+        # time pooling), V 40, 68-80 characters in a 96-label buffer
+        records.extend(_check_transducer(96, role="commonvoice", T=601, B=8,
+                                         V=40, max_u=80))
         records.extend(_check_lattice_wide())
     for r in records:
         emit({"phase": "kernels", **r})
@@ -1967,8 +2023,9 @@ SERVE_LM_SEARCHES = (("valid", 8, 10, ("float32", "bfloat16")),
                      ("test", 2, 66, ("float32",)))
 # the profiled repeat's step cap (50 steps), which keeps the run inside its
 # time limit: the host's events of a whole search took about a minute to
-# collect
-SERVE_LM_PROFILE_RATIO = 0.2
+# collect; and the timed searches' (62 of the ~110-120 steps the random
+# model's searches run)
+SERVE_LM_PROFILE_RATIO, SERVE_LM_SEARCH_RATIO = 0.2, 0.25
 
 
 def phase_serve_lm():
@@ -2003,6 +2060,7 @@ def phase_serve_lm():
             with torch.no_grad():  # as in phase_serve
                 asr.ctc_lin.bias[CONFORMER_SMALL["blank_index"]] += BLANK_BIAS
                 asr.seq_lin.bias[CONFORMER_SMALL["eos_index"]] += EOS_BIAS
+            asr.config["max_decode_ratio"] = SERVE_LM_SEARCH_RATIO
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             ops.reset_launch_counters()
@@ -2030,6 +2088,7 @@ def phase_serve_lm():
                 "utt_per_s": B / (encode_s + search_s),
                 "peak_memory_gib": peak / 2**30,
                 "hyp_lens": [len(h) for h in hyps],
+                "max_steps": int(251 * SERVE_LM_SEARCH_RATIO),
                 "note": "first call of each shape: no warm-up run",
             }
             if dtype_name == "float32" and search == "valid":
@@ -2339,13 +2398,13 @@ def _loss_and_grads(brain, batch):
     return loss.detach(), dict(zip(names, grads))
 
 
-def _compare_routes(brain, batch, tol_loss, tol_grad):
+def _compare_routes(brain, batch, tol_loss, tol_grad, floor=1e-3):
     """The step's loss and every gradient through the kernels and
     through the plain versions, from the same weights and state.  A
-    gradient's error is max|kernel - plain| over (max|plain| + 1e-3 G),
-    G the largest gradient entry of the model: tensors whose gradient
+    gradient's error is max|kernel - plain| over (max|plain| + ``floor``
+    G), G the largest gradient entry of the model: tensors whose gradient
     is zero analytically (biases removed by a later BatchNorm or by the
-    softmax) hold rounding noise only and are held to 1e-3 G.
+    softmax) hold rounding noise only and are held to ``floor`` G.
     ``tol_grad`` None reports the gradients' error and holds the loss
     only."""
     import torch
@@ -2355,7 +2414,7 @@ def _compare_routes(brain, batch, tol_loss, tol_grad):
     brain.set_kernels(True)
     torch.cuda.synchronize()
     G = max(float(g.abs().max()) for g in grads_p.values())
-    errs = {n: _err(grads_k[n], g) / (float(g.abs().max()) + 1e-3 * G)
+    errs = {n: _err(grads_k[n], g) / (float(g.abs().max()) + floor * G)
             for n, g in grads_p.items()}
     worst = max(errs, key=errs.get)
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
@@ -2874,11 +2933,11 @@ def _recipe_run(tmp):
     pieces = tok.sp.get_piece_size()
     assert 0 < pieces <= vocab and len(set(tok.sp.pieces)) == pieces
 
-    # 1. fit, 2 epochs (the tokenizer and manifests above are loaded)
+    # 1. fit, 1 epoch (the tokenizer and manifests above are loaded)
     opts = {"staging_depth": 2, "noprogressbar": True}
     ops.reset_launch_counters()
     splits["max_decode_ratio"] = RECIPE_DECODE_RATIO
-    parts = recipe.build(data, out, dict(splits, number_of_epochs=2), opts)
+    parts = recipe.build(data, out, dict(splits, number_of_epochs=1), opts)
     brain, log = parts["brain"], {}
     _instrument(brain, log)
     _, fit_s = _timed(lambda: brain.fit(
@@ -2890,12 +2949,12 @@ def _recipe_run(tmp):
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
     assert brain.config["vocab_size"] == vocab and brain.dtype == torch.bfloat16
 
-    # 2. a fresh Brain, loaders and counter on the same folder: epoch 3
+    # 2. a fresh Brain, loaders and counter on the same folder: epoch 2
     parts2, log2, recovered = _resume_in_fresh_brain(
         lambda epochs: recipe.build(
-            data, out, dict(splits, number_of_epochs=epochs), opts), 2)
+            data, out, dict(splits, number_of_epochs=epochs), opts), 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     valid_wer_3 = brain2.stage_stats["VALID"]["WER"]
 
@@ -2947,7 +3006,7 @@ def _recipe_run(tmp):
         "valid_utt_per_s": n_valid / np.mean(log["valid_s"] + log2["valid_s"]),
         "test_s": test_s,
         "test_utt_per_s": RECIPE_UTTERANCES["test-clean"] / test_s,
-        "fit_2_epochs_s": fit_s,
+        "fit_first_epoch_s": fit_s,
         "valid_wer": [valid_wer_2, valid_wer_3], "test_wer": test_wer,
         "test_loss": test_loss,
         "checkpoint_bytes": ckpt_bytes, "save_ms": log["save_ms"],
@@ -3040,9 +3099,9 @@ def phase_train_crdnn_transducer():
     1001: the CRDNN pools no time), tokens padded to 64, dropout 0.15,
     SpecAugment, 4 AdamW steps in bf16 then f32: ms/step, utt/s, peak
     memory, the busy share of one profiled step (the card's events
-    only), the launches a step (RNN-T alpha 1 and beta 1), the LiGRU's
-    PyTorch calls, device kernels and ms for one forward and backward at
-    the step's shape, and finite losses that fall; then one f32 step
+    only), the launches a step (RNN-T alpha 1 and beta 1), and finite
+    losses that fall (the LiGRU's own calls are counted in
+    ``recipe_commonvoice``'s transducer step); then one f32 step
     (dropout 0) through the kernels against the plain versions: the loss
     and every gradient (K8/K9 at B12 x T1001 x U+1 65)."""
     import torch
@@ -3070,9 +3129,6 @@ def phase_train_crdnn_transducer():
             brain.fit_batch(batch)
             return 1
 
-        rnn = brain.model.enc.rnn
-        x = torch.randn(B, 1001, rnn.layers[0].wx.in_features, device="cuda",
-                        dtype=brain.dtype, requires_grad=True)
         brain.modules.train()
         run = {"phase": "train_crdnn_transducer", "precision": precision,
                "batch": B, "seconds_audio": samples / 16000, "T_enc": 1001,
@@ -3084,11 +3140,10 @@ def phase_train_crdnn_transducer():
                "launches_per_step": per_step,
                "loss_first": first, "loss_last": losses[-1]}
         if precision == "bf16":  # profiled once: see SHORTENED
-            run.update(profile=_profile(one_step, cpu=False),
-                       ligru=_ligru_calls(rnn, x))
+            run["profile"] = _profile(one_step, cpu=False)
         emit(run)
         runs[precision] = run
-        del brain, batch, x
+        del brain, batch
         torch.cuda.empty_cache()
     brain = _crdnn_brain("fp32", 0.0)
     batch = brain.prepare_batch(host_batch)
@@ -3119,8 +3174,8 @@ def phase_recipe_transducer():
     native library, dynamic batches of 120 s in 8 buckets, 4 loader
     threads, staging depth 2, the yamls' dropout and SpecAugment, the
     random models' blank logit biased +4.  ``conformer_transducer.yaml``:
-    ``fit`` for 2 epochs; a fresh Brain, loaders and counter on the same
-    folder run epoch 3 alone, with the recovered state equal to the
+    ``fit`` for 1 epoch; a fresh Brain, loaders and counter on the same
+    folder run epoch 2 alone, with the recovered state equal to the
     saved one bit for bit; ``evaluate(min_key="loss")`` at beam 4.
     ``train.yaml`` (the CRDNN): ``fit`` for 1 epoch, then the same test
     search."""
@@ -3137,7 +3192,7 @@ def phase_recipe_transducer():
         return {name: _recipe_transducer_fit(data, f"{tmp}/{name}", name,
                                              hparams, epochs, write_s)
                 for name, hparams, epochs in (
-                    ("conformer", recipe.HPARAMS, 2),
+                    ("conformer", recipe.HPARAMS, 1),
                     ("crdnn", recipe.HPARAMS_CRDNN, 1))}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3174,7 +3229,7 @@ def _recipe_transducer_fit(data, out, name, hparams, epochs, write_s):
     resume, log2 = None, {}
     test_brain, test_parts = brain, parts
     if name == "conformer":
-        # a fresh Brain, loaders and counter on the same folder: epoch 3
+        # a fresh Brain, loaders and counter on the same folder: epoch 2
         parts2, log2, recovered = _resume_in_fresh_brain(
             lambda e: recipe.build(data, out, {"number_of_epochs": e}, opts,
                                    hparams=hparams), epochs)
@@ -3273,8 +3328,8 @@ def phase_recipe_timit():
     recursions, with a dummy row (batch mask 0: no frame, no label).
     Then the recipe end to end on a synthetic TIMIT tree (SPHERE files of
     1.5-6 s, 32 train, 8 dev, 8 test utterances, phones from all 61 and
-    an SA sentence a speaker, which must be skipped): 2 epochs; a fresh
-    Brain, loaders and counter on the same folder run epoch 3 alone, with
+    an SA sentence a speaker, which must be skipped): 1 epoch; a fresh
+    Brain, loaders and counter on the same folder run epoch 2 alone, with
     the recovered modules, Adadelta accumulators, NewBob state, lr and
     epoch equal to the saved ones bit for bit; ``evaluate(min_key=
     "PER")``."""
@@ -3363,7 +3418,7 @@ def _recipe_timit_run(tmp):
 
     # the main path: build (manifests, labels), fit, resume, test
     ops.reset_launch_counters()
-    parts, build_s = _timed(lambda: build(2))
+    parts, build_s = _timed(lambda: build(1))
     brain, log = parts["brain"], {}
     n_labels = len(parts["label_encoder"])
     assert n_labels == recipe.HPARAMS["output_neurons"] == 40, n_labels
@@ -3389,9 +3444,9 @@ def _recipe_timit_run(tmp):
     valid_per = [brain.stage_stats["VALID"]["PER"]]
     ckpt = brain.checkpointer.find_checkpoint()
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     valid_per.append(brain2.stage_stats["VALID"]["PER"])
     lrs.append(brain2.lr)
@@ -3423,7 +3478,7 @@ def _recipe_timit_run(tmp):
         * len(log["batches"]) / train_s,
         "valid_s": log["valid_s"] + log2["valid_s"], "valid_per": valid_per,
         "lr_per_epoch": lrs, "test_s": test_s, "test_per": test_per,
-        "test_loss": test_loss, "fit_2_epochs_s": fit_s,
+        "test_loss": test_loss, "fit_first_epoch_s": fit_s,
         "checkpoint_bytes": ckpt_bytes,
         "save_ms": log["save_ms"] + log2["save_ms"],
         "resume_ms": 1e3 * recovered["seconds"],
@@ -3458,7 +3513,7 @@ def phase_recipe_gsc():
     memory, the busy share of one profiled step, the launches (none) and
     the device ms of the "time_domain_augment" range.  Then the recipe
     end to end on a synthetic tree (the 10 commands and 2 unknown words,
-    clips of 0.6-1.0 s; 96 train, 32 valid, 32 test): 2 epochs, epoch 3
+    clips of 0.6-1.0 s; 96 train, 32 valid, 32 test): 1 epoch, epoch 2
     in a fresh Brain with the recovered state equal bit for bit, then
     ``evaluate(max_key="acc")``."""
     import shutil
@@ -3534,7 +3589,7 @@ def _recipe_gsc_run(tmp):
         return recipe.build(data, out, {"number_of_epochs": epochs}, opts)
 
     ops.reset_launch_counters()
-    parts = build(2)
+    parts = build(1)
     brain, log = parts["brain"], {}
     _instrument(brain, log)
     _, fit_s = _timed(lambda: brain.fit(
@@ -3544,9 +3599,9 @@ def _recipe_gsc_run(tmp):
     valid_acc = [brain.stage_stats["VALID"]["acc"]]
     ckpt = brain.checkpointer.find_checkpoint()
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     valid_acc.append(brain2.stage_stats["VALID"]["acc"])
     test_loss, test_s = _timed(lambda: brain2.evaluate(
@@ -3571,7 +3626,7 @@ def _recipe_gsc_run(tmp):
         / train_s,
         "valid_s": log["valid_s"] + log2["valid_s"], "valid_acc": valid_acc,
         "test_s": test_s, "test_acc": test_acc, "test_loss": test_loss,
-        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "fit_first_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
         "save_ms": log["save_ms"] + log2["save_ms"],
         "resume_ms": 1e3 * recovered["seconds"],
         "resume_equal_tensors": n_equal,
@@ -3656,7 +3711,7 @@ def phase_recipe_voxceleb():
     the recipes end to end on a synthetic VoxCeleb tree
     (``wav/idXXXXX/<video>/<nnnnn>.wav``, ``RECIPE_VOX``: clips of
     2-5 s, so that some are cropped to 3 s, and a ``veri_test2.txt`` of
-    positive and negative trials): ECAPA for 2 epochs, epoch 3 in a
+    positive and negative trials): ECAPA for 1 epoch, epoch 2 in a
     fresh Brain with the modules, Adam's state, the cyclic schedule, the
     rate and the generator recovered bit for bit, the best checkpoint's
     modules written by ``save_for_pretrained``, cosine verification;
@@ -3753,7 +3808,7 @@ def _recipe_vox_run(tmp):
         return parts
 
     ops.reset_launch_counters()
-    parts = build(2)
+    parts = build(1)
     brain, log = parts["brain"], {}
     manifests = {s: json.load(open(parts["hparams"][f"{s}_json"]))
                  for s in ("train", "valid")}
@@ -3766,14 +3821,14 @@ def _recipe_vox_run(tmp):
     saved_generator = brain.generator.get_state()
     ckpt = brain.checkpointer.find_checkpoint()
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     assert torch.equal(at_recovery["generator"], saved_generator)
     assert brain2.lr_annealing.clr_iterations == (
         saved["cyclic"][0] + log2["steps"][0])
-    assert brain2.hparams.crop.epoch == 3
+    assert brain2.hparams.crop.epoch == 2
     # what ``run`` does after ``fit``
     _, save_pre_s = _timed(lambda: (
         brain2.checkpointer.recover_if_possible(min_key="loss"),
@@ -3811,7 +3866,7 @@ def _recipe_vox_run(tmp):
         "staging_wait_s": log["staging_wait_s"] + log2["staging_wait_s"],
         "valid_s": log["valid_s"] + log2["valid_s"],
         "valid_loss": valid_losses, "lr_after_epochs": brain2.lr,
-        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "fit_first_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
         "save_ms": log["save_ms"] + log2["save_ms"],
         "resume_ms": 1e3 * recovered["seconds"],
         "resume_equal_tensors": n_equal, "cyclic_at_resume": saved["cyclic"],
@@ -4058,7 +4113,7 @@ def _recipe_sep_run(tmp):
         return parts
 
     ops.reset_launch_counters()
-    parts = build(2)
+    parts = build(1)
     brain, log = parts["brain"], {}
     durations = [v["duration"] for v in json.load(
         open(parts["hparams"]["train_data"])).values()]
@@ -4070,13 +4125,13 @@ def _recipe_sep_run(tmp):
     saved_generator = brain.generator.get_state()
     ckpt = brain.checkpointer.find_checkpoint()
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     assert torch.equal(at_recovery["generator"], saved_generator)
-    assert brain2.hparams.crop.epoch == 3
-    assert len(brain2.lr_scheduler.losses) == 3
+    assert brain2.hparams.crop.epoch == 2
+    assert len(brain2.lr_scheduler.losses) == 2
     test_loss, test_s = _timed(lambda: brain2.evaluate(
         parts2["test_loader"], min_key="si-snr"))
     tasnet, tasnet_s = _timed(lambda: recipe.run(
@@ -4102,7 +4157,7 @@ def _recipe_sep_run(tmp):
         "valid_s": log["valid_s"] + log2["valid_s"],
         "valid_si_snr_db": [-v for v in valid_losses],
         "lr_after_epochs": brain2.lr, "plateau_at_resume": saved["plateau"],
-        "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+        "fit_first_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
         "save_ms": log["save_ms"] + log2["save_ms"],
         "resume_ms": 1e3 * recovered["seconds"],
         "resume_equal_tensors": n_equal, "test_s": test_s,
@@ -4982,8 +5037,7 @@ def phase_recipe_seq2seq():
     routes = _s2s_routes()
     check = dict(_s2s_card_vs_cpu(), kernel_vs_plain=routes)
     emit(dict(check, phase="recipe_seq2seq_check"))
-    runs["search_fp32"] = _s2s_search("fp32")
-    runs["search_bf16"] = _s2s_search("bf16")
+    runs["search_fp32"] = _s2s_search("fp32")  # f32 only: see SHORTENED
     tmp = tempfile.mkdtemp(prefix="chip_smoke_seq2seq_")
     try:
         runs["recipe"] = _recipe_s2s_run(tmp)
@@ -5116,7 +5170,7 @@ def _lm_recipe_run(tmp):
     (f32, the yamls' precision) on synthetic corpora, the LibriSpeech LMs
     on the ASR recipes' tokenizer files (vocab 1000 for the RNNLM, the
     seq2seq recipe's; 5000 for the transformer, the conformer recipe's):
-    2 epochs, epoch 3 in a fresh Brain recovered bit for bit, the test,
+    1 epoch, epoch 2 in a fresh Brain recovered bit for bit, the test,
     ``lm.ckpt``; then each LibriSpeech LM's ``lm.ckpt`` fused into its ASR
     recipe's search (full width, ``run_opts["lm_ckpt"]``) for a fixed
     number of steps, against the same search at ``lm_weight`` 0."""
@@ -5174,7 +5228,7 @@ def _lm_recipe_run(tmp):
             return lm_training.build(corpus, out, {"number_of_epochs": epochs},
                                      opts, hp, tok_file)
 
-        parts, build_s = _timed(lambda: build(2))
+        parts, build_s = _timed(lambda: build(1))
         brain, log = parts["brain"], {}
         _instrument(brain, log)
         _, fit_s = _timed(lambda: brain.fit(
@@ -5183,9 +5237,9 @@ def _lm_recipe_run(tmp):
         saved = _snapshot(brain)
         ckpt = brain.checkpointer.find_checkpoint()
         ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-        parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+        parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
         brain2 = parts2["brain"]
-        assert recovered["epoch"] == 2
+        assert recovered["epoch"] == 1
         n_equal = _same_state(saved, recovered["state"])
         test_loss, test_s = _timed(lambda: brain2.evaluate(
             parts2["test_loader"], min_key="ppl"))
@@ -5209,7 +5263,7 @@ def _lm_recipe_run(tmp):
             "train_ms_per_batch": 1e3 * train_s / batches,
             "valid_s": log["valid_s"] + log2["valid_s"], "test_s": test_s,
             "valid_test": stats, "lr_per_epoch": [brain.lr, brain2.lr],
-            "fit_2_epochs_s": fit_s, "checkpoint_bytes": ckpt_bytes,
+            "fit_first_epoch_s": fit_s, "checkpoint_bytes": ckpt_bytes,
             "save_ms": log["save_ms"] + log2["save_ms"],
             "resume_ms": 1e3 * recovered["seconds"],
             "resume_equal_tensors": n_equal}
@@ -5618,7 +5672,7 @@ def _recipe_ts2s_run(tmp):
     synthetic TIMIT tree, at the yaml's widths and 2 of its 4 recurrent
     layers (bf16, the yaml's): teachers tea0 (ligru) and tea3 (lstm) one
     epoch each (``timit_seq2seq.run``), ``timit_kd.save_teachers``, the
-    student (``timit_kd.build_kd``) 2 epochs, epoch 3 in a fresh Brain
+    student (``timit_kd.build_kd``) 1 epoch, epoch 2 in a fresh Brain
     recovered bit for bit, ``evaluate(min_key="PER")`` at beam 16."""
     import torch
 
@@ -5655,7 +5709,7 @@ def _recipe_ts2s_run(tmp):
                                  dict(RECIPE_TS2S_DEPTH,
                                       number_of_epochs=epochs), opts)
 
-    parts, build_s = _timed(lambda: build(2))
+    parts, build_s = _timed(lambda: build(1))
     brain, log = parts["brain"], {}
     _instrument(brain, log)
     _, fit_s = _timed(lambda: brain.fit(
@@ -5664,9 +5718,9 @@ def _recipe_ts2s_run(tmp):
     valid = [dict(brain.stage_stats["VALID"])]
     ckpt = brain.checkpointer.find_checkpoint()
     ckpt_bytes = sum(f.stat().st_size for f in ckpt.path.iterdir())
-    parts2, log2, recovered = _resume_in_fresh_brain(build, 2)
+    parts2, log2, recovered = _resume_in_fresh_brain(build, 1)
     brain2 = parts2["brain"]
-    assert recovered["epoch"] == 2
+    assert recovered["epoch"] == 1
     n_equal = _same_state(saved, recovered["state"])
     valid.append(dict(brain2.stage_stats["VALID"]))
     test_loss, test_s = _timed(lambda: brain2.evaluate(
@@ -5692,7 +5746,7 @@ def _recipe_ts2s_run(tmp):
            "batch_shapes": sorted(log["shapes"]),
            "train_ms_per_batch": 1e3 * train_s / batches,
            "valid_s": log["valid_s"] + log2["valid_s"], "valid": valid,
-           "lr_per_epoch": [brain.lr, brain2.lr], "fit_2_epochs_s": fit_s,
+           "lr_per_epoch": [brain.lr, brain2.lr], "fit_first_epoch_s": fit_s,
            "checkpoint_bytes": ckpt_bytes,
            "save_ms": log["save_ms"] + log2["save_ms"],
            "resume_ms": 1e3 * recovered["seconds"],
@@ -5753,19 +5807,19 @@ REDUCED = {"num_encoder_layers": 2, "num_decoder_layers": 2,
            "max_decode_ratio": 0.1}
 
 
-def _asr_step(phase, cfg, precision, launches, samples=ASR_SAMPLES,
-              steps=2, seed=SEED + 40, dropout=0.1, augment=True):
-    """A recipe's training step at full width on B 8 synthetic
-    utterances of ``samples``: a warm-up, ``steps`` timed AdamW steps,
-    the launches a step (``launches``), the FLOPs and their float32 bound,
-    the PyTorch calls and the profile of one more step."""
+def _recipe_step(phase, make_brain, host, launches, steps=2, profile=False,
+                 extra=None, **info):
+    """A recipe's training step at full width on one staged batch: a
+    warm-up, ``steps`` timed steps, the launches a step (``launches``),
+    finite losses, and with ``profile`` the FLOPs and their f32 bound, the
+    PyTorch calls and the profile (the card's events) of one more step,
+    and ``extra(brain)``'s entries."""
     import torch
 
     from speechbrain_tpu_torch import ops
 
-    brain = _brain(precision, dropout, augment, cfg)
+    brain = make_brain()
     n_params = sum(p.numel() for p in brain.modules.parameters())
-    host = _train_batch(ASR_B, samples, ASR_U, seed, cfg["vocab_size"])
     batch = brain.prepare_batch(host)
     brain.step = 1
     first = float(brain.fit_batch(batch))  # warm-up, untimed
@@ -5775,34 +5829,50 @@ def _asr_step(phase, cfg, precision, launches, samples=ASR_SAMPLES,
     per_step = _per_step(counts, steps)
     assert per_step == launches, per_step
     assert all(np.isfinite([first] + losses)), losses
-
-    def one_step():
-        brain.step += 1
-        brain.fit_batch(batch)
-        return 1
-
-    fwd, step_flops = _sep_flops(brain, batch)
-    profile = precision == "bf16"  # profiled once: see SHORTENED
-    run = {"phase": phase, "precision": precision, "batch": ASR_B,
-           "seconds_audio": samples / cfg["sample_rate"],
-           "T_enc": (samples // (cfg["sample_rate"] // 100)) // 4 + 1,
-           "tokens": ASR_U, "vocab": cfg["vocab_size"],
-           "d_model": cfg["d_model"], "nhead": cfg["nhead"],
-           "encoder": cfg["encoder_module"], "attention": cfg["attention_type"],
-           "transformer_dropout": dropout,
-           "spec_augment": augment, "parameters": n_params, "steps": steps,
-           "ms_per_step": ms, "utt_per_s": 1e3 * ASR_B / ms,
+    B = int(host["sig" if "sig" in host else "tokens"].shape[0])
+    run = {"phase": phase, "precision": brain.precision, "batch": B,
+           **info, "parameters": n_params, "steps": steps,
+           "ms_per_step": ms, "utt_per_s": 1e3 * B / ms,
            "peak_mem_bytes": peak, "peak_gib": peak / 2 ** 30,
            "launches": counts, "launches_per_step": per_step,
-           "forward_gflop": fwd / 1e9, "step_gflop": step_flops / 1e9,
-           "f32_bound_ms": _bound_ms(0, step_flops, "float32")[0],
-           **({"pytorch_calls_per_step": _pytorch_calls(one_step),
-               "profile": _profile(one_step, cpu=False)} if profile else {}),
            "loss_first": first, "loss_last": losses[-1]}
+    if profile:
+        def one_step():
+            brain.step += 1
+            brain.fit_batch(batch)
+            return 1
+
+        info_flops = {}
+        fwd, step_flops = _sep_flops(brain, batch, info_flops)
+        run.update(forward_gflop=fwd / 1e9, step_gflop=step_flops / 1e9,
+                   f32_bound_ms=_bound_ms(0, step_flops, "float32")[0],
+                   pytorch_calls_per_step=_pytorch_calls(one_step),
+                   profile=_profile(one_step, cpu=False), **info_flops)
+        if extra is not None:
+            run.update(extra(brain))
     emit(run)
     del brain, batch
     torch.cuda.empty_cache()
     return run
+
+
+def _asr_step(phase, cfg, precision, launches, samples=ASR_SAMPLES,
+              steps=2, seed=SEED + 40, dropout=0.1, augment=True):
+    """A recipe's training step at full width on B 8 synthetic
+    utterances of ``samples`` (``_recipe_step``: a warm-up, ``steps``
+    timed AdamW steps, the launches a step (``launches``); in bf16 the
+    FLOPs and their float32 bound, the PyTorch calls and the profile of
+    one more step)."""
+    host = _train_batch(ASR_B, samples, ASR_U, seed, cfg["vocab_size"])
+    return _recipe_step(
+        phase, lambda: _brain(precision, dropout, augment, cfg), host,
+        launches, steps=steps, profile=precision == "bf16",  # see SHORTENED
+        seconds_audio=samples / cfg["sample_rate"],
+        T_enc=(samples // (cfg["sample_rate"] // 100)) // 4 + 1,
+        tokens=ASR_U, vocab=cfg["vocab_size"], d_model=cfg["d_model"],
+        nhead=cfg["nhead"], encoder=cfg["encoder_module"],
+        attention=cfg["attention_type"], transformer_dropout=dropout,
+        spec_augment=augment)
 
 
 def _asr_routes(phase, cfg, samples=ASR_SAMPLES, tol_grad=1e-3):
@@ -5887,11 +5957,14 @@ def _asr_search(phase, cfg, precision, lm_cfg=None, beam=10):
     return run
 
 
-def _recipe_resumed(phase, build, epochs_first, test):
+def _recipe_resumed(phase, build, epochs_first, test,
+                    kernels=("ctc_alpha", "ctc_beta_grad")):
     """A recipe's ``build`` at its folder for ``epochs_first`` epochs, then
     a fresh Brain from ``build(epochs_first + 1)`` resuming the next epoch
     with the recovered state equal to the saved one bit for bit, then
-    ``test(parts)``: the launches counted from 0 over all of it."""
+    ``test(parts)``: the launches counted from 0 over all of it, each of
+    ``kernels`` above 0 and every other kernel at 0 when ``kernels`` is
+    empty."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -5907,7 +5980,8 @@ def _recipe_resumed(phase, build, epochs_first, test):
     n_equal = _same_state(saved, recovered["state"])
     stats, test_s = _timed(lambda: test(parts2))
     counts = ops.launch_counters()
-    assert counts["ctc_alpha"] > 0 and counts["ctc_beta_grad"] > 0, counts
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert kernels or not any(counts.values()), counts
     run = {"phase": phase, "build_s": build_s, "fit_s": fit_s,
            "epochs": log["epochs"] + log2["epochs"],
            "batches": log["batches"] + log2["batches"],
@@ -6127,6 +6201,302 @@ def phase_recipe_corpora():
     return runs
 
 
+# ------------------------------------------------------- recipe_commonvoice
+
+# B 12 x 6 s (a typical CommonVoice clip; the transducer's yaml batch of
+# 8), the characters of its sentence: up to 80 with the spaces (the
+# seq2seq and transducer targets), 60 without (the conformer's)
+CV_B, CV_T_B, CV_SAMPLES = 12, 8, 96000
+CV_U, CV_U_NOSPACE = 80, 60
+CV_S2S_LAUNCHES = dict(TIMIT_LAUNCHES)
+CV_CONFORMER_LAUNCHES = dict(TRAIN_LAUNCHES)
+CV_TRANSDUCER_LAUNCHES = dict(CRDNN_LAUNCHES)
+RECIPE_CV = {"train": 12, "dev": 2, "test": 2}
+# 3-8 words a clip: CommonVoice reads ~15 characters a second, and a
+# clip's characters must fit its 40 ms encoder frames (T_enc 76-151)
+RECIPE_CV_SECONDS = (3.0, 6.0)
+
+
+def _char_batch(B, samples, U, V, seed, blank=False):
+    """B synthetic utterances of white noise (lengths 1.0 down to 0.9)
+    with U - 12 to U characters (ids 3..V-1) padded with 0: ``tokens``,
+    ``tokens_bos`` ([1] + tokens), ``tokens_eos`` (tokens + [2]), or with
+    ``blank`` ``tokens_blank`` ([0] + tokens), and their relative
+    lengths."""
+    rng = np.random.default_rng(seed)
+    n = U - 3 * (np.arange(B) % 5)
+    tok = rng.integers(3, V, (B, U))
+    tok[np.arange(U)[None, :] >= n[:, None]] = 0
+    host = {"sig": rng.normal(size=(B, samples)).astype(np.float32),
+            "sig_lens": np.linspace(1.0, 0.9, B).astype(np.float32),
+            "tokens": tok, "tokens_lens": (n / U).astype(np.float32)}
+    if blank:
+        host["tokens_blank"] = np.concatenate(
+            [np.zeros((B, 1), tok.dtype), tok], 1)
+        return host
+    eos = tok.copy()
+    eos = np.concatenate([eos, np.zeros((B, 1), tok.dtype)], 1)
+    eos[np.arange(B), n] = 2
+    host.update(tokens_bos=np.concatenate([np.ones((B, 1), tok.dtype), tok],
+                                          1),
+                tokens_eos=eos,
+                tokens_eos_lens=((n + 1) / (U + 1)).astype(np.float32))
+    return host
+
+
+def _cv_brain(family, precision, dropout):
+    """A CommonVoice recipe's Brain at full width (the yaml's values; the
+    seq2seq's ``train_fr.yaml``)."""
+    from speechbrain_tpu_torch.recipes import aishell_asr
+    from speechbrain_tpu_torch.recipes import commonvoice_asr as cv
+
+    opts = {"seed": SEED, "precision": precision, "loss_sync_interval": 10}
+    if family == "seq2seq":
+        brain = aishell_asr.CharSeq2SeqBrain(
+            dict(cv.HPARAMS_SEQ2SEQ_FR, dropout=dropout), run_opts=opts)
+        brain.epoch = 1
+        return brain
+    if family == "conformer":
+        cfg = dict(cv.HPARAMS_TRANSFORMER_FR, transformer_dropout=dropout)
+        return aishell_asr.CharCTCBrain(cfg, seed=SEED, run_opts=opts,
+                                        hparams={"lr": cfg["lr_adam"]})
+    cfg = dict(cv.HPARAMS_TRANSDUCER_FR, dropout=dropout)
+    return cv.CharTransducerBrain(cfg, seed=SEED, run_opts=opts, hparams=cfg)
+
+
+def _cv_routes(family, host):
+    """The step's loss and every gradient through the kernels and the
+    plain versions (``_compare_routes``), f32, dropout 0, ragged lengths."""
+    import torch
+
+    brain = _cv_brain(family, "fp32", 0.0)
+    batch = brain.prepare_batch(host)
+    # floor 1e-2: a gradient that is zero analytically (the CRDNN's DNN
+    # bias before its training-mode BatchNorm) is held to 1e-5 G, as the
+    # CPU tests hold it to JAX's; over the seq2seq step's 7212 frames its
+    # rounding noise reached 3.6e-6 G on an H100
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3,
+                          floor=1e-2)
+    run = {"phase": f"recipe_commonvoice_{family}_check",
+           "kernel_vs_plain": cmp}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _cv_recipes(tmp):
+    """The three CommonVoice families on a synthetic French folder at full
+    width and reduced depth (the seq2seq's LSTM and the transducer's LiGRU
+    1 layer, the conformer 2 + 2 layers), each 1 epoch, then epoch 2 in a
+    fresh Brain recovered bit for bit, then its test split (the greedy
+    CTC CER; the transducer's beam-4 PER, its blank logit +4 so that the
+    random model's beam takes a few rounds a frame)."""
+    import torch
+
+    from speechbrain_tpu_torch.recipes import common_voice_prepare as prep
+    from speechbrain_tpu_torch.recipes import commonvoice_asr as cv
+
+    data = f"{tmp}/fr"
+    prep.write_synthetic_common_voice(data, RECIPE_CV, language="fr",
+                                      seconds=RECIPE_CV_SECONDS,
+                                      n_words=(3, 8), seed=SEED)
+    runs = {}
+    for name, build_family, hp, reduced, metric, kernels in (
+            ("seq2seq", cv.build_seq2seq, cv.HPARAMS_SEQ2SEQ_FR, REDUCED_S2S,
+             "CER", ("ctc_alpha", "ctc_beta_grad")),
+            ("conformer", cv.build_transformer, cv.HPARAMS_TRANSFORMER_FR,
+             REDUCED, "CER", ("depthwise_conv1d", "depthwise_conv1d_dw",
+                              "ctc_alpha", "ctc_beta_grad")),
+            ("transducer", cv.build_transducer, cv.HPARAMS_TRANSDUCER_FR,
+             {"rnn_layers": 1}, "PER", ("transducer_alpha",
+                                        "transducer_beta_grad"))):
+        out = f"{tmp}/cv_{name}"
+
+        def build(epochs, build_family=build_family, hp=hp, out=out,
+                  reduced=reduced, name=name):
+            parts = build_family(data, out, dict(reduced,
+                                                 number_of_epochs=epochs),
+                                 {"noprogressbar": True}, hp)
+            if name == "transducer":
+                with torch.no_grad():
+                    parts["brain"].model.out_lin.bias[0] += (
+                        TRANSDUCER_BLANK_BIAS)
+            return parts
+
+        def test(parts, metric=metric):
+            parts["brain"].evaluate(parts["test_loader"], min_key=metric)
+            stats = parts["brain"].stage_stats["TEST"]
+            assert set(stats) == {"loss", metric} and np.isfinite(
+                stats["loss"]), stats
+            return stats
+
+        runs[name] = _recipe_resumed(f"recipe_commonvoice_{name}_run", build,
+                                     1, test, kernels)
+    return runs
+
+
+def phase_recipe_commonvoice():
+    """The CommonVoice recipes (``recipes.commonvoice_asr``) at full width:
+    the seq2seq ``train_fr.yaml`` step (CRDNN 3 CNN blocks, LSTM 5 x 1024,
+    the location-attention GRU of 1024, 500 outputs; K3/K4 once a step)
+    and the conformer ``transformer/train_fr.yaml`` step (d 144, 12 + 4
+    layers, 4300 outputs; K1 24, K2 12, K3 1, K4 1 a step) on B 12 x 6 s
+    in bf16 and f32, the ``transducer/train_fr.yaml`` step (Fbank 40 with
+    deltas, CRDNN-LiGRU 4 x 512, V 40; K8/K9 once a step) on B 8 x 6 s in
+    f32 and in bf16 (that one profiled); each family's f32 step through
+    the kernels and the plain versions; then the three recipes through
+    their builds on a synthetic French folder, resumed bit for bit."""
+    import shutil
+    import tempfile
+
+    s2s_host = _char_batch(CV_B, CV_SAMPLES, CV_U, 500, SEED + 50)
+    conf_host = _char_batch(CV_B, CV_SAMPLES, CV_U_NOSPACE, 4300, SEED + 51)
+    t_host = _char_batch(CV_T_B, CV_SAMPLES, CV_U, 40, SEED + 52, blank=True)
+    info = {"seconds_audio": CV_SAMPLES / 16000}
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        runs[f"seq2seq_{precision}"] = _recipe_step(
+            "recipe_commonvoice_seq2seq_step",
+            lambda: _cv_brain("seq2seq", precision, 0.15), s2s_host,
+            CV_S2S_LAUNCHES, profile=precision == "bf16", T=601,
+            ctc_lattice=[CV_B, 601, 2 * CV_U + 1], **info)
+        runs[f"conformer_{precision}"] = _recipe_step(
+            "recipe_commonvoice_conformer_step",
+            lambda: _cv_brain("conformer", precision, 0.1), conf_host,
+            CV_CONFORMER_LAUNCHES, profile=precision == "bf16", T_enc=151,
+            ctc_lattice=[CV_B, 151, 2 * CV_U_NOSPACE + 1], **info)
+    def ligru(brain):
+        # the LiGRU alone, forward and backward at the step's shape
+        import torch
+
+        rnn = brain.model.enc.rnn
+        x = torch.randn(CV_T_B, 601, rnn.layers[0].wx.in_features,
+                        device="cuda", dtype=brain.dtype, requires_grad=True)
+        brain.modules.train()
+        return {"ligru": _ligru_calls(rnn, x)}
+
+    for precision in ("fp32", "bf16"):
+        runs[f"transducer_{precision}"] = _recipe_step(
+            "recipe_commonvoice_transducer_step",
+            lambda: _cv_brain("transducer", precision, 0.15), t_host,
+            CV_TRANSDUCER_LAUNCHES, profile=precision == "bf16",
+            extra=ligru, T=601, lattice=[CV_T_B, 601, CV_U + 1], **info)
+    runs["seq2seq_check"] = _cv_routes("seq2seq", s2s_host)
+    runs["conformer_check"] = _cv_routes("conformer", conf_host)
+    runs["transducer_check"] = _cv_routes("transducer", t_host)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cv_")
+    try:
+        runs.update({f"{k}_recipe": v for k, v in _cv_recipes(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
+# ---------------------------------------------------------------- recipe_slu
+
+SLU_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+RECIPE_SLU = {"fsc": {"train": 24, "valid": 8, "test": 8},
+              "slurp": {"train": 16, "devel": 4, "test": 4},
+              "tas": {"train-synth": 16, "train-real": 8, "dev-real": 8,
+                      "test-real": 8}}
+RECIPE_SLU_SECONDS = (1.5, 3.0)
+
+
+def _nlu_batch(B, L, U, V, seed):
+    """B rows of L - 10 to L transcript pieces and U - 6 to U semantics
+    pieces (ids 3..V-1, padded with 0), bos 1 and eos 2."""
+    rng = np.random.default_rng(seed)
+    host = _char_batch(B, 0, U, V, seed)
+    del host["sig"], host["sig_lens"]
+    n = L - 2 * (np.arange(B) % 6)
+    tt = rng.integers(3, V, (B, L))
+    tt[np.arange(L)[None, :] >= n[:, None]] = 0
+    host.update(transcript_tokens=tt,
+                transcript_tokens_lens=(n / L).astype(np.float32))
+    return host
+
+
+def _slu_recipes(tmp):
+    """FSC, SLURP and Timers and Such direct, the SLURP NLU and Timers and
+    Such decoupled and multistage through their builds on synthetic
+    corpora at full width (the yamls' precisions), each 1 epoch, then
+    epoch 2 in a fresh Brain recovered bit for bit, then its test split:
+    the exact-match accuracy (the loss for SLURP direct)."""
+    from speechbrain_tpu_torch.recipes import fsc_prepare, slurp_prepare
+    from speechbrain_tpu_torch.recipes import slu_direct as direct
+    from speechbrain_tpu_torch.recipes import slu_nlu as nlu
+    from speechbrain_tpu_torch.recipes import timers_and_such_prepare as tas
+
+    writers = {"fsc": fsc_prepare.write_synthetic_fsc,
+               "slurp": slurp_prepare.write_synthetic_slurp,
+               "tas": tas.write_synthetic_tas}
+    for corpus, counts in RECIPE_SLU.items():
+        writers[corpus](f"{tmp}/{corpus}", counts,
+                        seconds=RECIPE_SLU_SECONDS, seed=SEED)
+    runs = {}
+    for name, build_family, hp in (
+            ("fsc_direct", direct.build, direct.HPARAMS_FSC),
+            ("slurp_direct", direct.build, direct.HPARAMS_SLURP),
+            ("tas_direct", direct.build, direct.HPARAMS_TAS),
+            ("slurp_nlu", nlu.build, nlu.HPARAMS_SLURP_NLU),
+            ("tas_decoupled", nlu.build, nlu.HPARAMS_TAS_DECOUPLED),
+            ("tas_multistage", nlu.build, nlu.HPARAMS_TAS_MULTISTAGE)):
+        data, out = f"{tmp}/{hp['corpus']}", f"{tmp}/out_{name}"
+
+        def build(epochs, build_family=build_family, hp=hp, data=data,
+                  out=out):
+            return build_family(data, out, {"number_of_epochs": epochs},
+                                {"noprogressbar": True}, hp)
+
+        def test(parts):
+            brain = parts["brain"]
+            best = "max_key" if brain.metric == "acc" else "min_key"
+            brain.evaluate(parts["test_loader"], **{best: brain.metric})
+            stats = brain.stage_stats["TEST"]
+            assert all(np.isfinite(v) for v in stats.values()), stats
+            assert set(stats) == ({"loss", "acc"} if hp["search"]
+                                  else {"loss"}), stats
+            return stats
+
+        runs[name] = _recipe_resumed(f"recipe_slu_{name}_run", build, 1,
+                                     test, kernels=())
+    return runs
+
+
+def phase_recipe_slu():
+    """The spoken language understanding recipes (``recipes.slu_direct``,
+    ``recipes.slu_nlu``): the direct step (FSC yaml: CRDNN 64/128, LSTM 2
+    x 256, the content-attention GRU of 256, 58 pieces; f32) on B 8 x 3 s
+    and the NLU step (SLURP NLU yaml: the bidirectional GRU 2 x 256, the
+    key-value-attention GRU of 256; bf16) on B 16 text rows, no kernel a
+    step; then the six recipes through their builds, resumed bit for
+    bit."""
+    import shutil
+    import tempfile
+
+    from speechbrain_tpu_torch.recipes import slu_direct as direct
+    from speechbrain_tpu_torch.recipes import slu_nlu as nlu
+
+    opts = {"seed": SEED, "loss_sync_interval": 10}
+    runs = {"direct": _recipe_step(
+        "recipe_slu_direct_step",
+        lambda: direct.SLUBrain(direct.HPARAMS_FSC, run_opts=opts),
+        _char_batch(8, 48000, 24, 58, SEED + 60), SLU_LAUNCHES,
+        profile=True, seconds_audio=3.0, tokens=24),
+        "nlu": _recipe_step(
+        "recipe_slu_nlu_step",
+        lambda: nlu.NLUBrain(nlu.HPARAMS_SLURP_NLU, run_opts=opts),
+        _nlu_batch(16, 30, 24, 58, SEED + 61), SLU_LAUNCHES, profile=True,
+        transcript_tokens=30, tokens=24)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_slu_")
+    try:
+        runs.update({f"{k}_recipe": v for k, v in _slu_recipes(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -6135,8 +6505,9 @@ def kernels_line(records, main_runs):
     train_crdnn_transducer, recipe_transducer, and the steps and recipes
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
     recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
-    recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer and
-    recipe_corpora), each counted from 0 just before its run."""
+    recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer,
+    recipe_corpora, recipe_commonvoice and recipe_slu), each counted from 0
+    just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -6239,6 +6610,8 @@ def main():
     kspon = timed("recipe_kspon", phase_recipe_kspon)
     transformer = timed("recipe_transformer", phase_recipe_transformer)
     corpora = timed("recipe_corpora", phase_recipe_corpora)
+    commonvoice = timed("recipe_commonvoice", phase_recipe_commonvoice)
+    slu = timed("recipe_slu", phase_recipe_slu)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -6253,14 +6626,16 @@ def main():
                      "convtasnet-parallel", "sepformer-libri3mix",
                      "recipe")),
                  *(s2s[k] for k in ("bf16", "fp32", "bpe5000", "search_fp32",
-                                    "search_bf16", "recipe")),
+                                    "recipe")),
                  *(lm[k] for k in ("rnnlm_bf16", "rnnlm_fp32",
                                    "transformer_bf16", "transformer_fp32",
                                    "recipe", "fused_seq2seq",
                                    "fused_conformer")),
                  *(ts2s[k] for k in ("seq2seq_bf16", "seq2seq_fp32",
                                      "kd_bf16", "kd_fp32", "recipe")),
-                 *kspon.values(), *transformer.values(), *corpora.values()]
+                 *kspon.values(), *transformer.values(), *corpora.values(),
+                 *(v for k, v in commonvoice.items()
+                   if not k.endswith("_check")), *slu.values()]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -213,13 +213,19 @@ CRDNN_TRANSDUCER = {
 }
 
 
+def _feature_width(c):
+    """The features' width: ``n_mels``, three times that with ``deltas``."""
+    return c["n_mels"] * (3 if c.get("deltas", False) else 1)
+
+
 def _features(c):
-    """Fbank and the global input normalization of a config dict."""
+    """Fbank (with the deltas and their deltas when ``c["deltas"]``) and
+    the global input normalization of a config dict."""
     fbank = Fbank(sample_rate=c["sample_rate"], n_fft=c["n_fft"],
                   n_mels=c["n_mels"], win_length=c["win_length"],
-                  hop_length=c["hop_length"])
+                  hop_length=c["hop_length"], deltas=c.get("deltas", False))
     normalize = InputNormalization(
-        c["n_mels"], update_until_epoch=c.get("update_until_epoch", 3))
+        _feature_width(c), update_until_epoch=c.get("update_until_epoch", 3))
     return fbank, normalize
 
 
@@ -468,13 +474,18 @@ class _ModelBrain(Brain):
         self.model.dtype = self.dtype
         aug = c.get("augmentation")
         self.augment = None if aug is None else SpecAugment(**aug)
+        self._init_schedule(c, checkpointer)
+        self.epoch = 0
+        self.stage_stats = {}
+        self.use_kernels = True
+
+    def _init_schedule(self, c, checkpointer):
+        """The Noam schedule (``lr_adam``, ``n_warmup_steps``), stepped
+        after each optimizer step, registered as ``"noam_annealing"``."""
         self.noam = NoamScheduler(c["lr_adam"], c["n_warmup_steps"])
         if (checkpointer is not None
                 and "noam_annealing" not in checkpointer.recoverables):
             checkpointer.add_recoverable("noam_annealing", self.noam)
-        self.epoch = 0
-        self.stage_stats = {}
-        self.use_kernels = True
 
     def on_fit_batch_end(self, batch, outputs, loss, should_step):
         if should_step:
@@ -881,7 +892,7 @@ class CRDNNTransducer(_Transducer):
 
     def _build_encoder(self, c):
         self.enc = CRDNN(
-            input_size=c["n_mels"], cnn_blocks=c["cnn_blocks"],
+            input_size=_feature_width(c), cnn_blocks=c["cnn_blocks"],
             cnn_channels=c["cnn_channels"],
             inter_layer_pooling_size=c["inter_layer_pooling_size"],
             rnn_class="ligru", rnn_layers=c["rnn_layers"],
@@ -932,6 +943,8 @@ class _TransducerBrain(_ModelBrain):
     Arguments as for ``ConformerASRBrain``.
     """
 
+    SEARCH_STAGES = (Stage.TEST,)
+
     def on_stage_start(self, stage, epoch=None):
         """The normalization's epoch; the test stage's ``ErrorRateStats``
         and searcher."""
@@ -974,7 +987,8 @@ class _TransducerBrain(_ModelBrain):
                           epoch=self.epoch, augment=self._augment(stage))
 
     def compute_objectives(self, predictions, batch, stage):
-        """The RNN-T loss, ``mean`` over the batch."""
+        """The RNN-T loss, ``mean`` over the batch; in ``SEARCH_STAGES``
+        (the test) the search's hypotheses scored too."""
         logits, enc = predictions
         mask = batch["batch_mask"]
         loss = transducer_loss(
@@ -982,7 +996,7 @@ class _TransducerBrain(_ModelBrain):
             batch["tokens_lens"] * mask,
             blank_index=self.config["blank_index"], reduction="mean",
             use_kernels=self.use_kernels)
-        if stage == Stage.TEST and hasattr(self, "wer_metric"):
+        if stage in self.SEARCH_STAGES and hasattr(self, "wer_metric"):
             hyps, _ = self.searcher(enc, batch["sig_lens"])
             self._score_hyps(hyps, batch)
         return loss

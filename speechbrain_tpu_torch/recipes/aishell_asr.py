@@ -42,6 +42,8 @@ it.  Differences from the JAX recipes:
   the warmup.
 """
 
+import collections
+
 import numpy as np
 
 from ..asr import CONFORMER_SMALL, ConformerASRBrain
@@ -63,7 +65,8 @@ from .common import recipe_hparams
 from .librispeech_seq2seq import Seq2SeqBrain
 
 __all__ = ["HPARAMS_SEQ2SEQ", "HPARAMS_CONFORMER", "HPARAMS_TRANSFORMER",
-           "CharSeq2SeqBrain", "CharCTCBrain", "make_datasets",
+           "Corpus", "AISHELL", "CharSeq2SeqBrain", "CharCTCBrain",
+           "make_datasets",
            "build_seq2seq", "build_transformer", "run_seq2seq",
            "run_transformer"]
 
@@ -214,9 +217,25 @@ class CharCTCBrain(_CharCER, ConformerASRBrain):
         return {"CER": self.cer_metric.summarize("error_rate")}
 
 
-def make_datasets(hparams):
+# What a corpus gives the character recipes: ``prepare(hp)`` writes the
+# manifests ``hp["<split>_json"]`` (unless they exist), ``text_key`` names
+# their text field and ``chars(text)`` gives its characters.
+Corpus = collections.namedtuple("Corpus", "prepare text_key chars")
+
+
+def _chars_without_spaces(text):
+    return [c for c in text if not c.isspace()]
+
+
+AISHELL = Corpus(
+    lambda hp: prepare_aishell(hp["data_folder"], hp["save_folder"]),
+    "transcript", _chars_without_spaces)
+
+
+def make_datasets(hparams, corpus=AISHELL):
     """The train, valid and test datasets (``hparams["<split>_json"]``:
-    ``sig``, and the transcript's characters without spaces as
+    ``sig``, and the characters of ``corpus``' text field (for AISHELL-1
+    the transcript without its spaces) as
     ``tokens``/``tokens_bos``/``tokens_eos`` through a ``CTCTextEncoder``
     built over all three splits with ``<blank>`` at 0, ``<bos>`` at
     ``bos_index`` and ``<eos>`` at ``eos_index`` (the characters that held
@@ -227,8 +246,8 @@ def make_datasets(hparams):
     for split in ("train", "valid", "test"):
         ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
         ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
-        ds.add_dynamic_item(lambda t: [c for c in t if not c.isspace()],
-                            takes="transcript", provides="char_list")
+        ds.add_dynamic_item(corpus.chars, takes=corpus.text_key,
+                            provides="char_list")
 
         def tokens_pipeline(char_list):
             tokens = label_encoder.encode_sequence(char_list)
@@ -255,18 +274,18 @@ def make_datasets(hparams):
     return datasets, label_encoder
 
 
-def _prepare(data_folder, output_folder, overrides, hparams):
-    """What both builds share: the recipe's values, the manifests
-    (prepared unless they exist), the datasets and the label encoder, an
+def _prepare(data_folder, output_folder, overrides, hparams, corpus):
+    """What both builds share: the recipe's values, the manifests of
+    ``corpus`` (prepared unless they exist), the datasets and the label
+    encoder, an
     ``EpochCounter``, the Brain's values with a ``FileTrainLogger`` on
     ``<output_folder>/train_log.txt``, and a ``Checkpointer`` on
     ``<output_folder>/save``."""
     hp = recipe_hparams(hparams, data_folder, output_folder, overrides, (
         ("train_json", "train"), ("valid_json", "dev"),
         ("test_json", "test")))
-    run_on_main(prepare_aishell, kwargs={
-        "data_folder": hp["data_folder"], "save_folder": hp["save_folder"]})
-    datasets, label_encoder = make_datasets(hp)
+    run_on_main(corpus.prepare, args=(hp,))
+    datasets, label_encoder = make_datasets(hp, corpus)
     epoch_counter = EpochCounter(hp["number_of_epochs"])
     train_hp = dict(hp, train_logger=FileTrainLogger(hp["train_log"]),
                     epoch_counter=epoch_counter)
@@ -275,7 +294,7 @@ def _prepare(data_folder, output_folder, overrides, hparams):
 
 
 def build_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
-                  hparams=HPARAMS_SEQ2SEQ):
+                  hparams=HPARAMS_SEQ2SEQ, corpus=AISHELL):
     """Everything ``run_seq2seq`` trains with, built as the seq2seq
     script's ``__main__`` builds it: the manifests (prepared unless they
     exist), the datasets and the label encoder, loaders of ``batch_size``
@@ -285,11 +304,12 @@ def build_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
 
     ``overrides`` replace values of ``hparams``; ``run_opts`` are the
     ``Brain``'s (``device``: None for the CUDA card, "cpu" to ask for the
-    CPU).  Returns a dict with ``brain``, ``epoch_counter``,
+    CPU); ``corpus`` (a ``Corpus``) prepares the manifests and reads
+    their text.  Returns a dict with ``brain``, ``epoch_counter``,
     ``train_loader``, ``valid_loader``, ``test_loader``, ``label_encoder``
     and ``hparams``."""
     hp, datasets, label_encoder, epoch_counter, train_hp, checkpointer = (
-        _prepare(data_folder, output_folder, overrides, hparams))
+        _prepare(data_folder, output_folder, overrides, hparams, corpus))
     brain = CharSeq2SeqBrain(train_hp, run_opts=run_opts,
                              checkpointer=checkpointer,
                              label_encoder=label_encoder)
@@ -305,13 +325,14 @@ def build_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
 
 
 def build_transformer(data_folder, output_folder, overrides=None,
-                      run_opts=None, hparams=HPARAMS_CONFORMER):
+                      run_opts=None, hparams=HPARAMS_CONFORMER,
+                      corpus=AISHELL):
     """``build_seq2seq``'s parts for the transformer script
     (``HPARAMS_CONFORMER`` or ``HPARAMS_TRANSFORMER``): a ``CharCTCBrain``
     on ``librispeech_asr.make_loaders``' loaders, tokens padded to
     ``token_buckets``."""
     hp, datasets, label_encoder, epoch_counter, train_hp, checkpointer = (
-        _prepare(data_folder, output_folder, overrides, hparams))
+        _prepare(data_folder, output_folder, overrides, hparams, corpus))
     brain = CharCTCBrain(hp, seed=hp["seed"], run_opts=run_opts,
                          hparams=train_hp, checkpointer=checkpointer,
                          label_encoder=label_encoder)
@@ -337,17 +358,18 @@ def _fit_and_test(parts):
 
 
 def run_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
-                hparams=HPARAMS_SEQ2SEQ):
+                hparams=HPARAMS_SEQ2SEQ, corpus=AISHELL):
     """The seq2seq script's ``__main__``: ``build_seq2seq``, ``fit``, then
     the test.  Arguments as for ``build_seq2seq``; returns the Brain."""
     return _fit_and_test(build_seq2seq(data_folder, output_folder,
-                                       overrides, run_opts, hparams))
+                                       overrides, run_opts, hparams, corpus))
 
 
 def run_transformer(data_folder, output_folder, overrides=None,
-                    run_opts=None, hparams=HPARAMS_CONFORMER):
+                    run_opts=None, hparams=HPARAMS_CONFORMER, corpus=AISHELL):
     """The transformer script's ``__main__``: ``build_transformer``,
     ``fit``, then the test.  Arguments as for ``build_transformer``;
     returns the Brain."""
     return _fit_and_test(build_transformer(data_folder, output_folder,
-                                           overrides, run_opts, hparams))
+                                           overrides, run_opts, hparams,
+                                           corpus))

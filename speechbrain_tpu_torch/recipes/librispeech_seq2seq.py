@@ -141,13 +141,14 @@ HPARAMS = dict(
 HPARAMS_BPE_5000 = dict(HPARAMS, vocab_size=5000)
 
 
-def build_modules(hparams, seed=0):
+def build_modules(hparams, seed=0, ctc=True):
     """The recipe's modules, with Lecun-normal weights and orthogonal
     recurrent ones from ``seed`` (``asr._random_init``):
     ``compute_features`` (``Fbank``), ``normalize`` (global
     ``InputNormalization``), ``enc`` (``CRDNN``, ``rnn_class`` "lstm"),
     ``emb`` (``Embedding``), ``dec`` (``AttentionalRNNDecoder``: GRU,
-    location attention), ``ctc_lin`` and ``seq_lin`` (``Linear`` to
+    ``hparams["attn_type"]`` attention, location when not given),
+    ``ctc_lin`` (unless ``ctc`` is False) and ``seq_lin`` (``Linear`` to
     ``vocab_size``)."""
     hp = dict(HPARAMS, **hparams)
     V = hp["vocab_size"]
@@ -166,15 +167,19 @@ def build_modules(hparams, seed=0):
         "enc": enc,
         "emb": Embedding(V, hp["emb_size"]),
         "dec": AttentionalRNNDecoder(
-            "gru", "location", hidden_size=hp["dec_neurons"],
+            "gru", hp.get("attn_type", "location"),
+            hidden_size=hp["dec_neurons"],
             attn_dim=hp["attn_dim"], enc_dim=enc.output_size,
             input_size=hp["emb_size"], num_layers=1, dropout=hp["dropout"]),
         "ctc_lin": Linear(enc.output_size, V),
         "seq_lin": Linear(hp["dec_neurons"], V),
     }
+    if not ctc:
+        del modules["ctc_lin"]
     gen = torch.Generator().manual_seed(seed)
     for name in ("enc", "emb", "dec", "ctc_lin", "seq_lin"):
-        _random_init(modules[name], gen)
+        if name in modules:
+            _random_init(modules[name], gen)
     return modules
 
 

@@ -481,18 +481,19 @@ def _jax_batch(host):
     jbatch = {k: jnp.asarray(v) for k, v in host.items()
               if np.asarray(v).dtype != object}
     if "batch_mask" not in jbatch:
-        jbatch["batch_mask"] = jnp.ones(host["sig"].shape[0], jnp.float32)
+        rows = host["sig"] if "sig" in host else host["tokens"]
+        jbatch["batch_mask"] = jnp.ones(rows.shape[0], jnp.float32)
     return jbatch
 
 
 def assert_step_matches(pb, jb, batch, params, model_state, extra,
-                        to_jax_grads):
+                        to_jax_grads, grad_share=GRAD_SHARE):
     """One training-mode loss and its gradients: the port's Brain ``pb``
     on ``batch`` (a ``PaddedBatch`` of its loader) against the JAX
     recipe's ``_loss_fn`` at the same weights (``params``,
     ``model_state``, ``extra`` in JAX's layout); ``to_jax_grads`` maps the
     port's gradient state_dict to JAX's params layout.  Loss within
-    ``LOSS_RTOL``; each gradient within ``GRAD_SHARE`` of its tensor's
+    ``LOSS_RTOL``; each gradient within ``grad_share`` of its tensor's
     largest (the conv front end's first kernel: ``FEATURE_GRAD_SHARE``)
     plus 1e-6 of the largest overall (the biases that feed a
     training-mode BatchNorm: ``BATCHNORM_BIAS_FLOOR``)."""
@@ -532,7 +533,8 @@ def assert_step_matches(pb, jb, batch, params, model_state, extra,
     top = max(float(np.abs(w).max()) for _, w in paths_w)
     for (path, g), (_, w) in zip(paths_g, paths_w):
         key = jax.tree_util.keystr(path)
-        share = FEATURE_GRAD_SHARE if "Conv2d_0" in key else GRAD_SHARE
+        share = max(FEATURE_GRAD_SHARE if "Conv2d_0" in key else 0,
+                    grad_share)
         before_bn = "bias" in key and ("dnn_" in key or "Conv2d_" in key)
         floor = BATCHNORM_BIAS_FLOOR if before_bn else 1e-6
         np.testing.assert_allclose(
