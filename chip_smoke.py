@@ -391,13 +391,30 @@ Phases, each printing one JSON line when it ends:
    through their builds on synthetic corpora, each epoch 1, epoch 2 in a
    fresh Brain recovered bit for bit, the test (exact-match accuracy, or
    the loss for SLURP direct).
+27. recipe_st -- the speech translation recipes (``recipes.taigi_st``,
+   ``recipes.fisher_st``) at full width: the Taigi step (the transformer
+   12 + 6 at d 256, regularMHA, V 5000; no port kernel) on B 32 x 6 s in
+   bf16 and f32, two micro-batches timed (one optimizer step at the
+   yaml's accumulation 2); the Fisher transformer step (K3/K4 once a
+   step) and conformer step (K1 24, K2 12, K3 1, K4 1) on B 8 x 10 s in
+   f32 (the yamls') and bf16; the conformer's f32 step through the
+   kernels and the plain versions, loss and every gradient; the Taigi
+   search (float32, beam 10 over B 32: 320 rows) run to a fixed 50 steps,
+   K7 6 a step, hypotheses kernel = plain; then the Taigi and both Fisher
+   recipes on synthetic corpora at reduced depth (2 + 2 layers), each
+   epoch 1, epoch 2 in a fresh Brain recovered bit for bit, the test
+   (Taigi's BLEU and CER files), and the two tokenizer recipes at their
+   yamls' sizes.
 
 The kernels phase also holds K5/K6 at dh 64 (role "dh64"), K7 at H4
 Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64"), K3/K4 at Switchboard's
 2000 pieces (role "swbd"), at the CommonVoice seq2seq step's lattice
 (role "commonvoice": B12 T601 V500 U80) and the conformer's (role
 "cv_conformer": B12 T151 V4300 U60), and K8/K9 at the CommonVoice
-transducer's (role "commonvoice": B8 T601 U96 V40).
+transducer's (role "commonvoice": B8 T601 U96 V40); K1/K2 on the causal
+padding of ``ConformerDecoder`` (role "causal": B8 T64 C256 K31), K3/K4
+at the Fisher CTC's lattice (role "fisher": B8 T251 V500 U48) and K7 at
+the Taigi search's 320 rows (role "taigi": H4 Dh64 L128 pos 50).
 
 SHORTENED to keep the whole run inside its time limit (torch.profiler's
 collection took 5-21 s a profile beyond the traced work, the LiGRU's
@@ -419,8 +436,14 @@ and a resumed second (``recipe``, ``recipe_transducer``,
 ``recipe_timit``, ``recipe_gsc``, ``recipe_voxceleb``'s ECAPA,
 ``recipe_separation``'s SepFormer, ``recipe_lm``'s three LMs and
 ``recipe_timit_seq2seq``'s student ran 2 and a third), and the LiGRU's
-own calls and kernels are counted at the CommonVoice transducer's T 601
-(``recipe_commonvoice``), not at ``train_crdnn_transducer``'s T 1001.
+own calls and kernels are counted at the TIMIT step's T 301
+(``recipe_timit``) only.  For the speech translation phase: ``serve``
+profiles its f32 search only, ``serve_lm`` the valid f32 search only
+(not the beam-66 test search), ``serve_transducer`` its device beam in
+f32 only, ``recipe_timit_seq2seq`` the KD step only (its bf16 step runs
+the seq2seq step's modules and the second CTC), and
+``recipe_commonvoice`` profiles no seq2seq step (``recipe_seq2seq``
+profiles the same modules at LibriSpeech's shape).
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -430,7 +453,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 26, each counted from 0 just before its
+(launch counts from phases 3 to 27, each counted from 0 just before its
 run; the kernel-vs-plain checks' launches left out), and last the device
 line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
@@ -857,6 +880,83 @@ def _check_depthwise_separation():
             x, dy, K, bias_grad=True)),
         "bound_ms": bound, "bound_by": by})
     return out
+
+
+def _check_depthwise_causal(dtype_name, B=8, T=64, C=256, K=31):
+    """K1 and K2 on the causal padding (K - 1, 0) of ``ConformerDecoder``'s
+    convolution module, at one decoder shape: B 8 rows of 64 target
+    positions at d_model 256 with 31 taps (the Fisher conformer's width
+    and kernel).  The forward (K1), the backward through the autograd
+    Function (its dx is K1 reading the taps flipped on the anticausal
+    padding (0, K - 1), its dw and dbias K2) against the plain route's
+    autograd, and K2 alone against its plain version.  Records of role
+    "causal"."""
+    import torch
+    import torch.nn.functional as F
+
+    from speechbrain_tpu_torch.ops import (
+        depthwise_conv1d, depthwise_conv1d_dw, depthwise_conv1d_dw_plain,
+        depthwise_conv1d_plain)
+
+    dtype = getattr(torch, dtype_name)
+    x, w, bias, dy = _depthwise_inputs(dtype, B, T, C, K)
+    got = depthwise_conv1d(x, w, bias, causal=True)
+    ref = depthwise_conv1d_plain(x, w, bias, causal=True)
+    torch.cuda.synchronize()
+    err = _err(got, ref)
+    tol = 1e-4 if dtype == torch.float32 else _bf16_ulp(ref)
+    assert err <= tol, f"causal depthwise_conv1d {dtype_name}: {err} > {tol}"
+    grads = []
+    for fn in (depthwise_conv1d, depthwise_conv1d_plain):
+        xs, ws, bs = (t.detach().clone().requires_grad_(True)
+                      for t in (x, w, bias))
+        fn(xs, ws, bs, causal=True).backward(dy)
+        grads.append((xs.grad, ws.grad, bs.grad))
+    torch.cuda.synchronize()
+    grad_tol = 2e-5 if dtype == torch.float32 else 8e-3  # as the dx check
+    grad_err = max(_err(a, b) / max(1e-6, float(b.float().abs().max()))
+                   for a, b in zip(*grads))
+    assert grad_err <= grad_tol, (
+        f"causal depthwise grads {dtype_name}: {grad_err} > {grad_tol}")
+    taps = _valid_taps(T, K, K - 1)
+    item = x.element_size()
+    # the library's causal conv: pad K - 1 on the left, no padding inside
+    xc = x.transpose(1, 2).contiguous()
+    wc = w.t().contiguous()[:, None, :]
+    bound, by = _bound_ms((2 * B * T * C + K * C + C) * item,
+                          2 * B * C * taps, dtype_name)
+    fwd = {
+        "name": "depthwise_conv1d", "role": "causal", "dtype": dtype_name,
+        "shape": [B, T, C, K], "max_abs_err": err, "tol": tol,
+        "grads_max_rel_err_vs_plain_autograd": grad_err,
+        "grads_tol": grad_tol,
+        **_call_times(lambda: depthwise_conv1d(x, w, bias, causal=True),
+                      lambda: F.conv1d(F.pad(xc, (K - 1, 0)), wc, bias,
+                                       groups=C)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_plain(
+            x, w, bias, causal=True)),
+        "bound_ms": bound, "bound_by": by}
+    got = depthwise_conv1d_dw(x, dy, K, causal=True, bias_grad=True)
+    ref = depthwise_conv1d_dw_plain(x, dy, K, causal=True, bias_grad=True)
+    torch.cuda.synchronize()
+    err = max(_err(got[0], ref[0]), _err(got[1], ref[1]))
+    assert err <= 2e-3, f"causal depthwise_conv1d_dw {dtype_name}: {err}"
+    dyc = dy.transpose(1, 2).contiguous()
+    bound, by = _bound_ms(2 * B * T * C * item + 4 * (K + 1) * C,
+                          2 * B * C * taps + B * T * C, dtype_name)
+    dw = {
+        "name": "depthwise_conv1d_dw", "role": "causal", "dtype": dtype_name,
+        "shape": [B, T, C, K], "max_abs_err": err, "tol": 2e-3,
+        "bias_grad": True,
+        **_call_times(
+            lambda: depthwise_conv1d_dw(x, dy, K, causal=True,
+                                        bias_grad=True),
+            lambda: torch.nn.grad.conv1d_weight(
+                F.pad(xc, (K - 1, 0)), (C, 1, K), dyc, groups=C)),
+        "plain_ms": _time_ms(lambda: depthwise_conv1d_dw_plain(
+            x, dy, K, causal=True, bias_grad=True)),
+        "bound_ms": bound, "bound_by": by}
+    return [fwd, dw]
 
 
 def _ctc_inputs(B, T, C, U, live_u=None):
@@ -1384,10 +1484,12 @@ def _beam_ctx_check(ctx, ref, new, H, pos, dtype_name):
     return float(diff.max()), bad_heads
 
 
-def _check_beam_cache(dtype_name, pos=200, role=None, H=4, Dh=36):
-    """K7 at the serving shape (80 beam rows drawn from 36, L 256; H x Dh
-    4 x 36 conformer_small's, 4 x 64 conformer_medium's, 8 x 64 the
-    LibriSpeech transformer's) against its plain version, which rounds
+def _check_beam_cache(dtype_name, pos=200, role=None, H=4, Dh=36, n=80,
+                      L=256, n_src=36):
+    """K7 at the serving shape (``n`` 80 beam rows drawn from ``n_src`` 36,
+    L 256; H x Dh 4 x 36 conformer_small's, 4 x 64 conformer_medium's, 8
+    x 64 the LibriSpeech transformer's; the Taigi search's 320 rows, B 32
+    x beam 10, drawn from all 320, L 128) against its plain version, which rounds
     the weights to the cache dtype as the kernel does: the cache bit for
     bit, ctx within 1e-5 (``_beam_ctx_check``).
     Timed as a bare call (contiguous q/k/v, int32 rows) and as the
@@ -1399,10 +1501,9 @@ def _check_beam_cache(dtype_name, pos=200, role=None, H=4, Dh=36):
 
     dtype = getattr(torch, dtype_name)
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    n, L = 80, 256
     HD = H * Dh
     kv = torch.randn(n, HD, 2 * L, device="cuda", generator=g).to(dtype)
-    rows = torch.randint(0, 36, (n,), device="cuda", generator=g)
+    rows = torch.randint(0, n_src, (n,), device="cuda", generator=g)
     rows32 = rows.to(torch.int32)
     q, kn, vn = (torch.randn(n, HD, device="cuda", generator=g).to(dtype) / 6 for _ in range(3))
     dst = torch.empty_like(kv)
@@ -1775,6 +1876,15 @@ def phase_kernels(only=None):
                                              role="h4dh64"))
             records.append(_check_beam_cache(dtype_name, H=8, Dh=64,
                                              role="h8dh64"))
+            # the Taigi search: B 32 x beam 10 rows, 6 decoder layers at
+            # H4 Dh64, the cache of its 76 steps rounded to L 128, at the
+            # 50th step
+            records.append(_check_beam_cache(dtype_name, pos=50, Dh=64,
+                                             n=320, L=128, n_src=320,
+                                             role="taigi"))
+        if want("depthwise"):
+            # ConformerDecoder's causal convolution module
+            records.extend(_check_depthwise_causal(dtype_name))
     if want("depthwise"):
         records.extend(_check_depthwise_separation())
     if want("ctc"):
@@ -1801,6 +1911,9 @@ def phase_kernels(only=None):
         records.extend(_check_ctc(12, 601, 500, 80, role="commonvoice",
                                   lib_tol=1e-2))
         records.extend(_check_ctc(12, 151, 4300, 60, role="cv_conformer"))
+        # Fisher-Callhome ST: the CTC of the Spanish transcripts over the
+        # 500 English BPE pieces (B 8 x 10 s, T_enc 251, 48 pieces)
+        records.extend(_check_ctc(8, 251, 500, 48, role="fisher"))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -2006,10 +2119,12 @@ def phase_serve():
                 "plain_utt_per_s": B / (plain_encode_s + plain_search_s),
             })
         # the card's events alone: no range is read, and the host's
-        # events of a search take half a minute to collect
-        run["profile"] = _profile(
-            lambda: _search(asr, enc, lens, beam, ctc_weight,
-                            ctc_score_mode="partial")[2], cpu=False)
+        # events of a search take half a minute to collect; in f32 only
+        # (see SHORTENED)
+        if dtype_name == "float32":
+            run["profile"] = _profile(
+                lambda: _search(asr, enc, lens, beam, ctc_weight,
+                                ctc_score_mode="partial")[2], cpu=False)
         emit({"phase": "serve", **run})
         runs[dtype_name] = run
         del asr
@@ -2109,13 +2224,13 @@ def phase_serve_lm():
             # the profiled repeat stops at SERVE_LM_PROFILE_RATIO x T_enc
             # steps (the whole search is timed above)
             lm_share = search == "valid" and dtype_name == "float32"
-            if dtype_name == "float32":  # profiled in f32: see SHORTENED
+            if lm_share:  # the valid f32 search only: see SHORTENED
                 asr.config["max_decode_ratio"] = SERVE_LM_PROFILE_RATIO
                 run["profiled_max_steps"] = int(251 * SERVE_LM_PROFILE_RATIO)
                 run["profile"] = _profile(
                     lambda: _search(asr, enc, lens, beam, ctc_weight,
                                     **options)[2],
-                    ranges=("lm_forward",) if lm_share else (), cpu=lm_share)
+                    ranges=("lm_forward",), cpu=True)
             emit({"phase": "serve_lm", **run})
             runs[f"{search}_{dtype_name}"] = run
             del asr, enc
@@ -2288,8 +2403,8 @@ def phase_serve_transducer():
         if dtype_name == "float32":  # profiled once: see SHORTENED
             run["profile"] = _profile(lambda: (searcher(enc, lens), 1)[1],
                                       cpu=False)
-        run["beam_device"]["profile"] = _device_beam_profile(searcher, enc,
-                                                             lens)
+            run["beam_device"]["profile"] = _device_beam_profile(
+                searcher, enc, lens)
         emit({"phase": "serve_transducer", **run})
         runs[dtype_name] = run
         del model, enc
@@ -2398,6 +2513,14 @@ def _loss_and_grads(brain, batch):
     return loss.detach(), dict(zip(names, grads))
 
 
+def _grad_rel_errs(grads, ref, floor=1e-3):
+    """Each gradient's max|grads - ref| over (max|ref| + ``floor`` G), G
+    the largest entry of any ``ref`` gradient (see ``_compare_routes``)."""
+    G = max(float(g.abs().max()) for g in ref.values())
+    return {n: _err(grads[n], g) / (float(g.abs().max()) + floor * G)
+            for n, g in ref.items()}
+
+
 def _compare_routes(brain, batch, tol_loss, tol_grad, floor=1e-3):
     """The step's loss and every gradient through the kernels and
     through the plain versions, from the same weights and state.  A
@@ -2413,9 +2536,7 @@ def _compare_routes(brain, batch, tol_loss, tol_grad, floor=1e-3):
     loss_p, grads_p = _loss_and_grads(brain.set_kernels(False), batch)
     brain.set_kernels(True)
     torch.cuda.synchronize()
-    G = max(float(g.abs().max()) for g in grads_p.values())
-    errs = {n: _err(grads_k[n], g) / (float(g.abs().max()) + floor * G)
-            for n, g in grads_p.items()}
+    errs = _grad_rel_errs(grads_k, grads_p, floor)
     worst = max(errs, key=errs.get)
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
     assert loss_err <= tol_loss, f"loss kernel vs plain: rel {loss_err} > {tol_loss}"
@@ -5771,9 +5892,10 @@ def phase_recipe_timit_seq2seq():
     for kd in (False, True):
         for precision in ("bf16", "fp32"):
             key = f"{'kd' if kd else 'seq2seq'}_{precision}"
-            # profiled in bf16 only: see SHORTENED
+            # the KD step in bf16 profiled only (it runs the seq2seq
+            # step's modules and the second CTC): see SHORTENED
             runs[key] = _ts2s_step(kd, precision,
-                                   profile=precision == "bf16")
+                                   profile=kd and precision == "bf16")
     check = {"kernel_vs_plain": _ts2s_routes(),
              "card_vs_cpu": _ts2s_card_vs_cpu()}
     emit(dict(check, phase="recipe_timit_seq2seq_check"))
@@ -5808,12 +5930,11 @@ REDUCED = {"num_encoder_layers": 2, "num_decoder_layers": 2,
 
 
 def _recipe_step(phase, make_brain, host, launches, steps=2, profile=False,
-                 extra=None, **info):
+                 **info):
     """A recipe's training step at full width on one staged batch: a
     warm-up, ``steps`` timed steps, the launches a step (``launches``),
     finite losses, and with ``profile`` the FLOPs and their f32 bound, the
-    PyTorch calls and the profile (the card's events) of one more step,
-    and ``extra(brain)``'s entries."""
+    PyTorch calls and the profile (the card's events) of one more step."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -5848,8 +5969,6 @@ def _recipe_step(phase, make_brain, host, launches, steps=2, profile=False,
                    f32_bound_ms=_bound_ms(0, step_flops, "float32")[0],
                    pytorch_calls_per_step=_pytorch_calls(one_step),
                    profile=_profile(one_step, cpu=False), **info_flops)
-        if extra is not None:
-            run.update(extra(brain))
     emit(run)
     del brain, batch
     torch.cuda.empty_cache()
@@ -6359,29 +6478,19 @@ def phase_recipe_commonvoice():
         runs[f"seq2seq_{precision}"] = _recipe_step(
             "recipe_commonvoice_seq2seq_step",
             lambda: _cv_brain("seq2seq", precision, 0.15), s2s_host,
-            CV_S2S_LAUNCHES, profile=precision == "bf16", T=601,
+            CV_S2S_LAUNCHES, profile=False, T=601,  # see SHORTENED
             ctc_lattice=[CV_B, 601, 2 * CV_U + 1], **info)
         runs[f"conformer_{precision}"] = _recipe_step(
             "recipe_commonvoice_conformer_step",
             lambda: _cv_brain("conformer", precision, 0.1), conf_host,
             CV_CONFORMER_LAUNCHES, profile=precision == "bf16", T_enc=151,
             ctc_lattice=[CV_B, 151, 2 * CV_U_NOSPACE + 1], **info)
-    def ligru(brain):
-        # the LiGRU alone, forward and backward at the step's shape
-        import torch
-
-        rnn = brain.model.enc.rnn
-        x = torch.randn(CV_T_B, 601, rnn.layers[0].wx.in_features,
-                        device="cuda", dtype=brain.dtype, requires_grad=True)
-        brain.modules.train()
-        return {"ligru": _ligru_calls(rnn, x)}
-
     for precision in ("fp32", "bf16"):
         runs[f"transducer_{precision}"] = _recipe_step(
             "recipe_commonvoice_transducer_step",
             lambda: _cv_brain("transducer", precision, 0.15), t_host,
             CV_TRANSDUCER_LAUNCHES, profile=precision == "bf16",
-            extra=ligru, T=601, lattice=[CV_T_B, 601, CV_U + 1], **info)
+            T=601, lattice=[CV_T_B, 601, CV_U + 1], **info)
     runs["seq2seq_check"] = _cv_routes("seq2seq", s2s_host)
     runs["conformer_check"] = _cv_routes("conformer", conf_host)
     runs["transducer_check"] = _cv_routes("transducer", t_host)
@@ -6497,6 +6606,315 @@ def phase_recipe_slu():
     return runs
 
 
+# ----------------------------------------------------------------- recipe_st
+
+# Taigi: B 32 x 6 s (hop 20 ms: T_enc 76), up to 30 Mandarin pieces a
+# translation; Fisher: B 8 x 10 s (hop 10 ms: T_enc 251), up to 48
+# English pieces a translation and 48 pieces a Spanish transcript
+ST_TAIGI_B, ST_TAIGI_SAMPLES, ST_TAIGI_U = 32, 96000, 30
+ST_FISHER_B, ST_FISHER_SAMPLES, ST_FISHER_U = 8, 160000, 48
+ST_TAIGI_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+ST_FISHER_LAUNCHES = dict(TRANSFORMER_LAUNCHES)
+ST_CONFORMER_LAUNCHES = dict(TRAIN_LAUNCHES)
+# the Taigi search: beam 10 run to a fixed 50 steps (no early exit)
+ST_SEARCH_B, ST_SEARCH_BEAM, ST_SEARCH_STEPS = 32, 10, 50
+# the recipes' corpora: Taigi splits 80 utterances 64/8/8 (two batches of
+# 32 an epoch: the accumulation window of 2 closes at the epoch's end)
+RECIPE_ST_TAIGI = 80
+RECIPE_ST_FISHER = {"train": 16, "dev": 4, "test": 4}
+RECIPE_ST_REDUCED = {"num_encoder_layers": 2, "num_decoder_layers": 2,
+                     "max_decode_ratio": 0.25, "valid_search_interval": 1}
+
+
+def _st_batch(fisher, seed):
+    """A synthetic ST batch: Taigi's ``tokens*`` (B 32 x 6 s, V 5000), or
+    Fisher's ``trans_tokens*`` and ``src_tokens*`` (B 8 x 10 s, V 500)."""
+    if not fisher:
+        return _char_batch(ST_TAIGI_B, ST_TAIGI_SAMPLES, ST_TAIGI_U, 5000,
+                           seed)
+    host = _char_batch(ST_FISHER_B, ST_FISHER_SAMPLES, ST_FISHER_U, 500, seed)
+    src = _char_batch(ST_FISHER_B, 0, ST_FISHER_U, 500, seed + 1)
+    out = {k.replace("tokens", "trans_tokens"): v for k, v in host.items()}
+    out.update({k.replace("tokens", "src_tokens"): v for k, v in src.items()
+                if "tokens" in k})
+    return out
+
+
+def _st_brain(name, precision, dropout):
+    """An ST recipe's Brain at full width (the yaml's values)."""
+    from speechbrain_tpu_torch.recipes import fisher_st, taigi_st
+
+    hp, cls = {"taigi": (taigi_st.HPARAMS, taigi_st.ST),
+               "transformer": (fisher_st.HPARAMS_TRANSFORMER, fisher_st.ST),
+               "conformer": (fisher_st.HPARAMS_CONFORMER, fisher_st.ST)}[name]
+    cfg = dict(hp, transformer_dropout=dropout)
+    return cls(cfg, seed=SEED, run_opts={
+        "seed": SEED, "precision": precision, "loss_sync_interval": 10,
+        "grad_accumulation_factor": cfg["grad_accumulation_factor"]})
+
+
+def _st_search():
+    """The Taigi recipe's search as it validates (float32, the JAX
+    script's dtype): B 32 x 6 s at beam 10, no CTC, length normalization,
+    run to a fixed 50 steps; ms a step, K7's launches (6 decoder layers a
+    step), the hypotheses through the kernels equal to those through the
+    plain versions from the same encoder states, and the profile of one
+    search."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import taigi_st
+    from speechbrain_tpu_torch.st import SpeechTranslator
+
+    st = SpeechTranslator(taigi_st.HPARAMS, seed=SEED)
+    sig, lens = _synthetic(ST_SEARCH_B, ST_TAIGI_SAMPLES, SEED + 72)
+    enc = st.encode(sig, lens)
+    T = int(enc.shape[1])
+    st.config["max_decode_ratio"] = (ST_SEARCH_STEPS + 0.5) / T
+    searcher = st.make_searcher(ST_SEARCH_BEAM)
+
+    def search():
+        out = searcher.search_device(enc, lens, early_exit=False)
+        return searcher.finalize(*out)
+
+    search()  # warm-up
+    ops.reset_launch_counters()
+    (hyps, scores), search_s = _timed(search)
+    counts = ops.launch_counters()
+    n_dec = taigi_st.HPARAMS["num_decoder_layers"]
+    assert counts["beam_attend_step"] == n_dec * ST_SEARCH_STEPS, counts
+    assert np.isfinite(scores).all() and len(hyps) == ST_SEARCH_B
+    st.set_kernels(False)
+    (hyps_p, _), plain_s = _timed(search)
+    st.set_kernels(True)
+    assert hyps_p == hyps, "hypotheses differ between kernels and plain"
+    run = {"phase": "recipe_st_search", "precision": "float32",
+           "batch": ST_SEARCH_B, "beam": ST_SEARCH_BEAM,
+           "rows": ST_SEARCH_B * ST_SEARCH_BEAM, "T_enc": T,
+           "heads": st.config["nhead"],
+           "head_dim": st.config["d_model"] // st.config["nhead"],
+           "steps": ST_SEARCH_STEPS, "search_ms": 1e3 * search_s,
+           "ms_per_step": 1e3 * search_s / ST_SEARCH_STEPS,
+           "plain_search_ms": 1e3 * plain_s, "hyps_equal_plain": True,
+           "mean_hyp_len": float(np.mean([len(h) for h in hyps])),
+           "launches": counts,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    run["profile"] = _profile(lambda: (search(), ST_SEARCH_STEPS)[1],
+                              cpu=False)
+    emit(run)
+    del st, enc
+    torch.cuda.empty_cache()
+    return run
+
+
+# the Fisher conformer's kernel-vs-plain gradients: the encoder side
+# (front end, conformer, CTC head) within 1e-3 of scale; the two relu
+# decoders, their embeddings and heads within 2e-2.  There a last-bit
+# change in the encoder states flips relu units at their kink: the plain
+# route's own gradients moved by up to 4.5e-3 of scale in the ASR
+# decoder's last FFN when every depthwise tap was nudged by one float32
+# ulp (this step at full width on a CPU, seed 0), and the phase measures
+# the same control on the card ("plain_vs_nudged_plain")
+ST_DECODER_SIDE = ("transformer.asr_decoder.", "transformer.st.decoder.",
+                   "transformer.custom_asr_tgt_module.",
+                   "transformer.st.custom_tgt_module.", "seq_lin.", "asr_lin.")
+ST_ROUTE_TOL = {"encoder": 1e-3, "decoder": 2e-2}
+
+
+def _nudged_taps(brain, factor):
+    """A context: every conformer convolution module's depthwise taps
+    times ``factor`` (one float32 ulp away), put back bit for bit after."""
+    import contextlib
+
+    import torch
+
+    from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+        ConvolutionModule)
+
+    @contextlib.contextmanager
+    def nudged():
+        mods = [m for m in brain.modules.modules()
+                if isinstance(m, ConvolutionModule)]
+        saved = [m.depthwise_kernel.detach().clone() for m in mods]
+        with torch.no_grad():
+            for m in mods:
+                m.depthwise_kernel.mul_(factor)
+        try:
+            yield
+        finally:
+            with torch.no_grad():
+                for m, w in zip(mods, saved):
+                    m.depthwise_kernel.copy_(w)
+    return nudged()
+
+
+def _st_routes():
+    """The Fisher conformer step's loss and every gradient through K1-K4
+    and through the plain versions, f32, dropout 0, ragged lengths: the
+    loss within 1e-5 relative, each gradient within ``ST_ROUTE_TOL`` of
+    its scale (``_grad_rel_errs``); beside them the control, the plain
+    route against itself with the taps nudged one ulp up and down."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _st_brain("conformer", "fp32", 0.0)
+    batch = brain.prepare_batch(_st_batch(True, SEED + 71))
+    ops.reset_launch_counters()
+    loss_k, grads_k = _loss_and_grads(brain.set_kernels(True), batch)
+    counts = ops.launch_counters()
+    assert counts == ST_CONFORMER_LAUNCHES, counts
+    loss_p, grads_p = _loss_and_grads(brain.set_kernels(False), batch)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    assert loss_err <= 1e-5, f"loss kernel vs plain: rel {loss_err} > 1e-5"
+    control = {}
+    for name, factor in (("up", 1 + 2.0 ** -23), ("down", 1 - 2.0 ** -23)):
+        with _nudged_taps(brain, factor):
+            errs = _grad_rel_errs(_loss_and_grads(brain, batch)[1], grads_p)
+        worst = max(errs, key=errs.get)
+        control[name] = {"grad_max_rel_err": errs[worst], "grad_worst": worst}
+    brain.set_kernels(True)
+    errs = _grad_rel_errs(grads_k, grads_p)
+    sides = {}
+    for name, err in errs.items():
+        side = ("decoder" if name.startswith(ST_DECODER_SIDE)
+                else "encoder")
+        if err > sides.get(side, (0.0, None))[0]:
+            sides[side] = (err, name)
+    for side, (err, name) in sides.items():
+        assert err <= ST_ROUTE_TOL[side], (
+            f"gradient kernel vs plain ({side} side): {name} {err} > "
+            f"{ST_ROUTE_TOL[side]}")
+    cmp = {"loss_kernel": float(loss_k), "loss_plain": float(loss_p),
+           "loss_rel_err": loss_err, "loss_tol": 1e-5,
+           "grad_tol": ST_ROUTE_TOL, "n_grads": len(errs),
+           "grad_max_rel_err_by_side": {
+               side: {"err": err, "worst": name}
+               for side, (err, name) in sides.items()}}
+    run = {"phase": "recipe_st_conformer_check", "precision": "fp32",
+           "batch": ST_FISHER_B, "kernel_vs_plain": cmp,
+           "plain_vs_nudged_plain": control, "launches": counts}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _st_recipes(tmp):
+    """The Taigi and both Fisher recipes through their builds on synthetic
+    corpora at full width and reduced depth (2 + 2 layers; the searches
+    capped at a quarter of T_enc, the Taigi one every epoch), each 1
+    epoch, then epoch 2 in a fresh Brain recovered bit for bit, then its
+    test (Taigi: BLEU and CER with their files; Fisher: the argmax BLEU);
+    then the two tokenizer recipes at their yamls' sizes."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+    from speechbrain_tpu_torch.recipes import fisher_st, taigi_st
+    from speechbrain_tpu_torch.recipes.taigi_prepare import (
+        write_synthetic_taigi)
+
+    write_synthetic_taigi(f"{tmp}/taigi", RECIPE_ST_TAIGI,
+                          seconds=(2.0, 6.0), n_chars=(8, 30),
+                          n_distinct=3000, seed=SEED)
+    fisher_st.write_synthetic_fisher(f"{tmp}/fisher", RECIPE_ST_FISHER,
+                                     seconds=(4.0, 10.0), n_words=(8, 20),
+                                     seed=SEED)
+    runs = {}
+    for name, recipe, data, hp, kernels, metrics in (
+            ("taigi", taigi_st, "taigi", taigi_st.HPARAMS,
+             ("beam_attend_step",), {"loss", "BLEU", "CER"}),
+            ("fisher_transformer", fisher_st, "fisher",
+             fisher_st.HPARAMS_TRANSFORMER, ("ctc_alpha", "ctc_beta_grad"),
+             {"loss", "BLEU"}),
+            ("fisher_conformer", fisher_st, "fisher",
+             fisher_st.HPARAMS_CONFORMER,
+             ("depthwise_conv1d", "depthwise_conv1d_dw", "ctc_alpha",
+              "ctc_beta_grad"), {"loss", "BLEU"})):
+        out = f"{tmp}/out_{name}"
+
+        def build(epochs, recipe=recipe, data=data, hp=hp, out=out):
+            return recipe.build(f"{tmp}/{data}", out,
+                                dict(RECIPE_ST_REDUCED,
+                                     number_of_epochs=epochs),
+                                {"noprogressbar": True}, hp)
+
+        def test(parts, metrics=metrics, out=out, name=name):
+            parts["brain"].evaluate(parts["test_loader"], max_key="BLEU")
+            stats = parts["brain"].stage_stats["TEST"]
+            assert set(stats) == metrics and all(
+                np.isfinite(v) for v in stats.values()), stats
+            if name == "taigi":
+                assert open(f"{out}/bleu.txt").read().startswith("BLEU: ")
+                assert "%WER" in open(f"{out}/cer.txt").read()
+            return stats
+
+        runs[name] = _recipe_resumed(f"recipe_st_{name}_run", build, 1, test,
+                                     kernels)
+    ops.reset_launch_counters()
+    taigi_tok, taigi_s = _timed(lambda: taigi_st.train_tokenizer(
+        f"{tmp}/taigi", f"{tmp}/tok_taigi"))
+    fisher_tok, fisher_s = _timed(lambda: fisher_st.train_tokenizer(
+        f"{tmp}/fisher", f"{tmp}/tok_fisher"))
+    run = {"phase": "recipe_st_tokenizers",
+           "taigi_char5k": {"seconds": taigi_s,
+                            "pieces": taigi_tok.sp.get_piece_size(),
+                            "route": taigi_tok.sp.train_route},
+           "fisher_bpe_1k": {"seconds": fisher_s,
+                             "pieces": fisher_tok.sp.get_piece_size(),
+                             "route": fisher_tok.sp.train_route},
+           "launches": ops.launch_counters()}
+    assert not any(run["launches"].values()), run
+    emit(run)
+    runs["tokenizers"] = run
+    torch.cuda.empty_cache()
+    return runs
+
+
+def phase_recipe_st():
+    """The speech translation recipes (``recipes.taigi_st``,
+    ``recipes.fisher_st``) at full width: the Taigi step (transformer
+    12 + 6 at d 256, regularMHA, V 5000; no port kernel) on B 32 x 6 s in
+    bf16 and f32, two micro-batches timed (one optimizer step at the
+    yaml's accumulation 2); the Fisher transformer step (K3/K4 once a
+    step) and conformer step (K1 24, K2 12, K3 1, K4 1) on B 8 x 10 s in
+    f32 (the yamls') and bf16; the conformer's f32 step through the
+    kernels and the plain versions; the Taigi search at beam 10 over B 32
+    for 50 steps (K7 6 a step), kernel = plain; then the three recipes
+    and the two tokenizer recipes on synthetic corpora."""
+    import shutil
+    import tempfile
+
+    taigi_host = _st_batch(False, SEED + 70)
+    fisher_host = _st_batch(True, SEED + 71)
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        runs[f"taigi_{precision}"] = _recipe_step(
+            "recipe_st_taigi_step",
+            lambda: _st_brain("taigi", precision, 0.1), taigi_host,
+            ST_TAIGI_LAUNCHES, profile=precision == "bf16",
+            seconds_audio=ST_TAIGI_SAMPLES / 16000, T_enc=76,
+            tokens=ST_TAIGI_U, grad_accumulation_factor=2)
+    for name, launches in (("transformer", ST_FISHER_LAUNCHES),
+                           ("conformer", ST_CONFORMER_LAUNCHES)):
+        for precision in ("fp32", "bf16"):
+            runs[f"{name}_{precision}"] = _recipe_step(
+                f"recipe_st_fisher_{name}_step",
+                lambda: _st_brain(name, precision, 0.1), fisher_host,
+                launches, profile=precision == "bf16",
+                seconds_audio=ST_FISHER_SAMPLES / 16000, T_enc=251,
+                tokens=ST_FISHER_U,
+                ctc_lattice=[ST_FISHER_B, 251, 2 * ST_FISHER_U + 1])
+    runs["conformer_check"] = _st_routes()
+    runs["search_fp32"] = _st_search()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_st_")
+    try:
+        runs.update({f"{k}_recipe": v for k, v in _st_recipes(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -6506,8 +6924,8 @@ def kernels_line(records, main_runs):
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
     recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
     recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer,
-    recipe_corpora, recipe_commonvoice and recipe_slu), each counted from 0
-    just before its run."""
+    recipe_corpora, recipe_commonvoice, recipe_slu and recipe_st), each
+    counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -6612,6 +7030,7 @@ def main():
     corpora = timed("recipe_corpora", phase_recipe_corpora)
     commonvoice = timed("recipe_commonvoice", phase_recipe_commonvoice)
     slu = timed("recipe_slu", phase_recipe_slu)
+    st = timed("recipe_st", phase_recipe_st)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -6635,7 +7054,8 @@ def main():
                                      "kd_bf16", "kd_fp32", "recipe")),
                  *kspon.values(), *transformer.values(), *corpora.values(),
                  *(v for k, v in commonvoice.items()
-                   if not k.endswith("_check")), *slu.values()]
+                   if not k.endswith("_check")), *slu.values(),
+                 *(v for k, v in st.items() if not k.endswith("_check"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -97,7 +97,15 @@ such dicts of float32 numpy arrays, in the JAX layout.  Layout changes:
   ``AttentionalRNNDecoder``'s ``rnn``, ``attn`` and ``proj`` keep theirs;
 - ``RNNLM``: ``Embedding_0`` -> ``emb``, ``LSTM_0`` -> ``rnn``, the DNN
   blocks' ``Dense_{i}``/``LayerNorm_{i}`` -> ``dnn.{i}.linear``/
-  ``dnn.{i}.norm``, the last ``Dense_*`` -> ``out``.
+  ``dnn.{i}.norm``, the last ``Dense_*`` -> ``out``;
+- ``TransformerST``: ``st`` -> ``st`` (a ``TransformerASR``), the
+  branches' ``asr_decoder`` (a ``TransformerDecoder``), ``mt_encoder`` (a
+  ``TransformerEncoder``), ``custom_asr_tgt_module`` and
+  ``custom_mt_src_module`` (``NormalizedEmbedding``s) keep their names;
+- ``ConformerDecoder``: ``layer_{i}`` -> ``layers.{i}`` (``LayerNorm_0``/
+  ``_1`` -> ``norm_ffn1``/``norm_ffn2``; ``ffn1``, ``norm1``, ``mha`` (a
+  ``MultiheadAttention`` or a ``RelPosMHAXL``), ``conv``, ``ffn2`` and
+  ``norm2`` keep their names), ``norm`` as it is.
 
 The optimizer's state: optax ``adamw``'s ``mu``, ``nu`` and ``count``
 are torch ``AdamW``'s ``exp_avg``, ``exp_avg_sq`` and ``step``
@@ -186,6 +194,12 @@ __all__ = [
     "to_jax_rnnlm",
     "crdnn_seq2seq_state_dict",
     "to_jax_crdnn_seq2seq",
+    "transformer_st_state_dict",
+    "to_jax_transformer_st",
+    "conformer_decoder_state_dict",
+    "to_jax_conformer_decoder",
+    "speech_translator_state_dict",
+    "to_jax_speech_translator",
     "adamw_state_to_torch",
     "adamw_state_from_torch",
 ]
@@ -671,12 +685,7 @@ def _ffn_to_jax(s):
             "Dense_1": _dense_to_jax(s.sub("w_2"))}
 
 
-def _conformer_layer_to_jax(s):
-    mha = {n: _dense_to_jax(s.sub(f"mha.{n}"))
-           for n in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")}
-    mha["pos_bias_u"] = _a(s["mha.pos_bias_u"])
-    mha["pos_bias_v"] = _a(s["mha.pos_bias_v"])
-    c = s.sub("conv")
+def _conv_module_to_jax(c):
     conv = {
         "LayerNorm_0": _ln_to_jax(c.sub("norm_in")),
         "Dense_0": _dense_to_jax(c.sub("pointwise_in")),
@@ -686,12 +695,20 @@ def _conformer_layer_to_jax(s):
     }
     if "depthwise_bias" in c:
         conv["depthwise_bias"] = _a(c["depthwise_bias"])
+    return conv
+
+
+def _conformer_layer_to_jax(s):
+    mha = {n: _dense_to_jax(s.sub(f"mha.{n}"))
+           for n in ("q_proj", "k_proj", "v_proj", "pos_proj", "out_proj")}
+    mha["pos_bias_u"] = _a(s["mha.pos_bias_u"])
+    mha["pos_bias_v"] = _a(s["mha.pos_bias_v"])
     return {
         "LayerNorm_0": _ln_to_jax(s.sub("norm_ffn1")),
         "ffn1": _ffn_to_jax(s.sub("ffn1")),
         "LayerNorm_1": _ln_to_jax(s.sub("norm_mha")),
         "mha": mha,
-        "conv": conv,
+        "conv": _conv_module_to_jax(s.sub("conv")),
         "LayerNorm_2": _ln_to_jax(s.sub("norm_ffn2")),
         "ffn2": _ffn_to_jax(s.sub("ffn2")),
         "LayerNorm_3": _ln_to_jax(s.sub("norm_out")),
@@ -1668,3 +1685,145 @@ def adamw_state_from_torch(optimizer, names):
     exp_avg_sq = {name: _a(state[i]["exp_avg_sq"])
                   for i, name in enumerate(names)}
     return exp_avg, exp_avg_sq, int(state[0]["step"])
+
+
+# ------------------------------------------------------------------
+# speech translation: TransformerST and ConformerDecoder
+
+
+def _embedding_sd(p):
+    return {"emb.weight": _t(p["Embed_0"]["embedding"])}
+
+
+def _stack(p, convert, norm):
+    """``layer_{i}`` -> ``layers.{i}`` through ``convert``, and the final
+    LayerNorm ``norm`` as it is named."""
+    sd = {}
+    for i, layer in enumerate(_numbered(p, "layer_")):
+        sd.update(_prefixed(f"layers.{i}", convert(layer)))
+    sd.update(_prefixed(norm, layer_norm(p[norm])))
+    return sd
+
+
+def transformer_st_state_dict(params):
+    """TransformerST params -> the port's ``TransformerST`` state_dict
+    (``st`` through ``transformer_asr_state_dict``; the branches the
+    params hold)."""
+    sd = _prefixed("st", transformer_asr_state_dict(params["st"]))
+    if "asr_decoder" in params:
+        sd.update(_prefixed("asr_decoder", _stack(
+            params["asr_decoder"], decoder_layer, "norm_out")))
+        sd.update(_prefixed("custom_asr_tgt_module",
+                            _embedding_sd(params["custom_asr_tgt_module"])))
+    if "mt_encoder" in params:
+        sd.update(_prefixed("mt_encoder", _stack(
+            params["mt_encoder"], encoder_layer, "norm_out")))
+        sd.update(_prefixed("custom_mt_src_module",
+                            _embedding_sd(params["custom_mt_src_module"])))
+    return sd
+
+
+def _conformer_decoder_layer(p):
+    att = relpos_mha if "pos_bias_u" in p["mha"] else mha
+    return {
+        **_prefixed("norm_ffn1", layer_norm(p["LayerNorm_0"])),
+        **_prefixed("ffn1", ffn(p["ffn1"])),
+        **_prefixed("norm1", layer_norm(p["norm1"])),
+        **_prefixed("mha", att(p["mha"])),
+        **_prefixed("conv", conv_module(p["conv"])),
+        **_prefixed("norm_ffn2", layer_norm(p["LayerNorm_1"])),
+        **_prefixed("ffn2", ffn(p["ffn2"])),
+        **_prefixed("norm2", layer_norm(p["norm2"])),
+    }
+
+
+def conformer_decoder_state_dict(params):
+    """ConformerDecoder params (either attention type) -> state_dict."""
+    return _stack(params, _conformer_decoder_layer, "norm")
+
+
+def _stack_to_jax(s, convert, norm):
+    return {**{f"layer_{i}": convert(s.sub(f"layers.{i}"))
+               for i in range(s.count("layers"))},
+            norm: _ln_to_jax(s.sub(norm))}
+
+
+def to_jax_transformer_st(state_dict, prefix=""):
+    """The port's ``TransformerST`` state_dict -> JAX params."""
+    s = _Sub(state_dict, prefix)
+    out = {"st": to_jax_transformer_asr(state_dict, prefix + "st.")}
+    if "asr_decoder.norm_out.weight" in s:
+        out["asr_decoder"] = _stack_to_jax(s.sub("asr_decoder"),
+                                           _decoder_layer_to_jax, "norm_out")
+        out["custom_asr_tgt_module"] = {"Embed_0": {"embedding": _a(
+            s["custom_asr_tgt_module.emb.weight"])}}
+    if "mt_encoder.norm_out.weight" in s:
+        out["mt_encoder"] = _stack_to_jax(s.sub("mt_encoder"),
+                                          _encoder_layer_to_jax, "norm_out")
+        out["custom_mt_src_module"] = {"Embed_0": {"embedding": _a(
+            s["custom_mt_src_module.emb.weight"])}}
+    return out
+
+
+def _conformer_decoder_layer_to_jax(s):
+    a = s.sub("mha")
+    names = ("q_proj", "k_proj", "v_proj", "out_proj")
+    if "pos_bias_u" in a:
+        names += ("pos_proj",)
+    att = {n: _dense_to_jax(a.sub(n)) for n in names}
+    if "pos_bias_u" in a:
+        att["pos_bias_u"] = _a(a["pos_bias_u"])
+        att["pos_bias_v"] = _a(a["pos_bias_v"])
+    return {
+        "LayerNorm_0": _ln_to_jax(s.sub("norm_ffn1")),
+        "ffn1": _ffn_to_jax(s.sub("ffn1")),
+        "norm1": _ln_to_jax(s.sub("norm1")),
+        "mha": att,
+        "conv": _conv_module_to_jax(s.sub("conv")),
+        "LayerNorm_1": _ln_to_jax(s.sub("norm_ffn2")),
+        "ffn2": _ffn_to_jax(s.sub("ffn2")),
+        "norm2": _ln_to_jax(s.sub("norm2")),
+    }
+
+
+def to_jax_conformer_decoder(state_dict, prefix=""):
+    """The port's ``ConformerDecoder`` state_dict -> JAX params."""
+    return _stack_to_jax(_Sub(state_dict, prefix),
+                         _conformer_decoder_layer_to_jax, "norm")
+
+
+ST_HEADS = ("seq_lin", "ctc_lin", "asr_lin")
+
+
+def speech_translator_state_dict(frontend_vars, transformer_params, heads,
+                                 norm_state):
+    """Everything ``st.SpeechTranslator`` holds, from the JAX pieces:
+    frontend variables, TransformerST params, ``heads`` (a dict of the
+    Linear heads' params by name: ``seq_lin`` and those of ``ctc_lin`` and
+    ``asr_lin`` the model has) and the global input-normalization state."""
+    sd = {
+        **_prefixed("normalize", input_norm_state_dict(norm_state)),
+        **_prefixed("frontend", frontend_state_dict(frontend_vars)),
+        **_prefixed("transformer",
+                    transformer_st_state_dict(transformer_params)),
+    }
+    for name, p in heads.items():
+        sd.update(_prefixed(name, _head(p)))
+    return sd
+
+
+def to_jax_speech_translator(state_dict):
+    """``st.SpeechTranslator`` (or ``STBrain.modules``) state_dict -> the
+    JAX pieces: ``{"frontend": variables, "transformer": params, "norm":
+    GlobalNormState}`` and each head the model has (``{"Dense_0":
+    params}``) by name."""
+    s = _Sub(state_dict)
+    out = {
+        "frontend": to_jax_frontend(state_dict, "frontend."),
+        "transformer": to_jax_transformer_st(state_dict, "transformer."),
+        "norm": {k: _a(s[f"normalize.{k}"]) for k in ("count", "mean", "std")},
+    }
+    for name in ST_HEADS:
+        if f"{name}.weight" in s:
+            out[name] = {"Dense_0": _dense_to_jax(s.sub(name))}
+    return out

@@ -300,9 +300,11 @@ class S2SBeamSearcher:
     _cur_max_steps = _device = None
 
     @torch.no_grad()
-    def search_device(self, enc_states, wav_len):
-        """Run the search on the states' device, until ``max_steps`` or
-        until every batch item holds ``beam_size`` finished hypotheses.
+    def search_device(self, enc_states, wav_len, early_exit=True):
+        """Run the search on the states' device, until ``max_steps`` or,
+        with ``early_exit``, until every batch item holds ``beam_size``
+        finished hypotheses (JAX's ``search_device`` takes the same flag;
+        the later steps store nothing, so both give the same result).
 
         Returns the finalized store ``(seqs (B, beam, max_steps),
         lens (B, beam), scores (B, beam))``.
@@ -445,7 +447,7 @@ class S2SBeamSearcher:
             beam_scores = torch.where(is_eos_bb.bool(), mi, beam_scores)
             inp = tokens_flat
             t += 1
-            if bool((store_count >= beam).all()):
+            if early_exit and bool((store_count >= beam).all()):
                 break
         # fill the remaining slots from the alive beams, scored by the
         # last step's selection scores
