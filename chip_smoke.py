@@ -17,6 +17,8 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_lm,recipe_timit_seq2seq
     python3 chip_smoke.py --phase recipe_kspon,recipe_transformer,recipe_corpora
     python3 chip_smoke.py --phase recipe_commonvoice,recipe_slu
+    python3 chip_smoke.py --phase recipe_st
+    python3 chip_smoke.py --phase recipe_wav2vec
 
 Phases, each printing one JSON line when it ends:
 
@@ -405,6 +407,26 @@ Phases, each printing one JSON line when it ends:
    epoch 1, epoch 2 in a fresh Brain recovered bit for bit, the test
    (Taigi's BLEU and CER files), and the two tokenizer recipes at their
    yamls' sizes.
+28. recipe_wav2vec -- the native wav2vec 2.0 recipes
+   (``recipes.wav2vec_ctc``, ``recipes.wav2vec_pretrain``) at full width
+   (7 convolutions of 512; 12 pre-norm layers at d 768, 8 heads, d_ffn
+   3072): the LibriSpeech CTC step (B 6 x 10 s: T 498 latents, 150
+   characters, V 29; K3/K4 once a step on their block path, 2U+1 301) in
+   bf16 (the yaml's) and f32, the AISHELL-1 CTC step (B 8 x 6 s, T 298,
+   V 5000) in f32, the pretraining step (B 16 x 10 s, bf16, 100
+   negatives; no port kernel) as 2 micro-batches and one that closes the
+   accumulation window of 8 (the clip and AdamW) timed apart; each with
+   ms/step, peak memory, the profile, PyTorch calls and FLOPs of one more
+   micro-batch, beside the FLOPs counted from the shapes
+   (``_w2v_flops``); the LibriSpeech f32 step (dropout 0, ragged
+   lengths) through the kernels and the plain versions, loss and every
+   gradient, with the control of the plain route against itself with the
+   first convolution's weights one ulp off; then both pretraining recipes
+   (LibriSpeech, CommonVoice) and one CTC recipe a corpus (LibriSpeech,
+   DVoice, CommonVoice, AISHELL-1, Switchboard) on synthetic corpora at
+   full width and 2 encoder layers (the pretraining at batches of 4, no
+   accumulation), each epoch 1, epoch 2 in a fresh Brain recovered bit
+   for bit, then the CTC recipes' test with its WER file.
 
 The kernels phase also holds K5/K6 at dh 64 (role "dh64"), K7 at H4
 Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64"), K3/K4 at Switchboard's
@@ -414,7 +436,9 @@ Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64"), K3/K4 at Switchboard's
 transducer's (role "commonvoice": B8 T601 U96 V40); K1/K2 on the causal
 padding of ``ConformerDecoder`` (role "causal": B8 T64 C256 K31), K3/K4
 at the Fisher CTC's lattice (role "fisher": B8 T251 V500 U48) and K7 at
-the Taigi search's 320 rows (role "taigi": H4 Dh64 L128 pos 50).
+the Taigi search's 320 rows (role "taigi": H4 Dh64 L128 pos 50), and
+K3/K4 at the wav2vec CTC steps' lattices (role "w2v_librispeech": B6
+T498 V29 U150, the block path; role "w2v_aishell": B8 T298 V5000 U40).
 
 SHORTENED to keep the whole run inside its time limit (torch.profiler's
 collection took 5-21 s a profile beyond the traced work, the LiGRU's
@@ -443,7 +467,11 @@ profiles its f32 search only, ``serve_lm`` the valid f32 search only
 f32 only, ``recipe_timit_seq2seq`` the KD step only (its bf16 step runs
 the seq2seq step's modules and the second CTC), and
 ``recipe_commonvoice`` profiles no seq2seq step (``recipe_seq2seq``
-profiles the same modules at LibriSpeech's shape).
+profiles the same modules at LibriSpeech's shape).  For the wav2vec
+phase: the kernels phase times each plain CTC and RNN-T recursion once,
+right after the reference call its check makes (it ran a warm-up and 3
+timed calls: 7.2 s of the plain recursions a round on an H100 at 700 W,
+so ~18 s less).
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -453,7 +481,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 27, each counted from 0 just before its
+(launch counts from phases 3 to 28, each counted from 0 just before its
 run; the kernel-vs-plain checks' launches left out), and last the device
 line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
@@ -1192,7 +1220,7 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3,
     rows = [
         {"name": "ctc_alpha", **common, "max_abs_err": max(loss_err, alpha_err),
          "tol": tol_loss, **_call_times(k3, lib_fwd), **_kernel_profile(k3),
-         "plain_ms": _time_ms(lambda: ctc_alpha_plain(*args), iters=3, warmup=1),
+         "plain_ms": _time_ms(lambda: ctc_alpha_plain(*args), iters=1, warmup=0),
          "library": "F.ctc_loss forward",
          "bound_ms": k3_bound[0], "bound_by": k3_bound[1],
          "chain_floor_ms": floor["ctc_alpha"],
@@ -1201,7 +1229,7 @@ def _check_ctc(B=32, T=251, C=5000, U=40, role=None, lib_tol=2e-3,
         {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
          "tol": tol_grad, **_call_times(k4, lib_fwd_bwd), **_kernel_profile(k4),
          "plain_ms": _time_ms(lambda: ctc_beta_grad_plain(
-             *args, alpha_p, logz_p, ones), iters=3, warmup=1),
+             *args, alpha_p, logz_p, ones), iters=1, warmup=0),
          "library": "F.ctc_loss forward + backward",
          "fwd_bwd_ms": _time_ms(ours_fwd_bwd),
          "bound_ms": k4_bound[0], "bound_by": k4_bound[1],
@@ -1667,14 +1695,14 @@ def _check_transducer(U, role=None, T=251, B=12, V=1000, max_u=40):
          **_call_times(k8), **_kernel_profile(k8),
          "wrapper_ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen)),
          "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
-             *tables, tlen, ulen), iters=3, warmup=1),
+             *tables, tlen, ulen), iters=1, warmup=0),
          "chain_floor_ms": floor["transducer_alpha"],
          "bound_ms": k8_bound[0], "bound_by": k8_bound[1], "bound_note": chain},
         {"name": "transducer_beta_grad", **common, "max_abs_err": grad_err,
          "tol": tol_grad, "loss_entry_vs_plain": entry_err,
          **_call_times(k9), **_kernel_profile(k9),
          "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
-             *tables, alpha_p, tlen, ulen, final_p), iters=3, warmup=1),
+             *tables, alpha_p, tlen, ulen, final_p), iters=1, warmup=0),
          "loss_fwd_bwd_ms": _time_ms(entry_fwd_bwd, iters=5),
          "chain_floor_ms": floor["transducer_beta_grad"],
          "bound_ms": k9_bound[0], "bound_by": k9_bound[1], "bound_note": chain},
@@ -1728,14 +1756,14 @@ def _check_lattice_wide():
         {"name": "ctc_alpha", **common, "max_abs_err": loss_err, "tol": tol_loss,
          "ms": _time_ms(lambda: ops.ctc_alpha(*args), iters=5),
          "plain_ms": _time_ms(lambda: ops.ctc_alpha_plain(*args), iters=1,
-                              warmup=1),
+                              warmup=0),
          "library_ms": lib_ms, "bound_ms": k3[0], "bound_by": k3[1]},
         {"name": "ctc_beta_grad", **common, "max_abs_err": grad_err,
          "tol": tol_grad,
          "ms": _time_ms(lambda: ops.ctc_beta_grad(*args, alpha, logz, ones),
                         iters=5),
          "plain_ms": _time_ms(lambda: ops.ctc_beta_grad_plain(
-             *args, alpha_p, logz_p, ones), iters=1, warmup=1),
+             *args, alpha_p, logz_p, ones), iters=1, warmup=0),
          "library_ms": None, "bound_ms": k4[0], "bound_by": k4[1]},
     ]
     B, T, U, V = 2, 64, 1099, 8
@@ -1776,7 +1804,7 @@ def _check_lattice_wide():
          "ms": _time_ms(lambda: ops.transducer_alpha(*tables, tlen, ulen), iters=5),
          "device_ms": device["transducer_alpha"],
          "plain_ms": _time_ms(lambda: ops.transducer_alpha_plain(
-             *tables, tlen, ulen), iters=1, warmup=1),
+             *tables, tlen, ulen), iters=1, warmup=0),
          "bound_ms": k8[0], "bound_by": k8[1]},
         {"name": "transducer_beta_grad", **common, "max_abs_err": g_err,
          "tol": tol_grad,
@@ -1784,7 +1812,7 @@ def _check_lattice_wide():
              *tables, alpha, tlen, ulen, final), iters=5),
          "device_ms": device["transducer_beta_grad"],
          "plain_ms": _time_ms(lambda: ops.transducer_beta_grad_plain(
-             *tables, alpha_p, tlen, ulen, final_p), iters=1, warmup=1),
+             *tables, alpha_p, tlen, ulen, final_p), iters=1, warmup=0),
          "bound_ms": k9[0], "bound_by": k9[1]},
     ]
     return rows
@@ -1914,6 +1942,15 @@ def phase_kernels(only=None):
         # Fisher-Callhome ST: the CTC of the Spanish transcripts over the
         # 500 English BPE pieces (B 8 x 10 s, T_enc 251, 48 pieces)
         records.extend(_check_ctc(8, 251, 500, 48, role="fisher"))
+        # wav2vec + CTC: LibriSpeech's characters (B 6 x 10 s: T 498
+        # latents at 50 Hz, 150 characters: 2U+1 301, the block path) and
+        # AISHELL-1's 5000 outputs (B 8 x 6 s: T 298, 40 characters; |log
+        # Z| ~2.5e3 there, past the 2e3 where 2e-3 was set: the logits'
+        # gradient lay 2.72e-3 from F.ctc_loss's on an H100, so the
+        # library tolerance of "seq2seq")
+        records.extend(_check_ctc(6, 498, 29, 150, role="w2v_librispeech"))
+        records.extend(_check_ctc(8, 298, 5000, 40, role="w2v_aishell",
+                                  lib_tol=1e-2))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -5930,11 +5967,12 @@ REDUCED = {"num_encoder_layers": 2, "num_decoder_layers": 2,
 
 
 def _recipe_step(phase, make_brain, host, launches, steps=2, profile=False,
-                 **info):
+                 extra=None, **info):
     """A recipe's training step at full width on one staged batch: a
     warm-up, ``steps`` timed steps, the launches a step (``launches``),
     finite losses, and with ``profile`` the FLOPs and their f32 bound, the
-    PyTorch calls and the profile (the card's events) of one more step."""
+    PyTorch calls and the profile (the card's events) of one more step;
+    ``extra(brain, batch)`` returns more entries of the line."""
     import torch
 
     from speechbrain_tpu_torch import ops
@@ -5969,6 +6007,8 @@ def _recipe_step(phase, make_brain, host, launches, steps=2, profile=False,
                    f32_bound_ms=_bound_ms(0, step_flops, "float32")[0],
                    pytorch_calls_per_step=_pytorch_calls(one_step),
                    profile=_profile(one_step, cpu=False), **info_flops)
+    if extra is not None:
+        run.update(extra(brain, batch))
     emit(run)
     del brain, batch
     torch.cuda.empty_cache()
@@ -6721,31 +6761,36 @@ ST_DECODER_SIDE = ("transformer.asr_decoder.", "transformer.st.decoder.",
 ST_ROUTE_TOL = {"encoder": 1e-3, "decoder": 2e-2}
 
 
-def _nudged_taps(brain, factor):
-    """A context: every conformer convolution module's depthwise taps
-    times ``factor`` (one float32 ulp away), put back bit for bit after."""
+def _nudged(params, factor):
+    """A context: each of ``params`` times ``factor`` (one float32 ulp
+    away), put back bit for bit after."""
     import contextlib
 
     import torch
 
-    from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
-        ConvolutionModule)
-
     @contextlib.contextmanager
     def nudged():
-        mods = [m for m in brain.modules.modules()
-                if isinstance(m, ConvolutionModule)]
-        saved = [m.depthwise_kernel.detach().clone() for m in mods]
+        saved = [p.detach().clone() for p in params]
         with torch.no_grad():
-            for m in mods:
-                m.depthwise_kernel.mul_(factor)
+            for p in params:
+                p.mul_(factor)
         try:
             yield
         finally:
             with torch.no_grad():
-                for m, w in zip(mods, saved):
-                    m.depthwise_kernel.copy_(w)
+                for p, w in zip(params, saved):
+                    p.copy_(w)
     return nudged()
+
+
+def _nudged_taps(brain, factor):
+    """``_nudged`` on every conformer convolution module's depthwise
+    taps."""
+    from speechbrain_tpu_torch.lobes.models.transformer.Conformer import (
+        ConvolutionModule)
+
+    return _nudged([m.depthwise_kernel for m in brain.modules.modules()
+                    if isinstance(m, ConvolutionModule)], factor)
 
 
 def _st_routes():
@@ -6915,6 +6960,276 @@ def phase_recipe_st():
     return runs
 
 
+W2V_LAUNCHES = dict({k: 0 for k in TRAIN_LAUNCHES}, ctc_alpha=1,
+                    ctc_beta_grad=1)
+W2V_PRETRAIN_LAUNCHES = {k: 0 for k in TRAIN_LAUNCHES}
+# the steps: LibriSpeech B 6 x 10 s (T 498 latents; ~15 characters a
+# second: 150, so 2U+1 301 takes the kernels' block path), AISHELL-1 B 8 x
+# 6 s (T 298, 40 characters, 5000 outputs: the warp path), the
+# pretraining B 16 x 10 s
+W2V_LS = {"B": 6, "samples": 160000, "U": 150, "V": 29}
+W2V_AISHELL = {"B": 8, "samples": 96000, "U": 40, "V": 5000}
+W2V_PRETRAIN_B, W2V_PRETRAIN_SAMPLES = 16, 160000
+# the kernel-vs-plain gradients of the LibriSpeech step, a share of each
+# tensor's scale (``_grad_rel_errs``); the control nudges the first
+# convolution's weights one float32 ulp
+W2V_ROUTE_TOL = 1e-3
+# the recipes on synthetic corpora: full width, 2 encoder layers; the
+# pretraining recipe at batches of 4 without accumulation (8 clips: two
+# batches an epoch, so each epoch steps and a resume is bit for bit at the
+# epoch's end)
+RECIPE_W2V = {"train": 8, "dev": 2, "test": 2}
+RECIPE_W2V_SECONDS = (3.0, 12.0)
+RECIPE_W2V_REDUCED = {"encoder_layers": 2}
+RECIPE_W2V_PRETRAIN = {"encoder_layers": 2, "batch_size": 4,
+                       "grad_accumulation_factor": 1}
+
+
+def _w2v_brain(name, precision, dropout, device=None):
+    """A wav2vec recipe's Brain at full width (the yaml's values):
+    "librispeech" and "aishell" the CTC ``ASR``, "pretrain" the
+    ``W2VBrain`` at the yaml's accumulation 8."""
+    from speechbrain_tpu_torch.recipes import wav2vec_ctc, wav2vec_pretrain
+
+    cls, hp = {"librispeech": (wav2vec_ctc.ASR,
+                               wav2vec_ctc.HPARAMS_LIBRISPEECH),
+               "aishell": (wav2vec_ctc.ASR, wav2vec_ctc.HPARAMS_AISHELL),
+               "pretrain": (wav2vec_pretrain.W2VBrain,
+                            wav2vec_pretrain.HPARAMS)}[name]
+    cfg = dict(hp, encoder_dropout=dropout)
+    return cls(cfg, run_opts={
+        "seed": SEED, "precision": precision, "loss_sync_interval": 10,
+        "device": device,
+        "grad_accumulation_factor": cfg.get("grad_accumulation_factor", 1)})
+
+
+def _w2v_flops(B, samples, hp, head, pretrain=False):
+    """The step's products counted from the shapes (the convolutions, the
+    projections, the attention's two products, the FFN, the DNN and the
+    head; with ``pretrain`` the quantiser's logits and projection and the
+    contrastive dot products instead of the DNN), as (forward, step = 3 x
+    forward) FLOPs: the check of ``FlopCounterMode``'s count."""
+    n, cin, conv = samples, 1, 0
+    for c, k, s in zip(hp["latent_channels"], hp["kernel_sizes"],
+                       hp["strides"]):
+        n = (n - k) // s + 1
+        conv += 2 * B * n * c * cin * k
+        cin = c
+    T, d, f = n, hp["embedding_dim"], hp["d_ffn"]
+    enc = 2 * B * T * cin * d + hp["encoder_layers"] * (
+        8 * B * T * d * d + 4 * B * T * T * d + 4 * B * T * d * f)
+    if pretrain:
+        gv = hp["quantiser_groups"] * hp["quantiser_vars"]
+        t = hp["target_dim"]
+        rest = (2 * B * T * cin * gv + 2 * B * T * gv * t + 2 * B * T * t * t
+                + 2 * B * T * d * t
+                + 2 * (hp["num_negatives"] + 1) * B * T * t)
+    else:
+        h = hp["dnn_neurons"]
+        rest = 2 * B * T * (d * h + (hp["dnn_blocks"] - 1) * h * h + h * head)
+    forward = conv + enc + rest
+    return {"analytic_forward_gflop": forward / 1e9,
+            "analytic_conv_gflop": conv / 1e9,
+            "analytic_encoder_gflop": enc / 1e9,
+            "analytic_step_gflop": 3 * forward / 1e9,
+            "analytic_f32_bound_ms": _bound_ms(0, 3 * forward, "float32")[0]}
+
+
+def _w2v_ctc_step(name, precision):
+    """A CTC recipe's step at full width (``_recipe_step``: a warm-up, 2
+    timed Adadelta steps, K3/K4 once a step, the profile, FLOPs and calls
+    of one more) with the FLOPs counted from the shapes beside it."""
+    from speechbrain_tpu_torch.recipes import wav2vec_ctc
+
+    shape = W2V_LS if name == "librispeech" else W2V_AISHELL
+    hp = (wav2vec_ctc.HPARAMS_LIBRISPEECH if name == "librispeech"
+          else wav2vec_ctc.HPARAMS_AISHELL)
+    host = _char_batch(shape["B"], shape["samples"], shape["U"], shape["V"],
+                       SEED + 80)
+    T = 498 if name == "librispeech" else 298
+    return _recipe_step(
+        f"recipe_wav2vec_{name}_step",
+        lambda: _w2v_brain(name, precision, 0.1), host, W2V_LAUNCHES,
+        profile=True, seconds_audio=shape["samples"] / 16000, T=T,
+        tokens=shape["U"], vocab=shape["V"],
+        ctc_lattice=[shape["B"], T, 2 * shape["U"] + 1],
+        **_w2v_flops(shape["B"], shape["samples"], hp, hp["output_neurons"]))
+
+
+def _w2v_pretrain_step(precision):
+    """The pretraining step at full width on B 16 x 10 s: a warm-up
+    micro-batch, 2 timed micro-batches (forward and backward into the
+    accumulated gradients, no optimizer step at the yaml's accumulation 8),
+    then one micro-batch that closes the window (the clip and the AdamW
+    step) timed apart; no port kernel; the profile, FLOPs and calls of a
+    micro-batch, the FLOPs counted from the shapes beside them, and the
+    loss's parts."""
+    from speechbrain_tpu_torch.recipes import wav2vec_pretrain
+
+    hp = wav2vec_pretrain.HPARAMS
+    rng = np.random.default_rng(SEED + 81)
+    host = {"sig": rng.normal(size=(W2V_PRETRAIN_B, W2V_PRETRAIN_SAMPLES)
+                              ).astype(np.float32)}
+
+    def optimizer_step(brain, batch):
+        steps0 = brain.optimizer_step
+        brain.step = hp["grad_accumulation_factor"] - 1
+        ms, losses, peak = _run_steps(brain, batch, 1)
+        assert brain.optimizer_step == steps0 + 1 and np.isfinite(losses[0])
+        return {"optimizer_step_ms": ms, "optimizer_step_peak_gib":
+                peak / 2 ** 30, "micro_batches_a_step":
+                hp["grad_accumulation_factor"], "lr_after": brain.lr}
+
+    return _recipe_step(
+        "recipe_wav2vec_pretrain_step",
+        lambda: _w2v_brain("pretrain", precision, 0.1), host,
+        W2V_PRETRAIN_LAUNCHES, profile=True, extra=optimizer_step,
+        seconds_audio=W2V_PRETRAIN_SAMPLES / 16000, T=498,
+        negatives=hp["num_negatives"],
+        **_w2v_flops(W2V_PRETRAIN_B, W2V_PRETRAIN_SAMPLES, hp, 0,
+                     pretrain=True))
+
+
+def _w2v_routes():
+    """The LibriSpeech CTC step's loss and every gradient through K3/K4
+    and through the plain recursions (f32, dropout 0, ragged lengths, the
+    block path): the loss within 1e-5 relative, each gradient within
+    ``W2V_ROUTE_TOL`` of its scale; beside them the control, the plain
+    route against itself with the first convolution's weights nudged one
+    ulp up and down."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _w2v_brain("librispeech", "fp32", 0.0)
+    host = _char_batch(W2V_LS["B"], W2V_LS["samples"], W2V_LS["U"],
+                       W2V_LS["V"], SEED + 82)
+    batch = brain.prepare_batch(host)
+    ops.reset_launch_counters()
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=W2V_ROUTE_TOL)
+    counts = ops.launch_counters()
+    assert counts["ctc_alpha"] == 1 and counts["ctc_beta_grad"] == 1, counts
+    brain.set_kernels(False)
+    _, grads_p = _loss_and_grads(brain, batch)
+    control = {}
+    conv0 = brain.modules.extractor.convs[0].weight
+    for name, factor in (("up", 1 + 2.0 ** -23), ("down", 1 - 2.0 ** -23)):
+        with _nudged([conv0], factor):
+            errs = _grad_rel_errs(_loss_and_grads(brain, batch)[1], grads_p)
+        worst = max(errs, key=errs.get)
+        control[name] = {"grad_max_rel_err": errs[worst], "grad_worst": worst}
+    brain.set_kernels(True)
+    run = {"phase": "recipe_wav2vec_librispeech_check", "precision": "fp32",
+           "batch": W2V_LS["B"], "ctc_lattice": [W2V_LS["B"], 498,
+                                                 2 * W2V_LS["U"] + 1],
+           "kernel_vs_plain": cmp, "plain_vs_nudged_plain": control,
+           "launches": counts}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _w2v_recipes(tmp):
+    """The two pretraining recipes and one CTC recipe a corpus through
+    their builds on synthetic corpora at full width and reduced depth
+    (``RECIPE_W2V_REDUCED``, ``RECIPE_W2V_PRETRAIN``), each 1 epoch, then
+    epoch 2 in a fresh Brain recovered bit for bit, then the CTC recipes'
+    test with its WER file."""
+    from speechbrain_tpu_torch.recipes import aishell_prepare
+    from speechbrain_tpu_torch.recipes import common_voice_prepare
+    from speechbrain_tpu_torch.recipes import dvoice_prepare
+    from speechbrain_tpu_torch.recipes import librispeech_asr
+    from speechbrain_tpu_torch.recipes import switchboard_prepare
+    from speechbrain_tpu_torch.recipes import wav2vec_ctc as ctc
+    from speechbrain_tpu_torch.recipes import wav2vec_pretrain as pre
+
+    seconds = RECIPE_W2V_SECONDS
+    librispeech_asr.write_synthetic_librispeech(
+        f"{tmp}/ls", {"train-clean-100": 8, "dev-clean": 2, "test-clean": 2},
+        seconds=seconds, n_words=(4, 12), lexicon_size=200, seed=SEED)
+    dvoice_prepare.write_synthetic_dvoice(f"{tmp}/dvoice", RECIPE_W2V,
+                                          seconds=seconds, seed=SEED)
+    common_voice_prepare.write_synthetic_common_voice(
+        f"{tmp}/cv", RECIPE_W2V, language="en", seconds=(3.0, 9.0),
+        seed=SEED)
+    aishell_prepare.write_synthetic_aishell(f"{tmp}/aishell", RECIPE_W2V,
+                                            seconds=seconds, seed=SEED)
+    switchboard_prepare.write_synthetic_switchboard(
+        f"{tmp}/swbd", conversations=4, turns=2, eval_segments=2,
+        seconds=(4.0, 8.0), n_words=(2, 5), seed=SEED)
+    ls = {"train_splits": ["train-clean-100"]}
+    runs = {}
+    for name, recipe, data, hp, reduced in (
+            ("pretrain_librispeech", pre, "ls", pre.HPARAMS,
+             dict(RECIPE_W2V_PRETRAIN, **ls)),
+            ("pretrain_commonvoice", pre, "cv", pre.HPARAMS_COMMONVOICE,
+             RECIPE_W2V_PRETRAIN),
+            ("ctc_librispeech", ctc, "ls", ctc.HPARAMS_LIBRISPEECH,
+             dict(RECIPE_W2V_REDUCED, **ls)),
+            ("ctc_dvoice", ctc, "dvoice", ctc.HPARAMS_DVOICE_DAR,
+             RECIPE_W2V_REDUCED),
+            ("ctc_commonvoice", ctc, "cv", ctc.HPARAMS_COMMONVOICE_EN,
+             RECIPE_W2V_REDUCED),
+            ("ctc_aishell", ctc, "aishell", ctc.HPARAMS_AISHELL,
+             RECIPE_W2V_REDUCED),
+            ("ctc_switchboard", ctc, "swbd", ctc.HPARAMS_SWITCHBOARD,
+             dict(RECIPE_W2V_REDUCED, dev_conversations=1))):
+        out = f"{tmp}/out_{name}"
+
+        def build(epochs, recipe=recipe, data=data, hp=hp, out=out,
+                  reduced=reduced):
+            return recipe.build(f"{tmp}/{data}", out,
+                                dict(reduced, number_of_epochs=epochs),
+                                {"noprogressbar": True}, hp)
+
+        def test(parts, out=out, pretrain=recipe is pre):
+            brain = parts["brain"]
+            if pretrain:
+                stats = brain.stage_stats["VALID"]
+            else:
+                brain.evaluate(parts["test_loader"], min_key="WER")
+                stats = brain.stage_stats["TEST"]
+                assert set(stats) == {"loss", "WER", "CER"}, stats
+                assert open(f"{out}/wer.txt").read().startswith("%WER")
+            assert all(np.isfinite(v) for v in stats.values()), stats
+            return stats
+
+        kernels = () if recipe is pre else ("ctc_alpha", "ctc_beta_grad")
+        runs[name] = _recipe_resumed(f"recipe_wav2vec_{name}_run", build, 1,
+                                     test, kernels)
+        runs[name]["reduced"] = reduced
+    return runs
+
+
+def phase_recipe_wav2vec():
+    """The native wav2vec 2.0 recipes (``recipes.wav2vec_ctc``,
+    ``recipes.wav2vec_pretrain``) at full width: the LibriSpeech CTC step
+    (B 6 x 10 s, T 498, 150 characters: K3/K4 on the block path) in bf16
+    (the yaml's) and f32, the AISHELL-1 CTC step (B 8 x 6 s, V 5000) in
+    f32, the pretraining step (B 16 x 10 s, bf16; a micro-batch, and one
+    closing the accumulation window timed apart); the LibriSpeech f32 step
+    through the kernels and the plain versions with the ulp-nudge control;
+    then the two pretraining recipes and a CTC recipe a corpus on
+    synthetic corpora, each resumed bit for bit."""
+    import shutil
+    import tempfile
+
+    runs = {}
+    for precision in ("bf16", "fp32"):
+        runs[f"librispeech_{precision}"] = _w2v_ctc_step("librispeech",
+                                                         precision)
+    runs["aishell_fp32"] = _w2v_ctc_step("aishell", "fp32")
+    runs["pretrain_bf16"] = _w2v_pretrain_step("bf16")
+    runs["librispeech_check"] = _w2v_routes()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_w2v_")
+    try:
+        runs.update({f"{k}_recipe": v for k, v in _w2v_recipes(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -6924,8 +7239,8 @@ def kernels_line(records, main_runs):
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
     recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
     recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer,
-    recipe_corpora, recipe_commonvoice, recipe_slu and recipe_st), each
-    counted from 0 just before its run."""
+    recipe_corpora, recipe_commonvoice, recipe_slu, recipe_st and
+    recipe_wav2vec), each counted from 0 just before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -7031,6 +7346,7 @@ def main():
     commonvoice = timed("recipe_commonvoice", phase_recipe_commonvoice)
     slu = timed("recipe_slu", phase_recipe_slu)
     st = timed("recipe_st", phase_recipe_st)
+    w2v = timed("recipe_wav2vec", phase_recipe_wav2vec)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -7055,7 +7371,8 @@ def main():
                  *kspon.values(), *transformer.values(), *corpora.values(),
                  *(v for k, v in commonvoice.items()
                    if not k.endswith("_check")), *slu.values(),
-                 *(v for k, v in st.items() if not k.endswith("_check"))]
+                 *(v for k, v in st.items() if not k.endswith("_check")),
+                 *(v for k, v in w2v.items() if not k.endswith("_check"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

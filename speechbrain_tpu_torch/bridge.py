@@ -200,6 +200,12 @@ __all__ = [
     "to_jax_conformer_decoder",
     "speech_translator_state_dict",
     "to_jax_speech_translator",
+    "w2v_extractor_state_dict",
+    "w2v_quantiser_state_dict",
+    "w2v_encoder_state_dict",
+    "vanilla_nn_state_dict",
+    "wav2vec_state_dict",
+    "to_jax_wav2vec",
     "adamw_state_to_torch",
     "adamw_state_from_torch",
 ]
@@ -1826,4 +1832,113 @@ def to_jax_speech_translator(state_dict):
     for name in ST_HEADS:
         if f"{name}.weight" in s:
             out[name] = {"Dense_0": _dense_to_jax(s.sub(name))}
+    return out
+
+
+# ------------------------------------------------------------------
+# wav2vec 2.0 (``lobes/models/wav2vec.py``, ``VanillaNN``)
+
+
+def w2v_extractor_state_dict(p):
+    """W2VLatentExtractor params -> state_dict."""
+    sd = {}
+    for i, conv in enumerate(_numbered(p, "conv_")):
+        kern = np.asarray(conv["kernel"])  # (k, in, out)
+        sd[f"convs.{i}.weight"] = _t(kern.transpose(2, 1, 0)).contiguous()
+        sd.update(_prefixed(f"norms.{i}", layer_norm(p[f"LayerNorm_{i}"])))
+    return sd
+
+
+def w2v_quantiser_state_dict(p):
+    """W2VTargetQuantiser params -> state_dict."""
+    vq = p["GumbelVectorQuantizer_0"]
+    return {"quantiser.codebook": _t(vq["codebook"]),
+            **_prefixed("quantiser.weight_proj", dense(vq["Dense_0"])),
+            **_prefixed("proj", dense(p["Dense_0"]))}
+
+
+def w2v_encoder_state_dict(p):
+    """EncoderWrapper params (with or without ``mask_emb``) ->
+    state_dict."""
+    sd = {**_prefixed("latent_proj", dense(p["Dense_0"])),
+          **_prefixed("encoder", _stack(p["TransformerEncoder_0"],
+                                        encoder_layer, "norm_out"))}
+    if "mask_emb" in p:
+        sd["mask_emb"] = _t(p["mask_emb"])
+    return sd
+
+
+def vanilla_nn_state_dict(p):
+    """VanillaNN params -> state_dict."""
+    sd = {}
+    for i, d in enumerate(_numbered(p, "Dense_")):
+        sd.update(_prefixed(f"linears.{i}", dense(d)))
+    return sd
+
+
+# the wav2vec recipes' modules by name; any other name is a Linear head
+_W2V_MODULES = {"extractor": w2v_extractor_state_dict,
+                "quantiser": w2v_quantiser_state_dict,
+                "encoder": w2v_encoder_state_dict,
+                "enc_dnn": vanilla_nn_state_dict}
+
+
+def wav2vec_state_dict(params):
+    """The wav2vec recipes' params by module name (a JAX Brain's
+    ``train_state["params"]``: ``extractor``, ``quantiser``, ``encoder``,
+    ``enc_dnn`` and the ``Linear`` heads, e.g. ``proj``, ``ctc_lin``) ->
+    the state_dict of the port's ``ModuleDict`` of them."""
+    sd = {}
+    for name, p in params.items():
+        sd.update(_prefixed(name, _W2V_MODULES.get(name, _head)(p)))
+    return sd
+
+
+def _w2v_extractor_to_jax(s):
+    out = {}
+    for i in range(s.count("convs")):
+        w = _a(s[f"convs.{i}.weight"])  # (out, in, k)
+        out[f"conv_{i}"] = {"kernel": w.transpose(2, 1, 0).copy()}
+        out[f"LayerNorm_{i}"] = _ln_to_jax(s.sub(f"norms.{i}"))
+    return out
+
+
+def _w2v_quantiser_to_jax(s):
+    return {"GumbelVectorQuantizer_0": {
+                "codebook": _a(s["quantiser.codebook"]),
+                "Dense_0": _dense_to_jax(s.sub("quantiser.weight_proj"))},
+            "Dense_0": _dense_to_jax(s.sub("proj"))}
+
+
+def _w2v_encoder_to_jax(s):
+    out = {"Dense_0": _dense_to_jax(s.sub("latent_proj")),
+           "TransformerEncoder_0": _stack_to_jax(
+               s.sub("encoder"), _encoder_layer_to_jax, "norm_out")}
+    if "mask_emb" in s:
+        out["mask_emb"] = _a(s["mask_emb"])
+    return out
+
+
+def _vanilla_nn_to_jax(s):
+    return {f"Dense_{i}": _dense_to_jax(s.sub(f"linears.{i}"))
+            for i in range(s.count("linears"))}
+
+
+_W2V_TO_JAX = {"extractor": _w2v_extractor_to_jax,
+               "quantiser": _w2v_quantiser_to_jax,
+               "encoder": _w2v_encoder_to_jax,
+               "enc_dnn": _vanilla_nn_to_jax}
+
+
+def to_jax_wav2vec(state_dict):
+    """The inverse of ``wav2vec_state_dict``: a ``ModuleDict`` state_dict
+    -> JAX params by module name (a ``Linear`` head as ``{"Dense_0":
+    ...}``)."""
+    names = sorted({k.split(".", 1)[0] for k in state_dict})
+    out = {}
+    for name in names:
+        s = _Sub(state_dict, f"{name}.")
+        convert = _W2V_TO_JAX.get(name)
+        out[name] = (convert(s) if convert is not None
+                     else {"Dense_0": _dense_to_jax(s)})
     return out

@@ -6,7 +6,7 @@ the speaker recipes' ``AngularMargin``, ``AdditiveAngularMargin`` and
 ``LogSoftmaxWrapper``, and the separation recipes' ``PitWrapper``,
 ``cal_si_snr``, ``get_si_snr_with_pitwrapper`` and ``get_mask``, and the
 TIMIT distillation recipe's ``ctc_loss_kd``, ``nll_loss_kd`` and
-``ce_kd``):
+``ce_kd``, and wav2vec 2.0's ``ContrastiveLoss``):
 lengths are RELATIVE (batch,), padded positions are masked before the
 reduction, and the reductions keep the reference's definitions, quirks
 included.
@@ -28,7 +28,7 @@ __all__ = ["compute_masked_loss", "ctc_loss", "transducer_loss", "nll_loss",
            "kldiv_loss", "classification_error", "AngularMargin",
            "AdditiveAngularMargin", "LogSoftmaxWrapper", "PitWrapper",
            "cal_si_snr", "get_si_snr_with_pitwrapper", "get_mask",
-           "ctc_loss_kd", "nll_loss_kd", "ce_kd"]
+           "ctc_loss_kd", "nll_loss_kd", "ce_kd", "ContrastiveLoss"]
 
 
 def _sequence_mask(lengths, max_len, dtype):
@@ -515,3 +515,32 @@ def ce_kd(inp, target):
     0.6931
     """
     return (-target * inp).sum(1)
+
+
+class ContrastiveLoss:
+    """wav2vec 2.0's contrastive loss (InfoNCE over sampled negatives), as
+    the JAX package computes it: the cosine of each encoded frame with its
+    candidates [positive; negatives], the product of the norms plus 1e-8
+    below (not ``F.cosine_similarity``'s eps), over ``logit_temp``; a
+    log-softmax over the candidates and the mean of -log p(positive) over
+    every (B, T) frame, masked or not.
+
+    Example
+    -------
+    >>> enc = torch.ones(1, 3, 4)
+    >>> loss = ContrastiveLoss(0.1)(enc, enc, -torch.ones(2, 1, 3, 4))
+    >>> float(loss) < 1e-6
+    True
+    """
+
+    def __init__(self, logit_temp=0.1):
+        self.logit_temp = logit_temp
+
+    def __call__(self, encoded, quantized, negatives):
+        """encoded, quantized (B, T, C); negatives (N, B, T, C)."""
+        candidates = torch.cat([quantized[None], negatives], 0)
+        dots = torch.einsum("btc,nbtc->nbt", encoded, candidates)
+        norms = (torch.linalg.vector_norm(encoded, dim=-1)[None]
+                 * torch.linalg.vector_norm(candidates, dim=-1) + 1e-8)
+        logits = dots / norms / self.logit_temp
+        return -torch.log_softmax(logits, 0)[0].mean()
