@@ -19,6 +19,7 @@ NVIDIA card.
     python3 chip_smoke.py --phase recipe_commonvoice,recipe_slu
     python3 chip_smoke.py --phase recipe_st
     python3 chip_smoke.py --phase recipe_wav2vec
+    python3 chip_smoke.py --phase recipe_wav2vec_families
 
 Phases, each printing one JSON line when it ends:
 
@@ -375,8 +376,9 @@ Phases, each printing one JSON line when it ends:
    bf16 and f32, the ``transducer/train_fr.yaml`` step (Fbank 40 with
    deltas, CRDNN-LiGRU 4 x 512, V 40 characters, U+1 81; K8/K9 once a
    step) on B 8 x 6 s in f32 and bf16; ms/step, utt/s, peak memory, the
-   launches a step, and for the bf16 steps the FLOPs and their f32 bound,
-   the PyTorch calls and the profile of one more step; each family's f32
+   launches a step, and for the bf16 conformer step (see SHORTENED) the
+   FLOPs and their f32 bound, the PyTorch calls and the profile of one
+   more step; each family's f32
    step (dropout 0, ragged lengths) through the kernels and the plain
    versions, loss and every gradient; then the three recipes through
    their builds on a synthetic French folder (12 train, 2 dev, 2 test
@@ -427,6 +429,28 @@ Phases, each printing one JSON line when it ends:
    full width and 2 encoder layers (the pretraining at batches of 4, no
    accumulation), each epoch 1, epoch 2 in a fresh Brain recovered bit
    for bit, then the CTC recipes' test with its WER file.
+29. recipe_wav2vec_families -- the wav2vec 2.0 yamls of the ported
+   families and TIMIT's transducers at full width: the CommonVoice
+   ``train_fr_with_wav2vec.yaml`` step (the wav2vec base encoder, the
+   location-attention GRU of 1024, 500 outputs; K3/K4 once a step) on B
+   12 x 6 s in f32 (the yaml's), TIMIT's ``train_with_wav2vec2.yaml``
+   step (``enc_dnn`` 2 x 512, GRU 256, V 42; K3/K4) on B 8 x 3 s,
+   AISHELL-1's ``train_ASR_transformer_with_wav2vect.yaml`` step (the
+   latents into conformer_small's 12 + 4 layers, V 4300; K1 24, K2 12, K3
+   1, K4 1 a step) on B 8 x 6 s, the IWSLT22 ``train_w2v2_st.yaml``
+   micro-batch (6 wav2vec layers, the decoder-only ``TransformerST``, V
+   1000; no port kernel) on B 2 x 10 s in f32, and TIMIT's
+   ``transducer/train.yaml`` (CRDNN-LiGRU 4 x 512) and
+   ``train_wav2vec.yaml`` steps (V 40; K8/K9 once a step) on B 8 x 3 s;
+   the bf16 yamls' steps in bf16 and f32, each step's ms, peak memory and
+   launches, and in the yaml's precision its FLOPs, PyTorch calls and
+   profile; the CommonVoice, AISHELL-1 and wav2vec transducer f32 steps
+   (dropout 0, ragged lengths) through the kernels and the plain
+   versions, with the control of the plain route against itself with the
+   extractor's first convolution one ulp off; then the 11 recipes on
+   synthetic corpora at full width and 2 encoder layers (the LiGRU 2 of
+   4; no accumulation; the searches capped at a tenth of T), each epoch
+   1, epoch 2 in a fresh Brain recovered bit for bit, then the test.
 
 The kernels phase also holds K5/K6 at dh 64 (role "dh64"), K7 at H4
 Dh64 and H8 Dh64 (roles "h4dh64", "h8dh64"), K3/K4 at Switchboard's
@@ -438,7 +462,10 @@ padding of ``ConformerDecoder`` (role "causal": B8 T64 C256 K31), K3/K4
 at the Fisher CTC's lattice (role "fisher": B8 T251 V500 U48) and K7 at
 the Taigi search's 320 rows (role "taigi": H4 Dh64 L128 pos 50), and
 K3/K4 at the wav2vec CTC steps' lattices (role "w2v_librispeech": B6
-T498 V29 U150, the block path; role "w2v_aishell": B8 T298 V5000 U40).
+T498 V29 U150, the block path; role "w2v_aishell": B8 T298 V5000 U40),
+K3/K4 at the CommonVoice wav2vec seq2seq step's (role "cv_wav2vec": B12
+T298 V500 U80) and K8/K9 at TIMIT's wav2vec transducer's (role
+"timit_w2v": B8 T148 U40 V40).
 
 SHORTENED to keep the whole run inside its time limit (torch.profiler's
 collection took 5-21 s a profile beyond the traced work, the LiGRU's
@@ -471,7 +498,10 @@ profiles the same modules at LibriSpeech's shape).  For the wav2vec
 phase: the kernels phase times each plain CTC and RNN-T recursion once,
 right after the reference call its check makes (it ran a warm-up and 3
 timed calls: 7.2 s of the plain recursions a round on an H100 at 700 W,
-so ~18 s less).
+so ~18 s less).  For the wav2vec families' phase: ``recipe_commonvoice``
+profiles no transducer step (``recipe_wav2vec_families`` profiles the same
+CRDNN-LiGRU transducer, TIMIT's, at V 40 and T 301; the CommonVoice one
+took 15.4 s with its profile and 3.7 s without).
 
 Phases 6 and 8 train with the recipes' SpecAugment (``asr.CONFORMER_SMALL``
 / ``CONFORMER_TRANSDUCER["augmentation"]``), drawn from the brain's
@@ -481,7 +511,7 @@ routes, so both draw the same masks (phase 6 holds the gradients without
 it and the loss with it: see ``phase_train``; phase 7 runs without it).
 
 Then a line with each phase's seconds, one ``{"kernels": [...]}`` line
-(launch counts from phases 3 to 28, each counted from 0 just before its
+(launch counts from phases 3 to 29, each counted from 0 just before its
 run; the kernel-vs-plain checks' launches left out), and last the device
 line.
 float32 matmuls and convolutions run without TF32 throughout, and cuDNN
@@ -1951,6 +1981,11 @@ def phase_kernels(only=None):
         records.extend(_check_ctc(6, 498, 29, 150, role="w2v_librispeech"))
         records.extend(_check_ctc(8, 298, 5000, 40, role="w2v_aishell",
                                   lib_tol=1e-2))
+        # the CommonVoice wav2vec seq2seq step's CTC: B 12 x 6 s (T 298
+        # latents), 80 characters of 500 outputs (|log Z| ~2e3, at the edge
+        # where 2e-3 was set: the library tolerance of "seq2seq")
+        records.extend(_check_ctc(12, 298, 500, 80, role="cv_wav2vec",
+                                  lib_tol=1e-2))
     if want("transducer"):
         records.extend(_check_transducer(64))
         # the CRDNN-transducer's lattice: T_enc 1001 (no time pooling)
@@ -1960,6 +1995,10 @@ def phase_kernels(only=None):
         # time pooling), V 40, 68-80 characters in a 96-label buffer
         records.extend(_check_transducer(96, role="commonvoice", T=601, B=8,
                                          V=40, max_u=80))
+        # TIMIT's wav2vec transducer: B 8 x 3 s (T 148 latents), 28-40 of
+        # the 39 phones, V 40
+        records.extend(_check_transducer(40, role="timit_w2v", T=148, B=8,
+                                         V=40, max_u=40))
         records.extend(_check_lattice_wide())
     for r in records:
         emit({"phase": "kernels", **r})
@@ -6503,7 +6542,8 @@ def phase_recipe_commonvoice():
     layers, 4300 outputs; K1 24, K2 12, K3 1, K4 1 a step) on B 12 x 6 s
     in bf16 and f32, the ``transducer/train_fr.yaml`` step (Fbank 40 with
     deltas, CRDNN-LiGRU 4 x 512, V 40; K8/K9 once a step) on B 8 x 6 s in
-    f32 and in bf16 (that one profiled); each family's f32 step through
+    f32 and in bf16 (see SHORTENED: not profiled); each family's f32 step
+    through
     the kernels and the plain versions; then the three recipes through
     their builds on a synthetic French folder, resumed bit for bit."""
     import shutil
@@ -6529,7 +6569,7 @@ def phase_recipe_commonvoice():
         runs[f"transducer_{precision}"] = _recipe_step(
             "recipe_commonvoice_transducer_step",
             lambda: _cv_brain("transducer", precision, 0.15), t_host,
-            CV_TRANSDUCER_LAUNCHES, profile=precision == "bf16",
+            CV_TRANSDUCER_LAUNCHES, profile=False,  # see SHORTENED
             T=601, lattice=[CV_T_B, 601, CV_U + 1], **info)
     runs["seq2seq_check"] = _cv_routes("seq2seq", s2s_host)
     runs["conformer_check"] = _cv_routes("conformer", conf_host)
@@ -7230,6 +7270,265 @@ def phase_recipe_wav2vec():
     return runs
 
 
+# ------------------------------------------------ recipe_wav2vec_families
+
+# the steps' batches at the yamls' widths: CommonVoice B 12 x 6 s (T 298
+# latents at 50 Hz, 80 characters, V 500), TIMIT B 8 x 3 s (T 148; 20-40
+# phones; V 42 seq2seq, 40 transducer, whose CRDNN keeps the Fbank's T
+# 301), AISHELL-1 B 8 x 6 s (T 298, 40 characters, V 4300), IWSLT22 B 2 x
+# 10 s (T 498, 30 pieces of its 1000)
+W2VF = {"commonvoice": dict(B=12, samples=96000, U=80, V=500, T=298),
+        "timit": dict(B=8, samples=48000, U=40, V=42, T=148),
+        "aishell": dict(B=8, samples=96000, U=40, V=4300, T=298),
+        "iwslt": dict(B=2, samples=160000, U=30, V=1000, T=498),
+        "crdnn_transducer": dict(B=8, samples=48000, U=40, V=40, T=301),
+        "w2v_transducer": dict(B=8, samples=48000, U=40, V=40, T=148)}
+W2VF_LAUNCHES = {"commonvoice": W2V_LAUNCHES, "timit": W2V_LAUNCHES,
+                 "aishell": TRAIN_LAUNCHES, "iwslt": W2V_PRETRAIN_LAUNCHES,
+                 "crdnn_transducer": CRDNN_LAUNCHES,
+                 "w2v_transducer": CRDNN_LAUNCHES}
+# the recipes on synthetic corpora: full width at 2 encoder layers (the
+# CRDNN's LiGRU 2 of its 4), no gradient accumulation (a window open at an
+# epoch's end is not checkpointed), the TIMIT and Timers and Such searches
+# capped at a tenth of T
+W2VF_CLIPS = {"train": 6, "dev": 2, "test": 2}
+W2VF_SECONDS = (2.0, 5.0)
+W2VF_REDUCED = {"encoder_layers": 2, "max_decode_ratio": 0.1}
+
+
+def _w2vf_brain(name, precision, dropout=None):
+    """A new recipe's Brain at full width (the yaml's values; CommonVoice
+    ``train_fr_with_wav2vec.yaml``), each optimizer step at once but
+    IWSLT22's (the yaml's accumulation 4: a step is a micro-batch);
+    ``dropout`` replaces every dropout rate (None: the yaml's)."""
+    from speechbrain_tpu_torch.recipes import aishell_asr
+    from speechbrain_tpu_torch.recipes import commonvoice_asr as cv
+    from speechbrain_tpu_torch.recipes import iwslt22_st, timit_seq2seq
+    from speechbrain_tpu_torch.recipes import timit_transducer as tt
+
+    opts = {"seed": SEED, "precision": precision, "loss_sync_interval": 10}
+    hp = {"commonvoice": cv.HPARAMS_WAV2VEC_FR,
+          "timit": timit_seq2seq.HPARAMS_WAV2VEC,
+          "aishell": aishell_asr.HPARAMS_WAV2VECT,
+          "iwslt": iwslt22_st.HPARAMS, "crdnn_transducer": tt.HPARAMS,
+          "w2v_transducer": tt.HPARAMS_WAV2VEC}[name]
+    if dropout is not None:
+        hp = dict(hp, **{k: dropout for k in ("dropout", "encoder_dropout",
+                                              "transformer_dropout")
+                         if k in hp})
+    if name == "commonvoice":
+        return aishell_asr.CharSeq2SeqBrain(hp, run_opts=opts)
+    if name == "timit":
+        return timit_seq2seq.ASR(hp, run_opts=opts)
+    if name == "aishell":
+        return aishell_asr.CharCTCBrain(
+            hp, seed=SEED, run_opts=dict(opts, grad_accumulation_factor=1),
+            hparams={"lr": hp["lr_adam"]})
+    if name == "iwslt":
+        return iwslt22_st.ST(hp, run_opts=opts)
+    cls = (tt.W2VTransducerBrain if name == "w2v_transducer"
+           else cv.CharTransducerBrain)
+    return cls(hp, seed=SEED, run_opts=opts, hparams=hp)
+
+
+def _w2vf_host(name, seed):
+    shape = W2VF[name]
+    if name == "timit":
+        return _ts2s_batch(shape["B"], shape["samples"], shape["U"], seed)
+    return _char_batch(shape["B"], shape["samples"], shape["U"], shape["V"],
+                       seed, blank=name.endswith("transducer"))
+
+
+def _w2vf_step(name, precision, profile):
+    """A new recipe's step at full width (``_recipe_step``: a warm-up, 2
+    timed steps or micro-batches, the launches a step; with ``profile``
+    the FLOPs, the PyTorch calls and the profile of one more)."""
+    shape = W2VF[name]
+    lattice = {}
+    if name in ("commonvoice", "timit", "aishell"):
+        lattice["ctc_lattice"] = [shape["B"], shape["T"], 2 * shape["U"] + 1]
+    elif name.endswith("transducer"):
+        lattice["lattice"] = [shape["B"], shape["T"], shape["U"] + 1]
+    return _recipe_step(
+        f"recipe_wav2vec_families_{name}_step",
+        lambda: _w2vf_brain(name, precision), _w2vf_host(name, SEED + 90),
+        W2VF_LAUNCHES[name], profile=profile,
+        seconds_audio=shape["samples"] / 16000, T=shape["T"],
+        tokens=shape["U"], vocab=shape["V"], **lattice)
+
+
+def _w2vf_routes(name):
+    """The step's loss and every gradient through the kernels and the
+    plain versions (``_compare_routes``: f32, dropout 0, ragged lengths;
+    the loss within 1e-5 relative, each gradient within 1e-3 of its scale,
+    floor 1e-2 as ``_cv_routes``), beside the control: the plain route
+    against itself with the extractor's first convolution one float32
+    ulp up and down."""
+    import torch
+
+    from speechbrain_tpu_torch import ops
+
+    brain = _w2vf_brain(name, "fp32", 0.0)
+    batch = brain.prepare_batch(_w2vf_host(name, SEED + 91))
+    ops.reset_launch_counters()
+    cmp = _compare_routes(brain, batch, tol_loss=1e-5, tol_grad=1e-3,
+                          floor=1e-2)
+    counts = ops.launch_counters()
+    brain.set_kernels(False)
+    _, grads_p = _loss_and_grads(brain, batch)
+    control = {}
+    conv0 = brain.modules.extractor.convs[0].weight
+    for label, factor in (("up", 1 + 2.0 ** -23), ("down", 1 - 2.0 ** -23)):
+        with _nudged([conv0], factor):
+            errs = _grad_rel_errs(_loss_and_grads(brain, batch)[1], grads_p,
+                                  1e-2)
+        worst = max(errs, key=errs.get)
+        control[label] = {"grad_max_rel_err": errs[worst],
+                          "grad_worst": worst}
+    brain.set_kernels(True)
+    run = {"phase": f"recipe_wav2vec_families_{name}_check",
+           "precision": "fp32", "batch": W2VF[name]["B"],
+           "kernel_vs_plain": cmp, "plain_vs_nudged_plain": control,
+           "launches": counts}
+    emit(run)
+    del brain, batch
+    torch.cuda.empty_cache()
+    return run
+
+
+def _w2vf_recipes(tmp):
+    """The 11 yamls through their builds on synthetic corpora at full width
+    and ``W2VF_REDUCED`` depth: the four CommonVoice languages, TIMIT's
+    seq2seq and its two transducers, SLURP and Timers and Such direct,
+    AISHELL-1's wav2vect and IWSLT22; each 1 epoch, epoch 2 in a fresh Brain
+    recovered bit for bit, then the test from the best checkpoint (the
+    transducers' blank logit +4, so that the random model's beam takes a
+    few rounds a frame)."""
+    import torch
+
+    from speechbrain_tpu_torch.recipes import aishell_asr, aishell_prepare
+    from speechbrain_tpu_torch.recipes import common_voice_prepare
+    from speechbrain_tpu_torch.recipes import commonvoice_asr as cv
+    from speechbrain_tpu_torch.recipes import iwslt22_prepare, iwslt22_st
+    from speechbrain_tpu_torch.recipes import slu_direct, slurp_prepare
+    from speechbrain_tpu_torch.recipes import timers_and_such_prepare
+    from speechbrain_tpu_torch.recipes import timit_ctc, timit_seq2seq
+    from speechbrain_tpu_torch.recipes import timit_transducer as tt
+
+    clips, seconds = W2VF_CLIPS, W2VF_SECONDS
+    for lang in ("en", "fr", "it", "rw"):
+        common_voice_prepare.write_synthetic_common_voice(
+            f"{tmp}/cv_{lang}", clips, language=lang, seconds=seconds,
+            seed=SEED)
+    # 10 train clips of 3-6 s hold the 39 phones (10 a second at most)
+    timit_ctc.write_synthetic_timit(f"{tmp}/timit", dict(clips, train=10),
+                                    seconds=(3.0, 6.0), seed=SEED)
+    slurp_prepare.write_synthetic_slurp(
+        f"{tmp}/slurp", {"train": 6, "devel": 2, "test": 2},
+        seconds=seconds, seed=SEED)
+    timers_and_such_prepare.write_synthetic_tas(
+        f"{tmp}/tas", {"train-synth": 4, "train-real": 2, "dev-real": 2,
+                       "test-real": 2}, seconds=seconds, seed=SEED)
+    aishell_prepare.write_synthetic_aishell(f"{tmp}/aishell", clips,
+                                            seconds=seconds, seed=SEED)
+    iwslt22_prepare.write_synthetic_iwslt22(
+        f"{tmp}/iwslt", {"train": 6, "valid": 2, "test": 2},
+        seconds=(4.0, 10.0), shared=1, seed=SEED)
+    ctc = ("ctc_alpha", "ctc_beta_grad")
+    rnnt = ("transducer_alpha", "transducer_beta_grad")
+    recipes = [(f"commonvoice_{lang}", cv.build_wav2vec, f"cv_{lang}",
+                cv.WAV2VEC_YAMLS[f"train_{lang}_with_wav2vec.yaml"],
+                W2VF_REDUCED, ("CER", "min_key"), ctc)
+               for lang in ("en", "fr", "it", "rw")]
+    recipes += [
+        ("timit_seq2seq", timit_seq2seq.build, "timit",
+         timit_seq2seq.HPARAMS_WAV2VEC, W2VF_REDUCED, ("PER", "min_key"),
+         ctc),
+        ("timit_transducer", tt.build, "timit", tt.HPARAMS,
+         {"rnn_layers": 2}, ("PER", "min_key"), rnnt),
+        ("timit_transducer_wav2vec", tt.build, "timit", tt.HPARAMS_WAV2VEC,
+         W2VF_REDUCED, ("PER", "min_key"), rnnt),
+        ("slurp_direct", slu_direct.build, "slurp",
+         slu_direct.HPARAMS_SLURP_WAV2VEC, W2VF_REDUCED, ("loss", "min_key"),
+         ()),
+        ("tas_direct", slu_direct.build, "tas",
+         slu_direct.HPARAMS_TAS_WAV2VEC, W2VF_REDUCED, ("acc", "max_key"),
+         ()),
+        ("aishell_wav2vect", aishell_asr.build_transformer, "aishell",
+         aishell_asr.HPARAMS_WAV2VECT,
+         {"num_encoder_layers": 2, "num_decoder_layers": 2,
+          "grad_accumulation_factor": 1}, ("CER", "min_key"),
+         ("depthwise_conv1d", "depthwise_conv1d_dw") + ctc),
+        ("iwslt22", iwslt22_st.build, "iwslt", iwslt22_st.HPARAMS,
+         {"keep_n_layers": 2, "grad_accumulation_factor": 1},
+         ("BLEU", "max_key"), ())]
+    runs = {}
+    for name, build_fn, data, hp, reduced, (metric, best), kernels in (
+            recipes):
+        out = f"{tmp}/out_{name}"
+
+        def build(epochs, build_fn=build_fn, data=data, hp=hp, out=out,
+                  reduced=reduced, name=name):
+            parts = build_fn(f"{tmp}/{data}", out,
+                             dict(reduced, number_of_epochs=epochs),
+                             {"noprogressbar": True}, hp)
+            if "transducer" in name:
+                with torch.no_grad():
+                    parts["brain"].modules.out_lin.bias[0] += (
+                        TRANSDUCER_BLANK_BIAS)
+            return parts
+
+        def test(parts, metric=metric, best=best):
+            brain = parts["brain"]
+            brain.evaluate(parts["test_loader"], **{best: metric})
+            stats = brain.stage_stats["TEST"]
+            assert metric in stats and all(
+                np.isfinite(v) for v in stats.values()), stats
+            return stats
+
+        runs[name] = _recipe_resumed(
+            f"recipe_wav2vec_families_{name}_run", build, 1, test, kernels)
+        runs[name]["reduced"] = reduced
+    return runs
+
+
+def phase_recipe_wav2vec_families():
+    """The wav2vec 2.0 yamls of the ported families and TIMIT's
+    transducers at full width: the CommonVoice wav2vec seq2seq step (B 12
+    x 6 s, f32: the yaml's), TIMIT's wav2vec seq2seq step (B 8 x 3 s),
+    AISHELL-1's wav2vect step (B 8 x 6 s; K1 24, K2 12, K3 1, K4 1 a
+    step), the IWSLT22 micro-batch (B 2 x 10 s, f32; no port kernel) and
+    TIMIT's CRDNN and wav2vec transducer steps (B 8 x 3 s; K8/K9 once a
+    step), the bf16 yamls' in bf16 and f32, each with ms/step and peak
+    memory, and in its yaml's precision the profile and PyTorch calls of
+    one more step; the CommonVoice, AISHELL-1 and wav2vec transducer steps
+    through the kernels and the plain versions with the ulp-nudge control;
+    then the 11 recipes on synthetic corpora (``_w2vf_recipes``), each
+    resumed bit for bit."""
+    import shutil
+    import tempfile
+
+    runs = {}
+    for name, precisions in (("commonvoice", ("fp32",)),
+                             ("timit", ("bf16", "fp32")),
+                             ("aishell", ("bf16", "fp32")),
+                             ("iwslt", ("fp32",)),
+                             ("crdnn_transducer", ("bf16", "fp32")),
+                             ("w2v_transducer", ("bf16", "fp32"))):
+        for precision in precisions:
+            runs[f"{name}_{precision}"] = _w2vf_step(
+                name, precision, profile=precision == precisions[0])
+    for name in ("commonvoice", "aishell", "w2v_transducer"):
+        runs[f"{name}_check"] = _w2vf_routes(name)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_w2vf_")
+    try:
+        runs.update({f"{k}_recipe": v
+                     for k, v in _w2vf_recipes(tmp).items()})
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return runs
+
+
 def kernels_line(records, main_runs):
     """The summary line: one entry per kernel at its main-path shape
     (float32 record; bfloat16 beside it where there is one), launches
@@ -7239,8 +7538,9 @@ def kernels_line(records, main_runs):
     of recipe_timit, recipe_gsc, recipe_voxceleb, recipe_separation,
     recipe_separation_rnn, recipe_separation_more, recipe_seq2seq,
     recipe_lm, recipe_timit_seq2seq, recipe_kspon, recipe_transformer,
-    recipe_corpora, recipe_commonvoice, recipe_slu, recipe_st and
-    recipe_wav2vec), each counted from 0 just before its run."""
+    recipe_corpora, recipe_commonvoice, recipe_slu, recipe_st,
+    recipe_wav2vec and recipe_wav2vec_families), each counted from 0 just
+    before its run."""
     launches = {}
     for run in main_runs:
         for name, c in run["launches"].items():
@@ -7347,6 +7647,7 @@ def main():
     slu = timed("recipe_slu", phase_recipe_slu)
     st = timed("recipe_st", phase_recipe_st)
     w2v = timed("recipe_wav2vec", phase_recipe_wav2vec)
+    w2vf = timed("recipe_wav2vec_families", phase_recipe_wav2vec_families)
     main_runs = [serve["float32"], serve["bfloat16"], *serve_lm.values(),
                  long_run, train["bf16"], train["fp32"], train_long["fp32"],
                  train_long["bf16"], transducer["bf16"], transducer["fp32"],
@@ -7372,7 +7673,8 @@ def main():
                  *(v for k, v in commonvoice.items()
                    if not k.endswith("_check")), *slu.values(),
                  *(v for k, v in st.items() if not k.endswith("_check")),
-                 *(v for k, v in w2v.items() if not k.endswith("_check"))]
+                 *(v for k, v in w2v.items() if not k.endswith("_check")),
+                 *(v for k, v in w2vf.items() if not k.endswith("_check"))]
     emit({"phase": "timing", "seconds": seconds})
     emit(kernels_line(records, main_runs))
     emit({"ok": True, "device": {"platform": "gpu",

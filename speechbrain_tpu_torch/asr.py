@@ -38,6 +38,13 @@ recipe (``train.py:42-52``) the encoder is the one difference, so both
 models share ``_Transducer`` and both Brains ``_TransducerBrain``.
 ``recipes/librispeech_transducer.py`` runs that recipe end to end with
 either hparams file.
+
+The wav2vec 2.0 yamls swap the features and front end for the native
+wav2vec stack (``W2V_BASE``: ``W2VLatentExtractor`` -> ``EncoderWrapper``,
+``wav2vec_encoder``): ``ConformerASR`` with ``front_end`` "wav2vec" feeds
+the extractor's latents to ``TransformerASR`` (AISHELL-1's
+``train_with_wav2vect.py``), and ``W2VTransducer`` is the transducer
+over the wav2vec encoder (TIMIT's ``transducer/train_wav2vec.py``).
 """
 
 import math
@@ -55,6 +62,7 @@ from .lobes.models.convolution import ConvolutionFrontEnd
 from .lobes.models.CRDNN import CRDNN
 from .lobes.models.transformer.TransformerASR import TransformerASR
 from .lobes.models.transformer.TransformerLM import TransformerLM
+from .lobes.models.wav2vec import EncoderWrapper, W2VLatentExtractor
 from .nnet.embedding import Embedding
 from .nnet.linear import Linear
 from .nnet.losses import ctc_loss, kldiv_loss, transducer_loss
@@ -70,7 +78,8 @@ __all__ = ["CONFORMER_SMALL", "ConformerASR", "ConformerASRBrain",
            "TRANSFORMER_LM", "build_transformer_lm",
            "CONFORMER_TRANSDUCER", "ConformerTransducer",
            "ConformerTransducerBrain", "CRDNN_TRANSDUCER", "CRDNNTransducer",
-           "CRDNNTransducerBrain"]
+           "CRDNNTransducerBrain", "W2V_BASE", "wav2vec_encoder",
+           "W2VTransducer", "at_least_f32"]
 
 # recipes/LibriSpeech/ASR/transformer/hparams/conformer_small.yaml
 CONFORMER_SMALL = {
@@ -213,6 +222,34 @@ CRDNN_TRANSDUCER = {
 }
 
 
+# the wav2vec 2.0 base encoder the fine-tuning yamls build: seven
+# convolutions of 512 (W2VLatentExtractor's default kernels and strides)
+# and 12 pre-norm layers at d 768 (EncoderWrapper's dropout 0.1)
+W2V_BASE = {
+    "latent_channels": (512,) * 7,
+    "kernel_sizes": (11, 3, 3, 3, 3, 3, 3),
+    "strides": (5, 2, 2, 2, 2, 2, 2),
+    "embedding_dim": 768,
+    "encoder_layers": 12,
+    "nhead": 8,
+    "d_ffn": 3072,
+    "encoder_dropout": 0.1,
+}
+
+
+def wav2vec_encoder(c):
+    """The ``extractor`` (``W2VLatentExtractor``) and ``encoder``
+    (``EncoderWrapper`` without ``mask_emb``) of a dict with
+    ``W2V_BASE``'s keys."""
+    extractor = W2VLatentExtractor(c["latent_channels"], c["kernel_sizes"],
+                                   c["strides"])
+    return {"extractor": extractor,
+            "encoder": EncoderWrapper(
+                extractor.output_size, c["embedding_dim"],
+                c["encoder_layers"], c["nhead"], c["d_ffn"],
+                c["encoder_dropout"])}
+
+
 def _feature_width(c):
     """The features' width: ``n_mels``, three times that with ``deltas``."""
     return c["n_mels"] * (3 if c.get("deltas", False) else 1)
@@ -316,6 +353,12 @@ def build_transformer_lm(config=TRANSFORMER_LM, device=None, seed=0):
     return lm.to(resolve_device(device)).eval()
 
 
+def at_least_f32(x):
+    """bfloat16 -> float32; float32 and float64 as they are (the dtype of
+    the log-softmax and the losses)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _set_kernels(module, flag):
     for m in module.modules():
         if hasattr(m, "use_kernels"):
@@ -358,8 +401,12 @@ class ConformerASR(torch.nn.Module):
         self.config = c
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.fbank, self.normalize = _features(c)
-        self.frontend = _conv_front_end(c)
+        if c.get("front_end") == "wav2vec":
+            self.extractor = W2VLatentExtractor(
+                c["latent_channels"], c["kernel_sizes"], c["strides"])
+        else:
+            self.fbank, self.normalize = _features(c)
+            self.frontend = _conv_front_end(c)
         self.transformer = _transformer(c)
         self.ctc_lin = Linear(c["d_model"], c["vocab_size"])
         self.seq_lin = Linear(c["d_model"], c["vocab_size"])
@@ -379,9 +426,20 @@ class ConformerASR(torch.nn.Module):
         states (B, T_enc, d_model), raw (as the CTC head sees them)."""
         sig = sig.to(self.device, torch.float32)
         sig_lens = sig_lens.to(self.device, torch.float32)
-        feats = self.normalize(self.fbank(sig), sig_lens)
-        src = self.frontend(feats.to(self.dtype))
-        return self.transformer.encode(src, sig_lens)
+        return self.transformer.encode(self.source(sig, sig_lens), sig_lens)
+
+    def source(self, sig, sig_lens, epoch=0, augment=None):
+        """The transformer's input in ``self.dtype``: Fbank -> the
+        normalization (``epoch``: the epoch it sees) -> ``augment`` (the
+        features -> the features, or None) -> the front end; or, with
+        ``front_end`` "wav2vec", the extractor's float32 latents cast
+        after it (``train_with_wav2vect.py:35-38``)."""
+        if hasattr(self, "extractor"):
+            return self.extractor(sig).to(self.dtype)
+        feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
+        if augment is not None:
+            feats = augment(feats)
+        return self.frontend(feats.to(self.dtype))
 
     def make_searcher(self, beam_size=10, ctc_weight=0.4, lm=None,
                       lm_weight=None, ctc_score_mode="full",
@@ -605,7 +663,12 @@ class ConformerASRBrain(_ModelBrain):
     """
 
     MODEL, DEFAULTS = ConformerASR, CONFORMER_SMALL
-    MODULES = ("normalize", "frontend", "transformer", "ctc_lin", "seq_lin")
+
+    @property
+    def MODULES(self):
+        front = (("extractor",) if hasattr(self.model, "extractor")
+                 else ("normalize", "frontend"))
+        return (*front, "transformer", "ctc_lin", "seq_lin")
 
     def __init__(self, config, *args, lm=None, **kwargs):
         super().__init__(config, *args, **kwargs)
@@ -663,17 +726,13 @@ class ConformerASRBrain(_ModelBrain):
     def compute_forward(self, batch, stage):
         """Returns the CTC and seq2seq log-probabilities, float32."""
         m = self.modules
-        feats = m.normalize(self.model.fbank(batch["sig"]), batch["sig_lens"],
-                            epoch=self.epoch)
-        augment = self._augment(stage)
-        if augment is not None:
-            feats = augment(feats)
-        src = m.frontend(feats.to(self.dtype))
+        src = self.model.source(batch["sig"], batch["sig_lens"], self.epoch,
+                                self._augment(stage))
         enc, dec = m.transformer(src, batch["tokens_bos"],
                                  wav_len=batch["sig_lens"],
                                  pad_idx=self.config["blank_index"])
-        ctc_logp = torch.log_softmax(m.ctc_lin(enc).float(), -1)
-        seq_logp = torch.log_softmax(m.seq_lin(dec).float(), -1)
+        ctc_logp = torch.log_softmax(at_least_f32(m.ctc_lin(enc)), -1)
+        seq_logp = torch.log_softmax(at_least_f32(m.seq_lin(dec)), -1)
         return ctc_logp, seq_logp
 
     def compute_objectives(self, predictions, batch, stage):
@@ -731,7 +790,8 @@ class _Transducer(torch.nn.Module):
         self.config = c
         self.device = resolve_device(device)
         self.dtype = dtype
-        self.fbank, self.normalize = _features(c)
+        if self.FEATURES:
+            self.fbank, self.normalize = _features(c)
         width = self._build_encoder(c)
         self.enc_lin = Linear(width, c["joint_dim"])
         self.emb = Embedding(c["vocab_size"], c["dec_emb_dim"])
@@ -743,12 +803,23 @@ class _Transducer(torch.nn.Module):
         self.to(self.device)
         self.eval()
 
+    # whether the encoder reads the Fbank features (False: the wave)
+    FEATURES = True
+
     def _build_encoder(self, c):
         raise NotImplementedError
 
     def _encode(self, feats, sig_lens):
         """Normalized features in the activation dtype -> encoder states."""
         raise NotImplementedError
+
+    def _encoder_states(self, sig, sig_lens, dtype, epoch=0, augment=None):
+        """The wave -> Fbank -> the normalization (``epoch``: the epoch it
+        sees) -> ``augment`` -> cast to ``dtype`` -> the encoder."""
+        feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
+        if augment is not None:
+            feats = augment(feats)
+        return self._encode(feats.to(dtype), sig_lens)
 
     def set_kernels(self, flag=True):
         """Route kernel calls to the CUDA kernels (True) or to their
@@ -765,10 +836,8 @@ class _Transducer(torch.nn.Module):
         ``augment`` (the features -> the features, e.g. SpecAugment) runs
         between the normalization and the cast to ``dtype``."""
         dtype = self.dtype if dtype is None else dtype
-        feats = self.normalize(self.fbank(sig), sig_lens, epoch=epoch)
-        if augment is not None:
-            feats = augment(feats)
-        enc = self.enc_lin(self._encode(feats.to(dtype), sig_lens))
+        enc = self.enc_lin(self._encoder_states(sig, sig_lens, dtype, epoch,
+                                                augment))
         pred, _ = self.dec(self.emb(tokens_blank))
         joint = self.joint(enc, self.dec_lin(pred))  # bf16 + f32 -> f32
         return self.out_lin(joint).float(), enc
@@ -780,8 +849,7 @@ class _Transducer(torch.nn.Module):
         joint_dim), in ``self.dtype``."""
         sig = sig.to(self.device, torch.float32)
         sig_lens = sig_lens.to(self.device, torch.float32)
-        feats = self.normalize(self.fbank(sig), sig_lens)
-        return self.enc_lin(self._encode(feats.to(self.dtype), sig_lens))
+        return self.enc_lin(self._encoder_states(sig, sig_lens, self.dtype))
 
     def pred_step(self, tokens, state, n):
         """One prediction-network step for n rows: tokens (n,) and the
@@ -904,6 +972,38 @@ class CRDNNTransducer(_Transducer):
 
     def _encode(self, feats, sig_lens):
         return self.enc(feats, lengths=sig_lens)
+
+
+class W2VTransducer(_Transducer):
+    """The transducer over the wav2vec 2.0 encoder (TIMIT's
+    ``transducer/train_wav2vec.py``): the wave in the activation dtype ->
+    ``W2VLatentExtractor`` -> ``EncoderWrapper`` (no ``wav_lens``, no mask)
+    -> ``enc_lin``; no features, no normalization.  Arguments as for
+    ``ConformerTransducer``, with ``W2V_BASE``'s keys beside the
+    transducer's.
+
+    Example
+    -------
+    >>> cfg = dict(CRDNN_TRANSDUCER, **W2V_BASE)
+    >>> cfg.update(latent_channels=(8, 8), embedding_dim=8,
+    ...     encoder_layers=1, nhead=2, d_ffn=16, vocab_size=12,
+    ...     dec_emb_dim=8, dec_neurons=8, joint_dim=8)
+    >>> model = W2VTransducer(cfg, device="cpu")
+    >>> logits, enc = model(torch.zeros(2, 4000), torch.ones(2),
+    ...     torch.tensor([[0, 3, 4], [0, 5, 0]]))
+    >>> logits.shape, enc.shape
+    (torch.Size([2, 398, 3, 12]), torch.Size([2, 398, 8]))
+    """
+
+    FEATURES = False
+
+    def _build_encoder(self, c):
+        for name, module in wav2vec_encoder(c).items():
+            setattr(self, name, module)
+        return c["embedding_dim"]
+
+    def _encoder_states(self, sig, sig_lens, dtype, epoch=0, augment=None):
+        return self.encoder(self.extractor(sig.to(dtype)))["embeddings"]
 
 
 class _TransducerBrain(_ModelBrain):

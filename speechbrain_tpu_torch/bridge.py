@@ -1876,18 +1876,44 @@ def vanilla_nn_state_dict(p):
     return sd
 
 
+def _rnn_decoder_or_gru(p):
+    """``dec``: an ``AttentionalRNNDecoder`` (the seq2seq and SLU yamls)
+    or a ``GRU`` (the transducers' prediction network)."""
+    return attentional_rnn_decoder(p) if "attn" in p else gru(p)
+
+
+def decoder_only_st_state_dict(params):
+    """The params of a ``TransformerST`` that only
+    ``forward_mt_decoder_only`` ran (Flax made ``st``'s target embedding
+    and decoder alone) -> those entries of the port's ``TransformerST``
+    state_dict."""
+    st = params["st"]
+    return {"st.custom_tgt_module.emb.weight": _t(
+                st["custom_tgt_module"]["Embed_0"]["embedding"]),
+            **_prefixed("st.decoder", _stack(st["decoder"], decoder_layer,
+                                             "norm_out"))}
+
+
 # the wav2vec recipes' modules by name; any other name is a Linear head
 _W2V_MODULES = {"extractor": w2v_extractor_state_dict,
                 "quantiser": w2v_quantiser_state_dict,
                 "encoder": w2v_encoder_state_dict,
-                "enc_dnn": vanilla_nn_state_dict}
+                "enc_dnn": vanilla_nn_state_dict,
+                "emb": embedding,
+                "dec": _rnn_decoder_or_gru,
+                "transformer": transformer_asr_state_dict,
+                "Transformer": decoder_only_st_state_dict}
 
 
 def wav2vec_state_dict(params):
     """The wav2vec recipes' params by module name (a JAX Brain's
     ``train_state["params"]``: ``extractor``, ``quantiser``, ``encoder``,
-    ``enc_dnn`` and the ``Linear`` heads, e.g. ``proj``, ``ctc_lin``) ->
-    the state_dict of the port's ``ModuleDict`` of them."""
+    ``enc_dnn``, ``emb`` (an ``Embedding``), ``dec`` (an
+    ``AttentionalRNNDecoder`` or a ``GRU``), ``transformer`` (a
+    ``TransformerASR``), ``Transformer`` (a ``TransformerST`` run by
+    ``forward_mt_decoder_only``) and the ``Linear`` heads, e.g. ``proj``,
+    ``ctc_lin``, ``enc``) -> the state_dict of the port's ``ModuleDict``
+    of them (for ``Transformer``, the entries the JAX params hold)."""
     sd = {}
     for name, p in params.items():
         sd.update(_prefixed(name, _W2V_MODULES.get(name, _head)(p)))
@@ -1924,16 +1950,36 @@ def _vanilla_nn_to_jax(s):
             for i in range(s.count("linears"))}
 
 
+def _rnn_decoder_or_gru_to_jax(s):
+    if s.count("attn"):
+        return to_jax_attentional_rnn_decoder(s.sd, s.prefix)
+    return to_jax_gru(s.sd, s.prefix)
+
+
+def _decoder_only_st_to_jax(s):
+    st = s.sub("st")
+    return {"st": {
+        "custom_tgt_module": {"Embed_0": {"embedding": _a(
+            st["custom_tgt_module.emb.weight"])}},
+        "decoder": _stack_to_jax(st.sub("decoder"), _decoder_layer_to_jax,
+                                 "norm_out")}}
+
+
 _W2V_TO_JAX = {"extractor": _w2v_extractor_to_jax,
                "quantiser": _w2v_quantiser_to_jax,
                "encoder": _w2v_encoder_to_jax,
-               "enc_dnn": _vanilla_nn_to_jax}
+               "enc_dnn": _vanilla_nn_to_jax,
+               "emb": lambda s: {"Embed_0": {"embedding": _a(s["weight"])}},
+               "dec": _rnn_decoder_or_gru_to_jax,
+               "transformer": lambda s: to_jax_transformer_asr(s.sd,
+                                                               s.prefix),
+               "Transformer": _decoder_only_st_to_jax}
 
 
 def to_jax_wav2vec(state_dict):
     """The inverse of ``wav2vec_state_dict``: a ``ModuleDict`` state_dict
     -> JAX params by module name (a ``Linear`` head as ``{"Dense_0":
-    ...}``)."""
+    ...}``; of ``Transformer``, what ``forward_mt_decoder_only`` reads)."""
     names = sorted({k.split(".", 1)[0] for k in state_dict})
     out = {}
     for name in names:

@@ -16,6 +16,13 @@ decode.
   transformer encoder with regularMHA at d_model 256): ``CharCTCBrain``,
   the LibriSpeech conformer step without SpecAugment, at 4300 outputs,
   on the transformer recipes' bucketed batches (tokens padded to 16-128).
+- ``HPARAMS_WAV2VECT`` (``train_ASR_transformer_with_wav2vect.yaml``,
+  ``train_with_wav2vect.py``): ``CharCTCBrain`` with the conformer_small
+  model over ``W2VLatentExtractor``'s latents (seven convolutions of 512)
+  in place of the Fbank, the normalization and the conv front end
+  (``asr.ConformerASR`` with ``front_end`` "wav2vec": ``input_size`` 512,
+  the latents cast to bf16 after the extractor, as the script casts
+  them).
 
 The characters are those of the transcripts with their spaces removed,
 indexed by a ``CTCTextEncoder`` (``<blank>`` at 0, ``<bos>`` and
@@ -46,7 +53,7 @@ import collections
 
 import numpy as np
 
-from ..asr import CONFORMER_SMALL, ConformerASRBrain
+from ..asr import CONFORMER_SMALL, W2V_BASE, ConformerASRBrain
 from ..core import Stage
 from ..dataio.dataio import read_audio
 from ..dataio.dataloader import SaveableDataLoader
@@ -65,10 +72,11 @@ from .common import recipe_hparams
 from .librispeech_seq2seq import Seq2SeqBrain
 
 __all__ = ["HPARAMS_SEQ2SEQ", "HPARAMS_CONFORMER", "HPARAMS_TRANSFORMER",
+           "HPARAMS_WAV2VECT",
            "Corpus", "AISHELL", "CharSeq2SeqBrain", "CharCTCBrain",
            "make_datasets",
-           "build_seq2seq", "build_transformer", "run_seq2seq",
-           "run_transformer"]
+           "build_seq2seq", "build_transformer", "fit_and_test",
+           "run_seq2seq", "run_transformer"]
 
 # recipes/AISHELL-1/ASR/seq2seq/hparams/train.yaml (the JAX Brain's clip
 # 5 and precision fp32; ``vocab_size`` is the yaml's output_neurons)
@@ -128,6 +136,20 @@ HPARAMS_TRANSFORMER = dict(
     d_model=256,
     encoder_module="transformer",
     attention_type="regularMHA",
+)
+
+
+# train_ASR_transformer_with_wav2vect.yaml: conformer_small.yaml's values
+# over W2VLatentExtractor's latents (its default kernels and strides) in
+# place of the features and the front end
+HPARAMS_WAV2VECT = dict(
+    {k: v for k, v in HPARAMS_CONFORMER.items()
+     if k not in ("n_fft", "n_mels", "win_length", "hop_length",
+                  "update_until_epoch") and not k.startswith("frontend_")},
+    **{k: W2V_BASE[k] for k in ("latent_channels", "kernel_sizes",
+                                "strides")},
+    front_end="wav2vec",
+    input_size=512,
 )
 
 
@@ -345,7 +367,7 @@ def build_transformer(data_folder, output_folder, overrides=None,
             "hparams": hp}
 
 
-def _fit_and_test(parts):
+def fit_and_test(parts):
     """``fit`` (resuming from the latest checkpoint in ``<output_folder>/
     save``), then ``evaluate`` on the test set from the checkpoint with
     the lowest validation CER.  Returns the Brain (``brain.stage_stats``
@@ -361,7 +383,7 @@ def run_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
                 hparams=HPARAMS_SEQ2SEQ, corpus=AISHELL):
     """The seq2seq script's ``__main__``: ``build_seq2seq``, ``fit``, then
     the test.  Arguments as for ``build_seq2seq``; returns the Brain."""
-    return _fit_and_test(build_seq2seq(data_folder, output_folder,
+    return fit_and_test(build_seq2seq(data_folder, output_folder,
                                        overrides, run_opts, hparams, corpus))
 
 
@@ -370,6 +392,6 @@ def run_transformer(data_folder, output_folder, overrides=None,
     """The transformer script's ``__main__``: ``build_transformer``,
     ``fit``, then the test.  Arguments as for ``build_transformer``;
     returns the Brain."""
-    return _fit_and_test(build_transformer(data_folder, output_folder,
+    return fit_and_test(build_transformer(data_folder, output_folder,
                                            overrides, run_opts, hparams,
                                            corpus))

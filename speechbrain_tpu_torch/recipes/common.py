@@ -4,18 +4,11 @@ dtype their log-softmax runs in."""
 
 import os
 
-import torch
-
+from ..asr import at_least_f32
 from ..core import Brain, Stage
 from ..nnet.schedulers import NewBobScheduler
 
 __all__ = ["recipe_hparams", "NewBobBrain", "at_least_f32"]
-
-
-def at_least_f32(x):
-    """bfloat16 -> float32; float32 and float64 as they are (the dtype of
-    the recipes' log-softmax and losses)."""
-    return x if x.dtype == torch.float64 else x.float()
 
 
 def recipe_hparams(defaults, data_folder, output_folder, overrides=None,

@@ -12,6 +12,18 @@ models over the manifests of ``common_voice_prepare.prepare_common_voice``
   + 0.7 NLL; Adadelta under NewBob on the greedy CTC CER) at 500 outputs,
   over the characters of the manifests' words, spaces included
   (``seq2seq/train.py:135-138``).
+- ``HPARAMS_WAV2VEC_{EN,FR,IT,RW}`` (``ASR/seq2seq/hparams/
+  train_<language>_with_wav2vec.yaml``, ``seq2seq/train_with_wav2vec.py``):
+  the seq2seq recipe with the wav2vec 2.0 base encoder in place of the
+  Fbank and the CRDNN (``CharSeq2SeqBrain`` with ``encoder`` "wav2vec":
+  the wave -> ``W2VLatentExtractor`` -> ``EncoderWrapper``, 12 layers at d
+  768, called without ``wav_lens`` -> the location-attention GRU decoder
+  of 1024 (attention 512), ``ctc_lin`` and ``seq_lin`` on the 768-wide
+  states; 0.3 CTC (K3/K4) + 0.7 NLL; Adadelta under NewBob on the greedy
+  CTC CER; float32, the yamls set no precision) at 500 outputs over the
+  same characters.  ``build_wav2vec`` raises when the inventory passes
+  them, naming its size (the JAX script never checks: a label past the
+  heads is an index past the CTC head's width).
 - ``HPARAMS_TRANSFORMER_FR`` (``ASR/transformer/hparams/train_fr.yaml``):
   AISHELL-1's ``conformer_small.yaml`` recipe (``aishell_asr.
   CharCTCBrain``: d 144, 4 heads, 12 + 4 layers, d_ffn 1024; 0.3 CTC +
@@ -46,7 +58,8 @@ script (``transducer/train.py``):
 - NewBob is registered with the checkpointer, so a resumed run continues
   its annealing (the JAX scripts register no schedule).
 
-``run_seq2seq``, ``run_transformer`` and ``run_transducer`` train,
+``run_seq2seq``, ``run_wav2vec``, ``run_transformer`` and
+``run_transducer`` train,
 validate, keep the best checkpoint (a killed run resumes) and test from
 it.  The yamls' values are the dicts; ``overrides`` replace any of them,
 e.g. toy widths on the CPU::
@@ -62,7 +75,7 @@ import os
 import numpy as np
 import torch
 
-from ..asr import CRDNN_TRANSDUCER, CRDNNTransducerBrain
+from ..asr import W2V_BASE, CRDNN_TRANSDUCER, CRDNNTransducerBrain
 from ..core import Stage
 from ..dataio.dataio import read_audio
 from ..dataio.dataloader import SaveableDataLoader
@@ -80,10 +93,12 @@ from .common_voice_prepare import prepare_common_voice
 
 __all__ = ["HPARAMS_SEQ2SEQ", "HPARAMS_SEQ2SEQ_DE", "HPARAMS_SEQ2SEQ_EN",
            "HPARAMS_SEQ2SEQ_FR", "HPARAMS_SEQ2SEQ_IT", "HPARAMS_SEQ2SEQ_RW",
-           "HPARAMS_TRANSFORMER_FR", "HPARAMS_TRANSDUCER_FR", "SEQ2SEQ_YAMLS",
-           "CharTransducerBrain", "build_seq2seq", "build_transformer",
-           "build_transducer", "run_seq2seq", "run_transformer",
-           "run_transducer"]
+           "HPARAMS_WAV2VEC_EN", "HPARAMS_WAV2VEC_FR", "HPARAMS_WAV2VEC_IT",
+           "HPARAMS_WAV2VEC_RW", "WAV2VEC_YAMLS", "HPARAMS_TRANSFORMER_FR",
+           "HPARAMS_TRANSDUCER_FR", "SEQ2SEQ_YAMLS", "CharTransducerBrain",
+           "transducer_datasets", "build_seq2seq", "build_wav2vec",
+           "build_transformer", "build_transducer", "run_seq2seq",
+           "run_wav2vec", "run_transformer", "run_transducer"]
 
 # the keys of every CommonVoice yaml that say which corpus it reads
 _CORPUS = dict(accented_letters=False, language="en",
@@ -110,6 +125,47 @@ SEQ2SEQ_YAMLS = {"train.yaml": HPARAMS_SEQ2SEQ,
                  "train_fr.yaml": HPARAMS_SEQ2SEQ_FR,
                  "train_it.yaml": HPARAMS_SEQ2SEQ_IT,
                  "train_rw.yaml": HPARAMS_SEQ2SEQ_RW}
+
+# recipes/CommonVoice/ASR/seq2seq/hparams/train_fr_with_wav2vec.yaml (the
+# JAX Brain's fp32 and clip 5; EncoderWrapper's dropout 0.1;
+# ``vocab_size`` is the yaml's output_neurons)
+HPARAMS_WAV2VEC_FR = dict(
+    W2V_BASE,
+    **dict(_CORPUS, language="fr", accented_letters=True),
+    encoder="wav2vec",
+    seed=1234,
+    sample_rate=16000,
+    batch_size=12,
+    number_of_epochs=25,
+    lr=1.0,
+    ctc_weight=0.3,
+    blank_index=0,
+    bos_index=1,
+    eos_index=2,
+    emb_size=128,
+    dec_neurons=1024,
+    attn_dim=512,
+    vocab_size=500,
+    dropout=0.15,
+    label_smoothing=0.0,
+    augmentation=None,
+    precision="fp32",
+    rho=0.95,
+    eps=1e-8,
+    improvement_threshold=0.0025,
+    annealing_factor=0.8,
+    patient=0,
+    max_grad_norm=5.0,
+)
+# train_{en,it,rw}_with_wav2vec.yaml: the language and its accents apart,
+# the same values
+HPARAMS_WAV2VEC_EN = dict(HPARAMS_WAV2VEC_FR, language="en",
+                          accented_letters=False)
+HPARAMS_WAV2VEC_IT = dict(HPARAMS_WAV2VEC_FR, language="it")
+HPARAMS_WAV2VEC_RW = dict(HPARAMS_WAV2VEC_FR, language="rw")
+WAV2VEC_YAMLS = {f"train_{lang}_with_wav2vec.yaml":
+                 globals()[f"HPARAMS_WAV2VEC_{lang.upper()}"]
+                 for lang in ("en", "fr", "it", "rw")}
 
 # recipes/CommonVoice/ASR/transformer/hparams/train_fr.yaml: AISHELL-1's
 # conformer_small.yaml values (its comments name AISHELL-1's corpus too)
@@ -186,6 +242,21 @@ def build_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
                                      run_opts, hparams, SEQ2SEQ_CORPUS)
 
 
+def build_wav2vec(data_folder, output_folder, overrides=None, run_opts=None,
+                  hparams=HPARAMS_WAV2VEC_FR):
+    """``build_seq2seq``'s parts for a wav2vec yaml (``hparams``: one of
+    ``WAV2VEC_YAMLS``' dicts).  Raises ``ValueError`` when the inventory
+    (the blank, ``<bos>``, ``<eos>`` and the characters) passes
+    ``vocab_size`` (the yaml's ``output_neurons``)."""
+    parts = build_seq2seq(data_folder, output_folder, overrides, run_opts,
+                          hparams)
+    n, V = len(parts["label_encoder"]), parts["hparams"]["vocab_size"]
+    if n > V:
+        raise ValueError(f"{n} labels (the blank, <bos>, <eos> and the "
+                         f"characters) pass output_neurons {V}")
+    return parts
+
+
 def build_transformer(data_folder, output_folder, overrides=None,
                       run_opts=None, hparams=HPARAMS_TRANSFORMER_FR):
     """``aishell_asr.build_transformer`` on a CommonVoice language folder.
@@ -201,6 +272,14 @@ def run_seq2seq(data_folder, output_folder, overrides=None, run_opts=None,
     the test from the best CER.  Returns the Brain."""
     return aishell_asr.run_seq2seq(data_folder, output_folder, overrides,
                                    run_opts, hparams, SEQ2SEQ_CORPUS)
+
+
+def run_wav2vec(data_folder, output_folder, overrides=None, run_opts=None,
+                hparams=HPARAMS_WAV2VEC_FR):
+    """``seq2seq/train_with_wav2vec.py``'s ``__main__``: ``build_wav2vec``,
+    ``fit``, then the test from the best CER.  Returns the Brain."""
+    return aishell_asr.fit_and_test(build_wav2vec(
+        data_folder, output_folder, overrides, run_opts, hparams))
 
 
 def run_transformer(data_folder, output_folder, overrides=None,
@@ -319,13 +398,14 @@ class CharTransducerBrain(CRDNNTransducerBrain):
                 self.wer_metric.write_stats(f)
 
 
-def transducer_datasets(hparams):
+def transducer_datasets(hparams, corpus=SEQ2SEQ_CORPUS):
     """The transducer script's datasets (``transducer/train.py:165-196``):
-    ``sig``, and the characters of ``words`` (spaces included) as
+    ``sig``, and the labels ``corpus.chars`` gives of ``corpus.text_key``
+    (CommonVoice's: the characters of ``words``, spaces included) as
     ``tokens`` and ``tokens_blank`` = [blank] + tokens through a
-    ``CTCTextEncoder``: the train split's characters with ``<blank>`` at
-    0, as JAX builds it, then those that only dev or test hold (JAX reads
-    train alone); loaded from ``<save_folder>/label_encoder.txt`` when it
+    ``CTCTextEncoder``: the train split's labels with ``<blank>`` at 0, as
+    JAX builds it, then those that only dev or test hold (JAX reads train
+    alone); loaded from ``<save_folder>/label_encoder.txt`` when it
     exists.  Returns ``(datasets by split, encoder)``."""
     label_encoder = CTCTextEncoder()
     blank = hparams["blank_index"]
@@ -333,7 +413,8 @@ def transducer_datasets(hparams):
     for split in ("train", "valid", "test"):
         ds = DynamicItemDataset.from_json(hparams[f"{split}_json"])
         ds.add_dynamic_item(read_audio, takes="wav", provides="sig")
-        ds.add_dynamic_item(list, takes="words", provides="char_list")
+        ds.add_dynamic_item(corpus.chars, takes=corpus.text_key,
+                            provides="char_list")
 
         def tokens_pipeline(char_list):
             tokens = label_encoder.encode_sequence(char_list)
@@ -359,7 +440,8 @@ def transducer_datasets(hparams):
 
 
 def build_transducer(data_folder, output_folder, overrides=None,
-                     run_opts=None, hparams=HPARAMS_TRANSDUCER_FR):
+                     run_opts=None, hparams=HPARAMS_TRANSDUCER_FR,
+                     corpus=SEQ2SEQ_CORPUS, brain_class=CharTransducerBrain):
     """Everything ``run_transducer`` trains with, built as the transducer
     script's ``__main__`` builds it: the manifests (prepared unless they
     exist), the datasets and label encoder (``transducer_datasets``),
@@ -372,22 +454,25 @@ def build_transducer(data_folder, output_folder, overrides=None,
 
     ``overrides`` replace values of ``hparams``; ``run_opts`` are the
     ``Brain``'s (``device``: None for the CUDA card, "cpu" to ask for the
-    CPU).  Returns a dict with ``brain``, ``epoch_counter``,
-    ``train_loader``, ``valid_loader``, ``test_loader``,
-    ``label_encoder`` and ``hparams``."""
+    CPU); ``corpus`` (an ``aishell_asr.Corpus``) prepares the manifests
+    ``train``, ``dev`` and ``test`` and reads their labels, and
+    ``brain_class`` (a ``CharTransducerBrain``) trains.
+    Returns a dict with ``brain``, ``epoch_counter``, ``train_loader``,
+    ``valid_loader``, ``test_loader``, ``label_encoder`` and
+    ``hparams``."""
     hp = recipe_hparams(hparams, data_folder, output_folder, overrides, (
         ("train_json", "train"), ("valid_json", "dev"),
         ("test_json", "test")))
     hp.setdefault("per_file", os.path.join(output_folder, "per.txt"))
-    run_on_main(_prepare, args=(hp,))
-    datasets, label_encoder = transducer_datasets(hp)
+    run_on_main(corpus.prepare, args=(hp,))
+    datasets, label_encoder = transducer_datasets(hp, corpus)
     if len(label_encoder) > hp["vocab_size"]:
         raise ValueError(
-            f"{len(label_encoder)} labels (the blank and the characters of "
+            f"{len(label_encoder)} labels (the blank and the labels of "
             f"the manifests) past the {hp['vocab_size']} outputs "
             "(output_neurons); set vocab_size to at least the inventory")
     epoch_counter = EpochCounter(hp["number_of_epochs"])
-    brain = CharTransducerBrain(
+    brain = brain_class(
         hp, seed=hp["seed"], run_opts=run_opts,
         hparams=dict(hp, train_logger=FileTrainLogger(hp["train_log"]),
                      epoch_counter=epoch_counter),
@@ -405,14 +490,16 @@ def build_transducer(data_folder, output_folder, overrides=None,
 
 
 def run_transducer(data_folder, output_folder, overrides=None, run_opts=None,
-                   hparams=HPARAMS_TRANSDUCER_FR):
+                   hparams=HPARAMS_TRANSDUCER_FR, corpus=SEQ2SEQ_CORPUS,
+                   brain_class=CharTransducerBrain):
     """The transducer script's ``__main__``: ``build_transducer``,
     ``fit`` (resuming from the latest checkpoint in ``<output_folder>/
     save``), then ``evaluate`` at beam 4 from the checkpoint with the
-    lowest validation PER.  Returns the Brain (``brain.stage_stats``
-    holds the last VALID and TEST loss and PER)."""
+    lowest validation PER.  Arguments as for ``build_transducer``.
+    Returns the Brain (``brain.stage_stats`` holds the last VALID and
+    TEST loss and PER)."""
     parts = build_transducer(data_folder, output_folder, overrides, run_opts,
-                             hparams)
+                             hparams, corpus, brain_class)
     brain = parts["brain"]
     brain.fit(parts["epoch_counter"], parts["train_loader"],
               parts["valid_loader"])

@@ -70,7 +70,7 @@ from .common import recipe_hparams
 from .taigi_st import loaders
 
 __all__ = ["HPARAMS_TRANSFORMER", "HPARAMS_CONFORMER", "TOKENIZER_BPE_1K",
-           "ST", "make_datasets", "build", "run", "train_tokenizer",
+           "teacher_forced_words", "ST", "make_datasets", "build", "run", "train_tokenizer",
            "write_synthetic_fisher"]
 
 SAMPLERATE = 16000
@@ -110,6 +110,21 @@ TOKENIZER_BPE_1K = dict(
     character_coverage=1.0,
     annotation_read="translation_0",
 )
+
+
+def teacher_forced_words(logp, batch, tokenizer, target):
+    """The real rows' teacher-forced argmax of ``logp`` (every position of
+    the padded row) and their references ``batch[target]`` (lengths
+    ``batch[target + "_lens"]``), decoded to words by ``tokenizer``:
+    ``(hyps, refs)``."""
+    real = int(batch["batch_mask"].sum())
+    hyp_ids = logp.argmax(-1)[:real].cpu().numpy()
+    hyps = [tokenizer([h.tolist()], task="decode_from_list")[0]
+            for h in hyp_ids]
+    refs = tokenizer(batch[target][:real].cpu().numpy().tolist(),
+                     batch[f"{target}_lens"][:real].cpu().numpy(),
+                     task="decode")
+    return hyps, refs
 
 
 class ST(STBrain):
@@ -157,16 +172,9 @@ class ST(STBrain):
         return loss
 
     def argmax_words(self, st_logp, batch):
-        """The real rows' teacher-forced argmax (every position of the
-        padded row) and their references, decoded to words."""
-        real = int(batch["batch_mask"].sum())
-        hyp_ids = st_logp.argmax(-1)[:real].cpu().numpy()
-        hyps = [self.tokenizer([h.tolist()], task="decode_from_list")[0]
-                for h in hyp_ids]
-        refs = self.tokenizer(
-            batch["trans_tokens"][:real].cpu().numpy().tolist(),
-            batch["trans_tokens_lens"][:real].cpu().numpy(), task="decode")
-        return hyps, refs
+        """``teacher_forced_words`` of the translation."""
+        return teacher_forced_words(st_logp, batch, self.tokenizer,
+                                    self.TARGET)
 
     def on_stage_end(self, stage, stage_loss, epoch=None):
         """The recipe's logging and keep-best checkpoint."""

@@ -48,7 +48,7 @@ import os
 
 import torch
 
-from ..asr import _random_init
+from ..asr import _random_init, wav2vec_encoder
 from ..core import Stage
 from ..dataio.dataloader import SaveableDataLoader
 from ..decoders.seq2seq import S2SRNNBeamSearcher, S2SRNNBeamSearchLM
@@ -72,8 +72,9 @@ from .librispeech_asr import make_datasets, prepare_librispeech
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["HPARAMS", "HPARAMS_BPE_5000", "build_modules", "build_lm",
-           "load_lm", "Seq2SeqBrain", "build", "run"]
+__all__ = ["HPARAMS", "HPARAMS_BPE_5000", "build_modules",
+           "wav2vec_states", "build_lm", "load_lm", "Seq2SeqBrain", "build",
+           "run"]
 
 # recipes/LibriSpeech/ASR/seq2seq/hparams/train_BPE_1000.yaml (with the
 # JAX Brain's gradient clip, 5)
@@ -149,38 +150,58 @@ def build_modules(hparams, seed=0, ctc=True):
     ``emb`` (``Embedding``), ``dec`` (``AttentionalRNNDecoder``: GRU,
     ``hparams["attn_type"]`` attention, location when not given),
     ``ctc_lin`` (unless ``ctc`` is False) and ``seq_lin`` (``Linear`` to
-    ``vocab_size``)."""
+    ``vocab_size``).  With ``hparams["encoder"]`` "wav2vec" (the wav2vec
+    yamls) the wave's encoder is ``extractor`` and ``encoder``
+    (``asr.wav2vec_encoder``) in place of the features, the normalization
+    and the CRDNN."""
     hp = dict(HPARAMS, **hparams)
     V = hp["vocab_size"]
-    enc = CRDNN(
-        input_size=hp["n_mels"], cnn_blocks=hp["cnn_blocks"],
-        cnn_channels=hp["cnn_channels"],
-        inter_layer_pooling_size=hp["inter_layer_pooling_size"],
-        rnn_class="lstm", rnn_layers=hp["rnn_layers"],
-        rnn_neurons=hp["rnn_neurons"], rnn_bidirectional=True,
-        dnn_blocks=hp["dnn_blocks"], dnn_neurons=hp["dnn_neurons"],
-        dropout=hp["dropout"])
+    if hp.get("encoder") == "wav2vec":
+        front = wav2vec_encoder(hp)
+        width = hp["embedding_dim"]
+    else:
+        enc = CRDNN(
+            input_size=hp["n_mels"], cnn_blocks=hp["cnn_blocks"],
+            cnn_channels=hp["cnn_channels"],
+            inter_layer_pooling_size=hp["inter_layer_pooling_size"],
+            rnn_class="lstm", rnn_layers=hp["rnn_layers"],
+            rnn_neurons=hp["rnn_neurons"], rnn_bidirectional=True,
+            dnn_blocks=hp["dnn_blocks"], dnn_neurons=hp["dnn_neurons"],
+            dropout=hp["dropout"])
+        front = {"compute_features": Fbank(sample_rate=hp["sample_rate"],
+                                           n_mels=hp["n_mels"]),
+                 "normalize": InputNormalization(hp["n_mels"]),
+                 "enc": enc}
+        width = enc.output_size
     modules = {
-        "compute_features": Fbank(sample_rate=hp["sample_rate"],
-                                  n_mels=hp["n_mels"]),
-        "normalize": InputNormalization(hp["n_mels"]),
-        "enc": enc,
+        **front,
         "emb": Embedding(V, hp["emb_size"]),
         "dec": AttentionalRNNDecoder(
             "gru", hp.get("attn_type", "location"),
             hidden_size=hp["dec_neurons"],
-            attn_dim=hp["attn_dim"], enc_dim=enc.output_size,
+            attn_dim=hp["attn_dim"], enc_dim=width,
             input_size=hp["emb_size"], num_layers=1, dropout=hp["dropout"]),
-        "ctc_lin": Linear(enc.output_size, V),
+        "ctc_lin": Linear(width, V),
         "seq_lin": Linear(hp["dec_neurons"], V),
     }
     if not ctc:
         del modules["ctc_lin"]
     gen = torch.Generator().manual_seed(seed)
-    for name in ("enc", "emb", "dec", "ctc_lin", "seq_lin"):
+    for name in ("extractor", "encoder", "enc", "emb", "dec", "ctc_lin",
+                 "seq_lin"):
         if name in modules:
             _random_init(modules[name], gen)
     return modules
+
+
+def wav2vec_states(modules, sig, dtype):
+    """The wav2vec yamls' encoder states: the wave in ``dtype`` ->
+    ``extractor`` -> ``encoder`` (no ``wav_lens``: the padding is
+    attended, as the JAX scripts call it) -> ``enc_dnn`` where the
+    modules hold one."""
+    enc = modules["encoder"](modules["extractor"](sig.to(dtype)))[
+        "embeddings"]
+    return modules["enc_dnn"](enc) if "enc_dnn" in modules else enc
 
 
 def build_lm(hparams, seed=0):
@@ -214,9 +235,10 @@ class Seq2SeqBrain(NewBobBrain):
     ``compute_forward``: ``Fbank`` -> ``InputNormalization`` (updated in
     training until its ``update_until_epoch``) -> SpecAugment (training
     only, draws from ``self.generator``) -> cast to the activation dtype
-    -> ``enc`` -> ``dec`` over ``emb(tokens_bos)`` -> float32 (float64
-    under a float64 ``self.dtype``) log-softmax of ``seq_lin``, and of
-    ``ctc_lin`` on the encoder states.  ``compute_objectives``:
+    -> ``enc`` (the wav2vec yamls: ``wav2vec_states``) -> ``dec`` over
+    ``emb(tokens_bos)`` -> float32 (float64 under a float64
+    ``self.dtype``) log-softmax of ``seq_lin``, and of ``ctc_lin`` on the
+    encoder states.  ``compute_objectives``:
     ``nll_loss`` of ``tokens_eos`` (``label_smoothing``, lengths
     ``tokens_eos_lens * batch_mask``); while the epoch is at most
     ``number_of_ctc_epochs``, ``ctc_weight`` x ``ctc_loss`` (on K3/K4 on the
@@ -288,16 +310,25 @@ class Seq2SeqBrain(NewBobBrain):
         """Returns ``(ctc log-probs (B, T, V), seq log-probs (B, U, V),
         encoder states)``, the log-probs in float32."""
         m = self.modules
-        feats = m.compute_features(batch["sig"])
-        feats = m.normalize(feats, batch["sig_lens"], epoch=self.epoch)
-        if stage == Stage.TRAIN and self.augment is not None:
-            feats = self.augment(feats, self.generator)
-        enc = m.enc(feats.to(self.dtype), lengths=batch["sig_lens"])
+        enc = self._encode(batch, stage)
         emb = m.emb(batch["tokens_bos"]).to(self.dtype)
         dec_out, _ = m.dec(emb, enc, batch["sig_lens"])
         seq_logp = torch.log_softmax(at_least_f32(m.seq_lin(dec_out)), -1)
         ctc_logp = torch.log_softmax(at_least_f32(m.ctc_lin(enc)), -1)
         return ctc_logp, seq_logp, enc
+
+    def _encode(self, batch, stage):
+        """The encoder states: Fbank -> the normalization -> SpecAugment
+        (training only) -> cast to the activation dtype -> the CRDNN; or
+        ``wav2vec_states`` under the wav2vec yamls."""
+        m = self.modules
+        if "extractor" in m:
+            return wav2vec_states(m, batch["sig"], self.dtype)
+        feats = m.compute_features(batch["sig"])
+        feats = m.normalize(feats, batch["sig_lens"], epoch=self.epoch)
+        if stage == Stage.TRAIN and self.augment is not None:
+            feats = self.augment(feats, self.generator)
+        return m.enc(feats.to(self.dtype), lengths=batch["sig_lens"])
 
     def compute_objectives(self, predictions, batch, stage):
         """The joint loss; outside training, the search's WER and CER."""

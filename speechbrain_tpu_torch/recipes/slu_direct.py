@@ -20,6 +20,15 @@ by the exact-match accuracy of the decoded tokens (``acc``); SLURP
 decodes nothing and keeps the best by the validation loss
 (``SLURP/direct/train.py:49-73``).
 
+``HPARAMS_SLURP_WAV2VEC`` and ``HPARAMS_TAS_WAV2VEC`` are SLURP's and
+Timers and Such's ``direct/hparams/train_with_wav2vec2.yaml``
+(``train_with_wav2vec2.py``): the same recipes with the wav2vec 2.0 base
+encoder in place of the Fbank and the CRDNN (``encoder`` "wav2vec": the
+wave -> ``W2VLatentExtractor`` -> ``EncoderWrapper``, 12 layers at d 768,
+called without ``wav_lens``, so the padding is attended, as the JAX
+scripts call it -> the decoder's content attention over the 768-wide
+states).
+
 The yamls' ``bos_index`` 1 and ``eos_index`` 2 are pieces of the
 semantics tokenizer, not special symbols: with the BPE pieces (``<unk>``,
 then the characters in code-point order, then the merges) they are the
@@ -48,6 +57,7 @@ toy widths on the CPU::
 import numpy as np
 import torch
 
+from ..asr import W2V_BASE
 from ..core import Brain, Stage
 from ..dataio.dataio import read_audio
 from ..dataio.dataloader import SaveableDataLoader
@@ -62,11 +72,12 @@ from ..utils.epoch_loop import EpochCounter
 from ..utils.train_logger import FileTrainLogger
 from .common import at_least_f32, recipe_hparams
 from .fsc_prepare import prepare_FSC
-from .librispeech_seq2seq import build_modules
+from .librispeech_seq2seq import build_modules, wav2vec_states
 from .slurp_prepare import prepare_SLURP
 from .timers_and_such_prepare import prepare_TAS
 
-__all__ = ["HPARAMS_FSC", "HPARAMS_SLURP", "HPARAMS_TAS", "CORPORA",
+__all__ = ["HPARAMS_FSC", "HPARAMS_SLURP", "HPARAMS_TAS",
+           "HPARAMS_SLURP_WAV2VEC", "HPARAMS_TAS_WAV2VEC", "CORPORA",
            "TOKENIZER_FSC", "TOKENIZER_SLURP", "TOKENIZER_TAS", "SLUBrain",
            "make_datasets", "build", "run", "train_tokenizer"]
 
@@ -121,6 +132,19 @@ del HPARAMS_SLURP["max_decode_ratio"]
 # recipes/timers-and-such/direct/hparams/train.yaml
 HPARAMS_TAS = dict(HPARAMS_FSC, corpus="tas",
                    train_splits=["train-synth", "train-real"])
+
+# SLURP's and Timers and Such's direct/hparams/train_with_wav2vec2.yaml:
+# the wav2vec 2.0 base encoder (EncoderWrapper's dropout 0.1) in place of
+# the features and the CRDNN; the rest is train.yaml's
+_CRDNN_KEYS = ("n_mels", "cnn_blocks", "cnn_channels",
+               "inter_layer_pooling_size", "rnn_layers", "rnn_neurons",
+               "dnn_blocks", "dnn_neurons")
+HPARAMS_SLURP_WAV2VEC = dict(
+    {k: v for k, v in HPARAMS_SLURP.items() if k not in _CRDNN_KEYS},
+    **W2V_BASE, encoder="wav2vec")
+HPARAMS_TAS_WAV2VEC = dict(
+    {k: v for k, v in HPARAMS_TAS.items() if k not in _CRDNN_KEYS},
+    **W2V_BASE, encoder="wav2vec")
 
 # recipes/<corpus>/Tokenizer/hparams/tokenizer_bpe51.yaml and
 # SLURP's tokenizer_bpe58.yaml
@@ -202,12 +226,16 @@ class SLUBrain(Brain):
     @staticmethod
     def build_modules(hp, seed):
         """The direct yaml's modules (``librispeech_seq2seq.
-        build_modules`` with the content attention, no CTC head)."""
+        build_modules`` with the content attention, no CTC head; the
+        wav2vec encoder with ``encoder`` "wav2vec")."""
         return build_modules(hp, seed, ctc=False)
 
     def _encode(self, batch):
         """Returns ``(encoder states, their relative lengths)``."""
         m = self.modules
+        if "extractor" in m:
+            return (wav2vec_states(m, batch["sig"], self.dtype),
+                    batch["sig_lens"])
         feats = m.compute_features(batch["sig"])
         feats = m.normalize(feats, batch["sig_lens"], epoch=self.epoch)
         return (m.enc(feats.to(self.dtype), lengths=batch["sig_lens"]),

@@ -31,10 +31,20 @@ The yaml's values are ``HPARAMS`` (the yaml file itself is not read);
     teacher = timit_seq2seq.run("/data/TIMIT", "results/teachers/tea3",
                                 overrides=timit_seq2seq.TEACHERS["tea3"])
 
-Differences from the JAX recipe, as in ``timit_ctc``: the 39-phone fold
+``HPARAMS_WAV2VEC`` is ``hparams/train_with_wav2vec2.yaml``
+(``train_with_wav2vec2.py``): the same recipe with the wav2vec 2.0 base
+encoder in place of the Fbank and the CRDNN (``encoder`` "wav2vec": the
+wave -> ``W2VLatentExtractor`` -> ``EncoderWrapper``, 12 layers at d 768,
+called without ``wav_lens`` -> ``enc_dnn``, a ``VanillaNN`` of 2 x 512 ->
+the decoder and ``ctc_lin``).
+
+Differences from the JAX recipes, as in ``timit_ctc``: the 39-phone fold
 is Lee and Hon's table (JAX's gives 40 phones, 43 labels with the blank,
-bos and eos, one more than the yaml's ``output_neurons`` 42), and the
-Brain registers the NewBob schedule with its checkpointer.
+bos and eos, one more than the yamls' ``output_neurons`` 42; ``build``
+raises when the inventory passes ``output_neurons``, naming its size,
+where JAX's labels would pass the heads), and the Brain registers the
+NewBob schedule with its checkpointer.  The wav2vec yaml's ``precision``
+bf16 is the Brain's (the JAX script never casts, so it runs in float32).
 """
 
 import logging
@@ -43,12 +53,13 @@ import os
 import numpy as np
 import torch
 
-from ..asr import _random_init
+from ..asr import W2V_BASE, _random_init, wav2vec_encoder
 from ..core import Stage
 from ..dataio.dataloader import SaveableDataLoader
 from ..decoders.seq2seq import S2SRNNBeamSearcher
 from ..lobes.features import Fbank
 from ..lobes.models.CRDNN import CRDNN
+from ..lobes.models.VanillaNN import VanillaNN
 from ..nnet.embedding import Embedding
 from ..nnet.linear import Linear
 from ..nnet.losses import ctc_loss, nll_loss
@@ -60,11 +71,13 @@ from ..utils.epoch_loop import EpochCounter
 from ..utils.metric_stats import ErrorRateStats
 from ..utils.train_logger import FileTrainLogger
 from .common import NewBobBrain, at_least_f32, recipe_hparams
+from .librispeech_seq2seq import wav2vec_states
 from .timit_ctc import dataio_prep, prepare_timit
 
 logger = logging.getLogger(__name__)
 
-__all__ = ["HPARAMS", "TEACHERS", "build_modules", "ASR", "build", "run"]
+__all__ = ["HPARAMS", "HPARAMS_WAV2VEC", "TEACHERS", "build_modules", "ASR",
+           "build", "run"]
 
 # recipes/TIMIT/ASR/seq2seq/hparams/train.yaml (with the JAX Brain's
 # gradient clip, 5, and InputNormalization's update_until_epoch, 3)
@@ -115,6 +128,19 @@ HPARAMS = dict(
     max_grad_norm=5.0,
 )
 
+# recipes/TIMIT/ASR/seq2seq/hparams/train_with_wav2vec2.yaml: the
+# wav2vec 2.0 base encoder (EncoderWrapper's dropout 0.1) and enc_dnn (2
+# x dnn_neurons) in place of the features and the CRDNN; the rest is
+# train.yaml's
+HPARAMS_WAV2VEC = dict(
+    {k: v for k, v in HPARAMS.items()
+     if k not in ("n_mels", "deltas", "update_until_epoch", "cnn_blocks",
+                  "cnn_channels", "inter_layer_pooling_size", "rnn_class",
+                  "rnn_layers", "rnn_neurons", "rnn_bidirectional")},
+    **W2V_BASE,
+    encoder="wav2vec",
+)
+
 # seq2seq_knowledge_distillation/hparams/teachers/tea{i}.yaml: each is
 # train.yaml with these values changed (and its own output folder)
 TEACHERS = {
@@ -138,36 +164,51 @@ def build_modules(hparams, seed=0):
     ``normalize`` (global ``InputNormalization``), ``enc`` (``CRDNN`` of
     ``rnn_class``), ``emb`` (``Embedding``), ``dec``
     (``AttentionalRNNDecoder``: GRU, location attention), ``ctc_lin`` and
-    ``seq_lin`` (``Linear`` to ``output_neurons``)."""
+    ``seq_lin`` (``Linear`` to ``output_neurons``).  With ``encoder``
+    "wav2vec" (``HPARAMS_WAV2VEC``): ``extractor``, ``encoder``
+    (``asr.wav2vec_encoder``) and ``enc_dnn`` (``VanillaNN``) in place of
+    the features, the normalization and the CRDNN."""
     hp = dict(HPARAMS, **hparams)
-    n_feats = hp["n_mels"] * (3 if hp["deltas"] else 1)
     V = hp["output_neurons"]
-    enc = CRDNN(
-        input_size=n_feats, cnn_blocks=hp["cnn_blocks"],
-        cnn_channels=hp["cnn_channels"],
-        inter_layer_pooling_size=hp["inter_layer_pooling_size"],
-        rnn_class=hp["rnn_class"], rnn_layers=hp["rnn_layers"],
-        rnn_neurons=hp["rnn_neurons"],
-        rnn_bidirectional=hp["rnn_bidirectional"],
-        dnn_blocks=hp["dnn_blocks"], dnn_neurons=hp["dnn_neurons"],
-        dropout=hp["dropout"])
+    if hp.get("encoder") == "wav2vec":
+        front = wav2vec_encoder(hp)
+        front["enc_dnn"] = VanillaNN(hp["embedding_dim"], hp["dnn_blocks"],
+                                     hp["dnn_neurons"])
+        width = hp["dnn_neurons"]
+    else:
+        n_feats = hp["n_mels"] * (3 if hp["deltas"] else 1)
+        enc = CRDNN(
+            input_size=n_feats, cnn_blocks=hp["cnn_blocks"],
+            cnn_channels=hp["cnn_channels"],
+            inter_layer_pooling_size=hp["inter_layer_pooling_size"],
+            rnn_class=hp["rnn_class"], rnn_layers=hp["rnn_layers"],
+            rnn_neurons=hp["rnn_neurons"],
+            rnn_bidirectional=hp["rnn_bidirectional"],
+            dnn_blocks=hp["dnn_blocks"], dnn_neurons=hp["dnn_neurons"],
+            dropout=hp["dropout"])
+        front = {
+            "compute_features": Fbank(sample_rate=hp["sample_rate"],
+                                      n_mels=hp["n_mels"],
+                                      deltas=hp["deltas"]),
+            "normalize": InputNormalization(
+                n_feats, update_until_epoch=hp["update_until_epoch"]),
+            "enc": enc}
+        width = enc.output_size
     modules = {
-        "compute_features": Fbank(sample_rate=hp["sample_rate"],
-                                  n_mels=hp["n_mels"], deltas=hp["deltas"]),
-        "normalize": InputNormalization(
-            n_feats, update_until_epoch=hp["update_until_epoch"]),
-        "enc": enc,
+        **front,
         "emb": Embedding(V, hp["emb_size"]),
         "dec": AttentionalRNNDecoder(
             "gru", "location", hidden_size=hp["dec_neurons"],
-            attn_dim=hp["attn_dim"], enc_dim=enc.output_size,
+            attn_dim=hp["attn_dim"], enc_dim=width,
             input_size=hp["emb_size"], num_layers=1, dropout=hp["dropout"]),
-        "ctc_lin": Linear(enc.output_size, V),
+        "ctc_lin": Linear(width, V),
         "seq_lin": Linear(hp["dec_neurons"], V),
     }
     gen = torch.Generator().manual_seed(seed)
-    for name in ("enc", "emb", "dec", "ctc_lin", "seq_lin"):
-        _random_init(modules[name], gen)
+    for name in ("extractor", "encoder", "enc_dnn", "enc", "emb", "dec",
+                 "ctc_lin", "seq_lin"):
+        if name in modules:
+            _random_init(modules[name], gen)
     return modules
 
 
@@ -177,7 +218,9 @@ class ASR(NewBobBrain):
 
     ``compute_forward``: ``Fbank`` with deltas -> ``InputNormalization``
     (updated in training until ``update_until_epoch``) -> cast to the
-    activation dtype -> ``enc`` -> ``dec`` over ``emb(phn_encoded_bos)``
+    activation dtype -> ``enc`` (``HPARAMS_WAV2VEC``: the wave through
+    ``librispeech_seq2seq.wav2vec_states``) -> ``dec`` over
+    ``emb(phn_encoded_bos)``
     -> float32 (float64 under a float64 ``self.dtype``) log-softmax of
     ``seq_lin``, and of ``ctc_lin`` on the encoder states; returns
     ``(ctc log-probs, seq log-probs, encoder states)``.
@@ -251,9 +294,12 @@ class ASR(NewBobBrain):
     def compute_forward(self, batch, stage):
         """See the class."""
         m = self.modules
-        feats = m.compute_features(batch["sig"])
-        feats = m.normalize(feats, batch["sig_lens"], epoch=self.epoch)
-        enc = m.enc(feats.to(self.dtype), lengths=batch["sig_lens"])
+        if "extractor" in m:
+            enc = wav2vec_states(m, batch["sig"], self.dtype)
+        else:
+            feats = m.compute_features(batch["sig"])
+            feats = m.normalize(feats, batch["sig_lens"], epoch=self.epoch)
+            enc = m.enc(feats.to(self.dtype), lengths=batch["sig_lens"])
         emb = m.emb(batch["phn_encoded_bos"]).to(self.dtype)
         dec_out, _ = m.dec(emb, enc, batch["sig_lens"])
         seq_logp = torch.log_softmax(at_least_f32(m.seq_lin(dec_out)), -1)
@@ -374,6 +420,10 @@ def build(data_folder, output_folder, overrides=None, run_opts=None,
         "phn_set": hp["phn_set"],
     })
     datasets, label_encoder = brain_class.make_datasets(hp)
+    if len(label_encoder) > hp["output_neurons"]:
+        raise ValueError(
+            f"{len(label_encoder)} labels (the phones with the blank, <bos> "
+            f"and <eos>) pass output_neurons {hp['output_neurons']}")
     epoch_counter = EpochCounter(hp["number_of_epochs"])
     brain = brain_class(
         dict(hp, train_logger=FileTrainLogger(hp["train_log"]),

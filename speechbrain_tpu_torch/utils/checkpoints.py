@@ -190,6 +190,14 @@ def ckpt_recency(ckpt):
     return ckpt.meta["unixtime"]
 
 
+def _ranked(ckpts, key):
+    """``ckpts`` most important first by ``key``; ties go to the newest
+    (``ckpt_recency``), then to the later directory name, so the order
+    never depends on the order the directory lists them in."""
+    return sorted(ckpts, key=lambda c: (key(c), ckpt_recency(c), c.path.name),
+                  reverse=True)
+
+
 class Checkpointer:
     """Saves, lists, filters, deletes and restores checkpoints.
 
@@ -335,7 +343,7 @@ class Checkpointer:
         if max_key or min_key:
             key_name = max_key or min_key
             ckpts = [c for c in ckpts if key_name in c.meta]
-        ckpts = sorted(ckpts, key=importance_key, reverse=True)
+        ckpts = _ranked(ckpts, importance_key)
         if max_num_checkpoints is not None:
             ckpts = ckpts[:max_num_checkpoints]
         return ckpts
@@ -419,7 +427,7 @@ class Checkpointer:
         protected = set()
         for key in keys:
             scored = [c for c in potential if _has_key(c, key)]
-            scored = sorted(scored, key=key, reverse=True)
+            scored = _ranked(scored, key)
             protected.update(c.path for c in scored[:num_to_keep])
         if not if_main_process():
             return
